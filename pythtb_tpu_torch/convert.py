@@ -1,0 +1,79 @@
+"""Carry models across from pythtb_tpu (or any PythTB-style model).
+
+Both functions take plain NumPy data, so this module imports neither
+package it converts from:
+
+* :func:`tb_model_from_state` rebuilds a :class:`tb_model` from the
+  host state of another model;
+* :func:`bloch_from_numpy` turns the arrays of a ``pythtb_tpu.core.finalize``
+  result (ri-packed, trailing [re, im] axis) into this package's
+  :class:`~pythtb_tpu_torch.core.BlochData`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import core
+from .model import tb_model
+
+__all__ = ["tb_model_from_state", "bloch_from_numpy"]
+
+
+def tb_model_from_state(state) -> tb_model:
+    """Build a :class:`tb_model` from a dict of NumPy arrays and ints.
+
+    Keys: ``dim_k``, ``dim_r``, ``lat`` (dim_r, dim_r), ``orb``
+    (norb, dim_r), ``per``, ``nspin``, ``site_energies`` ((norb,) real or
+    (norb, 2, 2) complex), and the hoppings ``amps`` ((nhop,) or
+    (nhop, 2, 2) complex), ``i``, ``j`` (nhop,) and ``R`` (nhop, dim_r),
+    each hopping being <i|H|j+R> without its implied Hermitian partner.
+    """
+    dim_k, dim_r = int(state["dim_k"]), int(state["dim_r"])
+    m = tb_model(
+        dim_k, dim_r, np.asarray(state["lat"], dtype=float),
+        np.asarray(state["orb"], dtype=float), [int(p) for p in state["per"]],
+        int(state["nspin"]),
+    )
+    dtype = float if m._nspin == 1 else complex
+    m._site_energies = np.array(state["site_energies"], dtype=dtype).reshape(
+        m._site_energies.shape
+    )
+    m._site_energies_specified[:] = True
+    amps, ii, jj = state["amps"], state["i"], state["j"]
+    R = np.asarray(state["R"]).reshape(len(ii), dim_r) if len(ii) else None
+    for h in range(len(ii)):
+        amp = complex(amps[h]) if m._nspin == 1 else np.array(amps[h], dtype=complex)
+        hop = [amp, int(ii[h]), int(jj[h])]
+        if dim_k != 0:
+            hop.append(np.array(R[h]))
+        m._hoppings.append(hop)
+    m._rebuild_hop_index()
+    return m
+
+
+def _unpack(x):
+    x = np.asarray(x, dtype=np.float64)
+    return x[..., 0] + 1j * x[..., 1]
+
+
+def bloch_from_numpy(static_fields, data_arrays, device=None) -> core.BlochData:
+    """Port a ``pythtb_tpu.core.finalize`` result.
+
+    :param static_fields: mapping with ``dim_k``, ``norb`` and ``nspin``
+      (e.g. ``dataclasses.asdict(static)``)
+    :param data_arrays: mapping of NumPy arrays ``diag`` and ``amps``
+      (ri-packed), ``rv``, ``ii`` and ``jj`` (e.g. ``data._asdict()``)
+    :param device: target device (default ``config.device()``)
+    """
+    return core.bloch_data(
+        int(static_fields["dim_k"]),
+        int(static_fields["norb"]),
+        int(static_fields["nspin"]),
+        _unpack(data_arrays["diag"]),
+        _unpack(data_arrays["amps"]),
+        np.asarray(data_arrays["rv"], dtype=np.float64),
+        data_arrays["ii"],
+        data_arrays["jj"],
+        device,
+    )

@@ -1,0 +1,78 @@
+// Kernel 1: batched Bloch-Hamiltonian assembly.
+//
+// Replaces pythtb_tpu/ops/hamiltonian.py:assemble with _phases (the XLA
+// program) and the deleted Pallas kernel ops/pallas_assemble.py:_kernel /
+// assemble_pallas_nspin1 (git show 9a07da8^), which fused the k.rv
+// product, cos/sin and the pattern matmuls so that the (B, nhop) phase
+// array never reached memory.
+//
+//   H[b, p, q] = diag[p, q] + sum over hoppings h landing on (p, q) of
+//                amp_h e^{2 pi i k_b.rv_h}           (direct, (i_h, j_h))
+//                conj(amp_h e^{2 pi i k_b.rv_h})     (partner, (j_h, i_h))
+// At nspin 2, p = 2a+s, q = 2c+u and the amplitude is the 2x2 block
+// entry amp_h[s, u] for a direct hit and conj(amp_h[u, s]) for a partner
+// hit (the spin-block rule of hamiltonian.py:105-111).
+//
+// What bounds it on the H100: the store of H, 16 bytes per element, and
+// for models with many hoppings per element the double-precision sincospi
+// per (k, hopping, element).  Design: one thread per output element walks
+// the CSR gather list that core.finalize built for its orbital pair, so
+// there are no atomics, the sum order is fixed (deterministic), the
+// phases live only in registers, and neighbouring threads store
+// neighbouring elements (coalesced).  Each phase is computed by the two
+// elements it lands on (times 4 at nspin 2); the one-hot pattern matmul
+// of the TPU version is not carried over.
+#include "common.cuh"
+
+__global__ void assemble_kernel(const double* __restrict__ k, const double* __restrict__ rv,
+                                const cplx* __restrict__ amps, const cplx* __restrict__ diag,
+                                const int* __restrict__ ptr, const int* __restrict__ ent,
+                                cplx* __restrict__ H, int64_t total, int dim_k, int norb,
+                                int nspin) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= total) return;
+    const int nsta = norb * nspin;
+    const int64_t per_k = (int64_t)nsta * nsta;
+    const int64_t b = t / per_k;
+    const int elem = (int)(t - b * per_k);
+    const int p = elem / nsta;
+    const int q = elem - p * nsta;
+    const int a = p / nspin, s = p - a * nspin;
+    const int c = q / nspin, u = q - c * nspin;
+    const double* kb = k + b * dim_k;
+    const int slot = a * norb + c;
+    const int direct_blk = s * nspin + u;
+    const int partner_blk = u * nspin + s;
+
+    double re = 0.0, im = 0.0;
+    for (int e = ptr[slot]; e < ptr[slot + 1]; ++e) {
+        const int code = ent[e];
+        const int h = code >> 1;
+        const bool partner = (code & 1) != 0;
+        double x = 0.0;
+        for (int d = 0; d < dim_k; ++d) x = fma(kb[d], rv[(int64_t)h * dim_k + d], x);
+        double sn, cs;
+        sincospi(2.0 * x, &sn, &cs);  // e^{2 pi i x}
+        const cplx A = amps[(int64_t)h * nspin * nspin + (partner ? partner_blk : direct_blk)];
+        const double vr = A.x * cs - A.y * sn;
+        const double vi = A.x * sn + A.y * cs;
+        re += vr;
+        im += partner ? -vi : vi;
+    }
+    const cplx dg = diag[elem];
+    H[t] = make_cuDoubleComplex(re + dg.x, im + dg.y);
+}
+
+extern "C" int pythtb_assemble(const void* k, const void* rv, const void* amps, const void* diag,
+                               const void* ptr, const void* ent, void* H, int64_t B,
+                               int64_t dim_k, int64_t norb, int64_t nspin, void* stream) {
+    const int64_t nsta = norb * nspin;
+    const int64_t total = B * nsta * nsta;
+    if (total > 0) {
+        assemble_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+            (const double*)k, (const double*)rv, (const cplx*)amps, (const cplx*)diag,
+            (const int*)ptr, (const int*)ent, (cplx*)H, total, (int)dim_k, (int)norb,
+            (int)nspin);
+    }
+    return (int)cudaGetLastError();
+}

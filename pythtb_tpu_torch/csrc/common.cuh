@@ -1,0 +1,27 @@
+// Shared helpers of the pythtb_tpu_torch kernels.
+//
+// torch complex128 tensors are interleaved (re, im) pairs, which is the
+// layout of cuDoubleComplex (a double2), so a kernel reads data_ptr()
+// directly as cplx.  Each entry point has a plain C interface for
+// ctypes: pointers and the stream arrive as void*, sizes as int64_t, and
+// it returns cudaGetLastError() after its launches.
+#pragma once
+
+#include <cuComplex.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef cuDoubleComplex cplx;
+
+constexpr int kThreads = 256;
+
+static inline unsigned int blocks_for(int64_t n) {
+    return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+__device__ __forceinline__ cplx cconj(cplx a) { return make_cuDoubleComplex(a.x, -a.y); }
+
+// conj(a) * b
+__device__ __forceinline__ cplx cmul_conj(cplx a, cplx b) {
+    return make_cuDoubleComplex(a.x * b.x + a.y * b.y, a.x * b.y - a.y * b.x);
+}

@@ -1,0 +1,125 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+The sources under ``pythtb_tpu_torch/csrc/`` are compiled at first use
+with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface, loaded with ctypes.  The library is named by a hash of the
+sources and flags and lives in ``build/pythtb_tpu_torch/`` at the root
+of the checkout, so a changed source rebuilds it.  Nothing here runs at
+import: the CPU tests import every module.
+
+Each kernel wrapper (in the module of the JAX program it replaces)
+validates its tensors with :func:`require`, allocates its outputs with
+``torch.empty``, launches through :func:`launch` on the current stream,
+and counts the launch in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launches", "library", "require", "launch"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pythtb_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+# C entry point -> argument types (all return cudaGetLastError())
+_SIGNATURES = {
+    "pythtb_assemble": [_P] * 7 + [_I] * 4 + [_P],
+    "pythtb_eig2": [_P] * 3 + [_I, _P],
+    "pythtb_link_dets": [_P] * 2 + [_I] * 5 + [_P],
+    "pythtb_plaquette_flux": [_P] * 7 + [_I] * 4 + [_P],
+}
+
+# Launches per wrapper since the last reset.  "link_dets_library" counts
+# the S > 8 shape rule of ops.berry.link_dets, which launches no kernel
+# of this package.
+LAUNCHES = dict.fromkeys(
+    ("assemble", "eig2", "link_dets", "plaquette_flux", "link_dets_library"), 0
+)
+
+_lib = None
+build_info = {"seconds": None, "path": None, "ptxas": ""}
+
+
+def reset_launches():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    return str(cand) if cand.exists() else "nvcc"
+
+
+def library():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    so = BUILD_DIR / ("libpythtb_kernels_%s.so" % digest.hexdigest()[:16])
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name("%s.%d.tmp" % (so.name, os.getpid()))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (rc %d):\n%s" % (proc.returncode, proc.stderr))
+        os.replace(tmp, so)
+        build_info["seconds"] = time.perf_counter() - t0
+        build_info["ptxas"] = proc.stderr
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    build_info["path"] = str(so)
+    _lib = lib
+    return lib
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None, device=None):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``, and on ``device`` where given)."""
+    if t.device.type != "cuda":
+        raise ValueError("%s must be a CUDA tensor, got %s" % (name, t.device))
+    if device is not None and t.device != device:
+        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
+    if t.dtype != dtype:
+        raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError("%s must have shape %s, got %s" % (name, tuple(shape), tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+
+
+def launch(kernel: str, device: torch.device, *args):
+    """Call C entry point ``pythtb_<kernel>`` on ``device``'s current
+    stream; tensors in ``args`` pass as pointers, ints as sizes.  Raises
+    if the launch was refused; counts it otherwise."""
+    fn = getattr(library(), "pythtb_" + kernel)
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        rc = fn(*conv, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("CUDA kernel %s failed to launch: cudaError %d" % (kernel, rc))
+    LAUNCHES[kernel] += 1
