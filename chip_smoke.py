@@ -7,15 +7,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: needs torch.cuda.is_available(); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compiles the four CUDA kernels with nvcc (sm_90a) into
-   build/pythtb_tpu_torch/ and prints the build seconds and ptxas usage;
+2. build: compiles the six CUDA kernels with nvcc (sm_90a, one nvcc per
+   source, all started together) into build/pythtb_tpu_torch/ and
+   prints the build seconds and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: max |diff| (tolerance 1e-12, float64), and the
-   median time of each over 25 runs (CUDA events);
-4. the main path through the public API: Haldane bands, the 301 x 301
-   Chern number through wf_array.berry_flux and flows.chern_number
-   (both -1 within 1e-8), and the Kane-Mele Wilson-loop flow checked
-   against PythTB's own golden numbers;
+   main path's shapes: max |diff| (tolerance 1e-12, float64), the median
+   time of each over 25 runs (CUDA events), the time of the one PyTorch
+   call that computes the same function where there is one, and the
+   least time the card could take for the work (bytes over 3.35 TB/s or
+   float64 operations over 34 TFLOP/s, whichever is larger);
+4. the main path through the public API, on the card's default device,
+   held against a CPU run of the same calls and PythTB's goldens:
+   Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
+   Wilson flows (wf_array 21 x 21 and flows.wilson_flow 21 x 21 against
+   the golden, 41 x 41 odd/even against the CPU); the Z2 invariant of
+   both phases with its refinement check; hybrid Wannier centres of a
+   20-layer cubic slab on a 41 x 41 grid; the 800-orbital Haldane flake's
+   levels and position expectations; Wannier90 silicon bands; then the
+   steady wall time of the main calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -25,11 +34,13 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import subprocess
 import sys
 import time
+from contextlib import redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +48,9 @@ import numpy as np
 TOL = 1e-12
 GRID = 301
 REPS = 25
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
+C128, F64, I64 = 16, 8, 8  # bytes per element
 ROOT = Path(__file__).resolve().parent
 
 
@@ -47,6 +61,11 @@ class SmokeError(Exception):
 def check(ok, msg):
     if not ok:
         raise SmokeError(msg)
+
+
+def quiet(fn, *args, **kwargs):
+    with redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
 
 
 def haldane(pt):
@@ -66,6 +85,18 @@ def haldane(pt):
     return m
 
 
+def cubic_slab(pt, layers=20):
+    """The cubic slab of examples/cubic_slab_hwf.py at ``layers`` layers,
+    the top layer's second orbital removed: 2*layers - 1 orbitals."""
+    model = quiet(pt.tb_model, 3, 3, np.eye(3), [[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]])
+    model.set_onsite([-1.0, 1.0])
+    for lvec in ([-1, 0, 0], [0, 0, -1], [-1, -1, 0], [0, -1, -1]):
+        model.set_hop(0.4, 0, 1, lvec)
+    for lvec in ([0, 0, 0], [0, -1, 0], [-1, -1, -1], [-1, 0, -1]):
+        model.set_hop(0.7, 0, 1, lvec)
+    return model.cut_piece(layers, 2).remove_orb(2 * layers - 1)
+
+
 def random_model_data(core, rng, device, norb=64, nhop=4096, dim=3):
     """A random nspin-1 model, finalized onto ``device``."""
     ii = rng.integers(0, norb, nhop)
@@ -78,13 +109,20 @@ def random_model_data(core, rng, device, norb=64, nhop=4096, dim=3):
     )
 
 
-def cuda_ms(torch, fn):
-    """Median milliseconds of ``fn`` over REPS runs after warm-up."""
+def unit_states(torch, rng, shape, device):
+    """Random states with unit rows, as eigenvectors are."""
+    z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    return torch.as_tensor(z, dtype=torch.complex128).to(device)
+
+
+def cuda_ms(torch, fn, reps=REPS):
+    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -93,6 +131,62 @@ def cuda_ms(torch, fn):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def wall_ms(torch, fn, reps):
+    """Median host-clock milliseconds of ``fn`` (which ends on the host)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def device_us(torch, fn, reps=10):
+    """Device time (us) and device activities (kernels, copies) per call
+    of ``fn``, from torch.profiler's CUDA events over ``reps`` calls;
+    (None, None) where the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, None
+    return sum(e.time_range.elapsed_us() for e in events) / reps, len(events) / reps
+
+
+def fmt(x):
+    return "not measured" if x is None else "%.1f" % x
+
+
+def eigh_library_ms(torch, H):
+    """One torch.linalg.eigh call on the whole batch.  cuSOLVER's batched
+    syev, torch's default for complex matrices up to 32 x 32, refuses
+    batches of 32,768 and more (CUSOLVER_STATUS_INVALID_VALUE with torch
+    2.11 and CUDA 12.8), so this yardstick call runs on MAGMA's backend."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("magma")
+    try:
+        return cuda_ms(torch, lambda: torch.linalg.eigh(H), 5)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def bound(nbytes, flops):
+    """Least time (ms) of the work on the card, and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP64_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_diff(torch, a, b):
@@ -109,10 +203,11 @@ def wrapped_diff(torch, a, b):
     return float(d.abs().max())
 
 
-def match_phase_sets(got, want, tol):
+def match_phase_sets(got, want, tol, what):
     """Compare multiband phase rows as sets on the unit circle."""
     got2 = np.asarray(got).reshape(-1, np.shape(got)[-1])
     want2 = np.asarray(want).reshape(-1, np.shape(want)[-1])
+    check(got2.shape == want2.shape, "%s: shape %s vs %s" % (what, got2.shape, want2.shape))
     worst = 0.0
     for row in range(got2.shape[0]):
         avail = list(range(got2.shape[1]))
@@ -121,29 +216,86 @@ def match_phase_sets(got, want, tol):
             k_best = int(np.argmin(dists))
             worst = max(worst, dists[k_best])
             avail.pop(k_best)
-    check(worst < tol, "Wilson phases differ from the golden set by %.3e" % worst)
+    check(worst < tol, "%s: phases differ from the reference set by %.3e" % (what, worst))
     return worst
+
+
+# -- work counts of each kernel at a shape (bytes read + written, fp64 ops) --
+
+
+def cost_assemble(data, B):
+    blk = 4 if data.nspin == 2 else 1
+    nbytes = (B * data.dim_k * F64 + data.nhop * (data.dim_k * F64 + blk * C128)
+              + data.nsta**2 * C128 + (data.norb**2 + 1 + 2 * data.nhop) * 4
+              + B * data.nsta**2 * C128)
+    # per (k, hop): k.rv, sin and cos (one op each), and both landing
+    # entries' complex multiply-add (8 ops per scalar entry)
+    flops = B * data.nhop * (2 * data.dim_k + 2 + 2 * blk * 8)
+    return bound(nbytes, flops)
+
+
+def cost_eig2(B):
+    return bound(B * (4 * C128 + 2 * F64 + 4 * C128), B * 40)
+
+
+def cost_link_dets(grid, S, F, axis):
+    nlinks = math.prod(grid) // grid[axis] * (grid[axis] - 1)
+    nbytes = math.prod(grid) * S * F * C128 + nlinks * C128
+    return bound(nbytes, nlinks * (S * S * F * 8 + 8 * S**3))
+
+
+def cost_plaquette(n0, n1):
+    nbytes = ((n0 - 1) * n1 + n0 * (n1 - 1)) * C128 + 2 * F64
+    return bound(nbytes, (n0 - 1) * (n1 - 1) * 20)
+
+
+def cost_wilson(grid, S, F, axis):
+    """One Jacobi sweep per link at S >= 3 (the sweep count depends on the
+    data; one is the least any link needs)."""
+    strings = math.prod(grid) // grid[axis]
+    nlinks = strings * (grid[axis] - 1)
+    nbytes = math.prod(grid) * S * F * C128 + strings * (S * S * C128 + F64)
+    polar = {1: 10, 2: 80}.get(S, S * (S - 1) // 2 * S * 40 + S * S * S * 8)
+    return bound(nbytes, nlinks * (S * S * F * 8 + polar + S**3 * 8))
+
+
+def cost_position(B, S, F, diagonal=False):
+    if diagonal:
+        return bound(B * S * F * C128 + F * F64 + S * I64 + B * S * F64, B * S * F * 4)
+    return bound(B * S * F * C128 + F * F64 + S * I64 + B * S * S * C128, B * S * (S + 1) // 2 * F * 8)
+
+
+# ----------------------------------------------------------------------------
 
 
 def phase_kernels(torch, pt, device):
     """Phase 3: each kernel vs its plain version at the main path's shapes."""
-    from pythtb_tpu_torch import core
-    from pythtb_tpu_torch.ops import berry, eigh, hamiltonian, solver
+    from pythtb_tpu_torch import core, flows
+    from pythtb_tpu_torch.ops import berry, eigh, hamiltonian, position, solver
     from tests import zoo
 
     rng = np.random.default_rng(1)
     res = {}
     failures = []
 
-    def record(name, key, err, ms, plain_ms, main):
-        print("  %-15s %-28s max|diff| %.3e  kernel %.4f ms  plain %.4f ms"
-              % (name, key, err, ms, plain_ms))
+    def record(name, key, err, kernel, plain, cost, main=False, library_ms=None, reps=REPS):
+        """Time ``kernel`` and ``plain`` (CUDA events, median of ``reps``)
+        and, at the main shape, their device time per call (profiler)."""
+        ms, plain_ms = cuda_ms(torch, kernel, reps), cuda_ms(torch, plain, reps)
+        print("  %-15s %-34s max|diff| %.3e  kernel %.4f ms  plain %.4f ms%s  bound %.5f ms (%s)"
+              % (name, key, err, ms, plain_ms,
+                 "" if library_ms is None else "  library %.4f ms" % library_ms, *cost))
         if not err <= TOL:
             failures.append("%s %s disagrees with its plain version: %.3e" % (name, key, err))
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+            (dev_us, n), (plain_us, plain_n) = device_us(torch, kernel), device_us(torch, plain)
+            print("  %-15s %-34s device per call: kernel %s us (%s launches), plain %s us (%s launches)"
+                  % (name, key, fmt(dev_us), fmt(n), fmt(plain_us), fmt(plain_n)))
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=cost[0],
+                     bound_by=cost[1], shape=key, device_us=dev_us, plain_device_us=plain_us,
+                     plain_launches_per_call=plain_n)
 
     # kernel 1: assemble
     hal = haldane(pt)._get_finalized()
@@ -158,48 +310,101 @@ def phase_kernels(torch, pt, device):
         ("norb64 nhop4096 B=16384", rnd, k_rnd, False),
     ):
         err = max_diff(torch, hamiltonian.assemble(data, k), hamiltonian._assemble_plain(data, k))
-        ms = cuda_ms(torch, lambda: hamiltonian.assemble(data, k))
-        plain_ms = cuda_ms(torch, lambda: hamiltonian._assemble_plain(data, k))
-        record("assemble", key, err, ms, plain_ms, main)
+        record("assemble", key, err, lambda: hamiltonian.assemble(data, k),
+               lambda: hamiltonian._assemble_plain(data, k), cost_assemble(data, k.shape[0]), main)
 
     # kernel 2: eig2
     H = hamiltonian._assemble_plain(hal, k_hal)
     w, v = eigh.eig2(H)
     wp, vp = eigh._eig2_plain(H)
     err = max(max_diff(torch, w, wp), max_diff(torch, v, vp))
-    record("eig2", "B=90000", err, cuda_ms(torch, lambda: eigh.eig2(H)),
-           cuda_ms(torch, lambda: eigh._eig2_plain(H)), True)
+    record("eig2", "B=90000", err, lambda: eigh.eig2(H), lambda: eigh._eig2_plain(H),
+           cost_eig2(H.shape[0]), True, eigh_library_ms(torch, H))
 
     # kernels 3 and 4: link dets and plaquette flux
     _, _, wfs = solver.solve_grid_device(hal, (GRID, GRID), (-0.5, -0.5),
                                          haldane(pt)._orb, [0, 1], 1)
-    grids = [("301x301 S=1 F=2", berry.prep_states(wfs, [0], 1, 2), True)]
+    grids = [("%dx%d S=1 F=2" % (GRID, GRID), berry.prep_states(wfs, [0], 1, 2), True)]
     for S, F in ((2, 4), (4, 8)):
-        z = rng.normal(size=(GRID, GRID, S, F)) + 1j * rng.normal(size=(GRID, GRID, S, F))
-        z /= np.linalg.norm(z, axis=-1, keepdims=True)  # unit states, as eigenvectors are
-        grids.append(("301x301 S=%d F=%d random" % (S, F),
-                      torch.as_tensor(z, dtype=torch.complex128).to(device), False))
+        grids.append(("%dx%d S=%d F=%d random" % (GRID, GRID, S, F),
+                      unit_states(torch, rng, (GRID, GRID, S, F), device), False))
     for key, st, main in grids:
         err = 0.0
         for axis in (0, 1):
             err = max(err, max_diff(torch, berry.link_dets(st, axis), berry._link_dets_plain(st, axis)))
-        record("link_dets", key, err, cuda_ms(torch, lambda: berry.link_dets(st, 0)),
-               cuda_ms(torch, lambda: berry._link_dets_plain(st, 0)), main)
+        record("link_dets", key, err, lambda: berry.link_dets(st, 0),
+               lambda: berry._link_dets_plain(st, 0),
+               cost_link_dets((GRID, GRID), st.shape[-2], st.shape[-1], 0), main)
         Dr, Du = berry._link_dets_plain(st, 0), berry._link_dets_plain(st, 1)
         s_k, m_k = berry.plaquette_flux(Dr, Du)
         s_p, m_p = berry._plaquette_flux_plain(Dr, Du, False)
         p_k, _ = berry.plaquette_flux(Dr, Du, individual=True)
         p_p, _ = berry._plaquette_flux_plain(Dr, Du, True)
         err = max(max_diff(torch, s_k, s_p), max_diff(torch, m_k, m_p), wrapped_diff(torch, p_k, p_p))
-        record("plaquette_flux", key, err, cuda_ms(torch, lambda: berry.plaquette_flux(Dr, Du)),
-               cuda_ms(torch, lambda: berry._plaquette_flux_plain(Dr, Du, False)), main)
+        record("plaquette_flux", key, err, lambda: berry.plaquette_flux(Dr, Du),
+               lambda: berry._plaquette_flux_plain(Dr, Du, False), cost_plaquette(GRID, GRID), main)
+
+    # kernel 5: Wilson loops.  Main shape: flows.wilson_flow on Kane-Mele
+    # 41 x 41 (40 strings of 41 links, S 2, F 4), built as the flow builds it
+    kpts = solver.device_uniform_grid((40, 40), (-0.5, -0.5), device)
+    wk = flows._solve_grid_states(km, kpts, (0, 1), 41, 41)
+    ph = flows._phase_tensor(zoo.kane_mele(pt, "odd"), 1, device)
+    wk = torch.cat([wk, wk.narrow(1, 0, 1) * ph], dim=1).contiguous()
+    cases = [("kane_mele flow 40x41 S=2 F=4", wk, (1,), True)]
+    for S in (1, 2, 4, 8):
+        cases.append(("%dx%d S=%d F=%d random" % (GRID, GRID, S, 2 * S),
+                      unit_states(torch, rng, (GRID, GRID, S, 2 * S), device), (0, 1), False))
+    for key, st, axes, main in cases:
+        err = 0.0
+        for axis in axes:
+            prod, smin = berry.wilson_loop(st, axis)
+            want, want_min = berry._wilson_loop_plain(st, axis)
+            err = max(err, max_diff(torch, prod, want), max_diff(torch, smin, want_min))
+        ax = axes[0]
+        record("wilson_loop", key, err, lambda: berry.wilson_loop(st, ax),
+               lambda: berry._wilson_loop_plain(st, ax),
+               cost_wilson(tuple(st.shape[:-2]), st.shape[-2], st.shape[-1], ax), main,
+               reps=REPS if main else 3)
+
+    # kernel 6: position matrices.  Main shape: the 20-layer slab on a
+    # 41 x 41 grid (B 1681, 39 states of F 39, the lower 20 chosen)
+    slab = cubic_slab(pt)
+    sd = slab._get_finalized()
+    _, _, ws = solver.solve_grid_device(sd, (41, 41), (0.0, 0.0), slab._orb, slab._per, 1)
+    w3 = ws.reshape(41 * 41, sd.nsta, -1)
+    pos = torch.as_tensor(slab._pos_weights(2), dtype=torch.float64).to(device)
+    occ = torch.arange(20, dtype=torch.int64, device=device)
+    sel = w3[:, :20].contiguous()
+    posc = pos.to(torch.complex128)
+    B, F = w3.shape[0], w3.shape[-1]
+    err = max_diff(torch, position.xmat(w3, pos, occ), position._xmat_plain(w3, pos, occ))
+    record("position", "slab 41x41 B=1681 S=20 F=39", err, lambda: position.xmat(w3, pos, occ),
+           lambda: position._xmat_plain(w3, pos, occ), cost_position(B, 20, F), True,
+           cuda_ms(torch, lambda: torch.einsum("bnf,f,bmf->bnm", sel.conj(), posc, sel)))
+    err = max_diff(torch, position.xmat(w3, pos, occ, diagonal=True), position._xdiag_plain(w3, pos, occ))
+    record("position", "slab 41x41 diagonal mode", err,
+           lambda: position.xmat(w3, pos, occ, diagonal=True),
+           lambda: position._xdiag_plain(w3, pos, occ), cost_position(B, 20, F, diagonal=True))
+    for S, F in ((1, 3), (2, 4), (8, 16), (64, 96)):
+        st = unit_states(torch, rng, (257, S + 2, F), device)
+        p = torch.as_tensor(rng.uniform(0.0, 20.0, F)).to(device)
+        o = torch.as_tensor(rng.permutation(S + 2)[:S]).to(device)
+        err = max(max_diff(torch, position.xmat(st, p, o), position._xmat_plain(st, p, o)),
+                  max_diff(torch, position.xmat(st, p, o, diagonal=True), position._xdiag_plain(st, p, o)))
+        record("position", "random B=257 S=%d F=%d" % (S, F), err, lambda: position.xmat(st, p, o),
+               lambda: position._xmat_plain(st, p, o), cost_position(257, S, F), reps=3)
     check(not failures, "; ".join(failures))
     return res
 
 
+def flake(pt):
+    """The 800-orbital Haldane flake (BASELINE.md): a 20 x 20 cut."""
+    return haldane(pt).cut_piece(20, 0).cut_piece(20, 1)
+
+
 def phase_main_path(torch, pt, where):
     """Phase 4: the port's main path through the entry points a user calls."""
-    from tests import zoo
+    from tests import workloads, zoo
 
     out = {}
     m = haldane(pt)
@@ -218,14 +423,124 @@ def phase_main_path(torch, pt, where):
     check(abs(c_wf + 1.0) < 1e-8, "wf_array.berry_flux Chern %.12f is not -1" % c_wf)
     check(abs(c_flow + 1.0) < 1e-8, "flows.chern_number %.12f is not -1" % c_flow)
 
+    # Kane-Mele: Wilson flows and the Z2 invariant (kernel 5)
     km = zoo.kane_mele(pt, "odd")
     wk = pt.wf_array(km, [21, 21])
     wk.solve_on_grid([-0.5, -0.5])
     flow = wk.berry_phase([0, 1], dir=1, berry_evals=True)
-    flow_raw = wk.berry_phase([0, 1], dir=1, contin=False, berry_evals=True)
+    out["flow_raw"] = wk.berry_phase([0, 1], dir=1, contin=False, berry_evals=True)
     check(flow.shape == (21, 2) and np.isfinite(flow).all(), "bad Kane-Mele flow %s" % (flow.shape,))
-    out["flow_raw"] = flow_raw
+    out["wilson_flow_21"] = pt.flows.wilson_flow(km, [0, 1], nk=(21, 21))[0]
+    z2 = {}
+    for topo in ("odd", "even"):
+        model = zoo.kane_mele(pt, topo)
+        out["wilson_flow_41_" + topo] = pt.flows.wilson_flow(model, [0, 1], nk=(41, 41))[0]
+        z2[topo] = pt.flows.z2_invariant(model, check=True)
+    print("  %s kane_mele Z2 (check=True, 31x31 and 61x61): odd %g, even %g" % (where, z2["odd"], z2["even"]))
+    check(z2 == {"odd": 1.0, "even": 0.0}, "Kane-Mele Z2 %s is not odd 1, even 0" % z2)
+
+    # the 20-layer slab: hybrid Wannier centres over a 41 x 41 grid (kernel 6)
+    slab = cubic_slab(pt)
+    ws = pt.wf_array(slab, [41, 41])
+    ws.solve_on_grid([0.0, 0.0])
+    out["slab_hwfc"] = ws.position_hwf_all(list(range(20)), 2)
+    check(out["slab_hwfc"].shape == (41, 41, 20) and np.isfinite(out["slab_hwfc"]).all(),
+          "bad slab centres %s" % (out["slab_hwfc"].shape,))
+
+    # the 800-orbital flake: levels, states, position expectations
+    fl = flake(pt)
+    fe, fv = fl.solve_all(eig_vectors=True)
+    out["flake_evals"] = fe
+    out["flake_pos"] = [fl.position_expectation(fv, d) for d in (0, 1)]
+    check(fe.shape == (800,) and fv.shape == (800, 800), "bad flake solve %s" % (fv.shape,))
+
+    # Wannier90 silicon: the golden workload, and 1,192 hops on 190 k-points
+    out["w90"] = quiet(workloads.w90_silicon, pt, workloads.W90_DATA_DIR)
+    si = pt.w90(workloads.W90_DATA_DIR, "silicon")
+    sm = si.model(min_hopping_norm=0.01)
+    out["si_nhop"] = len(sm._hoppings)
+    out["si_bands"] = sm.solve_all(si.w90_bands_consistency()[0])
     return out
+
+
+def compare_main_path(out, ref, gold_km, gold_si):
+    """Phase 4 checks: the card's run against the CPU run and the goldens."""
+    err = float(np.abs(out["evals"] - ref["evals"]).max())
+    print("  haldane bands vs CPU plain path: max|diff| %.3e" % err)
+    check(err < TOL, "Haldane bands differ from the CPU path by %.3e" % err)
+    w = match_phase_sets(out["flow_raw"], gold_km["pha_flow_odd"], 1e-8, "wf_array flow vs golden")
+    print("  kane_mele odd Wilson flow (wf_array 21x21) vs PythTB golden: worst %.3e" % w)
+    w = match_phase_sets(out["wilson_flow_21"], gold_km["pha_flow_odd"], 1e-8, "wilson_flow vs golden")
+    print("  kane_mele odd flows.wilson_flow 21x21 vs PythTB golden: worst %.3e" % w)
+    for topo in ("odd", "even"):
+        key = "wilson_flow_41_" + topo
+        w = match_phase_sets(out[key], ref[key], 1e-8, key + " vs CPU")
+        print("  kane_mele %s flows.wilson_flow 41x41 vs CPU: worst %.3e" % (topo, w))
+    err = float(np.abs(out["slab_hwfc"] - ref["slab_hwfc"]).max())
+    print("  slab 41x41 hybrid Wannier centres vs CPU plain path: max|diff| %.3e" % err)
+    check(err < 1e-10, "slab centres differ from the CPU path by %.3e" % err)
+    err = float(np.abs(out["flake_evals"] - ref["flake_evals"]).max())
+    print("  flake 800 levels vs CPU (LAPACK): max|diff| %.3e" % err)
+    check(err < 1e-10, "flake levels differ from the CPU path by %.3e" % err)
+    # position expectations are gauge-free only for isolated levels
+    e = ref["flake_evals"]
+    iso = np.ones(e.shape, dtype=bool)
+    close = np.diff(e) < 1e-4
+    iso[:-1] &= ~close
+    iso[1:] &= ~close
+    for d in (0, 1):
+        got, want = out["flake_pos"][d], ref["flake_pos"][d]
+        err = float(np.abs(got - want)[iso].max())
+        tr = abs(got.sum() - want.sum())
+        print("  flake position expectation dir %d vs CPU: max|diff| %.3e over %d isolated levels, "
+              "trace diff %.3e" % (d, err, int(iso.sum()), tr))
+        check(err < 1e-8 and tr < 1e-8, "flake position expectations differ from the CPU path")
+    worst = 0.0
+    for key in gold_si.files:
+        got, want = np.asarray(out["w90"][key]), np.asarray(gold_si[key])
+        check(got.shape == want.shape, "w90 %s shape %s vs %s" % (key, got.shape, want.shape))
+        check(np.allclose(got, want, rtol=1e-8, atol=1e-10), "w90 silicon %s differs from the golden" % key)
+        worst = max(worst, float(np.abs(got - want).max()))
+    err = float(np.abs(out["si_bands"] - ref["si_bands"]).max())
+    print("  w90 silicon vs PythTB golden (rtol 1e-8): max|diff| %.3e; %d hops, 190 k-points vs CPU %.3e"
+          % (worst, out["si_nhop"], err))
+    check(err < 1e-10, "w90 silicon bands differ from the CPU path by %.3e" % err)
+
+
+def phase_walls(torch, pt, card):
+    """Steady wall time of the main calls and their device time per call
+    (profiler): the device's busy share."""
+    from tests import zoo
+
+    m = haldane(pt)
+    kmo = zoo.kane_mele(pt, "odd")
+    fl = flake(pt)
+    slab = cubic_slab(pt)
+    ws = pt.wf_array(slab, [41, 41])
+    ws.solve_on_grid([0.0, 0.0])
+    # (call, timed calls, profiled calls): the slab solve launches some
+    # 170,000 kernels per call, so the profiler reads one call of it
+    calls = {
+        "flows.chern_number haldane 301x301": (
+            lambda: pt.flows.chern_number(m, [0], nk=(GRID, GRID)), 10, 10),
+        "flows.wilson_flow kane_mele 41x41": (
+            lambda: pt.flows.wilson_flow(kmo, [0, 1], nk=(41, 41)), 10, 10),
+        "flows.z2_invariant kane_mele check=True (31x31 + 61x61)": (
+            lambda: pt.flows.z2_invariant(kmo, check=True), 5, 5),
+        "flake 800 solve_all(eig_vectors=True)": (lambda: fl.solve_all(eig_vectors=True), 3, 3),
+        "slab 41x41 wf_array.solve_on_grid (nsta 39)": (lambda: ws.solve_on_grid([0.0, 0.0]), 3, 1),
+        "slab 41x41 position_hwf_all (20 states)": (
+            lambda: ws.position_hwf_all(list(range(20)), 2), 5, 5),
+    }
+    walls = {}
+    for name, (fn, reps, prof_reps) in calls.items():
+        ms = wall_ms(torch, fn, reps)
+        dev_us, n = device_us(torch, fn, prof_reps)
+        busy = None if dev_us is None else 100.0 * dev_us / (1e3 * ms)
+        walls[name] = {"wall_ms": ms, "device_us": dev_us, "device_activities": n, "busy_pct": busy}
+        print("  steady wall %s: median %.3f ms, device %s us in %s activities per call, busy %s %% (%s)"
+              % (name, ms, fmt(dev_us), fmt(n), fmt(busy), card))
+    return walls
 
 
 def main():
@@ -238,7 +553,8 @@ def main():
     from pythtb_tpu_torch import config
     from pythtb_tpu_torch.ops import _kernels
 
-    device = config.set_device("cuda")
+    device = config.device()  # the card, by default
+    check(device.type == "cuda", "the port's default device is %s, not the card" % device)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -261,39 +577,35 @@ def main():
 
     # -- phase 3: kernels vs plain versions ------------------------------
     print("[3 kernels] each kernel vs its plain PyTorch version (tolerance %.0e):" % TOL)
+    t0 = time.perf_counter()
     res = phase_kernels(torch, pt, device)
+    print("[3 kernels] done in %.1f s" % (time.perf_counter() - t0))
 
     # CPU references for phase 4, made before the counted window
+    t0 = time.perf_counter()
     config.set_device("cpu")
     ref = phase_main_path(torch, pt, "[cpu reference]")
     config.set_device(device)
-    gold = np.load(ROOT / "tests" / "golden" / "data" / "kane_mele_flow.npz")
+    gold_km = np.load(ROOT / "tests" / "golden" / "data" / "kane_mele_flow.npz")
+    gold_si = np.load(ROOT / "tests" / "golden" / "data" / "w90_silicon.npz")
+    print("[4 main] CPU reference in %.1f s" % (time.perf_counter() - t0))
 
     # -- phase 4: main path ----------------------------------------------
-    print("[4 main] Haldane bands, 301x301 Chern (wf_array, flows), Kane-Mele Wilson flow:")
+    print("[4 main] Haldane bands and Chern, Kane-Mele flows and Z2, slab HWF, flake, w90 silicon:")
+    t0 = time.perf_counter()
     _kernels.reset_launches()
     out = phase_main_path(torch, pt, "[gpu]")
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
-    err_bands = float(np.abs(out["evals"] - ref["evals"]).max())
-    print("  haldane bands vs CPU plain path: max|diff| %.3e" % err_bands)
-    check(err_bands < TOL, "Haldane bands differ from the CPU path by %.3e" % err_bands)
-    worst = match_phase_sets(out["flow_raw"], gold["pha_flow_odd"], 1e-8)
-    print("  kane_mele odd Wilson flow vs PythTB golden: worst %.3e (tolerance 1e-8)" % worst)
-    m = haldane(pt)
-    pt.flows.chern_number(m, [0], nk=(GRID, GRID))
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        pt.flows.chern_number(m, [0], nk=(GRID, GRID))
-        times.append(time.perf_counter() - t0)
-    chern_ms = 1e3 * float(np.median(times))
-    print("  flows.chern_number 301x301 steady wall: median %.3f ms, min %.3f ms (%s)"
-          % (chern_ms, 1e3 * min(times), card))
+    print("[4 main] card run in %.1f s" % (time.perf_counter() - t0))
+    compare_main_path(out, ref, gold_km, gold_si)
+
+    # steady wall times of the main calls, after the counted window
+    walls = phase_walls(torch, pt, card)
 
     # -- phase 5: launches -----------------------------------------------
     print("[5 launches] main path: %s" % json.dumps(launches))
-    kernels = ("assemble", "eig2", "link_dets", "plaquette_flux")
+    kernels = ("assemble", "eig2", "link_dets", "plaquette_flux", "wilson_loop", "position")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -303,17 +615,22 @@ def main():
         "eig2": ("eig2.cu", "pythtb_tpu/ops/eigh.py:30"),
         "link_dets": ("link_dets.cu", "pythtb_tpu/ops/berry.py:75"),
         "plaquette_flux": ("plaquette_flux.cu", "pythtb_tpu/ops/berry.py:83"),
+        "wilson_loop": ("wilson_loop.cu", "pythtb_tpu/ops/berry.py:263"),
+        "position": ("position.cu", "pythtb_tpu/ops/position.py:33"),
     }
     rows = []
     for name in kernels:
         src, replaces = sources[name]
+        r = res[name]
         rows.append({
             "name": name, "route": "cuda", "source": "pythtb_tpu_torch/csrc/" + src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
-            "plain_ms": res[name]["plain_ms"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"], "device_us": r["device_us"], "plain_device_us": r["plain_device_us"],
+            "plain_launches_per_call": r["plain_launches_per_call"],
         })
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "wall_ms": walls, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

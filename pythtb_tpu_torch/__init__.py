@@ -1,24 +1,31 @@
 """pythtb_tpu_torch -- the PyTorch/CUDA port of pythtb_tpu.
 
 A second package beside the JAX one, with the same PythTB 1.8.0 API for
-the slice ported so far: build a :class:`tb_model`, solve bands on
-k-lists (``solve_all``), fill a :class:`wf_array` on a device-built grid
-(``solve_on_grid``), and read Berry phases, Wilson-loop eigenphases,
-Berry fluxes and Chern numbers (``berry_phase``, ``berry_flux``,
-:func:`flows.chern_number`).
+the slice ported so far: build a :class:`tb_model` (or import one from
+Wannier90 with :class:`w90`) and cut, reduce or enlarge it
+(``cut_piece``, ``reduce_dim``, ``make_supercell``, ``remove_orb``,
+``change_nonperiodic_vector``); solve bands on k-lists (``solve_all``);
+fill a :class:`wf_array` on a device-built grid (``solve_on_grid``); and
+read Berry phases, Wilson loops, Berry fluxes, Chern and Z2 invariants,
+polarization and hybrid Wannier centres (``berry_phase``,
+``berry_flux``, ``position_hwf``, :func:`flows.chern_number`,
+:func:`flows.wilson_flow`, :func:`flows.z2_invariant`,
+:func:`flows.polarization`).
 
-Tensors live on the device chosen with :func:`config.set_device` (the
-CPU until then) in float64/complex128.  On an NVIDIA Hopper card the
-hot path runs through four hand-written CUDA kernels (``csrc/``, built
-with nvcc at first use); on the CPU the same functions run their plain
-PyTorch versions.  This package never imports JAX.
+Tensors live on the CUDA device unless :func:`config.set_device` chooses
+another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
+an NVIDIA Hopper card the hot paths run through six hand-written CUDA
+kernels (``csrc/``, built with nvcc at first use); on the CPU the same
+functions run their plain PyTorch versions.  This package never imports
+JAX.
 """
 
 from . import config, flows
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
+from .w90 import w90
 from .wf_array import wf_array
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["tb_model", "wf_array", "PythtbError", "no_2pi", "flows", "config", "__version__"]
+__all__ = ["tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "__version__"]

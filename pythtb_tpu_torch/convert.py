@@ -1,13 +1,16 @@
 """Carry models across from pythtb_tpu (or any PythTB-style model).
 
-Both functions take plain NumPy data, so this module imports neither
+Every function takes plain NumPy data, so this module imports neither
 package it converts from:
 
 * :func:`tb_model_from_state` rebuilds a :class:`tb_model` from the
   host state of another model;
 * :func:`bloch_from_numpy` turns the arrays of a ``pythtb_tpu.core.finalize``
   result (ri-packed, trailing [re, im] axis) into this package's
-  :class:`~pythtb_tpu_torch.core.BlochData`.
+  :class:`~pythtb_tpu_torch.core.BlochData`;
+* :func:`wf_array_from_numpy` fills a :class:`wf_array` with the states
+  of another package's wf_array (eigenvector gauges of separate solves
+  differ, so gauge-dependent comparisons need the same states).
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ import numpy as np
 
 from . import core
 from .model import tb_model
+from .wf_array import wf_array
 
-__all__ = ["tb_model_from_state", "bloch_from_numpy"]
+__all__ = ["tb_model_from_state", "bloch_from_numpy", "wf_array_from_numpy"]
 
 
 def tb_model_from_state(state) -> tb_model:
@@ -77,3 +81,19 @@ def bloch_from_numpy(static_fields, data_arrays, device=None) -> core.BlochData:
         data_arrays["jj"],
         device,
     )
+
+
+def wf_array_from_numpy(model, wfs, energies=None) -> wf_array:
+    """A :class:`wf_array` of ``model`` holding the states ``wfs``.
+
+    :param wfs: (mesh..., nsta_arr, norb[, 2]) complex NumPy array, e.g.
+      the host states of a ``pythtb_tpu.wf_array``
+    :param energies: optional (mesh..., nsta_arr) band energies
+    """
+    wfs = np.asarray(wfs, dtype=np.complex128)
+    dim_arr = wfs.ndim - 2 - (model._nspin == 2)
+    wf = wf_array(model, list(wfs.shape[:dim_arr]), nsta_arr=int(wfs.shape[dim_arr]))
+    wf._wfs = np.array(wfs, copy=True)
+    if energies is not None:
+        wf.energies = energies
+    return wf

@@ -74,7 +74,7 @@ def _gather_index(norb: int, ii: np.ndarray, jj: np.ndarray):
 def bloch_data(dim_k, norb, nspin, diag, amps, rv, ii, jj, device=None) -> BlochData:
     """Move finalized host arrays onto ``device`` (default
     :func:`config.device`) and build the gather index."""
-    dev = config.device() if device is None else torch.device(device)
+    dev = config.checked_device(device)
     ii = np.asarray(ii, dtype=np.int64)
     jj = np.asarray(jj, dtype=np.int64)
     nhop = ii.shape[0]

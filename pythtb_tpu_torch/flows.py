@@ -1,26 +1,35 @@
 """Fused end-to-end device pipelines (counterpart of ``pythtb_tpu.flows``).
 
 These compute the same objects as the ``wf_array`` route (solve_on_grid
-+ impose_pbc + berry_flux) with everything on the device: the k-grid is
-built there, assembled (kernel 1), diagonalized (kernel 2 at two
-bands), extended by the periodic gauge, reduced to link determinants
-(kernel 3) and summed over plaquettes (kernel 4); only the flux comes
-back.  The other flows of the JAX package are not ported yet.
++ impose_pbc + berry_flux / berry_phase) with everything on the device:
+the k-grid is built there, assembled (kernel 1), diagonalized (kernel 2
+at two bands), extended by the periodic gauge, and then either reduced
+to link determinants (kernel 3) and summed over plaquettes (kernel 4) --
+``chern_number`` -- or chained into Wilson loops (kernel 5) --
+``wilson_flow`` and the Z2 invariant.  Only the results come back.
+``polarization`` goes through ``wf_array``.  The other flows of the JAX
+package are not ported yet.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from . import config
 from .core import BlochData
-from .ops.berry import _plane_link_dets, plaquette_flux
+from .ops.berry import _dets, _plane_link_dets, _wrap, plaquette_flux, wilson_eigenphases, wilson_loop
 from .ops.eigh import eigh_batched
 from .ops.hamiltonian import assemble
 from .ops.solver import device_uniform_grid, extend_pbc_seq
 
-__all__ = ["gauge_phases", "berry_flux_grid", "chern_number"]
+__all__ = [
+    "gauge_phases", "berry_flux_grid", "chern_number", "wilson_flow", "z2_fn",
+    "z2_invariant", "polarization",
+]
 
 
 def gauge_phases(model, dims, flatten=True):
@@ -34,6 +43,19 @@ def gauge_phases(model, dims, flatten=True):
             ffac = np.repeat(ffac, 2) if flatten else np.repeat(ffac[:, None], 2, axis=1)
         out.append(ffac)
     return out
+
+
+def _phase_tensor(model, dim, device):
+    """Periodic-gauge phases of mesh dimension ``dim`` as a flattened
+    complex tensor on ``device``."""
+    return torch.as_tensor(gauge_phases(model, (dim,))[0], dtype=config.COMPLEX).to(device)
+
+
+def _check_occ(occ, nsta):
+    occ = tuple(int(o) for o in occ)
+    if occ and (min(occ) < 0 or max(occ) >= nsta):
+        raise IndexError("occ indices %s out of range for %d states" % (sorted(set(occ)), nsta))
+    return occ
 
 
 def _solve_grid_states(data: BlochData, kpts, occ, n0, n1):
@@ -58,21 +80,227 @@ def berry_flux_grid(model, occ, nk=(101, 101), start_k=(-0.5, -0.5)):
     data = model._get_finalized()
     if data.dim_k != 2:
         raise ValueError("chern_number requires a model with dim_k == 2")
-    occ = tuple(int(o) for o in occ)
-    if occ and (min(occ) < 0 or max(occ) >= data.nsta):
-        raise IndexError(
-            "occ indices %s out of range for %d states" % (sorted(set(occ)), data.nsta)
-        )
+    occ = _check_occ(occ, data.nsta)
     kpts = device_uniform_grid((n0 - 1, n1 - 1), np.asarray(start_k, dtype=np.float64), data.device)
     w = _solve_grid_states(data, kpts, occ, n0, n1)
-    phases = [
-        torch.as_tensor(p, dtype=config.COMPLEX).to(data.device)
-        for p in gauge_phases(model, (0, 1))
-    ]
-    w = extend_pbc_seq(w, phases)
+    w = extend_pbc_seq(w, [_phase_tensor(model, d, data.device) for d in (0, 1)])
     return float(_total_flux(w)[0])
 
 
 def chern_number(model, occ, nk=(101, 101), start_k=(-0.5, -0.5)):
     """Chern number of the ``occ`` bands (flux / 2 pi)."""
     return berry_flux_grid(model, occ, nk, start_k) / (2.0 * np.pi)
+
+
+def wilson_flow(model, occ, nk=(41, 41), loop_dir=1, start_k=(-0.5, -0.5)):
+    """Hybrid Wannier centre flow on the device: for every grid value of
+    the flow axis, the Wilson-loop eigenphases (hybrid Wannier centres x
+    2 pi) and the traced Berry phase of the ``occ`` bands around the
+    ``loop_dir`` axis.  Equals ``wf_array.solve_on_grid`` + two
+    ``berry_phase`` calls, with only the (nflow, nocc) result crossing to
+    the host.
+
+    :returns: ``(evph, traced)``: (nflow, nocc) sorted eigenphases and
+      (nflow,) traced phases, flow-axis endpoint included (equal to the
+      first row, as for a periodic gauge).  Warns on (near-)singular link
+      overlaps like the wf_array methods.
+    """
+    data = model._get_finalized()
+    if data.dim_k != 2:
+        raise ValueError("wilson_flow requires a model with dim_k == 2")
+    occ = _check_occ(occ, data.nsta)
+    if loop_dir not in (0, 1):
+        raise ValueError("loop_dir must be 0 or 1")
+    n0, n1 = int(nk[0]), int(nk[1])
+    kpts = device_uniform_grid((n0 - 1, n1 - 1), np.asarray(start_k, dtype=np.float64), data.device)
+    w = _solve_grid_states(data, kpts, occ, n0, n1)  # (n0-1, n1-1, nocc, F)
+    # close each loop with the periodic gauge; the loop axis stays in place
+    ph = _phase_tensor(model, loop_dir, data.device)
+    w = torch.cat([w, w.narrow(loop_dir, 0, 1) * ph], dim=loop_dir).contiguous()
+    prod, smin = wilson_loop(w, int(loop_dir))  # (nflow-1, nocc, nocc)
+    evph = torch.sort(-wilson_eigenphases(prod), dim=-1).values  # wf_array convention
+    traced = -torch.angle(_dets(prod))
+    # flow boundary row = row 0: the pbc phase along the flow axis is a
+    # k-independent diagonal unitary, which leaves Wilson spectra unchanged
+    evph = torch.cat([evph, evph[:1]], dim=0).cpu().numpy().astype(np.float64)
+    traced = torch.cat([traced, traced[:1]], dim=0).cpu().numpy().astype(np.float64)
+    sing = float(smin.amin())
+    if sing < np.sqrt(np.finfo(np.float64).eps):
+        warnings.warn(
+            "wilson_flow: smallest link-overlap singular value is %.2e -- "
+            "neighboring occupied subspaces are (nearly) orthogonal; refine "
+            "the grid or check the band choice." % sing,
+            UserWarning,
+            stacklevel=2,
+        )
+    return evph, traced
+
+
+def _wilson_half_cycle(data, occ, n0, n1, start, phase0):
+    """Wilson-loop eigenphases along k1 for the half cycle of k2 strings
+    from the first TRIM to the second: (half+1, nocc), half = (n1-1)//2.
+    Only those strings are solved."""
+    half = (n1 - 1) // 2
+    kpts = device_uniform_grid((n0 - 1, half + 1), start, data.device, denoms=(n0 - 1, n1 - 1))
+    w = _solve_grid_states(data, kpts, occ, n0, half + 2)  # (n0-1, half+1, nocc, F)
+    w = extend_pbc_seq(w, [phase0]).contiguous()  # (n0, half+1, nocc, F)
+    prod, _ = wilson_loop(w, 0)  # (half+1, nocc, nocc)
+    return wilson_eigenphases(prod)
+
+
+def _gaps_sorted(theta):
+    """Sorted centres and their circular gaps; entry nocc-1 is the
+    wrap-around gap through the +-pi branch point."""
+    th = torch.sort(theta, dim=-1).values
+    gaps = torch.cat([th[:, 1:] - th[:, :-1], (2.0 * np.pi - (th[:, -1] - th[:, 0]))[:, None]], dim=-1)
+    return th, gaps
+
+
+def _z2_from_flow(theta):
+    """Gap-crossing Z2 count from Wilson eigenphases (half+1, nocc):
+    track the midpoint of the largest circular gap between the hybrid
+    Wannier centres from TRIM to TRIM; Z2 is the parity of the number of
+    centres the moving gap line sweeps past (Soluyanov & Vanderbilt,
+    PRB 83, 235401 (2011), for any even number of bands)."""
+    th, gaps = _gaps_sorted(theta)
+    imax = torch.argmax(gaps, dim=-1, keepdim=True)
+    lo = torch.take_along_dim(th, imax, dim=-1)[:, 0]
+    width = torch.take_along_dim(gaps, imax, dim=-1)[:, 0]
+    g = _wrap(lo + 0.5 * width)  # largest-gap midpoint per string
+    dg = _wrap(g[1:] - g[:-1])
+    rel = _wrap(theta[1:] - g[:-1, None])
+    swept = (torch.sign(rel) == torch.sign(dg)[:, None]) & (rel.abs() <= dg.abs()[:, None])
+    return torch.remainder(swept.sum(), 2).to(config.FLOAT)
+
+
+def _z2_degenerate_flow(theta):
+    """1.0 when the Wannier centres stay pairwise degenerate (at least
+    nocc/2 circular gaps below 1e-8) on every interior string -- the
+    gap-counting method's blind spot -- else 0.0."""
+    nocc = theta.shape[-1]
+    if theta.shape[0] <= 2:  # no interior strings: nothing to diagnose
+        return torch.zeros((), dtype=config.FLOAT, device=theta.device)
+    _, gaps = _gaps_sorted(theta)
+    paired = (gaps <= 1e-8).sum(dim=-1) >= nocc // 2
+    return paired[1:-1].all().to(config.FLOAT)
+
+
+def _z2_prep(model, occ, nk):
+    """Shared validation and set-up of the Z2 flows."""
+    data0 = model._get_finalized()
+    if data0.dim_k != 2:
+        raise ValueError("z2_fn requires a model with dim_k == 2")
+    occ = tuple(int(o) for o in occ)
+    if len(occ) < 2 or len(occ) % 2 != 0:
+        raise ValueError(
+            "z2_fn needs an even number of occupied bands (Kramers pairs); got %d" % len(occ)
+        )
+    if min(occ) < 0 or max(occ) >= data0.nsta:
+        raise IndexError("occ indices %s out of range for %d states" % (sorted(set(occ)), data0.nsta))
+    n0, n1 = int(nk[0]), int(nk[1])
+    if (n1 - 1) % 2 != 0:
+        raise ValueError("nk[1] must be odd (half cycle must end on a TRIM)")
+    phase0 = _phase_tensor(model, 0, data0.device)
+    start = np.array([-0.5, -0.5])
+    params0 = {"amps": data0.amps, "diag": data0.diag}
+    return data0, occ, n0, n1, phase0, start, params0
+
+
+def z2_fn(model, occ=(0, 1), nk=(31, 31), check=False):
+    """Z2 invariant of an even number of occupied bands as a function of
+    the model's parameter tensors.
+
+    Uses the gap-crossing criterion of Soluyanov & Vanderbilt (PRB 83,
+    235401 (2011)) over half the k2 cycle (TRIM to TRIM).  Returns
+    ``(fn, params0)``: ``params0 = {"amps", "diag"}`` are the model's
+    device tensors (hopping amplitudes, on-site matrix), and
+    ``fn(params) -> z2`` (0.0 or 1.0, a device scalar); with ``check``,
+    ``fn(params) -> (z2, converged)`` where ``z2`` is evaluated on the
+    refined grid ``(2*nk[0]-1, 2*nk[1]-1)`` and ``converged`` is 1.0 when
+    it agrees with the ``nk`` value and the flow is not pairwise
+    degenerate throughout (the method's blind spot).  ``nk[1]`` must be
+    odd so the half cycle ends on the second TRIM.
+    """
+    data0, occ, n0, n1, phase0, start, params0 = _z2_prep(model, occ, nk)
+
+    def fn(params):
+        data = dataclasses.replace(data0, amps=params["amps"], diag=params["diag"])
+        z2 = _z2_from_flow(_wilson_half_cycle(data, occ, n0, n1, start, phase0))
+        if not check:
+            return z2
+        theta_fine = _wilson_half_cycle(data, occ, 2 * n0 - 1, 2 * n1 - 1, start, phase0)
+        z2_fine = _z2_from_flow(theta_fine)
+        # an exactly pairwise-degenerate flow defeats the parity count on
+        # BOTH grids, so grid agreement alone would certify a wrong answer
+        converged = (z2 == z2_fine).to(config.FLOAT) * (1.0 - _z2_degenerate_flow(theta_fine))
+        return z2_fine, converged
+
+    return fn, params0
+
+
+def z2_invariant(model, occ=(0, 1), nk=(31, 31), check=False):
+    """Z2 invariant of an even number of occupied bands (see
+    :func:`z2_fn`).  With ``check`` the invariant is recomputed on a
+    refined grid; on disagreement (or a degenerate flow) a
+    ``UserWarning`` is raised and the refined value is returned."""
+    if not check:
+        fn, p0 = z2_fn(model, occ, nk)
+        return float(fn(p0))
+    fn, p0 = z2_fn(model, occ, nk, check=True)
+    v_fine, converged = (float(x) for x in fn(p0))
+    if not converged:
+        nk_fine = (2 * int(nk[0]) - 1, 2 * int(nk[1]) - 1)
+        warnings.warn(
+            "z2_invariant: not converged at nk=%s vs nk=%s (refined value "
+            "%g).  Either the coarse grid under-resolves the Wannier-gap "
+            "flow (increase nk and re-check until stable), or the centers "
+            "are exactly pairwise degenerate along the whole flow -- the "
+            "gap-counting method's structural blind spot; split the "
+            "degeneracy with a small symmetry-breaking perturbation "
+            "(inspect with wf_array.berry_phase(..., berry_evals=True))."
+            % (tuple(nk), nk_fine, v_fine),
+            UserWarning,
+            stacklevel=2,
+        )
+    return v_fine
+
+
+def polarization(model, occ, dir=0, nk=31, start_k=None):
+    """Electronic polarization of the filled bands along one lattice
+    vector, in reduced units (mod 1): ``p_d = <phi_d(k_perp)> / 2 pi``,
+    the branch-continuous Berry phases averaged over the perpendicular
+    grid (King-Smith--Vanderbilt).  Values are defined modulo the
+    polarization quantum 1.
+
+    :param occ: filled band indices
+    :param dir: polarization direction (a periodic lattice vector)
+    :param nk: scalar or per-direction grid sizes
+    :param start_k: grid origin (default zeros)
+    :returns: float in [0, 1)
+    """
+    from .model import PythtbError
+    from .wf_array import wf_array
+
+    d = model._dim_k
+    if d < 1:
+        raise PythtbError("polarization needs a periodic model")
+    dir = int(dir)
+    if not 0 <= dir < d:
+        raise PythtbError("dir must index a periodic direction")
+    occ = tuple(int(o) for o in np.atleast_1d(occ))
+    if len(occ) == 0 or min(occ) < 0 or max(occ) >= model._nsta:
+        raise PythtbError("bad occ")
+    nks = tuple(int(x) for x in (np.atleast_1d(nk) if np.ndim(nk) else [nk] * d))
+    if len(nks) == 1 and d > 1:
+        nks = nks * d
+    if len(nks) != d:
+        raise PythtbError("nk must give one size per direction")
+    start = np.zeros(d) if start_k is None else np.asarray(start_k, dtype=np.float64)
+    wf = wf_array(model, list(nks))
+    wf.solve_on_grid(start)
+    ph = np.asarray(wf.berry_phase(list(occ), dir, contin=True))
+    # drop the wrapped pbc duplicate row per perpendicular axis, which
+    # would double-count k_perp = start
+    if ph.ndim > 0:
+        ph = ph[tuple(slice(0, -1) for _ in range(ph.ndim))]
+    return float(np.mean(ph) / (2.0 * np.pi) % 1.0)

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 The sources under ``pythtb_tpu_torch/csrc/`` are compiled at first use
-with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+with ``nvcc`` for ``sm_90a`` -- one ``nvcc -c`` per source, all started
+together, then one link -- into a shared library with a plain C
 interface, loaded with ctypes.  The library is named by a hash of the
 sources and flags and lives in ``build/pythtb_tpu_torch/`` at the root
 of the checkout, so a changed source rebuilds it.  Nothing here runs at
@@ -30,7 +31,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pythtb_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
@@ -40,13 +41,16 @@ _SIGNATURES = {
     "pythtb_eig2": [_P] * 3 + [_I, _P],
     "pythtb_link_dets": [_P] * 2 + [_I] * 5 + [_P],
     "pythtb_plaquette_flux": [_P] * 7 + [_I] * 4 + [_P],
+    "pythtb_wilson_loop": [_P] * 3 + [_I] * 5 + [_P],
+    "pythtb_position": [_P] * 4 + [_I] * 5 + [_P],
 }
 
-# Launches per wrapper since the last reset.  "link_dets_library" counts
-# the S > 8 shape rule of ops.berry.link_dets, which launches no kernel
-# of this package.
+# Launches per wrapper since the last reset.  "link_dets_library" and
+# "wilson_loop_library" count the S > 8 shape rules of ops.berry, which
+# launch no kernel of this package.
 LAUNCHES = dict.fromkeys(
-    ("assemble", "eig2", "link_dets", "plaquette_flux", "link_dets_library"), 0
+    ("assemble", "eig2", "link_dets", "plaquette_flux", "wilson_loop", "position",
+     "link_dets_library", "wilson_loop_library"), 0
 )
 
 _lib = None
@@ -76,17 +80,38 @@ def library():
     so = BUILD_DIR / ("libpythtb_kernels_%s.so" % digest.hexdigest()[:16])
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name("%s.%d.tmp" % (so.name, os.getpid()))
+        tag = "%s.%d" % (digest.hexdigest()[:16], os.getpid())
         t0 = time.perf_counter()
+        objs = [BUILD_DIR / ("%s.%s.o" % (src.stem, tag)) for src in sources]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        logs = []
+        failed = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append("%s (rc %d):\n%s" % (src.name, proc.returncode, err))
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp = so.with_name("%s.%d.tmp" % (so.name, os.getpid()))
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+             *map(str, objs)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (rc %d):\n%s" % (proc.returncode, proc.stderr))
+            raise RuntimeError("nvcc link failed (rc %d):\n%s" % (proc.returncode, proc.stderr))
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
         build_info["seconds"] = time.perf_counter() - t0
-        build_info["ptxas"] = proc.stderr
+        build_info["ptxas"] = "".join(logs)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -9,9 +9,13 @@
   smallest |det|: kernel 4 (``csrc/plaquette_flux.cu``) on CUDA,
   :func:`_plaquette_flux_plain` on CPU.
 * Traced Berry phases: the wrapped sum of link-det angles.
-* The ``berry_evals`` Wilson-loop path (SVD polar factor per link,
-  ordered chain product, eigenphases) is plain PyTorch in this package
-  for now, as the JAX package leaves it to ``jnp.linalg``.
+* Wilson loops (the ``berry_evals`` path): the polar factor of every
+  link overlap, chained in link order, and the smallest singular value:
+  kernel 5 (``csrc/wilson_loop.cu``) on CUDA, :func:`_wilson_loop_plain`
+  (``torch.linalg.svd`` and a pairwise product) on CPU.  The eigenphases
+  of the S x S products stay plain PyTorch (closed forms at S <= 2,
+  ``torch.linalg.eigh`` above), as the JAX package leaves them to
+  ``jnp.linalg``.
 
 States arrive as (grid..., S, norb[, 2]) complex tensors on the device;
 band selection and axis arrangement happen on the device, and only the
@@ -36,11 +40,14 @@ __all__ = [
     "berry_phase_traced",
     "berry_flux_planes",
     "berry_evals",
+    "berry_loop_products",
+    "wilson_loop",
     "unitary_eig",
+    "unitary_eigenphases",
     "wilson_eigenphases",
 ]
 
-# largest band count S whose link determinant kernel 3 takes in registers
+# largest band count S that kernels 3 and 5 take in registers
 _MAX_KERNEL_S = 8
 # most planes kernel 4 takes in one launch (CUDA's grid y-dimension limit)
 _MAX_PLANES = 65535
@@ -73,25 +80,30 @@ def _link_dets_plain(w, axis):
     return _dets(_overlap(w.narrow(axis, 0, L - 1), w.narrow(axis, 1, L - 1))).contiguous()
 
 
+def _strings(w, axis):
+    """Check CUDA states ``w`` (grid..., S, F) and view grid ``axis`` as
+    the L of (outer, L, inner), the layout kernels 3 and 5 read without
+    a copy: returns (grid, S, F, outer, L, inner)."""
+    grid = tuple(w.shape[:-2])
+    if not 0 <= axis < len(grid) or grid[axis] < 2:
+        raise ValueError("axis %d needs length >= 2 in grid %s" % (axis, grid))
+    _kernels.require(w, "w", config.COMPLEX)
+    return (grid, w.shape[-2], w.shape[-1], math.prod(grid[:axis]), grid[axis],
+            math.prod(grid[axis + 1 :]))
+
+
 def link_dets(w, axis):
     """Overlap determinants of the nearest-neighbour links of states
     ``w`` (grid..., S, F) along grid ``axis``: (grid...) with that axis
     one shorter."""
     if w.device.type == "cpu":
         return _link_dets_plain(w, axis)
-    grid = tuple(w.shape[:-2])
-    S, F = w.shape[-2], w.shape[-1]
-    if not 0 <= axis < len(grid) or grid[axis] < 2:
-        raise ValueError("link axis %d needs length >= 2 in grid %s" % (axis, grid))
-    _kernels.require(w, "w", config.COMPLEX)
+    grid, S, F, outer, L, inner = _strings(w, axis)
     if S > _MAX_KERNEL_S:
         # shape rule: the det of a large overlap goes to the library, as
         # the JAX package's jnp.linalg.det does
         _kernels.LAUNCHES["link_dets_library"] += 1
         return _link_dets_plain(w, axis)
-    outer = math.prod(grid[:axis])
-    L = grid[axis]
-    inner = math.prod(grid[axis + 1 :])
     out_shape = grid[:axis] + (L - 1,) + grid[axis + 1 :]
     out = torch.empty(out_shape, dtype=config.COMPLEX, device=w.device)
     _kernels.launch("link_dets", w.device, w, out, outer, L, inner, S, F)
@@ -183,7 +195,7 @@ def berry_phase_traced(wfs, occ, dir, nspin, dim_arr):
 
 
 # ---------------------------------------------------------------------------
-# Wilson-loop (berry_evals) path, plain PyTorch
+# Wilson loops and their eigenphases
 # ---------------------------------------------------------------------------
 
 
@@ -216,6 +228,12 @@ def unitary_eig(U):
     return torch.atan2(sdiag, cdiag), V @ W
 
 
+def unitary_eigenphases(U):
+    """Eigenphases (..., S) of (..., S, S) unitary matrices, in
+    (-pi, pi], unsorted: the angles of :func:`unitary_eig`."""
+    return unitary_eig(U)[0]
+
+
 def wilson_eigenphases(prod):
     """Eigenphases of (..., S, S) unitary Wilson-loop products: closed
     forms for S <= 2 (the S = 2 one through the SU(2) part, free of
@@ -244,16 +262,57 @@ def _chain_product(Wl):
     return Wl[0]
 
 
+def _wilson_loop_plain(w, axis):
+    """Plain PyTorch Wilson loops (einsum overlaps, ``torch.linalg.svd``
+    polar factors U V^H, pairwise chain product): the oracle of kernel 5.
+    Returns (prod (rest..., S, S), smallest singular value per string
+    (rest...))."""
+    w = torch.movedim(w, axis, 0)
+    U, s, Vh = torch.linalg.svd(_overlap(w[:-1], w[1:]), full_matrices=False)
+    return _chain_product(U @ Vh), s.amin(dim=0).amin(dim=-1)
+
+
+def wilson_loop(w, axis):
+    """Wilson loops of states ``w`` (grid..., S, F) along grid ``axis``:
+    the ordered product of the polar factors of the link overlaps, per
+    string, as (rest..., S, S) with ``rest`` the grid without ``axis``,
+    and the smallest link singular value per string (rest...)."""
+    if w.device.type == "cpu":
+        return _wilson_loop_plain(w, axis)
+    grid, S, F, outer, L, inner = _strings(w, axis)
+    if S > _MAX_KERNEL_S:
+        # shape rule: large polar factors go to the library SVD, as the
+        # JAX package's jnp.linalg.svd does
+        _kernels.LAUNCHES["wilson_loop_library"] += 1
+        return _wilson_loop_plain(w, axis)
+    rest = grid[:axis] + grid[axis + 1 :]
+    prod = torch.empty(rest + (S, S), dtype=config.COMPLEX, device=w.device)
+    smin = torch.empty(rest, dtype=config.FLOAT, device=w.device)
+    _kernels.launch("wilson_loop", w.device, w, prod, smin, outer, L, inner, S, F)
+    return prod, smin
+
+
+def _loop_products(wfs, occ, dir, nspin, dim_arr):
+    return wilson_loop(prep_states(wfs, occ, nspin, dim_arr), int(dir))
+
+
+def berry_loop_products(wfs, occ, dir, nspin, dim_arr):
+    """Ordered product of the polar factors of the link overlaps along
+    ``dir`` (PythTB's ``prd``), one (nocc, nocc) matrix per string,
+    shaped (rest..., nocc, nocc) as NumPy, and the smallest link singular
+    value (a singular link makes the polar factor arbitrary, so the
+    caller warns on it)."""
+    prod, smin = _loop_products(wfs, occ, dir, nspin, dim_arr)
+    return prod.cpu().numpy().astype(np.complex128), float(smin.amin())
+
+
 def berry_evals(wfs, occ, dir, nspin, dim_arr):
     """Wilson-loop eigenphases along grid axis ``dir``: link overlaps,
-    SVD unitarization, ordered chain product, eigenphases.  Returns
-    ``(phases (rest..., nocc) ascending, min_singular_value)``."""
-    w = torch.movedim(prep_states(wfs, occ, nspin, dim_arr), int(dir), 0)
-    ovr = _overlap(w[:-1], w[1:])  # (L-1, rest..., S, S)
-    U, s, Vh = torch.linalg.svd(ovr, full_matrices=False)
-    theta = wilson_eigenphases(_chain_product(U @ Vh))
-    out = torch.sort(-theta, dim=-1).values
-    return out.cpu().numpy().astype(np.float64), float(s.amin())
+    polar factors and their ordered product (kernel 5), eigenphases.
+    Returns ``(phases (rest..., nocc) ascending, min_singular_value)``."""
+    prod, smin = _loop_products(wfs, occ, dir, nspin, dim_arr)
+    out = torch.sort(-wilson_eigenphases(prod), dim=-1).values
+    return out.cpu().numpy().astype(np.float64), float(smin.amin())
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 * ``nsta == 1``: trivial.
 * ``nsta == 2``: closed form; on a CUDA tensor this launches kernel 2
   (``csrc/eig2.cu``), on a CPU tensor it runs the plain version below.
-* otherwise: ``torch.linalg.eigh`` over the batch.
+* otherwise: ``torch.linalg.eigh`` over the batch, in slices of at most
+  ``LIBRARY_BATCH`` matrices: cuSOLVER's batched ``syev``, which torch
+  calls for complex matrices up to 32 x 32, refuses batches of 32,768
+  and more (CUSOLVER_STATUS_INVALID_VALUE; torch 2.11, CUDA 12.8, H100).
 
 Eigenvalues are ascending and eigenvectors are *rows* (``v[b, s, :]`` is
 state s), matching pythtb_tpu and the reference's ``_nicefy_eig``
@@ -19,6 +22,9 @@ from .. import config
 from . import _kernels
 
 __all__ = ["eig2", "eigh_batched", "eigvalsh_batched"]
+
+# largest batch handed to one torch.linalg.eigh / eigvalsh call
+LIBRARY_BATCH = 16384
 
 
 def _eig2_plain(H):
@@ -68,7 +74,9 @@ def eigh_batched(H):
         return H[..., 0, 0].real[..., None].to(config.FLOAT), torch.ones_like(H)
     if m == 2:
         return eig2(H)
-    w, v = torch.linalg.eigh(H)
+    parts = [torch.linalg.eigh(h) for h in H.split(LIBRARY_BATCH)]
+    w = torch.cat([p[0] for p in parts])
+    v = torch.cat([p[1] for p in parts])
     return w, v.transpose(-1, -2)
 
 
@@ -79,4 +87,4 @@ def eigvalsh_batched(H):
         return H[..., 0, 0].real[..., None].to(config.FLOAT)
     if m == 2:
         return eig2(H)[0]
-    return torch.linalg.eigvalsh(H)
+    return torch.cat([torch.linalg.eigvalsh(h) for h in H.split(LIBRARY_BATCH)])

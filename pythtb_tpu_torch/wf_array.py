@@ -12,8 +12,10 @@ the Berry methods read the device copy.  Host-side mutation
 marks the device copy stale, preserving reference semantics, including
 mutation through views returned by ``wf[key]``.
 
-``solve_on_grid_models``, ``choose_states``/``empty_like``, smooth
-gauge, checkpoints and the position wrappers are not ported yet.
+The position wrappers (per grid point, and batched over the whole grid
+as ``position_expectation_all``/``position_hwf_all``) run through
+:mod:`pythtb_tpu_torch.ops.position` (kernel 6).  ``solve_on_grid_models``,
+smooth gauge and checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ import numpy as np
 import torch
 
 from . import config
-from .model import PythtbError, _is_int
+from .model import PythtbError, _is_int, _offdiag_approximation_warning_and_stop
 from .ops import berry as _berry
+from .ops import position as _pos
 from .ops import solver as _solver
 from .utils import continuity as _cont
 
@@ -118,7 +121,7 @@ class wf_array(object):
         if self._dev_valid:
             return self._dev
         dev = torch.as_tensor(self._host_ro(), dtype=config.COMPLEX).to(
-            config.device(), copy=True
+            config.checked_device(), copy=True
         )
         if not self._views_exposed:
             self._dev = dev
@@ -189,6 +192,57 @@ class wf_array(object):
             host[(mesh_indices,)] = evec
         else:
             host[tuple(mesh_indices)] = evec
+
+    # -- array utilities ------------------------------------------------
+
+    def _copy_shell(self):
+        """Deep copy without duplicating device buffers."""
+        self._sync_host()
+        dev, dev_valid = self._dev, self._dev_valid
+        edev = self._energies_dev
+        self._dev, self._dev_valid = None, False
+        self._energies_dev = None
+        new = _copy.deepcopy(self)
+        self._dev, self._dev_valid = dev, dev_valid
+        self._energies_dev = edev
+        # the copy sees the same (never mutated) device energies
+        new._energies_dev = edev
+        # the copy owns a fresh host buffer no external view points at
+        new._views_exposed = False
+        return new
+
+    def choose_states(self, subset):
+        """New wf_array keeping only the given state indices; stored
+        energies (if any) are sliced to the subset."""
+        subset = np.array(subset, dtype=int)
+        if subset.ndim != 1:
+            raise PythtbError("Parameter subset must be a one-dimensional array.")
+        has_energies = self._energies_host is not None or self._energies_dev is not None
+        energies = np.array(self.energies[..., subset]) if has_energies else None
+        wf_new = self._copy_shell()
+        wf_new._nsta_arr = subset.shape[0]
+        idx = (slice(None),) * self._dim_arr + (subset,)
+        wf_new._wfs = wf_new._host[idx]
+        wf_new._energies_dev = None
+        wf_new._energies_host = energies
+        wf_new._min_gaps = None  # adjacency broken by re-subsetting
+        return wf_new
+
+    def empty_like(self, nsta_arr=None):
+        """New uninitialized wf_array of the same shape (optionally with a
+        different number of states)."""
+        wf_new = self._copy_shell()
+        wf_new._energies_dev = None
+        wf_new._energies_host = None
+        wf_new._min_gaps = None
+        if nsta_arr is not None:
+            wf_new._nsta_arr = nsta_arr
+            shape = list(wf_new._host.shape)
+            shape[self._dim_arr] = nsta_arr
+            wf_new._wfs = np.empty(tuple(shape), dtype=complex)
+        else:
+            wf_new._wfs = np.empty_like(wf_new._host)
+        return wf_new
 
     # -- indexing -------------------------------------------------------
 
@@ -345,6 +399,10 @@ class wf_array(object):
             )
         return occ % self._nsta_arr if occ.size and occ.min() < 0 else occ
 
+    def _check_w90(self):
+        if self._model._assume_position_operator_diagonal is False:
+            _offdiag_approximation_warning_and_stop()
+
     def _warn_singular(self, min_val, kind):
         """Warn when a link overlap is (near-)singular: the discretized
         Berry quantity is then undefined and the numbers are noise."""
@@ -359,6 +417,64 @@ class wf_array(object):
                 UserWarning,
                 stacklevel=3,
             )
+
+    # -- position wrappers ----------------------------------------------
+
+    def _key_occ_states(self, key, occ):
+        occ = self._occ_index(occ)
+        if _is_int(key):
+            key = (key,)
+        return self._host_ro()[tuple(key)][occ]
+
+    def position_matrix(self, key, occ, dir):
+        """Position matrix at one grid point for the given states."""
+        self._check_w90()
+        return self._model.position_matrix(self._key_occ_states(key, occ), dir)
+
+    def position_expectation(self, key, occ, dir):
+        """Position expectations at one grid point."""
+        self._check_w90()
+        return self._model.position_expectation(self._key_occ_states(key, occ), dir)
+
+    def position_hwf(self, key, occ, dir, hwf_evec=False, basis="wavefunction"):
+        """Hybrid Wannier centers/functions at one grid point.  The
+        default basis differs from tb_model.position_hwf, as in PythTB."""
+        self._check_w90()
+        return self._model.position_hwf(self._key_occ_states(key, occ), dir, hwf_evec, basis)
+
+    def position_expectation_all(self, occ, dir):
+        """Position expectations of the ``occ`` states at every grid
+        point in one device pass (kernel 6's diagonal mode): returns
+        ``(mesh..., nocc)`` float."""
+        self._check_w90()
+        self._model._check_position_dir(dir)
+        occ = self._occ_index(occ)
+        return _pos.position_expectation_states(
+            self._device_states(), self._model._pos_weights(dir), occ, self._dim_arr
+        )
+
+    def position_hwf_all(self, occ, dir, hwf_evec=False, basis="wavefunction"):
+        """Hybrid-Wannier centers (and functions) at every grid point in
+        one device pass.  Returns ``hwfc`` of shape ``(mesh..., nocc)``
+        (plus ``hwf`` of shape ``(mesh..., nocc, nocc)`` for basis
+        'wavefunction'/'bloch' or ``(mesh..., nocc, norb[, spin])`` for
+        'orbital' when ``hwf_evec``)."""
+        self._check_w90()
+        self._model._check_position_dir(dir)
+        occ = self._occ_index(occ)
+        basis = basis.lower().strip()
+        if basis not in ("wavefunction", "bloch", "orbital"):
+            raise PythtbError("Basis must be either 'wavefunction', 'bloch', or 'orbital'")
+        out = _pos.position_hwf_states(
+            self._device_states(), self._model._pos_weights(dir), occ, self._dim_arr,
+            hwf_evec, basis == "orbital",
+        )
+        if not hwf_evec:
+            return out
+        hwfc, hwf = out
+        if basis == "orbital" and self._nspin == 2:
+            hwf = hwf.reshape(hwf.shape[:-1] + (self._norb, 2))
+        return hwfc, hwf
 
     # -- Berry phases ----------------------------------------------------
 
@@ -375,6 +491,7 @@ class wf_array(object):
             flow = wf.berry_phase([0], dir=1, contin=True)   # (31,)
         """
         occ = self._occ_index(occ)
+        self._check_w90()
         self._check_separation(occ, "berry_phase")
         if self._dim_arr == 1:
             dir = 0
@@ -440,6 +557,7 @@ class wf_array(object):
             chern = wf.berry_flux([0]) / (2 * np.pi)
         """
         occ = self._occ_index(occ)
+        self._check_w90()
         self._check_separation(occ, "berry_flux")
         if dirs is None:
             dirs = [0, 1]

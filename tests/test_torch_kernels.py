@@ -19,13 +19,23 @@ import pytest
 import torch
 
 from pythtb_tpu_torch import config, core, flows
-from pythtb_tpu_torch.ops import _kernels, berry, eigh, hamiltonian
+from pythtb_tpu_torch.ops import _kernels, berry, eigh, hamiltonian, position
 
 from . import zoo
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """Models of these tests finalize where they are told; the package's
+    own default stays the CPU here, as in every test file of the port."""
+    prev = config._device
+    config.set_device("cpu")
+    yield
+    config._device = prev
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +135,65 @@ def test_plaquette_flux_kernel(dev, grid):
         assert _max_diff(gmin, wmin) < TOL
 
 
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 9])
+def test_wilson_loop_kernel(dev, S):
+    """Every string orientation: axis 0 (outer 1, inner 24), axis 1
+    (outer 5, inner 6), axis 2 (outer 20, inner 1)."""
+    w = _unit_states(20 + S, (5, 4, 6), S, 2 * S, dev)
+    launched = _kernels.LAUNCHES["wilson_loop"]
+    library = _kernels.LAUNCHES["wilson_loop_library"]
+    for axis in range(3):
+        prod, smin = berry.wilson_loop(w, axis)
+        want, want_min = berry._wilson_loop_plain(w, axis)
+        assert _max_diff(prod, want) < TOL
+        assert _max_diff(smin, want_min) < TOL
+        # products of unitaries stay unitary
+        eye = torch.eye(S, dtype=prod.dtype, device=dev)
+        assert _max_diff(prod @ prod.conj().transpose(-1, -2), eye.expand_as(prod)) < TOL
+    if S > 8:  # the explicit shape rule, not a kernel launch
+        assert _kernels.LAUNCHES["wilson_loop_library"] == library + 3
+        assert _kernels.LAUNCHES["wilson_loop"] == launched
+    else:
+        assert _kernels.LAUNCHES["wilson_loop"] == launched + 3
+
+
+@pytest.mark.parametrize("S,F", [(1, 3), (2, 4), (3, 5), (8, 16), (20, 39)])
+def test_position_kernel(dev, S, F):
+    rng = np.random.default_rng(S + F)
+    B, nsta = 11, S + 3
+    z = rng.normal(size=(B, nsta, F)) + 1j * rng.normal(size=(B, nsta, F))
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)  # unit states, as eigenvectors are
+    w = torch.as_tensor(z).to(dev)
+    pos = torch.as_tensor(rng.uniform(0.0, 1.0, F) + rng.integers(0, 20, F)).to(dev)  # slab coordinates
+    occ = torch.as_tensor(rng.permutation(nsta)[:S]).to(dev)
+    before = _kernels.LAUNCHES["position"]
+    X = position.xmat(w, pos, occ)
+    assert _max_diff(X, position._xmat_plain(w, pos, occ)) < TOL
+    assert float((X - X.conj().transpose(-1, -2)).abs().max()) == 0.0  # exactly Hermitian
+    d = position.xmat(w, pos, occ, diagonal=True)
+    assert _max_diff(d, position._xdiag_plain(w, pos, occ)) < TOL
+    Xall = position.xmat(w, pos)
+    assert _max_diff(Xall, position._xmat_plain(w, pos)) < TOL
+    assert _kernels.LAUNCHES["position"] == before + 3
+
+
+@pytest.mark.parametrize("n", [3, 4, 8])
+def test_library_eigh_takes_large_batches(dev, n):
+    """eigh_batched hands torch.linalg.eigh slices of eigh.LIBRARY_BATCH
+    matrices; one cuSOLVER call on the whole batch is refused."""
+    rng = np.random.default_rng(n)
+    B = 2 * eigh.LIBRARY_BATCH + 5
+    z = rng.normal(size=(B, n, n)) + 1j * rng.normal(size=(B, n, n))
+    H = torch.as_tensor(z + np.conj(np.swapaxes(z, -1, -2))).to(dev)
+    w, v = eigh.eigh_batched(H)
+    want = torch.linalg.eigvalsh(H.cpu())
+    assert _max_diff(w.cpu(), want) < TOL * 10
+    assert _max_diff(eigh.eigvalsh_batched(H).cpu(), want) < TOL * 10
+    # rows are states: H v_s = w_s v_s
+    resid = torch.einsum("bij,bsj->bsi", H, v) - w[..., None] * v
+    assert float(resid.abs().max()) < TOL * 10
+
+
 def test_main_path_goes_through_kernels(dev):
     import pythtb_tpu_torch as pt
 
@@ -137,9 +206,21 @@ def test_main_path_goes_through_kernels(dev):
         wf = pt.wf_array(m, [31, 31])
         wf.solve_on_grid([-0.5, -0.5])
         c_wf = wf.berry_flux([0]) / (2.0 * np.pi)
-        for name in ("assemble", "eig2", "link_dets", "plaquette_flux"):
+        km = zoo.kane_mele(pt, "odd")
+        z2 = flows.z2_invariant(km, nk=(11, 11))
+        ribbon = m.cut_piece(6, 1)
+        wr = pt.wf_array(ribbon, [9])
+        wr.solve_on_grid([0.0])
+        hwfc = wr.position_hwf_all(list(range(6)), 1)
+        for name in ("assemble", "eig2", "link_dets", "plaquette_flux", "wilson_loop", "position"):
             assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        wr_cpu = pt.wf_array(ribbon, [9])
+        wr_cpu.solve_on_grid([0.0])
+        hwfc_cpu = wr_cpu.position_hwf_all(list(range(6)), 1)
     finally:
         config.set_device(prev)
     assert abs(c + 1.0) < 1e-9
     assert abs(c_wf - c) < 1e-10
+    assert z2 == 1.0
+    assert np.abs(hwfc - hwfc_cpu).max() < 1e-10

@@ -14,6 +14,8 @@ import pytest
 import pythtb_tpu
 import pythtb_tpu_torch
 
+from .test_torch_ops import on_cpu  # noqa: F401  (autouse: the port on the CPU)
+
 ATOL = 1e-12
 PHASE_TOL = 1e-10
 

@@ -5,7 +5,8 @@ them through pythtb_tpu on the CPU (float64, as the JAX package's own
 tests run it) and through pythtb_tpu_torch on the CPU, where every
 kernel wrapper runs its plain PyTorch version, and compares at the
 stated tolerance.  Models are built in pythtb_tpu and carried across
-with pythtb_tpu_torch.convert.
+with pythtb_tpu_torch.convert.  The port runs on the CPU here because
+the module's autouse fixture ``on_cpu`` asks for it.
 """
 
 import dataclasses
@@ -20,10 +21,20 @@ from pythtb_tpu.ops import berry as jberry
 from pythtb_tpu.ops.eigh import _eig2_analytic
 from pythtb_tpu.ops.solver import hamiltonian_kpts
 from pythtb_tpu.utils.xfer import host_pack
-from pythtb_tpu_torch import convert
+from pythtb_tpu_torch import config, convert
 from pythtb_tpu_torch.ops import berry, eigh, hamiltonian
 
 ATOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_cpu():
+    """The port defaults to the CUDA device; its CPU tests ask for the CPU
+    (and put back whatever was chosen before)."""
+    prev = config._device
+    config.set_device("cpu")
+    yield
+    config._device = prev
 
 
 def state_of(m):
@@ -166,3 +177,16 @@ def test_link_dets_and_plaquette_flux_match_jax(S):
         got, got_min = berry.berry_phase_traced(torch.as_tensor(w3), occ, axis, 1, 3)
         assert _wrapped(got, want) < ATOL
         assert abs(got_min - want_min) < ATOL * max(1.0, want_min)
+
+
+def test_library_eigh_runs_in_slices(monkeypatch):
+    """Batches beyond eigh.LIBRARY_BATCH go to torch.linalg.eigh in
+    slices, with the same result as one call."""
+    rng = np.random.default_rng(11)
+    H = rng.normal(size=(50, 4, 4)) + 1j * rng.normal(size=(50, 4, 4))
+    Ht = torch.as_tensor(H + np.conj(np.swapaxes(H, -1, -2)))
+    w1, v1 = eigh.eigh_batched(Ht)
+    monkeypatch.setattr(eigh, "LIBRARY_BATCH", 7)
+    w2, v2 = eigh.eigh_batched(Ht)
+    assert torch.equal(w1, w2) and torch.equal(v1, v2)
+    assert torch.equal(eigh.eigvalsh_batched(Ht), torch.linalg.eigvalsh(Ht))

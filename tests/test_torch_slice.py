@@ -20,7 +20,7 @@ import pythtb_tpu_torch
 from pythtb_tpu import flows as jflows
 
 from . import zoo
-from .test_torch_ops import carry
+from .test_torch_ops import carry, on_cpu  # noqa: F401  (autouse: the port on the CPU)
 
 PHASE_TOL = 1e-10
 PATH = [[0.0, 0.0], [2.0 / 3.0, 1.0 / 3.0], [0.5, 0.5], [0.0, 0.0]]
@@ -145,8 +145,52 @@ def test_host_view_aliasing():
     assert np.shares_memory(pv, pw._host)
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code):
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_import_pulls_in_no_jax():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = "import sys, pythtb_tpu_torch; assert 'jax' not in sys.modules, sorted(sys.modules)"
-    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
+    _run("import sys, pythtb_tpu_torch; assert 'jax' not in sys.modules, sorted(sys.modules)")
+
+
+def test_no_module_of_the_port_needs_jax():
+    """Every module of the port, and chip_smoke.py, imports with jax and
+    pythtb_tpu blocked (a None entry in sys.modules makes import raise)."""
+    _run(
+        "import importlib, pkgutil, sys\n"
+        "for name in ('jax', 'jaxlib', 'pythtb_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import pythtb_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(pythtb_tpu_torch.__path__, 'pythtb_tpu_torch.')]\n"
+        "assert len(names) >= 15, names\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+    )
+
+
+def test_the_card_is_the_default_device():
+    """With nothing chosen the port targets the CUDA device; without one,
+    the first upload raises an error naming set_device("cpu") instead of
+    computing on the CPU."""
+    _run(
+        "import io, contextlib, torch\n"
+        "import pythtb_tpu_torch as pt\n"
+        "from pythtb_tpu_torch import config\n"
+        "assert config.device().type == 'cuda', config.device()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    m = pt.tb_model(1, 1, [[1.0]], [[0.0]])\n"
+        "m.set_hop(-1.0, 0, 0, [1])\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        m.solve_all([[0.1]])\n"
+        "    except RuntimeError as exc:\n"
+        "        assert 'set_device(\"cpu\")' in str(exc), exc\n"
+        "    else:\n"
+        "        raise AssertionError('solve_all ran without a card')\n"
+        "config.set_device('cpu')\n"
+        "assert abs(m.solve_all([[0.1]])[0, 0] + 2 * __import__('math').cos(0.2 * __import__('math').pi)) < 1e-12\n"
+    )
