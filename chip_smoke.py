@@ -272,7 +272,7 @@ def phase_kernels(torch, pt, device):
     """Phase 3: each kernel vs its plain version at the main path's shapes."""
     from pythtb_tpu_torch import core, flows
     from pythtb_tpu_torch.ops import berry, eigh, hamiltonian, position, solver
-    from tests import zoo
+    from tests import workloads, zoo
 
     rng = np.random.default_rng(1)
     res = {}
@@ -297,16 +297,29 @@ def phase_kernels(torch, pt, device):
                      bound_by=cost[1], shape=key, device_us=dev_us, plain_device_us=plain_us,
                      plain_launches_per_call=plain_n)
 
-    # kernel 1: assemble
+    # kernel 1: assemble, at every shape of the main path
     hal = haldane(pt)._get_finalized()
     km = zoo.kane_mele(pt, "odd")._get_finalized()
+    fl = flake(pt)
+    fld = fl._get_finalized()
+    slab = cubic_slab(pt)
+    sd = slab._get_finalized()
+    si = pt.w90(workloads.W90_DATA_DIR, "silicon")
+    si_k = si.w90_bands_consistency()[0]
+    si1 = si.model(min_hopping_norm=0.01)._get_finalized()
+    si2 = si.model(zero_energy=6.2285135, min_hopping_norm=0.05, max_distance=4.0)._get_finalized()
     rnd = random_model_data(core, rng, device)
     k_hal = solver.device_uniform_grid((GRID - 1, GRID - 1), (-0.5, -0.5), device)
     k_km = solver.device_uniform_grid((40, 40), (-0.5, -0.5), device)
+    k_slab = solver.device_uniform_grid((40, 40), (0.0, 0.0), device)
     k_rnd = torch.as_tensor(rng.random((16384, 3)), dtype=torch.float64).to(device)
     for key, data, k, main in (
         ("haldane B=90000", hal, k_hal, True),
         ("kane_mele nspin2 B=1600", km, k_km, False),
+        ("flake norb800 dim_k0 B=1", fld, solver._prep_kpts(fld, None), False),
+        ("slab norb39 B=1600", sd, k_slab, False),
+        ("w90 silicon nhop%d B=190" % si1.nhop, si1, solver._prep_kpts(si1, si_k), False),
+        ("w90 silicon filtered B=48", si2, solver._prep_kpts(si2, si_k[::4]), False),
         ("norb64 nhop4096 B=16384", rnd, k_rnd, False),
     ):
         err = max_diff(torch, hamiltonian.assemble(data, k), hamiltonian._assemble_plain(data, k))
@@ -368,8 +381,6 @@ def phase_kernels(torch, pt, device):
 
     # kernel 6: position matrices.  Main shape: the 20-layer slab on a
     # 41 x 41 grid (B 1681, 39 states of F 39, the lower 20 chosen)
-    slab = cubic_slab(pt)
-    sd = slab._get_finalized()
     _, _, ws = solver.solve_grid_device(sd, (41, 41), (0.0, 0.0), slab._orb, slab._per, 1)
     w3 = ws.reshape(41 * 41, sd.nsta, -1)
     pos = torch.as_tensor(slab._pos_weights(2), dtype=torch.float64).to(device)
@@ -385,6 +396,15 @@ def phase_kernels(torch, pt, device):
     record("position", "slab 41x41 diagonal mode", err,
            lambda: position.xmat(w3, pos, occ, diagonal=True),
            lambda: position._xdiag_plain(w3, pos, occ), cost_position(B, 20, F, diagonal=True))
+    # the flake's position_expectation: all 800 card eigenvectors at once
+    # (B 1, S = F = 800, no selection), along both directions
+    fv = torch.as_tensor(np.ascontiguousarray(fl.solve_all(eig_vectors=True)[1][None])).to(device)
+    err = 0.0
+    for d in (0, 1):
+        p = torch.as_tensor(fl._pos_weights(d), dtype=torch.float64).to(device)
+        err = max(err, max_diff(torch, position.xmat(fv, p), position._xmat_plain(fv, p)))
+    record("position", "flake B=1 S=800 F=800", err, lambda: position.xmat(fv, p),
+           lambda: position._xmat_plain(fv, p), cost_position(1, 800, 800), reps=5)
     for S, F in ((1, 3), (2, 4), (8, 16), (64, 96)):
         st = unit_states(torch, rng, (257, S + 2, F), device)
         p = torch.as_tensor(rng.uniform(0.0, 20.0, F)).to(device)
@@ -519,7 +539,8 @@ def phase_walls(torch, pt, card):
     ws = pt.wf_array(slab, [41, 41])
     ws.solve_on_grid([0.0, 0.0])
     # (call, timed calls, profiled calls): the slab solve launches some
-    # 170,000 kernels per call, so the profiler reads one call of it
+    # 170,000 kernels per call, which would take the profiler a minute to
+    # read, so it is timed on the host's clock alone
     calls = {
         "flows.chern_number haldane 301x301": (
             lambda: pt.flows.chern_number(m, [0], nk=(GRID, GRID)), 10, 10),
@@ -528,14 +549,14 @@ def phase_walls(torch, pt, card):
         "flows.z2_invariant kane_mele check=True (31x31 + 61x61)": (
             lambda: pt.flows.z2_invariant(kmo, check=True), 5, 5),
         "flake 800 solve_all(eig_vectors=True)": (lambda: fl.solve_all(eig_vectors=True), 3, 3),
-        "slab 41x41 wf_array.solve_on_grid (nsta 39)": (lambda: ws.solve_on_grid([0.0, 0.0]), 3, 1),
+        "slab 41x41 wf_array.solve_on_grid (nsta 39)": (lambda: ws.solve_on_grid([0.0, 0.0]), 2, 0),
         "slab 41x41 position_hwf_all (20 states)": (
             lambda: ws.position_hwf_all(list(range(20)), 2), 5, 5),
     }
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
         ms = wall_ms(torch, fn, reps)
-        dev_us, n = device_us(torch, fn, prof_reps)
+        dev_us, n = device_us(torch, fn, prof_reps) if prof_reps else (None, None)
         busy = None if dev_us is None else 100.0 * dev_us / (1e3 * ms)
         walls[name] = {"wall_ms": ms, "device_us": dev_us, "device_activities": n, "busy_pct": busy}
         print("  steady wall %s: median %.3f ms, device %s us in %s activities per call, busy %s %% (%s)"
@@ -601,7 +622,9 @@ def main():
     compare_main_path(out, ref, gold_km, gold_si)
 
     # steady wall times of the main calls, after the counted window
+    t0 = time.perf_counter()
     walls = phase_walls(torch, pt, card)
+    print("[4 main] steady walls in %.1f s" % (time.perf_counter() - t0))
 
     # -- phase 5: launches -----------------------------------------------
     print("[5 launches] main path: %s" % json.dumps(launches))

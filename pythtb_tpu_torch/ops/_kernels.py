@@ -29,10 +29,8 @@ __all__ = ["LAUNCHES", "reset_launches", "library", "require", "launch"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pythtb_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # C entry point -> argument types (all return cudaGetLastError())
@@ -83,33 +81,34 @@ def library():
         tag = "%s.%d" % (digest.hexdigest()[:16], os.getpid())
         t0 = time.perf_counter()
         objs = [BUILD_DIR / ("%s.%s.o" % (src.stem, tag)) for src in sources]
-        procs = [
-            subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        try:
+            procs = [
+                subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                )
+                for src, obj in zip(sources, objs)
+            ]
+            logs = []
+            failed = []
+            for src, proc in zip(sources, procs):
+                _, err = proc.communicate()
+                logs.append(err)
+                if proc.returncode != 0:
+                    failed.append("%s (rc %d):\n%s" % (src.name, proc.returncode, err))
+            if failed:
+                raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            tmp = so.with_name("%s.%d.tmp" % (so.name, os.getpid()))
+            proc = subprocess.run(
+                [_nvcc(), "-shared", *GENCODE, "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
             )
-            for src, obj in zip(sources, objs)
-        ]
-        logs = []
-        failed = []
-        for src, proc in zip(sources, procs):
-            _, err = proc.communicate()
-            logs.append(err)
             if proc.returncode != 0:
-                failed.append("%s (rc %d):\n%s" % (src.name, proc.returncode, err))
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        tmp = so.with_name("%s.%d.tmp" % (so.name, os.getpid()))
-        proc = subprocess.run(
-            [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
-             *map(str, objs)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc link failed (rc %d):\n%s" % (proc.returncode, proc.stderr))
-        os.replace(tmp, so)
-        for obj in objs:
-            obj.unlink()
+                raise RuntimeError("nvcc link failed (rc %d):\n%s" % (proc.returncode, proc.stderr))
+            os.replace(tmp, so)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         build_info["seconds"] = time.perf_counter() - t0
         build_info["ptxas"] = "".join(logs)
     lib = ctypes.CDLL(str(so))

@@ -47,7 +47,8 @@ __all__ = [
     "wilson_eigenphases",
 ]
 
-# largest band count S that kernels 3 and 5 take in registers
+# largest band count S that kernels 3 and 5 take in registers (kernel 5
+# is slower than the library SVD at S = 8 on an H100: see PERF.md)
 _MAX_KERNEL_S = 8
 # most planes kernel 4 takes in one launch (CUDA's grid y-dimension limit)
 _MAX_PLANES = 65535
