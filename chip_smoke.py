@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: needs torch.cuda.is_available(); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compiles the six CUDA kernels with nvcc (sm_90a, one nvcc per
+2. build: compiles the nine CUDA kernels with nvcc (sm_90a, one nvcc per
    source, all started together) into build/pythtb_tpu_torch/ and
    prints the build seconds and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -15,7 +15,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    time of each over 25 runs (CUDA events), the time of the one PyTorch
    call that computes the same function where there is one, and the
    least time the card could take for the work (bytes over 3.35 TB/s or
-   float64 operations over 34 TFLOP/s, whichever is larger);
+   float64 operations over 34 TFLOP/s, whichever is larger); single
+   steps of kernels 9 and 10 are held at 1e-12, their whole recursions
+   at 1e-10 relative (sums of N terms in another order);
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -23,8 +25,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    the golden, 41 x 41 odd/even against the CPU); the Z2 invariant of
    both phases with its refinement check; hybrid Wannier centres of a
    20-layer cubic slab on a 41 x 41 grid; the 800-orbital Haldane flake's
-   levels and position expectations; Wannier90 silicon bands; then the
-   steady wall time of the main calls;
+   levels and position expectations; Wannier90 silicon bands; the
+   matrix-free stack at the widths of tools/bench_suite.py: kpm_dos on the
+   90,000-site Peierls flake, evolve of a wavepacket on it (20 steps),
+   Kubo-Bastin sigma_xy on the 24 x 24 disordered Haldane torus, kpm_ldos
+   of 64 probes on the 5,000-site Haldane flake, and the SSH quench echo;
+   then the steady wall time of the main calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -265,6 +271,39 @@ def cost_position(B, S, F, diagonal=False):
     return bound(B * S * F * C128 + F * F64 + S * I64 + B * S * S * C128, B * S * (S + 1) // 2 * F * 8)
 
 
+def _ell_table_bytes(h):
+    D = h.cols.shape[1]
+    return h.norb * D * (4 + h.nspin**2 * C128)
+
+
+def _ell_row_ops(h):
+    """fp64 operations of one ELL row product (a complex multiply-add per
+    slot and spin component)."""
+    return h.cols.shape[1] * h.nspin * 8
+
+
+def cost_ell_matvec(h, B):
+    return bound(_ell_table_bytes(h) + 2 * h.nsta * B * C128, h.nsta * B * _ell_row_ops(h))
+
+
+def cost_cheb(h, B, steps, out_bytes, extra_ops=0):
+    """A kernel-9 call of ``steps`` steps: the tables and the start block
+    read once, ``out_bytes`` written once; per element and step the ELL
+    row, the rescaling (4 ops) and 2 Ht T_m - T_m-1 (4), plus
+    ``extra_ops`` (4 for the two moment sums)."""
+    per = h.nsta * B * (_ell_row_ops(h) + 8 + extra_ops)
+    return bound(_ell_table_bytes(h) + h.nsta * B * C128 + out_bytes, steps * per)
+
+
+def cost_cheb_evolve(h, B, M, nsteps):
+    """Kernel 10: the tables, psi0 and the (M,) coefficients read once, the
+    (nsteps, nsta, B) history written once; per element and term the ELL
+    row, the recursion (8 ops) and acc += c T (8)."""
+    per = h.nsta * B * (_ell_row_ops(h) + 16)
+    nbytes = _ell_table_bytes(h) + h.nsta * B * C128 + M * C128 + nsteps * h.nsta * B * C128
+    return bound(nbytes, nsteps * (M - 1) * per)
+
+
 # ----------------------------------------------------------------------------
 
 
@@ -278,21 +317,43 @@ def phase_kernels(torch, pt, device):
     res = {}
     failures = []
 
-    def record(name, key, err, kernel, plain, cost, main=False, library_ms=None, reps=REPS):
-        """Time ``kernel`` and ``plain`` (CUDA events, median of ``reps``)
-        and, at the main shape, their device time per call (profiler)."""
-        ms, plain_ms = cuda_ms(torch, kernel, reps), cuda_ms(torch, plain, reps)
-        print("  %-15s %-34s max|diff| %.3e  kernel %.4f ms  plain %.4f ms%s  bound %.5f ms (%s)"
-              % (name, key, err, ms, plain_ms,
-                 "" if library_ms is None else "  library %.4f ms" % library_ms, *cost))
-        if not err <= TOL:
-            failures.append("%s %s disagrees with its plain version: %.3e" % (name, key, err))
+    def held(name, key, err, tol=TOL, scale=1.0):
+        """A kernel held against its plain version at a further main-path
+        shape, without timing."""
+        print("  %-15s %-34s max|diff| %.3e%s  (held, not timed)"
+              % (name, key, err, "" if scale == 1.0 else " (relative %.3e)" % (err / scale)))
+        if not err <= tol * scale:
+            failures.append("%s %s disagrees with its plain version: %.3e (limit %.1e)"
+                            % (name, key, err, tol * scale))
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def record(name, key, err, kernel, plain, cost, main=False, library_ms=None, reps=REPS,
+               scale=1.0, tol=TOL, prof_reps=10, prof_plain=True, profile=False):
+        """Time ``kernel`` and ``plain`` (CUDA events, median of ``reps``)
+        and, at the main shape, their device time per call (profiler).
+        ``err`` is the max |diff|; it must stay within ``tol * scale``.
+        ``prof_plain=False`` leaves out the plain version's profile (the
+        plain evolve's 12,500 launches take the profiler some 9 s);
+        ``profile`` profiles a row that is not the main shape."""
+        t0 = time.perf_counter()
+        ms, plain_ms = cuda_ms(torch, kernel, reps), cuda_ms(torch, plain, reps)
+        print("  %-15s %-34s max|diff| %.3e%s  kernel %.4f ms  plain %.4f ms%s  bound %.5f ms (%s)  [%.1f s]"
+              % (name, key, err, "" if scale == 1.0 else " (relative %.3e)" % (err / scale), ms, plain_ms,
+                 "" if library_ms is None else "  library %.4f ms" % library_ms, *cost,
+                 time.perf_counter() - t0))
+        if not err <= tol * scale:
+            failures.append("%s %s disagrees with its plain version: %.3e (limit %.1e)"
+                            % (name, key, err, tol * scale))
+        r = res.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main or profile:
+            t0 = time.perf_counter()
+            (dev_us, n) = device_us(torch, kernel, prof_reps)
+            (plain_us, plain_n) = device_us(torch, plain, prof_reps) if prof_plain else (None, None)
+            print("  %-15s %-34s device per call: kernel %s us (%s launches), plain %s us (%s launches)  [%.1f s]"
+                  % (name, key, fmt(dev_us), fmt(n), fmt(plain_us), fmt(plain_n), time.perf_counter() - t0))
         if main:
-            (dev_us, n), (plain_us, plain_n) = device_us(torch, kernel), device_us(torch, plain)
-            print("  %-15s %-34s device per call: kernel %s us (%s launches), plain %s us (%s launches)"
-                  % (name, key, fmt(dev_us), fmt(n), fmt(plain_us), fmt(plain_n)))
             r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=cost[0],
                      bound_by=cost[1], shape=key, device_us=dev_us, plain_device_us=plain_us,
                      plain_launches_per_call=plain_n)
@@ -404,7 +465,8 @@ def phase_kernels(torch, pt, device):
         p = torch.as_tensor(fl._pos_weights(d), dtype=torch.float64).to(device)
         err = max(err, max_diff(torch, position.xmat(fv, p), position._xmat_plain(fv, p)))
     record("position", "flake B=1 S=800 F=800", err, lambda: position.xmat(fv, p),
-           lambda: position._xmat_plain(fv, p), cost_position(1, 800, 800), reps=5)
+           lambda: position._xmat_plain(fv, p), cost_position(1, 800, 800), reps=5, profile=True,
+           prof_reps=3)
     for S, F in ((1, 3), (2, 4), (8, 16), (64, 96)):
         st = unit_states(torch, rng, (257, S + 2, F), device)
         p = torch.as_tensor(rng.uniform(0.0, 20.0, F)).to(device)
@@ -413,6 +475,7 @@ def phase_kernels(torch, pt, device):
                   max_diff(torch, position.xmat(st, p, o, diagonal=True), position._xdiag_plain(st, p, o)))
         record("position", "random B=257 S=%d F=%d" % (S, F), err, lambda: position.xmat(st, p, o),
                lambda: position._xmat_plain(st, p, o), cost_position(257, S, F), reps=3)
+    matrix_free_kernels(torch, pt, device, rng, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -422,8 +485,227 @@ def flake(pt):
     return haldane(pt).cut_piece(20, 0).cut_piece(20, 1)
 
 
-def phase_main_path(torch, pt, where):
-    """Phase 4: the port's main path through the entry points a user calls."""
+# -- the matrix-free workloads: the rows of tools/bench_suite.py ------------------
+
+EVOLVE_TIMES = np.linspace(0.5, 10.0, 20)  # chebyshev_evolve_90k_20steps: dt 0.5, order 58
+LDOS_SITES = np.concatenate([np.arange(32), 2500 + np.arange(32)])  # kpm_ldos_5k_sites_64probe
+KPM_MOMENTS, KPM_VECTORS = 512, 8
+_MODELS = {}
+
+
+def cached(key, build):
+    """Models built once per run."""
+    if key not in _MODELS:
+        _MODELS[key] = build()
+    return _MODELS[key]
+
+
+def peierls_flake(pt):
+    """The 90,000-site Peierls flake of kpm_dos_90k_sites_M512 and
+    chebyshev_evolve_90k_20steps: the square lattice cut 300 wide, flux
+    1/9 per plaquette (Landau gauge), cut 300 high."""
+    return cached("peierls_flake", lambda: pt.magnetic.peierls_model(
+        pt.models.square().cut_piece(300, 0), 1.0 / 9.0, dirs=(0, 1)).cut_piece(300, 1))
+
+
+def haldane_flake5k(pt):
+    """The 5,000-site Haldane flake of kpm_ldos_5k_sites_64probe (open edges)."""
+    return cached("haldane_flake5k", lambda: pt.models.haldane().cut_piece(
+        50, 0, glue_edgs=False).cut_piece(50, 1, glue_edgs=False))
+
+
+def kubo_torus(pt):
+    """The 24 x 24 Haldane torus with W = 1 Anderson disorder of
+    kpm_hall_1152_sites_M512 (1,152 sites), on the current device."""
+    from pythtb_tpu_torch import config
+
+    return cached(("kubo_torus", str(config.device())), lambda: pt.realspace.torus_sample(
+        pt.models.haldane(), (24, 24), onsite_disorder=1.0, seed=2))
+
+
+def ell_csr(torch, h):
+    """The ELL tables of an nspin-1 SparseH as a CSR tensor: the operand of
+    the library yardstick torch.sparse.mm (cuSPARSE), never the port's path."""
+    norb, D = h.cols.shape
+    rows = torch.arange(norb, device=h.device).repeat_interleave(D)
+    idx = torch.stack([rows, h.cols.reshape(-1).long()])
+    return torch.sparse_coo_tensor(idx, h.vals.reshape(-1), (norb, norb)).coalesce().to_sparse_csr()
+
+
+def matrix_free_kernels(torch, pt, device, rng, record, held):
+    """Phase 3 for kernels 8-10 at the matrix-free main path's shapes:
+    single steps at 1e-12, whole recursions at 1e-10 relative.  The timed
+    rows are the bench-suite shapes; every other shape that phase 4 gives
+    the kernels (the shorter calls compared with the CPU, the Kubo right
+    block, the seeded evolve, kernels 1 and 2 in quench_echo) is held
+    once without timing."""
+    from pythtb_tpu_torch import dynamics
+    from pythtb_tpu_torch.ops import chebyshev, matvec
+
+    h90 = matvec.sparse_h(peierls_flake(pt))
+    h5k = matvec.sparse_h(haldane_flake5k(pt))
+    torus = kubo_torus(pt)
+    N90 = h90.nsta
+
+    def block(shape):
+        z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(z).to(device)
+
+    def ab_of(h, margin):
+        lo, hi = h.window
+        return torch.tensor([0.5 * (hi - lo) / margin + 1e-12, 0.5 * (hi + lo)],
+                            dtype=torch.float64, device=device)
+
+    # kernel 8: the flake at B 8, and the Kubo velocity application, one
+    # launch over all M * R left vectors
+    for key, h, B, main in (("flake N=90000 B=8", h90, KPM_VECTORS, True),
+                             ("kubo velocity N=1152 B=4096", torus.velocity[0], KPM_MOMENTS * KPM_VECTORS, False)):
+        x = block((h.nsta, B))
+        want = matvec._matvec_plain(h, x)
+        csr = ell_csr(torch, h)
+        lib_err = max_diff(torch, torch.sparse.mm(csr, x), want)
+        print("  %-15s %-34s torch.sparse.mm (CSR) vs plain: max|diff| %.3e" % ("ell_matvec", key, lib_err))
+        record("ell_matvec", key, max_diff(torch, matvec.matvec(h, x), want), lambda: matvec.matvec(h, x),
+               lambda: matvec._matvec_plain(h, x), cost_ell_matvec(h, B), main,
+               cuda_ms(torch, lambda: torch.sparse.mm(csr, x)), profile=True)
+
+    # kernel 9, one step (T_1, then T_2 = 2 Ht T_1 - T_0): 90k x R 8 from
+    # random phases, 5k x B 64 from the LDOS probes' unit vectors
+    onehot = torch.zeros((h5k.nsta, len(LDOS_SITES)), dtype=torch.complex128, device=device)
+    onehot[torch.as_tensor(LDOS_SITES).to(device), torch.arange(len(LDOS_SITES), device=device)] = 1.0
+    for key, h, x0 in (("one step 90k R=8", h90, chebyshev.phase_vectors(N90, KPM_VECTORS, 1, device)),
+                       ("one step 5k B=64", h5k, onehot)):
+        ab = ab_of(h, 0.98)
+        blk = torch.empty((3,) + tuple(x0.shape), dtype=torch.complex128, device=device)
+        blk[0] = x0
+        got = chebyshev.recursion(h, ab, blk.clone())
+        want = chebyshev._recursion_plain(h, ab, blk.clone())
+        B = x0.shape[1]
+        record("cheb_moments", key, max_diff(torch, got, want), lambda: chebyshev.recursion(h, ab, blk),
+               lambda: chebyshev._recursion_plain(h, ab, blk), cost_cheb(h, B, 2, 2 * h.nsta * B * C128))
+
+    # kernel 9, whole recursions: the kpm_dos moments at 90k (main), the
+    # LDOS moments at 5k, a Kubo left block at 1,152
+    M = KPM_MOMENTS
+    steps = 1 + (M - 1) // 2
+    ab = ab_of(h90, 0.98)
+    x0 = chebyshev.phase_vectors(N90, KPM_VECTORS, 0, device)
+    err = max_diff(torch, chebyshev.moments(h90, ab, x0, M, float(N90)),
+                   chebyshev._moments_plain(h90, ab, x0, M, float(N90)))
+    record("cheb_moments", "kpm_dos 90k M=512 R=8 (256 steps)", err,
+           lambda: chebyshev.moments(h90, ab, x0, M, float(N90)),
+           lambda: chebyshev._moments_plain(h90, ab, x0, M, float(N90)),
+           cost_cheb(h90, KPM_VECTORS, steps, M * KPM_VECTORS * F64, 4), True, reps=3,
+           scale=N90, tol=1e-10, prof_reps=1)
+    ab5 = ab_of(h5k, 0.98)
+    err = max_diff(torch, chebyshev.moments(h5k, ab5, onehot, M, 1.0),
+                   chebyshev._moments_plain(h5k, ab5, onehot, M, 1.0))
+    record("cheb_moments", "kpm_ldos 5k B=64 M=512", err, lambda: chebyshev.moments(h5k, ab5, onehot, M, 1.0),
+           lambda: chebyshev._moments_plain(h5k, ab5, onehot, M, 1.0),
+           cost_cheb(h5k, 64, steps, M * 64 * F64, 4), reps=3, tol=1e-10, profile=True, prof_reps=1)
+    ht = torus.h
+    abt = ab_of(ht, 0.98)
+    left = torch.empty((ht.nsta, M, KPM_VECTORS), dtype=torch.complex128, device=device)
+    left[:, 0] = chebyshev.phase_vectors(ht.nsta, KPM_VECTORS, 0, device)
+    got = chebyshev.recursion(ht, abt, left.clone().permute(1, 0, 2))
+    want = chebyshev._recursion_plain(ht, abt, left.clone().permute(1, 0, 2))
+    record("cheb_moments", "kubo left block 1152 M=512 R=8", max_diff(torch, got, want),
+           lambda: chebyshev.recursion(ht, abt, left.permute(1, 0, 2)),
+           lambda: chebyshev._recursion_plain(ht, abt, left.permute(1, 0, 2)),
+           cost_cheb(ht, KPM_VECTORS, M - 1, (M - 1) * ht.nsta * KPM_VECTORS * C128), reps=3,
+           scale=float(want.abs().max()), tol=1e-10, profile=True, prof_reps=1)
+
+    # kernel 10: one term (order 3, one step) and the whole evolve call at
+    # 90k x B 1 (20 steps of order 58)
+    ab = ab_of(h90, 1.0)
+    a, b = float(ab[0]), float(ab[1])
+    dt = float(EVOLVE_TIMES[1] - EVOLVE_TIMES[0])
+
+    def coef(order):
+        from scipy.special import jv
+
+        nn = np.arange(order)
+        c = (2.0 - (nn == 0)) * (-1.0j) ** nn * jv(nn, a * dt) * np.exp(-1.0j * b * dt)
+        return torch.as_tensor(c).to(device)
+
+    psi = block((N90, 1))
+    psi /= torch.linalg.vector_norm(psi)
+    c3 = coef(3)
+    err = max_diff(torch, chebyshev.evolve(h90, ab, c3, psi, 1), chebyshev._evolve_plain(h90, ab, c3, psi, 1))
+    record("cheb_evolve", "one term 90k B=1", err, lambda: chebyshev.evolve(h90, ab, c3, psi, 1),
+           lambda: chebyshev._evolve_plain(h90, ab, c3, psi, 1), cost_cheb_evolve(h90, 1, 3, 1))
+    order = dynamics._cheb_order(a, dt)
+    cM = coef(order)
+    nsteps = len(EVOLVE_TIMES)
+    p0 = torch.zeros((N90, 1), dtype=torch.complex128, device=device)
+    p0[N90 // 2] = 1.0
+    err = max_diff(torch, chebyshev.evolve(h90, ab, cM, p0, nsteps), chebyshev._evolve_plain(h90, ab, cM, p0, nsteps))
+    record("cheb_evolve", "evolve 90k 20 steps order %d" % order, err,
+           lambda: chebyshev.evolve(h90, ab, cM, p0, nsteps),
+           lambda: chebyshev._evolve_plain(h90, ab, cM, p0, nsteps),
+           cost_cheb_evolve(h90, 1, order, nsteps), True, reps=3, tol=1e-10, prof_reps=1, prof_plain=False)
+
+    # the other main-path shapes, held once
+    from pythtb_tpu_torch.ops import eigh, hamiltonian, solver
+
+    # v_b x at R 8 and 2 (dirs (0, 1): v_b is velocity[1]), v_a on the left block at R 2
+    for d, B in ((1, KPM_VECTORS), (1, 2), (0, KPM_MOMENTS * 2)):
+        h = torus.velocity[d]
+        x = block((h.nsta, B))
+        held("ell_matvec", "kubo velocity %d N=1152 B=%d" % (d, B),
+             max_diff(torch, matvec.matvec(h, x), matvec._matvec_plain(h, x)))
+    for R in (KPM_VECTORS, 2):  # the Kubo right block (M, N, R) and the R 2 left block
+        phi = torch.empty((M, ht.nsta, R), dtype=torch.complex128, device=device)
+        phi[0] = block((ht.nsta, R))
+        want = chebyshev._recursion_plain(ht, abt, phi.clone())
+        held("cheb_moments", "kubo right block 1152 M=512 R=%d" % R,
+             max_diff(torch, chebyshev.recursion(ht, abt, phi.clone()), want), 1e-10, float(want.abs().max()))
+        lft = torch.empty((ht.nsta, M, R), dtype=torch.complex128, device=device)
+        lft[:, 0] = chebyshev.phase_vectors(ht.nsta, R, 2, device)
+        want = chebyshev._recursion_plain(ht, abt, lft.clone().permute(1, 0, 2))
+        held("cheb_moments", "kubo left block 1152 M=512 R=%d" % R,
+             max_diff(torch, chebyshev.recursion(ht, abt, lft.clone().permute(1, 0, 2)), want),
+             1e-10, float(want.abs().max()))
+    ab = ab_of(h90, 0.98)
+    x0 = chebyshev.phase_vectors(N90, 2, 0, device)
+    held("cheb_moments", "kpm_dos 90k M=128 R=2",
+         max_diff(torch, chebyshev.moments(h90, ab, x0, 128, float(N90)),
+                  chebyshev._moments_plain(h90, ab, x0, 128, float(N90))), 1e-10, N90)
+    held("cheb_moments", "kpm_ldos 5k B=8 M=128",
+         max_diff(torch, chebyshev.moments(h5k, ab5, onehot[:, ::8].contiguous(), 128, 1.0),
+                  chebyshev._moments_plain(h5k, ab5, onehot[:, ::8].contiguous(), 128, 1.0)), 1e-10)
+    # the seeded evolve of phase 4: 5k flake, times from 0.2 in steps of 0.4
+    ab5e = ab_of(h5k, 1.0)
+    a5, b5 = float(ab5e[0]), float(ab5e[1])
+
+    def coef5(step):
+        from scipy.special import jv
+
+        nn = np.arange(dynamics._cheb_order(a5, step))
+        return torch.as_tensor((2.0 - (nn == 0)) * (-1.0j) ** nn * jv(nn, a5 * step)
+                               * np.exp(-1.0j * b5 * step)).to(device)
+
+    p5 = torch.zeros((h5k.nsta, 1), dtype=torch.complex128, device=device)
+    p5[h5k.nsta // 2] = 1.0
+    c, cs = coef5(0.4), coef5(-0.2)
+    want = chebyshev._evolve_plain(h5k, ab5e, c, chebyshev._evolve_plain(h5k, ab5e, cs, p5, 1)[0], 8)
+    held("cheb_evolve", "seeded evolve 5k B=1, 8 steps",
+         max_diff(torch, dynamics._cheb_evolve(h5k, ab5e, c, p5, 8, cs), want), 1e-10)
+    # kernels 1 and 2 in quench_echo: the SSH chain on its 400-point grid
+    k400 = solver.device_uniform_grid((400,), (0.0,), device)
+    for delta in (0.6, -0.6):
+        data = pt.models.ssh(delta=delta)._get_finalized()
+        H = hamiltonian.assemble(data, k400)
+        held("assemble", "ssh quench nk=400 delta=%g" % delta, max_diff(torch, H, hamiltonian._assemble_plain(data, k400)))
+        w, v = eigh.eig2(H)
+        wp, vp = eigh._eig2_plain(H)
+        held("eig2", "ssh quench B=400 delta=%g" % delta, max(max_diff(torch, w, wp), max_diff(torch, v, vp)))
+
+
+def phase_main_path(torch, pt, where, reference=False):
+    """Phase 4: the port's main path through the entry points a user calls.
+    The CPU reference (``reference``) evolves the 90k flake 4 steps of the
+    card's 20, to keep the run short; the steps are the same."""
     from tests import workloads, zoo
 
     out = {}
@@ -480,6 +762,82 @@ def phase_main_path(torch, pt, where):
     sm = si.model(min_hopping_norm=0.01)
     out["si_nhop"] = len(sm._hoppings)
     out["si_bands"] = sm.solve_all(si.w90_bands_consistency()[0])
+    out.update(matrix_free_path(pt, where, reference))
+    return out
+
+
+def matrix_free_path(pt, where, reference):
+    """The matrix-free stack (kernels 8-10) through its public calls, with
+    the checks of tools/bench_suite.py's rows.  To keep the run short, the
+    CPU reference (``reference``) runs shorter calls, which the card
+    repeats for the comparison: the 90k kpm_dos at 128 moments and 2
+    vectors, kpm_conductivity at 2 vectors, kpm_ldos at 128 moments and 8
+    of the 64 probes; and it evolves 4 of the 20 steps."""
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    fl = peierls_flake(pt)
+    N = fl._nsta
+    if not reference:
+        (e, dos), sec = timed(pt.flows.kpm_dos, fl, num_moments=KPM_MOMENTS, num_vectors=KPM_VECTORS)
+        integral = float(dos.sum() * (e[1] - e[0]))
+        print("  %s kpm_dos %d sites M=%d R=%d: integral %.2f  [%.2f s]"
+              % (where, N, KPM_MOMENTS, KPM_VECTORS, integral, sec))
+        check(np.isfinite(dos).all() and abs(integral - N) < 0.02 * N,
+              "kpm_dos integral %.2f is not %d" % (integral, N))
+    (_, out["kpm_dos_short"]), sec = timed(pt.flows.kpm_dos, fl, num_moments=128, num_vectors=2)
+    print("  %s kpm_dos %d sites M=128 R=2  [%.2f s]" % (where, N, sec))
+
+    p0 = np.zeros(N, complex)
+    p0[N // 2] = 1.0
+    psi, sec = timed(pt.dynamics.evolve, fl, p0, EVOLVE_TIMES[:4] if reference else EVOLVE_TIMES)
+    drift = float(np.abs(np.linalg.norm(psi, axis=1) - 1.0).max())
+    out["evolve"] = psi
+    print("  %s evolve %d sites, %d steps of dt 0.5: norm drift %.3e  [%.2f s]"
+          % (where, N, psi.shape[0], drift, sec))
+    check(psi.shape == ((4 if reference else 20), N) and drift < 1e-10, "evolve norm drift %.3e" % drift)
+    # the seeded branch (times[0] != dt: one backward step of its own order first)
+    f5 = haldane_flake5k(pt)
+    p5 = np.zeros(f5._nsta, complex)
+    p5[f5._nsta // 2] = 1.0
+    out["evolve_seeded"], sec = timed(pt.dynamics.evolve, f5, p5, np.linspace(0.2, 3.0, 8))
+    drift = float(np.abs(np.linalg.norm(out["evolve_seeded"], axis=1) - 1.0).max())
+    print("  %s evolve %d sites, seeded (times from 0.2, dt 0.4): norm drift %.3e  [%.2f s]"
+          % (where, f5._nsta, drift, sec))
+    check(drift < 1e-10, "seeded evolve norm drift %.3e" % drift)
+
+    if not reference:
+        (ef, sxy), sec = timed(pt.realspace.kpm_conductivity, kubo_torus(pt), dirs=(0, 1),
+                               num_moments=KPM_MOMENTS, num_vectors=KPM_VECTORS)
+        mid = float(sxy[np.argmin(np.abs(ef))])
+        print("  %s kpm_conductivity 24x24 torus (1152 sites, W=1) M=%d R=%d: mid-gap sigma_xy %.6f  [%.2f s]"
+              % (where, KPM_MOMENTS, KPM_VECTORS, mid, sec))
+        check(np.isfinite(sxy).all() and abs(mid + 1.0) < 5e-2, "mid-gap sigma_xy %.6f is not -1" % mid)
+    (_, out["sxy_short"]), sec = timed(pt.realspace.kpm_conductivity, kubo_torus(pt), dirs=(0, 1),
+                                       num_moments=KPM_MOMENTS, num_vectors=2)
+    print("  %s kpm_conductivity 24x24 torus M=%d R=2  [%.2f s]" % (where, KPM_MOMENTS, sec))
+
+    if not reference:
+        (el, ld), sec = timed(pt.realspace.kpm_ldos, f5, LDOS_SITES, num_moments=KPM_MOMENTS, n_energies=801)
+        probe = np.abs(ld.sum(axis=1) * (el[1] - el[0]) - 1.0).max()
+        print("  %s kpm_ldos %d sites, %d probes M=%d: worst |sum rho dE - 1| %.3e  [%.2f s]"
+              % (where, f5._nsta, len(LDOS_SITES), KPM_MOMENTS, probe, sec))
+        check(ld.shape == (len(LDOS_SITES), 801) and probe < 0.05, "LDOS probe integrals off by %.3e" % probe)
+    (_, out["ldos_short"]), sec = timed(pt.realspace.kpm_ldos, f5, LDOS_SITES[::8], num_moments=128,
+                                        n_energies=801)
+    print("  %s kpm_ldos %d sites, %d probes M=128  [%.2f s]" % (where, f5._nsta, len(LDOS_SITES[::8]), sec))
+
+    # the SSH quench across the transition (tests/test_dynamics.py), nk 400,
+    # 400 times: kernels 1 and 2
+    g, sec = timed(pt.dynamics.quench_echo, pt.models.ssh(delta=0.6), pt.models.ssh(delta=-0.6), [0], (400,),
+                   np.linspace(0.02, 6.0, 400))
+    out["quench"] = g
+    print("  %s quench_echo ssh 0.6 -> -0.6, nk 400, 400 times: max g %.6f  [%.2f s]" % (where, float(g.max()), sec))
+    check(np.isfinite(g).all() and g.max() > 0.1, "quench echo rate function has no cusp: max %.3e" % g.max())
     return out
 
 
@@ -525,6 +883,15 @@ def compare_main_path(out, ref, gold_km, gold_si):
     print("  w90 silicon vs PythTB golden (rtol 1e-8): max|diff| %.3e; %d hops, 190 k-points vs CPU %.3e"
           % (worst, out["si_nhop"], err))
     check(err < 1e-10, "w90 silicon bands differ from the CPU path by %.3e" % err)
+    for key, tol, what in (("kpm_dos_short", 1e-10, "relative"), ("evolve", 1e-10, "absolute"),
+                           ("evolve_seeded", 1e-10, "absolute"), ("sxy_short", 1e-8, "absolute"),
+                           ("ldos_short", 1e-10, "absolute"), ("quench", 1e-10, "absolute")):
+        got, want = out[key][: len(ref[key])], ref[key]
+        err = float(np.abs(got - want).max())
+        if what == "relative":
+            err /= float(np.abs(want).max())
+        print("  %s vs CPU: max|diff| %.3e (%s)" % (key, err, what))
+        check(got.shape == want.shape and err < tol, "%s differs from the CPU path by %.3e" % (key, err))
 
 
 def phase_walls(torch, pt, card):
@@ -538,6 +905,9 @@ def phase_walls(torch, pt, card):
     slab = cubic_slab(pt)
     ws = pt.wf_array(slab, [41, 41])
     ws.solve_on_grid([0.0, 0.0])
+    fl90, f5, torus = peierls_flake(pt), haldane_flake5k(pt), kubo_torus(pt)
+    p0 = np.zeros(fl90._nsta, complex)
+    p0[fl90._nsta // 2] = 1.0
     # (call, timed calls, profiled calls): the slab solve launches some
     # 170,000 kernels per call, which would take the profiler a minute to
     # read, so it is timed on the host's clock alone
@@ -552,6 +922,13 @@ def phase_walls(torch, pt, card):
         "slab 41x41 wf_array.solve_on_grid (nsta 39)": (lambda: ws.solve_on_grid([0.0, 0.0]), 2, 0),
         "slab 41x41 position_hwf_all (20 states)": (
             lambda: ws.position_hwf_all(list(range(20)), 2), 5, 5),
+        "flows.kpm_dos 90k M=512 R=8": (
+            lambda: pt.flows.kpm_dos(fl90, num_moments=KPM_MOMENTS, num_vectors=KPM_VECTORS), 3, 2),
+        "dynamics.evolve 90k 20 steps": (lambda: pt.dynamics.evolve(fl90, p0, EVOLVE_TIMES), 3, 2),
+        "realspace.kpm_conductivity 1152 M=512 R=8": (
+            lambda: pt.realspace.kpm_conductivity(torus, num_moments=KPM_MOMENTS, num_vectors=KPM_VECTORS), 3, 2),
+        "realspace.kpm_ldos 5k 64 probes M=512": (
+            lambda: pt.realspace.kpm_ldos(f5, LDOS_SITES, num_moments=KPM_MOMENTS, n_energies=801), 3, 2),
     }
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
@@ -592,6 +969,8 @@ def main():
     _kernels.library()
     print("[2 build] kernels ready in %.2f s (nvcc %s s) -> %s"
           % (time.perf_counter() - t0, _kernels.build_info["seconds"], _kernels.build_info["path"]))
+    print("[2 build] nvcc seconds per source (all started together): %s"
+          % ", ".join("%s %.1f" % kv for kv in sorted(_kernels.build_info["compile_seconds"].items())))
     for line in _kernels.build_info["ptxas"].splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("[2 build] " + line.strip())
@@ -605,14 +984,15 @@ def main():
     # CPU references for phase 4, made before the counted window
     t0 = time.perf_counter()
     config.set_device("cpu")
-    ref = phase_main_path(torch, pt, "[cpu reference]")
+    ref = phase_main_path(torch, pt, "[cpu reference]", reference=True)
     config.set_device(device)
     gold_km = np.load(ROOT / "tests" / "golden" / "data" / "kane_mele_flow.npz")
     gold_si = np.load(ROOT / "tests" / "golden" / "data" / "w90_silicon.npz")
     print("[4 main] CPU reference in %.1f s" % (time.perf_counter() - t0))
 
     # -- phase 4: main path ----------------------------------------------
-    print("[4 main] Haldane bands and Chern, Kane-Mele flows and Z2, slab HWF, flake, w90 silicon:")
+    print("[4 main] Haldane bands and Chern, Kane-Mele flows and Z2, slab HWF, flake, w90 silicon, "
+          "KPM DOS/LDOS/Kubo, Chebyshev evolution, quench echo:")
     t0 = time.perf_counter()
     _kernels.reset_launches()
     out = phase_main_path(torch, pt, "[gpu]")
@@ -628,7 +1008,8 @@ def main():
 
     # -- phase 5: launches -----------------------------------------------
     print("[5 launches] main path: %s" % json.dumps(launches))
-    kernels = ("assemble", "eig2", "link_dets", "plaquette_flux", "wilson_loop", "position")
+    kernels = ("assemble", "eig2", "link_dets", "plaquette_flux", "wilson_loop", "position",
+               "ell_matvec", "cheb_moments", "cheb_evolve")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -640,6 +1021,9 @@ def main():
         "plaquette_flux": ("plaquette_flux.cu", "pythtb_tpu/ops/berry.py:83"),
         "wilson_loop": ("wilson_loop.cu", "pythtb_tpu/ops/berry.py:263"),
         "position": ("position.cu", "pythtb_tpu/ops/position.py:33"),
+        "ell_matvec": ("ell_matvec.cu", "pythtb_tpu/ops/matvec.py:201"),
+        "cheb_moments": ("cheb_moments.cu", "pythtb_tpu/flows.py:1061"),
+        "cheb_evolve": ("cheb_evolve.cu", "pythtb_tpu/dynamics.py:95"),
     }
     rows = []
     for name in kernels:

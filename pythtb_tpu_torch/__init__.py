@@ -10,17 +10,21 @@ read Berry phases, Wilson loops, Berry fluxes, Chern and Z2 invariants,
 polarization and hybrid Wannier centres (``berry_phase``,
 ``berry_flux``, ``position_hwf``, :func:`flows.chern_number`,
 :func:`flows.wilson_flow`, :func:`flows.z2_invariant`,
-:func:`flows.polarization`).
+:func:`flows.polarization`).  Matrix-free, for large finite or
+disordered samples: the kernel-polynomial DOS (:func:`flows.kpm_dos`),
+LDOS and Kubo-Bastin conductivity (:mod:`realspace`), Chebyshev time
+evolution and quench echoes (:mod:`dynamics`), Peierls fields
+(:mod:`magnetic`), and the model zoo (:mod:`models`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through six hand-written CUDA
+an NVIDIA Hopper card the hot paths run through nine hand-written CUDA
 kernels (``csrc/``, built with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
-from . import config, flows
+from . import config, dynamics, flows, magnetic, models, realspace
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
 from .w90 import w90
@@ -28,4 +32,7 @@ from .wf_array import wf_array
 
 __version__ = "0.2.0"
 
-__all__ = ["tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "__version__"]
+__all__ = [
+    "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
+    "magnetic", "models", "realspace", "__version__",
+]

@@ -7,7 +7,9 @@ at two bands), extended by the periodic gauge, and then either reduced
 to link determinants (kernel 3) and summed over plaquettes (kernel 4) --
 ``chern_number`` -- or chained into Wilson loops (kernel 5) --
 ``wilson_flow`` and the Z2 invariant.  Only the results come back.
-``polarization`` goes through ``wf_array``.  The other flows of the JAX
+``polarization`` goes through ``wf_array``.  ``kpm_dos`` is matrix-free:
+the kernel-polynomial DOS of a finite model, whose Chebyshev moment
+recursion runs as one call of kernel 9.  The other flows of the JAX
 package are not ported yet.
 """
 
@@ -21,6 +23,7 @@ import torch
 
 from . import config
 from .core import BlochData
+from .ops import chebyshev
 from .ops.berry import _dets, _plane_link_dets, _wrap, plaquette_flux, wilson_eigenphases, wilson_loop
 from .ops.eigh import eigh_batched
 from .ops.hamiltonian import assemble
@@ -28,7 +31,7 @@ from .ops.solver import device_uniform_grid, extend_pbc_seq
 
 __all__ = [
     "gauge_phases", "berry_flux_grid", "chern_number", "wilson_flow", "z2_fn",
-    "z2_invariant", "polarization",
+    "z2_invariant", "polarization", "kpm_dos",
 ]
 
 
@@ -304,3 +307,71 @@ def polarization(model, occ, dir=0, nk=31, start_k=None):
     if ph.ndim > 0:
         ph = ph[tuple(slice(0, -1) for _ in range(ph.ndim))]
     return float(np.mean(ph) / (2.0 * np.pi) % 1.0)
+
+
+def _kpm_moments(h, a, b, x0, M):
+    """Stochastic Chebyshev moments mu_0..mu_{M-1} of the rescaled
+    (H - b)/a, averaged over the random-phase columns of ``x0`` (nsta, R)
+    (counterpart of ``_kpm_moments_jit``, which draws the vectors itself):
+    one call of kernel 9, two moments per matvec."""
+    ab = torch.tensor([a, b], dtype=config.FLOAT, device=h.device)
+    return chebyshev.moments(h, ab, x0, M, float(h.nsta)).mean(dim=1)
+
+
+def _jackson(M):
+    """Jackson kernel g_m, m < M (Weisse et al., Rev. Mod. Phys. 78, 275
+    (2006))."""
+    m = np.arange(M)
+    Mp = M + 1.0
+    return ((Mp - m) * np.cos(np.pi * m / Mp) + np.sin(np.pi * m / Mp) / np.tan(np.pi / Mp)) / Mp
+
+
+def _chebyshev_density(mu, a, b, lo, hi, energies, n_energies):
+    """Jackson-damped KPM reconstruction ``sum_m w_m g_m mu_m T_m(e) /
+    (pi sqrt(1 - e^2) a)`` on host, zero outside the rescaled window;
+    ``mu`` is (M,) or (M, nprobe).  Returns (energies, density) with
+    density (nE,) or (nprobe, nE)."""
+    M = mu.shape[0]
+    if energies is None:
+        energies = np.linspace(lo, hi, int(n_energies))
+    energies = np.asarray(energies, dtype=np.float64)
+    et_raw = (energies - b) / a
+    inside = np.abs(et_raw) < 1.0 - 1e-12  # outside the window the density is 0
+    et = np.clip(et_raw, -1.0 + 1e-12, 1.0 - 1e-12)
+    m_arr = np.arange(M)
+    tm = np.cos(m_arr[None, :] * np.arccos(et)[:, None])  # (nE, M)
+    w = np.full(M, 2.0)
+    w[0] = 1.0
+    dens = (tm * (w * _jackson(M))[None, :]) @ mu  # (nE,) or (nE, nprobe)
+    dens = dens.T / (np.pi * np.sqrt(1.0 - et**2)) / a
+    return energies, np.where(inside, dens, 0.0)
+
+
+def kpm_dos(model, energies=None, num_moments=512, num_vectors=8, n_energies=401, seed=0):
+    """Density of states of a FINITE model by the kernel polynomial
+    method (stochastic Chebyshev expansion with the Jackson kernel).
+
+    Needs only ``num_moments/2`` Hamiltonian applications per random
+    vector and no diagonalization.  The moment recursion over the ELL
+    tables (:mod:`pythtb_tpu_torch.ops.matvec`) is one call of kernel 9,
+    with the doubling identities ``mu_{2m} = 2<T_m|T_m> - mu_0`` and
+    ``mu_{2m+1} = 2<T_{m+1}|T_m> - mu_1``.
+
+    :param energies: energy grid (default: Gershgorin window,
+      ``n_energies`` points)
+    :param num_moments: Chebyshev moments (resolution ~ spectral width
+      / num_moments; Jackson-kernel broadening)
+    :param num_vectors: random-phase vectors for the stochastic trace
+      (relative error ~ 1/sqrt(num_vectors * norb)), drawn by
+      :func:`pythtb_tpu_torch.ops.chebyshev.phase_vectors` from ``seed``
+    :returns: ``(energies, dos)`` with ``sum(dos) * dE ~ norb * nspin``
+    """
+    from .ops.matvec import gershgorin_window, sparse_h
+
+    h = sparse_h(model)
+    lo, hi = gershgorin_window(h)
+    a = 0.5 * (hi - lo) / 0.98 + 1e-12  # keep the spectrum inside (-0.98, 0.98)
+    b = 0.5 * (hi + lo)
+    x0 = chebyshev.phase_vectors(h.nsta, num_vectors, seed, h.device)
+    mu = _kpm_moments(h, a, b, x0, int(num_moments)).cpu().numpy()
+    return _chebyshev_density(mu, a, b, lo, hi, energies, n_energies)

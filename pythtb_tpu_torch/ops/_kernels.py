@@ -8,7 +8,8 @@ sources and flags and lives in ``build/pythtb_tpu_torch/`` at the root
 of the checkout, so a changed source rebuilds it.  Nothing here runs at
 import: the CPU tests import every module.
 
-Each kernel wrapper (in the module of the JAX program it replaces)
+Each kernel wrapper (in the module of the JAX program it replaces, or
+in ``ops/chebyshev.py`` for the recursions of kernels 9 and 10)
 validates its tensors with :func:`require`, allocates its outputs with
 ``torch.empty``, launches through :func:`launch` on the current stream,
 and counts the launch in :data:`LAUNCHES`.
@@ -21,6 +22,7 @@ import hashlib
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -41,18 +43,24 @@ _SIGNATURES = {
     "pythtb_plaquette_flux": [_P] * 7 + [_I] * 4 + [_P],
     "pythtb_wilson_loop": [_P] * 3 + [_I] * 5 + [_P],
     "pythtb_position": [_P] * 4 + [_I] * 5 + [_P],
+    "pythtb_ell_matvec": [_P] * 4 + [_I] * 6 + [_P],
+    "pythtb_cheb_moments": [_P] * 6 + [_I] * 5 + [_P],
+    "pythtb_cheb_recursion": [_P] * 4 + [_I] * 7 + [_P],
+    "pythtb_cheb_evolve": [_P] * 7 + [_I] * 6 + [_P],
 }
 
-# Launches per wrapper since the last reset.  "link_dets_library" and
+# Launches per kernel since the last reset.  Kernels 9 and 10 run a whole
+# recursion from one C call; they count each step (kernel 9) or term
+# (kernel 10) that ran on the device.  "link_dets_library" and
 # "wilson_loop_library" count the S > 8 shape rules of ops.berry, which
 # launch no kernel of this package.
 LAUNCHES = dict.fromkeys(
     ("assemble", "eig2", "link_dets", "plaquette_flux", "wilson_loop", "position",
-     "link_dets_library", "wilson_loop_library"), 0
+     "ell_matvec", "cheb_moments", "cheb_evolve", "link_dets_library", "wilson_loop_library"), 0
 )
 
 _lib = None
-build_info = {"seconds": None, "path": None, "ptxas": ""}
+build_info = {"seconds": None, "path": None, "ptxas": "", "compile_seconds": {}}
 
 
 def reset_launches():
@@ -81,21 +89,21 @@ def library():
         tag = "%s.%d" % (digest.hexdigest()[:16], os.getpid())
         t0 = time.perf_counter()
         objs = [BUILD_DIR / ("%s.%s.o" % (src.stem, tag)) for src in sources]
+
+        def compile_one(src, obj):
+            start = time.perf_counter()
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  capture_output=True, text=True)
+            return proc, time.perf_counter() - start
+
         try:
-            procs = [
-                subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                )
-                for src, obj in zip(sources, objs)
-            ]
-            logs = []
-            failed = []
-            for src, proc in zip(sources, procs):
-                _, err = proc.communicate()
-                logs.append(err)
-                if proc.returncode != 0:
-                    failed.append("%s (rc %d):\n%s" % (src.name, proc.returncode, err))
+            # one thread per source, so every nvcc starts at once
+            with ThreadPoolExecutor(len(sources)) as pool:
+                results = list(pool.map(compile_one, sources, objs))
+            logs = [proc.stderr for proc, _ in results]
+            build_info["compile_seconds"] = {src.name: sec for src, (_, sec) in zip(sources, results)}
+            failed = ["%s (rc %d):\n%s" % (src.name, proc.returncode, proc.stderr)
+                      for src, (proc, _) in zip(sources, results) if proc.returncode != 0]
             if failed:
                 raise RuntimeError("nvcc failed for " + "\n".join(failed))
             tmp = so.with_name("%s.%d.tmp" % (so.name, os.getpid()))
@@ -136,14 +144,32 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None, device=N
         raise ValueError("%s must be contiguous" % name)
 
 
-def launch(kernel: str, device: torch.device, *args):
+def require_rows(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device=None) -> int:
+    """As :func:`require` for a 2-D view whose rows need not be adjacent
+    (a slot of a larger block): each row must be contiguous.  Returns the
+    row stride in elements."""
+    if t.device.type != "cuda":
+        raise ValueError("%s must be a CUDA tensor, got %s" % (name, t.device))
+    if device is not None and t.device != device:
+        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
+    if t.dtype != dtype:
+        raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s must have shape %s, got %s" % (name, tuple(shape), tuple(t.shape)))
+    if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+        raise ValueError("%s must have contiguous rows, got strides %s" % (name, t.stride()))
+    return t.stride(0)
+
+
+def launch(kernel: str, device: torch.device, *args, counter=None, count=1):
     """Call C entry point ``pythtb_<kernel>`` on ``device``'s current
     stream; tensors in ``args`` pass as pointers, ints as sizes.  Raises
-    if the launch was refused; counts it otherwise."""
+    if the launch was refused; otherwise adds ``count`` device launches
+    to ``LAUNCHES[counter or kernel]``."""
     fn = getattr(library(), "pythtb_" + kernel)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         rc = fn(*conv, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError("CUDA kernel %s failed to launch: cudaError %d" % (kernel, rc))
-    LAUNCHES[kernel] += 1
+    LAUNCHES[counter or kernel] += count

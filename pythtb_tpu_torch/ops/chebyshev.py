@@ -1,0 +1,188 @@
+"""Chebyshev recursions on the ELL Hamiltonian: kernels 9 and 10.
+
+Both run T_{m+1} = 2 Ht T_m - T_{m-1} with Ht = (H - b) / a, the JAX
+programs' ``(matvec(h, v) - ab[1] * v) / ab[0]``; ``ab`` is a (2,)
+float64 tensor (a, b) on ``h``'s device.  Blocks of vectors are
+(nsta, B), flat state index spin-fastest, as in :mod:`.matvec`.
+
+* :func:`moments` -- kernel 9 in moments mode (``csrc/cheb_moments.cu``):
+  the KPM moments mu (M, B) of ``flows._kpm_moments_jit`` and
+  ``realspace._ldos_moments_jit``, two per matvec by the doubling
+  identities.
+* :func:`recursion` -- kernel 9 in recursion-only mode: slots 1..M-1 of
+  a Chebyshev block from slot 0, written in place (the two recursions
+  of ``realspace._kubo_moments_jit``).
+* :func:`evolve` -- kernel 10 (``csrc/cheb_evolve.cu``): Chebyshev-Bessel
+  time steps of ``dynamics._cheb_evolve_jit``, the state after each step.
+
+Each C entry point runs the whole recursion, issuing one launch per step
+(or term) on the current stream, so a call costs one ctypes call; the
+launch counters count the device launches of steps or terms.  CPU
+tensors run the plain PyTorch versions (``_*_plain``), the JAX scan
+bodies written out; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import config
+from . import _kernels
+from .matvec import SparseH, _check_tables, _matvec_plain
+
+__all__ = ["phase_vectors", "moments", "recursion", "evolve"]
+
+_MAX_ROW_BLOCKS = 1024  # kMaxRowBlocks of cheb_moments.cu: rows of the partial sums
+
+
+def phase_vectors(nsta: int, R: int, seed: int, device):
+    """R random-phase vectors ``exp(1j * theta)`` as an (nsta, R) block on
+    ``device``: ``theta = 2 pi * torch.rand((nsta, R), dtype=float64,
+    generator=torch.Generator().manual_seed(seed))``, drawn on the host,
+    so the CPU and the card see the same vectors.  (JAX's threefry draws
+    of the JAX package are other numbers.)"""
+    gen = torch.Generator().manual_seed(int(seed))
+    theta = torch.rand((int(nsta), int(R)), dtype=config.FLOAT, generator=gen) * (2.0 * math.pi)
+    return torch.polar(torch.ones_like(theta), theta).to(device)
+
+
+def _scaled(h: SparseH, ab, v):
+    """(H v - b v) / a for a (nsta, B) block, plain PyTorch."""
+    B = v.shape[-1]
+    shape = (h.norb, 2, B) if h.nspin == 2 else (h.norb, B)
+    return (_matvec_plain(h, v.reshape(shape)).reshape(h.nsta, B) - ab[1] * v) / ab[0]
+
+
+def _check(h: SparseH, ab, x, name):
+    D = _check_tables(h)
+    _kernels.require(ab, "ab", config.FLOAT, (2,), h.device)
+    _kernels.require(x, name, config.COMPLEX, (h.nsta, x.shape[-1]), h.device)
+    return D
+
+
+# -- kernel 9, moments mode ----------------------------------------------
+
+
+def _moments_plain(h: SparseH, ab, x0, M, mu0):
+    """The JAX moment scan in torch: mu_0 = mu0, mu_1 = <x0|T_1>,
+    mu_2m = 2<T_m|T_m> - mu_0, mu_2m+1 = 2<T_m+1|T_m> - mu_1."""
+    B = x0.shape[1]
+    mu = torch.empty((M, B), dtype=config.FLOAT, device=x0.device)
+    mu[0] = mu0
+    if M < 2:
+        return mu
+    tm, tc = x0, _scaled(h, ab, x0)
+    mu[1] = torch.sum(torch.real(torch.conj(tm) * tc), dim=0)
+    for m in range(1, (M - 1) // 2 + 1):
+        tn = 2.0 * _scaled(h, ab, tc) - tm
+        mu[2 * m] = 2.0 * torch.sum(torch.real(torch.conj(tc) * tc), dim=0) - mu[0]
+        if 2 * m + 1 < M:
+            mu[2 * m + 1] = 2.0 * torch.sum(torch.real(torch.conj(tn) * tc), dim=0) - mu[1]
+        tm, tc = tc, tn
+    return mu
+
+
+def moments(h: SparseH, ab, x0, M: int, mu0: float):
+    """Chebyshev moments ``mu[m, b] = <x0_b| T_m(Ht) |x0_b>`` (real part)
+    for m < M, with ``mu[0]`` set to ``mu0`` as the JAX programs set it
+    (N for random-phase vectors, 1 for unit vectors).
+
+    :param x0: (nsta, B) complex start vectors on ``h``'s device
+    :returns: (M, B) float64
+    """
+    M = int(M)
+    if x0.device.type == "cpu":
+        return _moments_plain(h, ab, x0, M, mu0)
+    D = _check(h, ab, x0, "x0")
+    B = x0.shape[1]
+    work = torch.empty((2, h.nsta, B), dtype=config.COMPLEX, device=h.device)
+    work[0].copy_(x0)
+    part = torch.empty((2, _MAX_ROW_BLOCKS, B), dtype=config.FLOAT, device=h.device)
+    mu = torch.empty((M, B), dtype=config.FLOAT, device=h.device)
+    mu[0] = mu0
+    steps = 1 + (M - 1) // 2 if M >= 2 else 0
+    _kernels.launch("cheb_moments", h.device, h.cols, h.vals, ab, work, part, mu,
+                    h.norb, D, h.nspin, B, M, count=steps)
+    return mu
+
+
+# -- kernel 9, recursion-only mode -----------------------------------------
+
+
+def _recursion_plain(h: SparseH, ab, block):
+    """Slots 1.. of ``block`` (count, nsta, B) from slot 0, in place."""
+    for k in range(1, block.shape[0]):
+        t = _scaled(h, ab, block[k - 1])
+        block[k] = t if k == 1 else 2.0 * t - block[k - 2]
+    return block
+
+
+def recursion(h: SparseH, ab, block):
+    """Fill a Chebyshev block in place: ``block[k] = T_k(Ht) block[0]``
+    for k >= 1.  ``block`` is (count, nsta, B) complex, or any view of
+    that shape whose (nsta, B) rows are contiguous and share one row
+    stride (e.g. ``buf.permute(1, 0, 2)`` of an (nsta, count, B) buffer,
+    so that a later kernel-8 launch reads all slots as one block).
+
+    :returns: ``block``
+    """
+    if block.device.type == "cpu":
+        return _recursion_plain(h, ab, block)
+    D = _check_tables(h)
+    _kernels.require(ab, "ab", config.FLOAT, (2,), h.device)
+    count, nsta, B = block.shape
+    if block.dtype != config.COMPLEX or block.device != h.device or nsta != h.nsta:
+        raise ValueError("block must be complex128 (count, %d, B) on %s, got %s %s on %s"
+                         % (h.nsta, h.device, block.dtype, tuple(block.shape), block.device))
+    if block.stride(2) != 1 or block.stride(1) < B:
+        raise ValueError("block rows must be contiguous, got strides %s" % (block.stride(),))
+    _kernels.launch("cheb_recursion", h.device, h.cols, h.vals, ab, block, h.norb, D, h.nspin,
+                    B, block.stride(1), block.stride(0), count, counter="cheb_moments",
+                    count=max(count - 1, 0))
+    return block
+
+
+# -- kernel 10 -------------------------------------------------------------
+
+
+def _evolve_plain(h: SparseH, ab, coef, psi0, nsteps):
+    """The JAX scan body in torch: per step, acc = c_0 T_0 + c_1 T_1 +
+    sum_n c_n T_n with T_0 the current state; the state after each step."""
+    out = torch.empty((nsteps,) + tuple(psi0.shape), dtype=config.COMPLEX, device=psi0.device)
+    psi = psi0
+    for s in range(nsteps):
+        tm, tc = psi, _scaled(h, ab, psi)
+        acc = coef[0] * tm + coef[1] * tc
+        for c in coef[2:]:
+            tn = 2.0 * _scaled(h, ab, tc) - tm
+            acc = acc + c * tn
+            tm, tc = tc, tn
+        out[s] = acc
+        psi = acc
+    return out
+
+
+def evolve(h: SparseH, ab, coef, psi0, nsteps: int):
+    """``nsteps`` Chebyshev steps ``psi <- sum_n coef[n] T_n(Ht) psi``.
+
+    :param coef: (M,) complex128 step coefficients on ``h``'s device,
+      M >= 2
+    :param psi0: (nsta, B) complex128 start block
+    :returns: (nsteps, nsta, B), the state after every step
+    """
+    nsteps = int(nsteps)
+    if psi0.device.type == "cpu":
+        return _evolve_plain(h, ab, coef, psi0, nsteps)
+    D = _check(h, ab, psi0, "psi0")
+    M = coef.shape[0]
+    if M < 2:
+        raise ValueError("evolve needs at least 2 coefficients, got %d" % M)
+    _kernels.require(coef, "coef", config.COMPLEX, (M,), h.device)
+    B = psi0.shape[1]
+    work = torch.empty((2, h.nsta, B), dtype=config.COMPLEX, device=h.device)
+    hist = torch.empty((nsteps, h.nsta, B), dtype=config.COMPLEX, device=h.device)
+    _kernels.launch("cheb_evolve", h.device, h.cols, h.vals, ab, coef, psi0, work, hist,
+                    h.norb, D, h.nspin, B, M, nsteps, count=nsteps * (M - 1))
+    return hist

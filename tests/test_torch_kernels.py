@@ -12,6 +12,9 @@ plain version get the same CUDA tensors, and agree to 1e-12 in float64
 (unit-norm states, so determinants and phases are O(1)).
 """
 
+import contextlib
+import dataclasses
+import io
 import math
 
 import numpy as np
@@ -224,3 +227,170 @@ def test_main_path_goes_through_kernels(dev):
     assert abs(c_wf - c) < 1e-10
     assert z2 == 1.0
     assert np.abs(hwfc - hwfc_cpu).max() < 1e-10
+
+
+# -- the matrix-free stack: kernels 8, 9 and 10 ------------------------------
+
+
+def _sparse_on(h, dev):
+    """A SparseH built on the CPU, moved to ``dev``."""
+    return dataclasses.replace(h, cols=h.cols.to(dev), vals=h.vals.to(dev))
+
+
+def _ell_cases(dev):
+    """ELL tables with padded rows: a random finite model of uneven row
+    degree at nspin 1 and 2, and a periodic spinful model at one k-point,
+    whose same-orbital hops land in diagonal slots."""
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch.ops import matvec
+
+    cases = {}
+    for nspin in (1, 2):
+        rng = np.random.default_rng(40 + nspin)
+        norb = 37
+        with contextlib.redirect_stdout(io.StringIO()):
+            m = pt.tb_model(0, 2, np.eye(2), rng.random((norb, 2)), nspin=nspin)
+        if nspin == 1:
+            m.set_onsite(list(rng.normal(size=norb)))
+        placed = 0
+        while placed < 90:
+            i, j = (int(x) for x in rng.integers(0, norb, 2))
+            amp = complex(rng.normal(), rng.normal())
+            if nspin == 2:
+                amp = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+            try:
+                m.set_hop(amp, i, j)
+            except pt.PythtbError:
+                continue
+            placed += 1
+        cases["random nspin%d" % nspin] = _sparse_on(matvec.sparse_h(m), dev)
+    km = zoo.kane_mele(pt, "odd").make_supercell([[3, 0], [0, 2]])
+    cases["kane_mele supercell at k"] = _sparse_on(matvec.sparse_h_k(km, [0.13, -0.31]), dev)
+    return cases
+
+
+def _block(seed, nsta, B, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(size=(nsta, B)) + 1j * rng.normal(size=(nsta, B))).to(dev)
+
+
+def _ab(h, dev, margin=0.98):
+    lo, hi = h.window
+    return torch.tensor([0.5 * (hi - lo) / margin + 1e-12, 0.5 * (hi + lo)],
+                        dtype=torch.float64, device=dev)
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_ell_matvec_kernel(dev, B):
+    from pythtb_tpu_torch.ops import matvec
+
+    for name, h in _ell_cases(dev).items():
+        x = _block(B, h.nsta, B, dev)
+        shape = (h.norb, 2, B) if h.nspin == 2 else (h.norb, B)
+        before = _kernels.LAUNCHES["ell_matvec"]
+        y = matvec.matvec(h, x.view(shape))
+        assert _kernels.LAUNCHES["ell_matvec"] == before + 1
+        assert _max_diff(y, matvec._matvec_plain(h, x.view(shape))) < TOL, name
+        # rows written into a slot of a wider block (row stride 3 B)
+        wide = torch.zeros((h.nsta, 3, B), dtype=torch.complex128, device=dev)
+        matvec.apply_rows(h, x, wide[:, 1])
+        assert _max_diff(wide[:, 1], y.reshape(h.nsta, B)) < TOL, name
+        assert float(wide[:, 0].abs().max()) == 0.0 and float(wide[:, 2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,M", [(1, 2), (1, 65), (8, 64), (64, 33)])
+def test_cheb_moments_kernel(dev, B, M):
+    from pythtb_tpu_torch.ops import chebyshev
+
+    for name, h in _ell_cases(dev).items():
+        x = _block(M, h.nsta, B, dev)
+        x = x / x.abs()  # random-phase vectors
+        ab = _ab(h, dev)
+        before = _kernels.LAUNCHES["cheb_moments"]
+        mu = chebyshev.moments(h, ab, x, M, float(h.nsta))
+        assert _kernels.LAUNCHES["cheb_moments"] == before + 1 + (M - 1) // 2
+        want = chebyshev._moments_plain(h, ab, x, M, float(h.nsta))
+        assert _max_diff(mu, want) < TOL * h.nsta, name
+
+
+def test_cheb_recursion_kernel(dev):
+    from pythtb_tpu_torch.ops import chebyshev
+
+    for name, h in _ell_cases(dev).items():
+        ab = _ab(h, dev)
+        x = _block(5, h.nsta, 3, dev)
+        x = x / x.abs()
+        block = torch.empty((20, h.nsta, 3), dtype=torch.complex128, device=dev)
+        block[0] = x
+        got = chebyshev.recursion(h, ab, block.clone())
+        want = chebyshev._recursion_plain(h, ab, block.clone())
+        assert _max_diff(got, want) < TOL, name
+        # the same recursion in the Kubo left layout (nsta, count, B)
+        left = torch.empty((h.nsta, 20, 3), dtype=torch.complex128, device=dev)
+        left[:, 0] = x
+        chebyshev.recursion(h, ab, left.permute(1, 0, 2))
+        assert _max_diff(left.permute(1, 0, 2), want) < TOL, name
+
+
+@pytest.mark.parametrize("B,M", [(1, 2), (1, 3), (8, 30)])
+def test_cheb_evolve_kernel(dev, B, M):
+    from scipy.special import jv
+
+    from pythtb_tpu_torch import dynamics
+    from pythtb_tpu_torch.ops import chebyshev
+
+    for name, h in _ell_cases(dev).items():
+        ab = _ab(h, dev, margin=1.0)
+        a, b = float(ab[0]), float(ab[1])
+
+        def coef(step, order):
+            nn = np.arange(order)
+            c = (2.0 - (nn == 0)) * (-1.0j) ** nn * jv(nn, a * step) * np.exp(-1.0j * b * step)
+            return torch.as_tensor(c).to(dev)
+
+        psi = _block(B + M, h.nsta, B, dev)
+        psi = psi / torch.linalg.vector_norm(psi, dim=0)
+        c = coef(0.2, M)
+        before = _kernels.LAUNCHES["cheb_evolve"]
+        got = chebyshev.evolve(h, ab, c, psi, 3)
+        assert _kernels.LAUNCHES["cheb_evolve"] == before + 3 * (M - 1)
+        assert _max_diff(got, chebyshev._evolve_plain(h, ab, c, psi, 3)) < TOL, name
+        # the seeded branch: one step of its own order first
+        cs = coef(-0.35, 40)
+        got = dynamics._cheb_evolve(h, ab, c, psi, 2, cs)
+        want = chebyshev._evolve_plain(h, ab, c, chebyshev._evolve_plain(h, ab, cs, psi, 1)[0], 2)
+        assert _max_diff(got, want) < TOL, name
+
+
+def test_matrix_free_stack_goes_through_kernels(dev):
+    """kpm_dos, evolve (both branches), kpm_ldos and kpm_conductivity on
+    the card launch kernels 8-10 and agree with the CPU run of the same
+    calls and seeds."""
+    import pythtb_tpu_torch as pt
+
+    flake = pt.magnetic.peierls_model(pt.models.square().cut_piece(12, 0), 1.0 / 9.0).cut_piece(12, 1)
+    p0 = np.zeros(flake._nsta, complex)
+    p0[flake._nsta // 2] = 1.0
+
+    def run():
+        e, dos = pt.flows.kpm_dos(flake, num_moments=128, num_vectors=4)
+        psi = pt.dynamics.evolve(flake, p0, np.linspace(0.5, 5.0, 10))
+        psi_s = pt.dynamics.evolve(flake, p0, np.linspace(0.3, 3.0, 10))
+        el, ld = pt.realspace.kpm_ldos(flake, [0, 50, 77], num_moments=128)
+        torus = pt.realspace.torus_sample(pt.models.haldane(), (6, 6), onsite_disorder=1.0, seed=2)
+        ef, sxy = pt.realspace.kpm_conductivity(torus, num_moments=96, num_vectors=3)
+        return dos, psi, psi_s, ld, sxy
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card = run()
+        for name in ("ell_matvec", "cheb_moments", "cheb_evolve"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu = run()
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() < 1e-10 * max(1.0, np.abs(want).max())

@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import pythtb_tpu
 import pythtb_tpu_torch
@@ -145,6 +146,74 @@ def test_host_view_aliasing():
     assert np.shares_memory(pv, pw._host)
 
 
+def _peierls_flake(mod, n=12):
+    """The bench-suite KPM flake (square lattice, flux 1/9 along the cut) at n x n."""
+    return mod.magnetic.peierls_model(mod.models.square().cut_piece(n, 0), 1.0 / 9.0).cut_piece(n, 1)
+
+
+def _chebyshev_gauss_integral(fn, a, b, K=256):
+    """Integral of a KPM density over its whole window by Chebyshev-Gauss
+    quadrature on K nodes: exact for the degree-M polynomials of KPM
+    (M < 2K), so it returns mu_0 to round-off."""
+    et = np.cos(np.pi * (np.arange(K) + 0.5) / K)
+    e, dens = fn(a * et + b)
+    return a * np.pi / K * np.sum(dens * np.sqrt(1.0 - et**2), axis=-1)
+
+
+def test_matrix_free_slice_matches_jax(monkeypatch):
+    """The slice's public calls on a 12 x 12 Peierls flake (kpm_dos,
+    evolve, kpm_ldos) and a 6 x 6 Haldane torus (kpm_conductivity).
+    Deterministic outputs agree with pythtb_tpu's; the stochastic DOS of
+    each package (its own draws) integrates to N exactly, and on JAX's
+    draws the port's moments and conductivity equal JAX's."""
+    import jax
+
+    from pythtb_tpu import dynamics as jdynamics
+    from pythtb_tpu import realspace as jrealspace
+    from pythtb_tpu.ops import matvec as jmatvec
+    from pythtb_tpu_torch import dynamics, realspace
+    from pythtb_tpu_torch.ops import chebyshev, matvec
+
+    jf, pf = _peierls_flake(pythtb_tpu), _peierls_flake(pythtb_tpu_torch)
+    N = jf._nsta
+    h = matvec.sparse_h(pf)
+    lo, hi = h.window
+    a, b = 0.5 * (hi - lo) / 0.98 + 1e-12, 0.5 * (hi + lo)
+    for kpm, model in ((jflows.kpm_dos, jf), (pythtb_tpu_torch.flows.kpm_dos, pf)):
+        total = _chebyshev_gauss_integral(
+            lambda e: kpm(model, energies=e, num_moments=128, num_vectors=4), a, b)
+        assert abs(total - N) < 1e-8 * N
+    key = jax.random.PRNGKey(0)
+    x0 = np.exp(1j * np.asarray(jax.random.uniform(key, (N, 4), minval=0.0, maxval=2.0 * np.pi)))
+    want = np.asarray(jflows._kpm_moments_jit(jmatvec.sparse_h(jf), a, b, key, 128, 4))
+    got = pythtb_tpu_torch.flows._kpm_moments(h, a, b, torch.as_tensor(x0), 128).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * N)
+
+    p0 = np.zeros(N, complex)
+    p0[N // 2] = 1.0
+    for times in (np.linspace(0.5, 10.0, 20), np.linspace(0.2, 4.0, 20)):
+        np.testing.assert_allclose(dynamics.evolve(pf, p0, times), jdynamics.evolve(jf, p0, times),
+                                   rtol=0, atol=1e-11)
+    sites = np.concatenate([np.arange(4), 70 + np.arange(4)])
+    np.testing.assert_allclose(realspace.kpm_ldos(pf, sites, num_moments=128)[1],
+                               jrealspace.kpm_ldos(jf, sites, num_moments=128)[1], rtol=0, atol=1e-10)
+
+    jm = zoo.haldane(pythtb_tpu)
+    js = jrealspace.torus_sample(jm, (6, 6), onsite_disorder=1.0, seed=2)
+    ps = realspace.torus_sample(carry(jm), (6, 6), onsite_disorder=1.0, seed=2)
+
+    def jax_draws(nsta, R, seed, device):
+        keys = jax.random.split(jax.random.PRNGKey(seed), R)
+        x = np.stack([np.exp(1j * np.asarray(jax.random.uniform(k, (nsta,), minval=0.0, maxval=2.0 * np.pi)))
+                      for k in keys], axis=1)
+        return torch.as_tensor(x).to(device)
+
+    monkeypatch.setattr(chebyshev, "phase_vectors", jax_draws)
+    ej, sj = jrealspace.kpm_conductivity(js, dirs=(0, 1), num_moments=128, num_vectors=4)
+    ep, sp = realspace.kpm_conductivity(ps, dirs=(0, 1), num_moments=128, num_vectors=4)
+    np.testing.assert_allclose(sp, sj, rtol=0, atol=1e-10 * np.abs(sj).max())
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -166,7 +235,7 @@ def test_no_module_of_the_port_needs_jax():
         "    sys.modules[name] = None\n"
         "import pythtb_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(pythtb_tpu_torch.__path__, 'pythtb_tpu_torch.')]\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 24 and 'pythtb_tpu_torch.models.library' in names, names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
     )
