@@ -14,17 +14,22 @@ polarization and hybrid Wannier centres (``berry_phase``,
 disordered samples: the kernel-polynomial DOS (:func:`flows.kpm_dos`),
 LDOS and Kubo-Bastin conductivity (:mod:`realspace`), Chebyshev time
 evolution and quench echoes (:mod:`dynamics`), Peierls fields
-(:mod:`magnetic`), and the model zoo (:mod:`models`).
+(:mod:`magnetic`), interior and lowest eigenpairs
+(:func:`flows.solve_window`, :func:`flows.solve_lowest`) with windowed
+Wilson loops and Chern numbers, real-space Chern, spin-Chern and Bott
+markers (:mod:`realspace`), semi-infinite surface spectra
+(:mod:`surface`), and the model zoo with moire and quasicrystal models
+(:mod:`models`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through nine hand-written CUDA
+an NVIDIA Hopper card the hot paths run through eleven hand-written CUDA
 kernels (``csrc/``, built with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
-from . import config, dynamics, flows, magnetic, models, realspace
+from . import config, dynamics, flows, magnetic, models, realspace, surface
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
 from .w90 import w90
@@ -34,5 +39,5 @@ __version__ = "0.2.0"
 
 __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
-    "magnetic", "models", "realspace", "__version__",
+    "magnetic", "models", "realspace", "surface", "__version__",
 ]

@@ -13,6 +13,12 @@
 // entry amp_h[s, u] for a direct hit and conj(amp_h[u, s]) for a partner
 // hit (the spin-block rule of hamiltonian.py:105-111).
 //
+// One-sided mode (pythtb_tpu/surface.py:_one_sided, the inter-layer block
+// H01 of a principal-layer chain): the direct terms only -- partner
+// entries of the gather list are skipped and no diagonal is added -- so
+// H[b, p, q] = sum over hoppings h with (i_h, j_h) landing on (p, q) of
+// amp_h e^{2 pi i k_b.rv_h}, not Hermitian.
+//
 // What bounds it on the H100: the store of H, 16 bytes per element, and
 // for models with many hoppings per element the double-precision sincospi
 // per (k, hopping, element).  Design: one thread per output element walks
@@ -28,7 +34,7 @@ __global__ void assemble_kernel(const double* __restrict__ k, const double* __re
                                 const cplx* __restrict__ amps, const cplx* __restrict__ diag,
                                 const int* __restrict__ ptr, const int* __restrict__ ent,
                                 cplx* __restrict__ H, int64_t total, int dim_k, int norb,
-                                int nspin) {
+                                int nspin, bool one_sided) {
     const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= total) return;
     const int nsta = norb * nspin;
@@ -49,6 +55,7 @@ __global__ void assemble_kernel(const double* __restrict__ k, const double* __re
         const int code = ent[e];
         const int h = code >> 1;
         const bool partner = (code & 1) != 0;
+        if (one_sided && partner) continue;
         double x = 0.0;
         for (int d = 0; d < dim_k; ++d) x = fma(kb[d], rv[(int64_t)h * dim_k + d], x);
         double sn, cs;
@@ -59,20 +66,25 @@ __global__ void assemble_kernel(const double* __restrict__ k, const double* __re
         re += vr;
         im += partner ? -vi : vi;
     }
+    if (one_sided) {
+        H[t] = make_cuDoubleComplex(re, im);
+        return;
+    }
     const cplx dg = diag[elem];
     H[t] = make_cuDoubleComplex(re + dg.x, im + dg.y);
 }
 
 extern "C" int pythtb_assemble(const void* k, const void* rv, const void* amps, const void* diag,
                                const void* ptr, const void* ent, void* H, int64_t B,
-                               int64_t dim_k, int64_t norb, int64_t nspin, void* stream) {
+                               int64_t dim_k, int64_t norb, int64_t nspin, int64_t one_sided,
+                               void* stream) {
     const int64_t nsta = norb * nspin;
     const int64_t total = B * nsta * nsta;
     if (total > 0) {
         assemble_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
             (const double*)k, (const double*)rv, (const cplx*)amps, (const cplx*)diag,
             (const int*)ptr, (const int*)ent, (cplx*)H, total, (int)dim_k, (int)norb,
-            (int)nspin);
+            (int)nspin, one_sided != 0);
     }
     return (int)cudaGetLastError();
 }

@@ -12,61 +12,23 @@
 // through the D slots), T_{n-1}, acc, cols and vals, and writes T_{n+1}
 // and acc: at N 90,000, D 5, B 1 about 16 MB, a bound of ~4.8 us.
 // Design: one launch per term does the recursion and the accumulation
-// (the JAX scan body), one thread per element (r, b) with b fastest.
-// The C entry point runs all M - 1 terms of all steps on the stream
-// (1,140 launches for 20 steps of order 58), so an evolve call is one
-// ctypes call.  T_{n+1} is written over T_{n-1} element by element, so
-// two buffers hold the recursion; the history rows hold acc.  No
-// reductions, no atomics.
-#include "ell.cuh"
-
-// FIRST: tn = Ht tc, acc = coef[0] tc + coef[1] tn.  Otherwise
-// tn = 2 Ht tc - tm (tn may be tm), acc += coef[0] tn.
-template <int S, bool FIRST>
-__global__ void cheb_term_kernel(const int* __restrict__ cols, const cplx* __restrict__ vals,
-                                 const double* __restrict__ ab, const cplx* __restrict__ coef,
-                                 const cplx* tm, const cplx* __restrict__ tc, cplx* tn,
-                                 cplx* __restrict__ acc, int64_t nsta, int64_t B, int D) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= nsta * B) return;
-    const int64_t r = i / B;
-    const int64_t b = i - r * B;
-    cplx out = ell_scaled<S>(cols, vals, tc, B, r, b, D, ab[0], ab[1]);
-    if (FIRST) {
-        tn[i] = out;
-        acc[i] = cuCadd(cuCmul(coef[0], tc[i]), cuCmul(coef[1], out));
-    } else {
-        const cplx m = tm[i];
-        out = make_cuDoubleComplex(2.0 * out.x - m.x, 2.0 * out.y - m.y);
-        tn[i] = out;
-        acc[i] = cuCadd(acc[i], cuCmul(coef[0], out));
-    }
-}
+// (the JAX scan body; cheb_term.cuh, shared with kernel 11), one thread
+// per element (r, b) with b fastest.  The C entry point runs all M - 1
+// terms of all steps on the stream (1,140 launches for 20 steps of order
+// 58), so an evolve call is one ctypes call.  The history rows hold acc.
+// No reductions, no atomics.
+#include "cheb_term.cuh"
 
 template <int S>
 static int evolve(const int* cols, const cplx* vals, const double* ab, const cplx* coef,
                   const cplx* psi0, cplx* work, cplx* hist, int64_t nsta, int64_t D, int64_t B,
                   int64_t M, int64_t nsteps, cudaStream_t st) {
     const int64_t n = nsta * B;
-    const unsigned int grid = blocks_for(n);
-    cplx* slot[2] = {work, work + n};
     for (int64_t s = 0; s < nsteps; ++s) {
         const cplx* psi = s == 0 ? psi0 : hist + (s - 1) * n;
-        cplx* acc = hist + s * n;
-        // T_k (k >= 1) lives in slot (k - 1) % 2; T_0 is psi
-        cheb_term_kernel<S, true><<<grid, kThreads, 0, st>>>(cols, vals, ab, coef, nullptr, psi,
-                                                             slot[0], acc, nsta, B, (int)D);
-        cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        for (int64_t k = 2; k < M; ++k) {
-            const cplx* tc = slot[(k - 2) & 1];
-            cplx* tn = slot[(k - 1) & 1];
-            const cplx* tm = k == 2 ? psi : tn;
-            cheb_term_kernel<S, false><<<grid, kThreads, 0, st>>>(cols, vals, ab, coef + k, tm, tc,
-                                                                  tn, acc, nsta, B, (int)D);
-            err = cudaGetLastError();
-            if (err != cudaSuccess) return (int)err;
-        }
+        const int err = cheb_expand<S, cplx>(cols, vals, ab, coef, psi, work, hist + s * n, nsta,
+                                             D, B, M, st);
+        if (err != 0) return err;
     }
     return 0;
 }

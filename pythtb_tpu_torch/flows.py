@@ -7,10 +7,16 @@ at two bands), extended by the periodic gauge, and then either reduced
 to link determinants (kernel 3) and summed over plaquettes (kernel 4) --
 ``chern_number`` -- or chained into Wilson loops (kernel 5) --
 ``wilson_flow`` and the Z2 invariant.  Only the results come back.
-``polarization`` goes through ``wf_array``.  ``kpm_dos`` is matrix-free:
-the kernel-polynomial DOS of a finite model, whose Chebyshev moment
-recursion runs as one call of kernel 9.  The other flows of the JAX
-package are not ported yet.
+``polarization`` goes through ``wf_array``.
+
+Matrix-free, on the ELL tables of :mod:`pythtb_tpu_torch.ops.matvec`:
+``kpm_dos`` (its Chebyshev moment recursion is one call of kernel 9);
+``solve_window`` (Chebyshev-filtered subspace iteration: the Gaussian
+filter is one call of kernel 11, H Q one launch of kernel 8, the Gram and
+Rayleigh-Ritz steps torch.linalg) with ``wilson_window`` and
+``chern_window`` on its states; ``solve_lowest`` (complex block LOBPCG,
+:mod:`pythtb_tpu_torch.ops.lobpcg`, on kernel 8).  The other flows of
+the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from .ops.solver import device_uniform_grid, extend_pbc_seq
 
 __all__ = [
     "gauge_phases", "berry_flux_grid", "chern_number", "wilson_flow", "z2_fn",
-    "z2_invariant", "polarization", "kpm_dos",
+    "z2_invariant", "polarization", "kpm_dos", "solve_lowest", "solve_window", "wilson_window",
+    "chern_window",
 ]
 
 
@@ -375,3 +382,369 @@ def kpm_dos(model, energies=None, num_moments=512, num_vectors=8, n_energies=401
     x0 = chebyshev.phase_vectors(h.nsta, num_vectors, seed, h.device)
     mu = _kpm_moments(h, a, b, x0, int(num_moments)).cpu().numpy()
     return _chebyshev_density(mu, a, b, lo, hi, energies, n_energies)
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free solvers for large finite models
+# ---------------------------------------------------------------------------
+
+
+def _hmat(h, V):
+    """H @ V for an (nsta, B) block: one launch of kernel 8 on the card."""
+    from .ops.matvec import apply_rows
+
+    return apply_rows(h, V, torch.empty_like(V))
+
+
+def solve_lowest(model, num_states, eig_vectors=False, max_iters=300, tol=None, seed=0):
+    """Lowest ``num_states`` eigenpairs of a FINITE model, matrix-free.
+
+    Block LOBPCG on the hopping table (O(nhop) memory, O(nhop *
+    num_states) per iteration): the top eigenpairs of the spectrum-
+    reversed ``sigma * I - H`` (Gershgorin shift) by the complex LOBPCG of
+    :mod:`pythtb_tpu_torch.ops.lobpcg`, every application of H one
+    launch of kernel 8; then an SVD basis of the Ritz block and a small
+    Rayleigh-Ritz solve.
+
+    :param num_states: how many lowest states (needs ``10 * num_states <
+      norb * nspin``)
+    :param eig_vectors: also return eigenvectors
+    :param max_iters: LOBPCG iteration cap
+    :param tol: LOBPCG residual tolerance (None = float64 epsilon; see
+      :func:`pythtb_tpu_torch.ops.lobpcg.lobpcg_standard`)
+    :param seed: seed of the random starting block, drawn on the host with
+      ``torch.Generator().manual_seed(seed)`` (the JAX package draws with
+      ``jax.random``: other numbers)
+    :returns: ``evals (num_states,)`` ascending, and with
+      ``eig_vectors=True`` also ``evecs`` in solve_all layout
+      ``(num_states, norb)`` or ``(num_states, norb, 2)``
+
+    Caveat: if the cut at ``num_states`` falls inside a degenerate
+    multiplet, which members are returned is arbitrary.
+    """
+    from .ops.lobpcg import lobpcg_standard
+    from .ops.matvec import gershgorin_window, sparse_h
+
+    h = sparse_h(model)
+    N = h.nsta
+    k = int(num_states)
+    if k < 1:
+        raise ValueError("num_states must be >= 1")
+    if 10 * k >= N:
+        raise ValueError("solve_lowest needs 10*num_states < %d states; use solve_all for small models" % N)
+    lo, hi = gershgorin_window(h)
+    sigma = hi + 0.01 * (hi - lo) + 1e-12
+
+    def amat(V):
+        return sigma * V - _hmat(h, V)
+
+    gen = torch.Generator().manual_seed(int(seed))
+    X0 = torch.complex(torch.randn((N, k), dtype=config.FLOAT, generator=gen),
+                       torch.randn((N, k), dtype=config.FLOAT, generator=gen)).to(h.device)
+    _, V, _ = lobpcg_standard(amat, X0, m=int(max_iters), tol=tol)
+    w, vecs = _solve_lowest_post(V, h, k)
+    if not eig_vectors:
+        return w.cpu().numpy().astype(np.float64)
+    vecs = vecs.cpu().numpy()
+    if h.nspin == 2:
+        vecs = vecs.reshape(k, h.norb, 2)
+    return w.cpu().numpy().astype(np.float64), vecs
+
+
+def _solve_lowest_post(V, h, k):
+    """Ritz block -> eigenbasis: the SVD's k-dim column space, then a
+    small Rayleigh-Ritz solve (``_solve_lowest_post_jit``).  Returns w (k,)
+    and vecs (k, nsta), rows are states."""
+    U = torch.linalg.svd(V, full_matrices=False)[0][:, :k]
+    Hk = U.conj().T @ _hmat(h, U.contiguous())
+    w, S = torch.linalg.eigh(0.5 * (Hk + Hk.conj().T))
+    return w, (U @ S).T
+
+
+def _window_round(h, X, coef, ab):
+    """One Chebyshev-filter + Rayleigh-Ritz round of the spectrum-slice
+    solver (``_window_round_jit``): the filter is one call of kernel 11,
+    H Q one launch of kernel 8; the whitening is an eigh-based inverse
+    square root of the Gram matrix, whose rank-deficient columns are
+    dropped and flagged.
+
+    Returns (theta, Z, res, valid): Ritz values, the Ritz block (N, nb),
+    per-column residual norms ||H z - theta z||, and the mask of
+    numerically independent columns (dropped ones carry 1e30)."""
+    Y = chebyshev.filter(h, ab, coef, X)
+    G = Y.conj().T @ Y
+    s, V = torch.linalg.eigh(0.5 * (G + G.conj().T))  # ascending
+    smax = torch.clamp(s[-1], min=1e-300)
+    valid = s > 100.0 * torch.finfo(s.dtype).eps * smax
+    inv_sqrt = torch.where(valid, 1.0 / torch.sqrt(torch.where(valid, s, torch.ones_like(s))),
+                           torch.zeros_like(s))
+    Q = Y @ (V * inv_sqrt[None, :])
+    # Rayleigh-Ritz on the unmapped H (true eigenvalues)
+    HQ = _hmat(h, Q)
+    Hk = Q.conj().T @ HQ
+    Hk = 0.5 * (Hk + Hk.conj().T)
+    # dropped columns are zero vectors: a huge diagonal sorts their Ritz
+    # values far from any physical sigma
+    big = 1e30
+    Hk = Hk + torch.diag(torch.where(valid, torch.zeros_like(s), torch.full_like(s, big)).to(Hk.dtype))
+    theta, S = torch.linalg.eigh(Hk)
+    Z = Q @ S
+    R = HQ @ S - Z * theta[None, :]
+    nrm = torch.linalg.vector_norm(Z, dim=0)
+    res = torch.linalg.vector_norm(R, dim=0) / torch.clamp(nrm, min=1e-30)
+    col_valid = nrm > 0.5  # whitened+rotated live columns have norm 1
+    theta = torch.where(col_valid, theta, big)
+    res = torch.where(col_valid, res, big)
+    return theta, Z, res, col_valid
+
+
+def _gaussian_cheb_coef(sigma_hat, width_hat, degree):
+    """Chebyshev coefficients of the Gaussian window
+    exp(-(x - sigma_hat)^2 / (2 width_hat^2)) on [-1, 1] by Gauss-Chebyshev
+    quadrature (host float64).  The Gaussian is entire, so the
+    coefficients decay superexponentially once m > ~2/width_hat -- no
+    damping kernel is needed."""
+    M = int(degree)
+    nq = 2 * (M + 1)
+    theta = (np.arange(nq) + 0.5) * np.pi / nq
+    x = np.cos(theta)
+    g = np.exp(-((x - sigma_hat) ** 2) / (2.0 * width_hat**2))
+    m = np.arange(M)
+    c = (2.0 / nq) * (np.cos(m[:, None] * theta[None, :]) @ g)
+    c[0] *= 0.5
+    return c
+
+
+def solve_window(model, num_states, sigma, k_point=None, width=None, degree=None, block=None,
+                 max_rounds=10, tol=None, eig_vectors=False, seed=0):
+    """The ``num_states`` eigenpairs NEAREST ``sigma`` (an interior
+    spectrum slice), matrix-free: Chebyshev-filtered subspace iteration on
+    the hopping table.
+
+    A Gaussian spectral filter ``exp(-(H - sigma)^2 / 2 width^2)``,
+    expanded in Chebyshev polynomials and applied by kernel 11, acts on a
+    random block, then Rayleigh-Ritz; each round multiplies the filter's
+    discrimination, so a handful of rounds converges interior states
+    without ever forming H.  Works for FINITE models (``dim_k == 0``) and
+    for PERIODIC models at a fixed ``k_point``
+    (:func:`pythtb_tpu_torch.ops.matvec.sparse_h_k`, Convention I, so
+    eigenvectors match ``solve_all``'s gauge).
+
+    :param num_states: how many eigenpairs nearest ``sigma``
+    :param sigma: target energy
+    :param k_point: reduced k for a periodic model (None for finite)
+    :param width: Gaussian filter width in energy units.  Default is
+      ADAPTIVE: a wide probe round first (span/20), then after each round
+      the width tightens to one third of the distance from ``sigma`` to
+      the block-edge Ritz value.  Pass an explicit width to pin it.
+    :param degree: cap on the Chebyshev degree (default 6144); the working
+      degree is ``4 a / width`` with ``a`` the half-span, rounded up to a
+      multiple of 16
+    :param block: subspace dimension (default ``num_states + max(6,
+      num_states)``); must exceed ``num_states``
+    :param max_rounds: filter+Rayleigh-Ritz rounds before giving up
+    :param tol: relative residual target on the selected states (default
+      ``sqrt(eps)`` of float64)
+    :param eig_vectors: also return eigenvectors (solve_all layout)
+    :param seed: seed of the starting block, drawn with
+      ``np.random.default_rng(seed)`` exactly as the JAX package draws it
+    :returns: ``evals (num_states,)`` ascending (and ``evecs``
+      ``(num_states, norb[, 2])`` with ``eig_vectors=True``)
+
+    A ``UserWarning`` reports the worst residual if ``max_rounds`` is
+    exhausted before ``tol`` is met.
+    """
+    from .ops.matvec import gershgorin_window, sparse_h, sparse_h_k
+
+    h = sparse_h(model) if k_point is None else sparse_h_k(model, k_point)
+    N = h.nsta
+    kk = int(num_states)
+    if kk < 1:
+        raise ValueError("num_states must be >= 1")
+    if int(max_rounds) < 1:
+        raise ValueError("max_rounds must be >= 1")
+    nb = int(block) if block is not None else kk + max(6, kk)
+    if nb <= kk:
+        raise ValueError("block must exceed num_states")
+    if nb >= N:
+        raise ValueError("solve_window needs block < %d states; use solve_all for small models" % N)
+    lo, hi = gershgorin_window(h)
+    a = 0.5 * (hi - lo) / 0.98 + 1e-12
+    b = 0.5 * (hi + lo)
+    sigma = float(sigma)
+    if not (lo <= sigma <= hi):
+        raise ValueError("sigma=%g outside the spectral window (%g, %g)" % (sigma, lo, hi))
+    adaptive = width is None
+    w = float(width) if width is not None else (hi - lo) / 20.0
+    max_degree = int(degree) if degree is not None else 6144
+
+    def _deg(wv):
+        return int(min(max(np.ceil(4.0 * a / wv / 16.0) * 16, 32), max_degree))
+
+    def _coef(wv):
+        return torch.as_tensor(_gaussian_cheb_coef((sigma - b) / a, wv / a, _deg(wv)),
+                               dtype=config.FLOAT).to(h.device)
+
+    if tol is None:
+        tol = float(np.sqrt(np.finfo(np.float64).eps))
+    target = tol * max(abs(hi), abs(lo), 1.0)
+
+    rng = np.random.default_rng(seed)
+    X_ri = np.stack([rng.standard_normal((N, nb)), rng.standard_normal((N, nb))], axis=-1)
+    X = torch.as_tensor(X_ri[..., 0] + 1j * X_ri[..., 1], dtype=config.COMPLEX).to(h.device)
+    ab = torch.tensor([a, b], dtype=config.FLOAT, device=h.device)
+    coef = _coef(w)
+    worst = np.inf
+    for _ in range(int(max_rounds)):
+        theta, Z, res, _ = _window_round(h, X, coef, ab)
+        theta_h = theta.cpu().numpy().astype(np.float64)
+        res_h = res.cpu().numpy()
+        dist = np.sort(np.abs(theta_h - sigma))
+        dist = dist[dist < 1e29]  # drop rank-deficient sentinel columns
+        order = np.argsort(np.abs(theta_h - sigma), kind="stable")[:kk]
+        worst = float(np.max(res_h[order]))
+        if worst < target:
+            break
+        X = Z  # re-filter the Ritz block
+        if adaptive:
+            # a third of the distance to the (nb-1)-th Ritz value: the
+            # filter then passes the retained subspace and kills the rest
+            d_edge = float(dist[min(nb - 1, len(dist) - 1)])
+            w_new = max(d_edge / 3.0, (hi - lo) * 1e-9)
+            if abs(w_new - w) > 0.2 * w:
+                w = w_new
+                coef = _coef(w)
+    if not worst < target:
+        warnings.warn(
+            "solve_window: residual %.2e after %d rounds (target %.1e) "
+            "-- increase max_rounds, degree, or width coverage" % (worst, int(max_rounds), target),
+            UserWarning, stacklevel=2,
+        )
+    sel = np.sort(order)
+    evals = theta_h[sel]
+    if not eig_vectors:
+        return evals
+    vecs = Z[:, torch.as_tensor(sel, device=Z.device)].T.cpu().numpy()  # (kk, N)
+    if h.nspin == 2:
+        vecs = vecs.reshape(kk, h.norb, 2)
+    return evals, vecs
+
+
+def wilson_window(model, sigma, num_states, k_loop, berry_evals=False, **solve_kwargs):
+    """Berry phase (or Wilson-loop eigenphases) of the ``num_states``
+    manifold nearest ``sigma`` around an explicit k-loop, with the states
+    at every loop point from the matrix-free :func:`solve_window`.
+
+    The loop is a (L, dim_k) array whose last point equals the first plus
+    an INTEGER reciprocal offset G; the closing overlap uses the
+    periodic-gauge factors ``exp(-2j pi G . t_orb)``, and the sign
+    convention matches ``wf_array.berry_phase``.  A near-singular link
+    (|det O| < 0.5: the selected manifold changes character between
+    adjacent loop points) is reported with a ``UserWarning``.
+
+    :param sigma: target energy selecting the manifold at every point
+    :param num_states: manifold dimension
+    :param k_loop: (L, dim_k) reduced k-points; closed as above
+    :param berry_evals: return the individual Wilson eigenphases
+      (polar-unitarized product) instead of the total phase
+    :param solve_kwargs: forwarded to :func:`solve_window`
+    :returns: total Berry phase in (-pi, pi] (or (num_states,) sorted
+      eigenphases with ``berry_evals``)
+    """
+    from .model import PythtbError
+
+    k_loop = np.asarray(k_loop, dtype=np.float64)
+    if k_loop.ndim != 2 or k_loop.shape[0] < 3:
+        raise PythtbError("k_loop must be (L >= 3, dim_k)")
+    G = k_loop[-1] - k_loop[0]
+    if np.abs(G - np.round(G)).max() > 1e-8:
+        raise PythtbError(
+            "k_loop must close on itself modulo integer reciprocal vectors (last - first = %s)" % (G,))
+    G = np.round(G).astype(int)
+
+    vecs = []
+    for kpt in k_loop[:-1]:
+        _, v = solve_window(model, num_states, sigma, k_point=kpt, eig_vectors=True, **solve_kwargs)
+        vecs.append(np.asarray(v).reshape(num_states, -1))
+    lam = np.ones(vecs[0].shape[1], dtype=complex)
+    phs = gauge_phases(model, range(model._dim_k))
+    for d in range(model._dim_k):
+        if G[d]:
+            lam = lam * np.asarray(phs[d]) ** G[d]
+    vecs.append(vecs[0] * lam[None, :])
+
+    W = np.eye(num_states, dtype=complex)
+    min_det = np.inf
+    for j in range(len(vecs) - 1):
+        O = np.conj(vecs[j]) @ vecs[j + 1].T
+        min_det = min(min_det, abs(np.linalg.det(O)))
+        W = W @ O
+    if min_det < 0.5:
+        warnings.warn(
+            "wilson_window: near-singular link (|det O| = %.3f) -- the "
+            "selected manifold changes character along the loop (a band "
+            "crosses the selection window); the phase is not trustworthy "
+            "there" % min_det,
+            UserWarning, stacklevel=2,
+        )
+    if not berry_evals:
+        return float(-np.angle(np.linalg.det(W)))
+    U_, _s, Vh_ = np.linalg.svd(W)
+    return np.sort(-np.angle(np.linalg.eigvals(U_ @ Vh_)))
+
+
+def chern_window(model, sigma, num_states, nk=(12, 12), **solve_kwargs):
+    """Chern number of the ``num_states`` manifold nearest ``sigma``, every
+    grid point solved matrix-free by :func:`solve_window`: the standard
+    plaquette Berry-flux construction on an (nk0, nk1) closed grid of
+    slice states, the wrapped boundary rows in the package's periodic
+    gauge.  A ``UserWarning`` reports the weakest link when the selected
+    manifold changes character somewhere on the grid.
+
+    :param nk: (nk0, nk1) grid
+    :param solve_kwargs: forwarded to :func:`solve_window`
+    :returns: float Chern number (sum of plaquette fluxes / 2 pi)
+    """
+    from .model import PythtbError
+
+    if model._dim_k != 2:
+        raise PythtbError("chern_window requires dim_k == 2")
+    n0, n1 = (int(x) for x in nk)
+    if min(n0, n1) < 3:
+        raise PythtbError("nk must be >= 3 in both directions")
+    kk = int(num_states)
+    grid = np.empty((n0 + 1, n1 + 1), dtype=object)
+    for i in range(n0):
+        for j in range(n1):
+            _, v = solve_window(model, kk, sigma, k_point=np.array([i / n0, j / n1]), eig_vectors=True,
+                                **solve_kwargs)
+            grid[i, j] = np.asarray(v).reshape(kk, -1)
+    ph0, ph1 = (np.asarray(p) for p in gauge_phases(model, range(model._dim_k)))
+    for j in range(n1):
+        grid[n0, j] = grid[0, j] * ph0[None, :]
+    for i in range(n0):
+        grid[i, n1] = grid[i, 0] * ph1[None, :]
+    grid[n0, n1] = grid[0, 0] * (ph0 * ph1)[None, :]
+
+    def link(a, b):
+        return np.linalg.det(np.conj(a) @ b.T)
+
+    total = 0.0
+    min_det = np.inf
+    for i in range(n0):
+        for j in range(n1):
+            u1 = link(grid[i, j], grid[i + 1, j])
+            u2 = link(grid[i + 1, j], grid[i + 1, j + 1])
+            u3 = link(grid[i + 1, j + 1], grid[i, j + 1])
+            u4 = link(grid[i, j + 1], grid[i, j])
+            min_det = min(min_det, abs(u1), abs(u2), abs(u3), abs(u4))
+            total += np.angle(u1 * u2 * u3 * u4)
+    if min_det < 0.5:
+        warnings.warn(
+            "chern_window: near-singular link (|det O| = %.3f) -- a band "
+            "crosses the selection window somewhere on the grid; the Chern "
+            "number is not trustworthy" % min_det,
+            UserWarning, stacklevel=2,
+        )
+    # orientation flip: the package-wide flux convention of chern_number
+    return float(-total / (2.0 * np.pi))

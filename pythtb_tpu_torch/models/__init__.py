@@ -4,10 +4,21 @@
 Canonical models from the tight-binding / band-topology literature,
 parameterized and documented.  Every constructor returns a fresh
 :class:`pythtb_tpu_torch.tb_model` that can be further edited, cut,
-super-celled, etc.  The moire (``tbg``, ``sk_graphene``) and
-quasicrystal constructors of the JAX package are not ported yet.
+super-celled, etc.  ``moire`` builds commensurate twisted bilayer
+graphene, ``quasicrystal`` the Penrose / Ammann-Beenker vertex models and
+the Aubry-Andre and Fibonacci chains.
 """
 
+from .moire import sk_graphene, tbg, tbg_angle
+from .quasicrystal import (
+    ammann_beenker,
+    aubry_andre,
+    fibonacci_chain,
+    fibonacci_word,
+    multigrid_tiling,
+    penrose,
+    vertex_areas,
+)
 from .library import (
     apply_strain,
     bbh,
@@ -52,6 +63,16 @@ __all__ = [
     "bhz",
     "bbh",
     "weyl",
+    "tbg",
+    "tbg_angle",
+    "sk_graphene",
     "apply_strain",
     "triaxial_graphene_flake",
+    "multigrid_tiling",
+    "penrose",
+    "ammann_beenker",
+    "aubry_andre",
+    "fibonacci_chain",
+    "fibonacci_word",
+    "vertex_areas",
 ]

@@ -9,7 +9,7 @@ of the checkout, so a changed source rebuilds it.  Nothing here runs at
 import: the CPU tests import every module.
 
 Each kernel wrapper (in the module of the JAX program it replaces, or
-in ``ops/chebyshev.py`` for the recursions of kernels 9 and 10)
+in ``ops/chebyshev.py`` for the recursions of kernels 9, 10 and 11)
 validates its tensors with :func:`require`, allocates its outputs with
 ``torch.empty``, launches through :func:`launch` on the current stream,
 and counts the launch in :data:`LAUNCHES`.
@@ -37,7 +37,7 @@ NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # C entry point -> argument types (all return cudaGetLastError())
 _SIGNATURES = {
-    "pythtb_assemble": [_P] * 7 + [_I] * 4 + [_P],
+    "pythtb_assemble": [_P] * 7 + [_I] * 5 + [_P],
     "pythtb_eig2": [_P] * 3 + [_I, _P],
     "pythtb_link_dets": [_P] * 2 + [_I] * 5 + [_P],
     "pythtb_plaquette_flux": [_P] * 7 + [_I] * 4 + [_P],
@@ -47,16 +47,21 @@ _SIGNATURES = {
     "pythtb_cheb_moments": [_P] * 6 + [_I] * 5 + [_P],
     "pythtb_cheb_recursion": [_P] * 4 + [_I] * 7 + [_P],
     "pythtb_cheb_evolve": [_P] * 7 + [_I] * 6 + [_P],
+    "pythtb_cheb_filter": [_P] * 7 + [_I] * 5 + [_P],
+    "pythtb_decimation": [_P] * 7 + [_I] * 4 + [_P],
 }
 
-# Launches per kernel since the last reset.  Kernels 9 and 10 run a whole
-# recursion from one C call; they count each step (kernel 9) or term
-# (kernel 10) that ran on the device.  "link_dets_library" and
-# "wilson_loop_library" count the S > 8 shape rules of ops.berry, which
-# launch no kernel of this package.
+# Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
+# whole recursion from one C call; they count each step (kernel 9) or term
+# (kernels 10 and 11) that ran on the device.  "assemble_one_sided" counts
+# kernel 1's one-sided launches (not in "assemble").  "link_dets_library",
+# "wilson_loop_library" and "decimation_library" count the shape rules of
+# ops.berry (S > 8) and surface (S > 16), which launch no kernel of this
+# package.
 LAUNCHES = dict.fromkeys(
-    ("assemble", "eig2", "link_dets", "plaquette_flux", "wilson_loop", "position",
-     "ell_matvec", "cheb_moments", "cheb_evolve", "link_dets_library", "wilson_loop_library"), 0
+    ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
+     "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
+     "link_dets_library", "wilson_loop_library", "decimation_library"), 0
 )
 
 _lib = None

@@ -14,10 +14,13 @@ float64 tensor (a, b) on ``h``'s device.  Blocks of vectors are
   of ``realspace._kubo_moments_jit``).
 * :func:`evolve` -- kernel 10 (``csrc/cheb_evolve.cu``): Chebyshev-Bessel
   time steps of ``dynamics._cheb_evolve_jit``, the state after each step.
+* :func:`filter` -- kernel 11 (``csrc/cheb_filter.cu``): the real-
+  coefficient Chebyshev filter of ``flows._window_round_jit``.
 
 Each C entry point runs the whole recursion, issuing one launch per step
 (or term) on the current stream, so a call costs one ctypes call; the
-launch counters count the device launches of steps or terms.  CPU
+launch counters count the device launches of steps or terms.  Kernels 10
+and 11 share one term kernel (``csrc/cheb_term.cuh``).  CPU
 tensors run the plain PyTorch versions (``_*_plain``), the JAX scan
 bodies written out; a CUDA tensor launches the kernel or raises.
 """
@@ -32,7 +35,7 @@ from .. import config
 from . import _kernels
 from .matvec import SparseH, _check_tables, _matvec_plain
 
-__all__ = ["phase_vectors", "moments", "recursion", "evolve"]
+__all__ = ["phase_vectors", "moments", "recursion", "evolve", "filter"]
 
 _MAX_ROW_BLOCKS = 1024  # kMaxRowBlocks of cheb_moments.cu: rows of the partial sums
 
@@ -186,3 +189,42 @@ def evolve(h: SparseH, ab, coef, psi0, nsteps: int):
     _kernels.launch("cheb_evolve", h.device, h.cols, h.vals, ab, coef, psi0, work, hist,
                     h.norb, D, h.nspin, B, M, nsteps, count=nsteps * (M - 1))
     return hist
+
+
+# -- kernel 11 -------------------------------------------------------------
+
+
+def _filter_plain(h: SparseH, ab, coef, X):
+    """The JAX filter scan in torch: acc = c_0 T_0 + c_1 T_1, then
+    T_{m+1} = 2 Ht T_m - T_{m-1} and acc += c_{m+1} T_{m+1}."""
+    tm, tc = X, _scaled(h, ab, X)
+    acc = coef[0] * tm + coef[1] * tc
+    for c in coef[2:]:
+        tn = 2.0 * _scaled(h, ab, tc) - tm
+        acc = acc + c * tn
+        tm, tc = tc, tn
+    return acc
+
+
+def filter(h: SparseH, ab, coef, X):  # noqa: A001  (the JAX program's name)
+    """Chebyshev filter ``Y = sum_m coef[m] T_m(Ht) X`` with real
+    coefficients (a Gaussian spectral window of the spectrum-slice solver).
+
+    :param coef: (M,) float64 on ``h``'s device, M >= 2 (any degree; it
+      changes between rounds)
+    :param X: (nsta, B) complex128 block, not written
+    :returns: (nsta, B) complex128
+    """
+    M = coef.shape[0]
+    if M < 2:
+        raise ValueError("filter needs at least 2 coefficients, got %d" % M)
+    if X.device.type == "cpu":
+        return _filter_plain(h, ab, coef, X)
+    D = _check(h, ab, X, "X")
+    _kernels.require(coef, "coef", config.FLOAT, (M,), h.device)
+    B = X.shape[1]
+    work = torch.empty((2, h.nsta, B), dtype=config.COMPLEX, device=h.device)
+    Y = torch.empty((h.nsta, B), dtype=config.COMPLEX, device=h.device)
+    _kernels.launch("cheb_filter", h.device, h.cols, h.vals, ab, coef, X, work, Y,
+                    h.norb, D, h.nspin, B, M, count=M - 1)
+    return Y

@@ -6,7 +6,10 @@ Hermitian partner at (j_h, i_h), for a whole (B, dim_k) k-batch.  On a
 CUDA tensor this launches kernel 1 (``csrc/assemble.cu``), which walks
 the gather index of :class:`pythtb_tpu_torch.core.BlochData`; on a CPU
 tensor it runs the plain scatter version below, the scatter path of the
-JAX package.  ``assemble_dk``/``assemble_d2k`` are not ported yet.
+JAX package.  :func:`assemble_one_sided` is kernel 1's one-sided mode:
+the direct terms only, no partner and no diagonal (the inter-layer block
+of ``pythtb_tpu.surface._one_sided``).  ``assemble_dk``/``assemble_d2k``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from .. import config
 from ..core import BlochData
 from . import _kernels
 
-__all__ = ["assemble"]
+__all__ = ["assemble", "assemble_one_sided"]
 
 
 def _phases(data: BlochData, kpts):
@@ -51,20 +54,27 @@ def _assemble_plain(data: BlochData, kpts):
     return H + data.diag[None]
 
 
-def assemble(data: BlochData, kpts):
-    """H(k) for a k-batch.
+def _one_sided_plain(data: BlochData, kpts):
+    """Plain PyTorch one-sided assembly (the scatter of
+    ``pythtb_tpu.surface._one_sided``): the oracle of kernel 1's one-sided
+    mode."""
+    B = kpts.shape[0]
+    n = data.norb
+    ph = _phases(data, kpts)
+    rows = torch.arange(B, device=kpts.device)[:, None]
+    ii, jj = data.ii[None, :], data.jj[None, :]
+    if data.nspin == 1:
+        H = torch.zeros((B, n, n), dtype=config.COMPLEX, device=kpts.device)
+        H.index_put_((rows, ii, jj), ph * data.amps[None, :], accumulate=True)
+        return H
+    Hblk = torch.zeros((B, n, n, 2, 2), dtype=config.COMPLEX, device=kpts.device)
+    Hblk.index_put_((rows, ii, jj), ph[:, :, None, None] * data.amps[None], accumulate=True)
+    return Hblk.permute(0, 1, 3, 2, 4).reshape(B, data.nsta, data.nsta)
 
-    :param kpts: (B, dim_k) float64 tensor of reduced k-points, on the
-      device of ``data``
-    :returns: (B, nsta, nsta) complex128, Hermitian; at nspin 2 the basis
-      is (orb0_up, orb0_dn, orb1_up, ...)
-    """
+
+def _launch(data: BlochData, kpts, one_sided):
     B = kpts.shape[0]
     nsta = data.nsta
-    if data.nhop == 0:
-        return data.diag.expand(B, nsta, nsta).clone()
-    if kpts.device.type == "cpu":
-        return _assemble_plain(data, kpts)
     dev = data.device
     _kernels.require(kpts, "kpts", config.FLOAT, (B, data.dim_k), dev)
     _kernels.require(data.rv, "rv", config.FLOAT, (data.nhop, data.dim_k), dev)
@@ -75,6 +85,35 @@ def assemble(data: BlochData, kpts):
     H = torch.empty((B, nsta, nsta), dtype=config.COMPLEX, device=dev)
     _kernels.launch(
         "assemble", dev, kpts, data.rv, data.amps, data.diag, data.ptr, data.ent, H,
-        B, data.dim_k, data.norb, data.nspin,
+        B, data.dim_k, data.norb, data.nspin, int(one_sided),
+        counter="assemble_one_sided" if one_sided else None,
     )
     return H
+
+
+def assemble(data: BlochData, kpts):
+    """H(k) for a k-batch.
+
+    :param kpts: (B, dim_k) float64 tensor of reduced k-points, on the
+      device of ``data``
+    :returns: (B, nsta, nsta) complex128, Hermitian; at nspin 2 the basis
+      is (orb0_up, orb0_dn, orb1_up, ...)
+    """
+    B = kpts.shape[0]
+    if data.nhop == 0:
+        return data.diag.expand(B, data.nsta, data.nsta).clone()
+    if kpts.device.type == "cpu":
+        return _assemble_plain(data, kpts)
+    return _launch(data, kpts, False)
+
+
+def assemble_one_sided(data: BlochData, kpts):
+    """The one-sided block sum_h amp_h e^{2 pi i k.rv_h} at (i_h, j_h):
+    no Hermitian partner, no diagonal.  Same arguments and layout as
+    :func:`assemble`; the result is not Hermitian."""
+    B = kpts.shape[0]
+    if data.nhop == 0:
+        return torch.zeros((B, data.nsta, data.nsta), dtype=config.COMPLEX, device=kpts.device)
+    if kpts.device.type == "cpu":
+        return _one_sided_plain(data, kpts)
+    return _launch(data, kpts, True)

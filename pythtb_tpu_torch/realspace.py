@@ -16,14 +16,23 @@ kernel-polynomial part of ``pythtb_tpu.realspace``.
 * :func:`kpm_ldos` -- deterministic site-resolved LDOS by kernel 9
   (moments mode) on a block of unit vectors.
 
+* :func:`chern_marker`, :func:`sector_marker`, :func:`spin_chern_marker`
+  -- Bianco-Resta local Chern markers (and their Prodan sector split) of
+  finite 2-D models: H by kernel 1, one dense ``torch.linalg.eigh``, the
+  occupied-basis position matrices X, Y and XY by three launches of
+  kernel 6, the rest ``torch.matmul``.
+* :func:`bott_index` -- the Loring-Hastings Bott index of a torus
+  sample: the dense H is one kernel-8 launch on the identity block, the
+  eigensolve ``torch.linalg.eigh`` on the device, the projections host
+  float64.
+
 Conventions: ``hbar = e = 1``; 2-D conductivities in units of e^2/h.
-The real-space markers (``chern_marker``, ``bott_index``,
-``sector_marker``, ``spin_chern_marker``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -31,9 +40,12 @@ import torch
 from . import config
 from .model import PythtbError
 from .ops import chebyshev
-from .ops.matvec import SparseH, _ell_tables, _upload, apply_rows
+from .ops.matvec import SparseH, _ell_tables, _upload, apply_rows, to_dense
 
-__all__ = ["TorusSample", "torus_sample", "kpm_conductivity", "kpm_ldos"]
+__all__ = [
+    "TorusSample", "torus_sample", "kpm_conductivity", "kpm_ldos", "chern_marker", "bott_index",
+    "sector_marker", "spin_chern_marker",
+]
 
 # Bytes of the three Kubo blocks (two Chebyshev blocks and the velocity
 # block) that one batch of random vectors may take on the device; the
@@ -374,3 +386,316 @@ def kpm_ldos(sample, sites, energies=None, num_moments=512, n_energies=401):
     if h.nspin == 2:
         mu = mu.reshape(M, -1, 2).sum(axis=2)
     return _chebyshev_density(mu, a, b, lo, hi, energies, n_energies)
+
+
+# --------------------------------------------------------------------
+# local Chern marker (Bianco-Resta)
+# --------------------------------------------------------------------
+
+
+def _marker_core(W, X, Y):
+    """Occupied-basis Bianco-Resta contraction (W (nocc, S) rows = states,
+    X, Y (S,) float64 positions): ``Im diag_s`` of ``psi^H X Q Y psi``,
+    ``K = <n|XY|m> - <n|X|p><p|Y|m>``.  A, B and XY are three launches of
+    kernel 6 on the card; K and the per-site quadratic form are matmuls."""
+    from .ops.position import xmat
+
+    w = W.contiguous()[None]
+    A = xmat(w, X)[0]
+    B = xmat(w, Y)[0]
+    Cm = xmat(w, X * Y)[0]
+    K = Cm - A @ B
+    # diag_s = sum_nm W[n, s] K[n, m] conj(W[m, s])
+    return torch.sum(W * (K @ W.conj()), dim=0).imag
+
+
+def _use_host_eigh(eigensolver, caller):
+    """Resolve the marker ``eigensolver`` knob: "host" takes the host
+    float64 eigensolve; "auto" and "device" the device one (the port is
+    float64 on every device)."""
+    if eigensolver not in ("auto", "host", "device"):
+        raise PythtbError('%s: eigensolver must be "auto", "host" or "device"' % caller)
+    return eigensolver == "host"
+
+
+def _dense_h(model):
+    """Dense one-body Hamiltonian of a finite model, host-side (a copy of
+    ``pythtb_tpu.ed.dense_h``).  For ``nspin == 2`` the flattened index
+    is ``2*orb + spin``, the layout of ``ops.hamiltonian.assemble``."""
+    if model._dim_k != 0:
+        raise PythtbError("ed: model must be finite (dim_k == 0); cut_piece a periodic model first")
+    norb = model._norb
+    if model._nspin == 1:
+        h = np.zeros((norb, norb), dtype=complex)
+        h[np.diag_indices(norb)] = model._site_energies
+        for hop in model._hoppings:
+            amp, i, j = hop[0], hop[1], hop[2]
+            h[i, j] += amp
+            h[j, i] += np.conj(amp)
+        return h
+    h = np.zeros((norb, 2, norb, 2), dtype=complex)
+    for i in range(norb):
+        h[i, :, i, :] = model._site_energies[i]
+    for hop in model._hoppings:
+        amp, i, j = np.asarray(hop[0], dtype=complex), hop[1], hop[2]
+        h[i, :, j, :] += amp
+        h[j, :, i, :] += amp.conj().T
+    return h.reshape(2 * norb, 2 * norb)
+
+
+def _host_occ_states(model, nocc):
+    """Host float64 dense eigensolve: (evals, W), W the nocc lowest states
+    as rows, orb-major (spin-fastest) flattening."""
+    evals, vecs = np.linalg.eigh(_dense_h(model))
+    return evals, vecs.T[:nocc]
+
+
+def _device_states(model, nocc):
+    """H by kernel 1 (dim_k 0), one dense eigensolve on the device; the
+    nocc lowest states as rows (nocc, S)."""
+    from .ops.eigh import eigh_batched
+    from .ops.hamiltonian import assemble
+
+    data = model._get_finalized()
+    H = assemble(data, torch.zeros((1, 0), dtype=config.FLOAT, device=data.device))
+    evals, vecs = eigh_batched(H)
+    return evals[0], vecs[0, :nocc]
+
+
+def _positions(model, dev):
+    """Cartesian x and y of every state (spin-repeated) as device tensors,
+    and the cell area."""
+    lat = np.asarray(model._lat, dtype=np.float64)
+    pos = np.asarray(model._orb, dtype=np.float64) @ lat
+    if model._nspin == 2:
+        pos = np.repeat(pos, 2, axis=0)
+    X = torch.as_tensor(np.ascontiguousarray(pos[:, 0])).to(dev)
+    Y = torch.as_tensor(np.ascontiguousarray(pos[:, 1])).to(dev)
+    return X, Y, abs(np.linalg.det(lat))
+
+
+def chern_marker(model, nocc=None, fermi=None, eigensolver="auto"):
+    """Bianco-Resta local Chern marker of a finite 2-D flake.
+
+    ``c(r) = -(4 pi / A_c) Im <r| P X Q Y P |r>`` summed over the orbitals
+    (and spins) at site r (Bianco & Resta, PRB 84, 241106 (2011)).  In the
+    bulk of a topological flake the marker plateaus at the Chern number;
+    its sum over the whole sample is exactly zero.
+
+    :param model: finite model (``dim_k == 0``) with 2-D positions
+      (``dim_r == 2``)
+    :param nocc: number of occupied states, or
+    :param fermi: Fermi energy used to count nocc (an extra eigensolve)
+    :param eigensolver: ``"device"`` or ``"auto"`` (H by kernel 1, eigh on
+      the device), or ``"host"`` (float64 NumPy eigh feeding the device
+      contraction)
+    :returns: ``(norb,)`` marker per orbital site
+    """
+    if model._dim_k != 0:
+        raise PythtbError("chern_marker requires a finite model (dim_k == 0)")
+    if model._dim_r != 2:
+        raise PythtbError("chern_marker requires 2-D positions (dim_r == 2)")
+    if (nocc is None) == (fermi is None):
+        raise PythtbError("give exactly one of nocc / fermi")
+    if fermi is None:
+        nocc = int(nocc)
+        if not (0 < nocc < model._norb * model._nspin):
+            raise PythtbError("nocc must be in 1..nsta-1")
+    else:
+        evals = model.solve_all()
+        nocc = int(np.count_nonzero(evals < fermi))
+        if nocc == 0 or nocc == evals.size:
+            raise PythtbError("fermi = %g leaves no occupied/empty states" % fermi)
+    dev = config.checked_device()
+    X, Y, cell_area = _positions(model, dev)
+    if _use_host_eigh(eigensolver, "chern_marker"):
+        W = torch.as_tensor(_host_occ_states(model, nocc)[1]).to(dev)
+    else:
+        W = _device_states(model, nocc)[1]
+    imdiag = _marker_core(W, X, Y).cpu().numpy().astype(np.float64)
+    c = -4.0 * np.pi / cell_area * imdiag
+    if model._nspin == 2:
+        c = c.reshape(-1, 2).sum(axis=1)
+    return c
+
+
+# --------------------------------------------------------------------
+# Bott index
+# --------------------------------------------------------------------
+
+
+def _dense_from_ell(h):
+    """The dense (nsta, nsta) H of an ELL sample: one kernel-8 launch on
+    the identity block.  Exact: column b of the product sums the slots of
+    each row that land on b, and padding slots add 0."""
+    eye = torch.eye(h.nsta, dtype=config.COMPLEX, device=h.device)
+    return apply_rows(h, eye, torch.empty_like(eye))
+
+
+def _host_eigh_ell(h):
+    """Host float64 eigensolve of an ELL-table sample (the same densify
+    semantics as the device path); rows are states."""
+    evals, vecs = np.linalg.eigh(to_dense(h))
+    return evals, vecs.T
+
+
+def bott_index(sample, nocc=None, fermi=None, eigensolver="auto"):
+    """Loring-Hastings Bott index of a 2-D torus sample.
+
+    With ``U = exp(2 pi i Theta_x)``, ``V = exp(2 pi i Theta_y)`` (Theta
+    the reduced positions on the torus) projected into the occupied
+    subspace, ``Bott = (1/2 pi) Im tr log(Vp Up Vp^H Up^H)`` (Loring &
+    Hastings, EPL 92, 67004 (2010)).  The dense H is one kernel-8 launch
+    and its eigensolve runs on the device; the occupied projections and
+    the final non-Hermitian eigenvalue sum run on the host in float64
+    (they are (nocc, nocc) sized).
+
+    :param sample: 2-D :class:`TorusSample`
+    :param nocc: occupied state count, or
+    :param fermi: Fermi energy used to count occupied states
+    :param eigensolver: "device" / "auto" (the device eigh) or "host"
+      (float64 NumPy)
+    :returns: the Bott index (float; near-integer when gapped)
+    """
+    if sample.theta.shape[1] != 2:
+        raise PythtbError("bott_index requires a 2-D torus sample")
+    h = sample.h
+    if _use_host_eigh(eigensolver, "bott_index"):
+        evals, W = _host_eigh_ell(h)
+    else:
+        w, V = torch.linalg.eigh(_dense_from_ell(h))
+        evals = w.cpu().numpy().astype(np.float64)
+        W = V.T.cpu().numpy()  # rows are states
+    if (nocc is None) == (fermi is None):
+        raise PythtbError("give exactly one of nocc / fermi")
+    if nocc is None:
+        nocc = int(np.count_nonzero(evals < fermi))
+    nocc = int(nocc)
+    if not (0 < nocc < h.nsta):
+        raise PythtbError("nocc must leave both occupied and empty states")
+    theta = sample.theta
+    if h.nspin == 2:
+        theta = np.repeat(theta, 2, axis=0)
+    Wocc = W[:nocc]
+    px = np.exp(2j * np.pi * theta[:, 0])
+    py = np.exp(2j * np.pi * theta[:, 1])
+    U = (np.conj(Wocc) * px) @ Wocc.T
+    V = (np.conj(Wocc) * py) @ Wocc.T
+    Mb = V @ U @ np.conj(V.T) @ np.conj(U.T)
+    lam = np.linalg.eigvals(Mb)
+    return float(np.sum(np.angle(lam)) / (2.0 * np.pi))
+
+
+# --------------------------------------------------------------------
+# sector (spin) Chern markers -- real-space QSH diagnostics
+# --------------------------------------------------------------------
+
+
+def sector_marker(model, op, nocc=None, fermi=None, split=None, eigensolver="auto"):
+    """Per-site local Chern markers of the Prodan eigensectors of a grading
+    operator ``op`` projected into the occupied space of a FINITE 2-D
+    model.
+
+    Splits the occupied space by the spectrum of ``P O P`` (``split``
+    lowest eigenstates -> the minus sector, the rest -> plus) and computes
+    the Bianco-Resta marker of each sector projector (``Q_s = 1 - P_s``:
+    the complement holds the empty space and the other sector).
+
+    :param model: finite model (``dim_k == 0``, ``dim_r == 2``)
+    :param op: (nsta, nsta) Hermitian grading, or a length-nsta diagonal,
+      in the flattened (orb x spin, spin fastest) space
+    :param nocc: occupied state count, or
+    :param fermi: Fermi energy used to count occupied states
+    :param split: minus-sector size (default ``nocc // 2``); a warning
+      reports when the projected spectrum does not straddle zero there
+    :param eigensolver: "device" / "auto" or "host" (float64 NumPy eigh
+      and sector split feeding the device contraction)
+    :returns: dict with ``c_minus`` / ``c_plus`` ((norb,) per-site
+      markers, spin-summed), ``sector_marker`` (their half-difference),
+      ``total_marker`` (their sum), ``gap`` (P O P spectral gap at the
+      split)
+    """
+    if model._dim_k != 0:
+        raise PythtbError("sector_marker requires a finite model (dim_k == 0)")
+    if model._dim_r != 2:
+        raise PythtbError("sector_marker requires 2-D positions (dim_r == 2)")
+    if (nocc is None) == (fermi is None):
+        raise PythtbError("give exactly one of nocc / fermi")
+    nsta = model._norb * model._nspin
+    if fermi is not None:
+        evals = model.solve_all()
+        nocc = int(np.count_nonzero(evals < fermi))
+    nocc = int(nocc)
+    if not (1 < nocc < nsta):
+        raise PythtbError("nocc must be in 2..nsta-1")
+    split = nocc // 2 if split is None else int(split)
+    if not (1 <= split <= nocc - 1):
+        raise PythtbError("split must be in [1, %d]" % (nocc - 1))
+    op = np.asarray(op, dtype=np.complex128)
+    if op.ndim == 1:
+        op = np.diag(op)
+    if op.shape != (nsta, nsta):
+        raise PythtbError("op must be (%d, %d) (or a length-%d diagonal)" % (nsta, nsta, nsta))
+    if np.abs(op - op.conj().T).max() > 1e-12:
+        raise PythtbError("op must be Hermitian (for a spinful mirror M with M^2 = -1, pass 1j * M)")
+    dev = config.checked_device()
+    X, Y, cell_area = _positions(model, dev)
+    if _use_host_eigh(eigensolver, "sector_marker"):
+        _, W = _host_occ_states(model, nocc)
+        M = np.einsum("ns,st,mt->nm", np.conj(W), op, W)
+        sig, U = np.linalg.eigh(0.5 * (M + np.conj(M.T)))
+        V_minus = torch.as_tensor(np.einsum("na,ns->as", U[:, :split], W)).to(dev)
+        V_plus = torch.as_tensor(np.einsum("na,ns->as", U[:, split:], W)).to(dev)
+    else:
+        W = _device_states(model, nocc)[1]
+        opd = torch.as_tensor(op).to(dev)
+        M = W.conj() @ opd @ W.T
+        sig, U = torch.linalg.eigh(0.5 * (M + M.conj().T))  # ascending
+        V_minus = U[:, :split].T @ W
+        V_plus = U[:, split:].T @ W
+        sig = sig.cpu().numpy()
+    im_m = _marker_core(V_minus, X, Y).cpu().numpy()
+    im_p = _marker_core(V_plus, X, Y).cpu().numpy()
+    sig = np.asarray(sig, dtype=np.float64)
+    gap = float(sig[split] - sig[split - 1])
+    if gap < 1e-3:
+        warnings.warn(
+            "sector_marker: the P O P spectrum is (nearly) gapless at the "
+            "split (min gap %.2e) -- the sector markers are ill-defined "
+            "for this model/operator/filling." % gap,
+            UserWarning, stacklevel=2)
+    elif not (sig[split - 1] < 0.0 < sig[split]):
+        warnings.warn(
+            "sector_marker: the P O P spectrum does not straddle zero at "
+            "the requested split (eigenvalues around it in [%.3f, %.3f]) "
+            "-- the +- sector labels are arbitrary; check `split`."
+            % (float(sig[split - 1]), float(sig[split])),
+            UserWarning, stacklevel=2)
+    cm = -4.0 * np.pi / cell_area * np.asarray(im_m, dtype=np.float64)
+    cp = -4.0 * np.pi / cell_area * np.asarray(im_p, dtype=np.float64)
+    if model._nspin == 2:
+        cm = cm.reshape(-1, 2).sum(axis=1)
+        cp = cp.reshape(-1, 2).sum(axis=1)
+    return {"c_minus": cm, "c_plus": cp, "sector_marker": 0.5 * (cp - cm), "total_marker": cp + cm,
+            "gap": gap}
+
+
+def spin_chern_marker(model, nocc=None, fermi=None, eigensolver="auto"):
+    """Per-site SPIN Chern marker of a finite spinful 2-D model: the
+    Prodan P Sz P sector split of :func:`sector_marker` with the spin
+    grading ``diag(+1, -1)`` per orbital -- the real-space Z2 / QSH
+    diagnostic.
+
+    :returns: dict as :func:`sector_marker` (``sector_marker`` is the
+      per-site spin Chern marker)
+    """
+    if model._nspin != 2:
+        raise PythtbError("spin_chern_marker requires a spinful model (nspin = 2)")
+    sz = np.tile([1.0, -1.0], model._norb)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = sector_marker(model, sz, nocc=nocc, fermi=fermi, eigensolver=eigensolver)
+    for w in caught:
+        msg = str(w.message).replace("sector_marker", "spin_chern_marker").replace("P O P", "P Sz P")
+        warnings.warn(msg, w.category, stacklevel=2)
+    return out

@@ -394,3 +394,95 @@ def test_matrix_free_stack_goes_through_kernels(dev):
         config.set_device(prev)
     for got, want in zip(card, cpu):
         assert np.abs(got - want).max() < 1e-10 * max(1.0, np.abs(want).max())
+
+
+# -- kernel 11, kernel 12 and kernel 1's one-sided mode ---------------------
+
+
+@pytest.mark.parametrize("B,M", [(1, 2), (3, 3), (12, 70)])
+def test_cheb_filter_kernel(dev, B, M):
+    from pythtb_tpu_torch.ops import chebyshev
+
+    for name, h in _ell_cases(dev).items():
+        ab = _ab(h, dev)
+        X = _block(B + M, h.nsta, B, dev)
+        coef = torch.as_tensor(np.random.default_rng(M).normal(size=M)).to(dev)
+        before = _kernels.LAUNCHES["cheb_filter"]
+        got = chebyshev.filter(h, ab, coef, X)
+        assert _kernels.LAUNCHES["cheb_filter"] == before + M - 1
+        want = chebyshev._filter_plain(h, ab, coef, X)
+        assert _max_diff(got, want) < TOL * max(1.0, float(want.abs().max())), name
+
+
+@pytest.mark.parametrize("dim_k,nspin", [(0, 1), (1, 1), (2, 1), (1, 2), (2, 2)])
+def test_assemble_one_sided_kernel(dev, dim_k, nspin):
+    data, k = _random_data(30 + dim_k + 5 * nspin, dim_k, nspin, dev)
+    before = (_kernels.LAUNCHES["assemble_one_sided"], _kernels.LAUNCHES["assemble"])
+    H = hamiltonian.assemble_one_sided(data, k)
+    assert (_kernels.LAUNCHES["assemble_one_sided"], _kernels.LAUNCHES["assemble"]) == (before[0] + 1, before[1])
+    assert _max_diff(H, hamiltonian._one_sided_plain(data, k)) < TOL
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 16, 17])
+def test_decimation_kernel(dev, S):
+    """Random layer blocks (|H01| < |H00| spread, so the decimation
+    converges) at every kernel path; above S 16 the counted shape rule."""
+    from pythtb_tpu_torch import surface
+
+    rng = np.random.default_rng(60 + S)
+    K, nE = 23, 3
+    a = rng.normal(size=(K, S, S)) + 1j * rng.normal(size=(K, S, S))
+    H00 = torch.as_tensor(a + np.conj(np.swapaxes(a, -1, -2))).to(dev)
+    H01 = torch.as_tensor(0.3 * (rng.normal(size=(K, S, S)) + 1j * rng.normal(size=(K, S, S)))).to(dev)
+    w = torch.as_tensor(rng.uniform(-2, 2, nE) + 0.05j).to(dev)
+    before = (_kernels.LAUNCHES["decimation"], _kernels.LAUNCHES["decimation_library"])
+    got = surface.decimate(H00, H01, w, 12)
+    want = surface._decimate_plain(H00, H01, w, 12)
+    for g, p in zip(got, want):
+        assert g.shape == p.shape
+        assert _max_diff(g, p) < TOL * max(1.0, float(p.abs().max()))
+    if S > surface.DECIMATION_MAX_S:
+        assert (_kernels.LAUNCHES["decimation"], _kernels.LAUNCHES["decimation_library"]) == (before[0],
+                                                                                               before[1] + 1)
+    else:
+        assert (_kernels.LAUNCHES["decimation"], _kernels.LAUNCHES["decimation_library"]) == (before[0] + 1,
+                                                                                               before[1])
+
+
+def test_slice_four_goes_through_kernels(dev):
+    """solve_window, solve_lowest, the markers and spectral_function on
+    the card launch kernels 1 (both modes), 6, 8, 11 and 12 and agree with
+    the CPU run of the same calls and seeds."""
+    import pythtb_tpu_torch as pt
+
+    def run():
+        e_dirac = float(pt.models.sk_graphene().solve_all(np.array([[2 / 3, 1 / 3]])).mean())
+        win = pt.flows.solve_window(pt.models.tbg(2), 4, e_dirac, k_point=np.array([1 / 3, 2 / 3]), block=12,
+                                    seed=0)
+        low = pt.flows.solve_lowest(pt.models.haldane().cut_piece(8, 0).cut_piece(8, 1), 4, max_iters=600)
+        pen = pt.magnetic.peierls_model(pt.models.penrose(4.0), 0.1, dirs=(0, 1))
+        cm = pt.realspace.chern_marker(pen, nocc=20)
+        sm = pt.realspace.spin_chern_marker(pt.models.kane_mele().cut_piece(3, 0).cut_piece(3, 1), nocc=18)
+        bott = pt.realspace.bott_index(pt.realspace.torus_sample(pt.models.haldane(), (5, 5), 2.0, seed=1),
+                                       nocc=25)
+        kgrid = np.stack([np.linspace(-0.2, 0.2, 9), np.full(9, 0.5)], -1)
+        arc = pt.surface.spectral_function(pt.models.weyl(), 0, k_par=kgrid, energies=np.array([0.0]),
+                                           eta=0.03)
+        edge = pt.surface.spectral_function(pt.models.kane_mele(), 1, k_par=np.linspace(0, 1, 7)[:, None],
+                                            energies=np.array([0.1]), eta=0.03, side="top")
+        return win, low, cm, sm["c_plus"], sm["c_minus"], np.array([bott]), arc, edge
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card = run()
+        for name in ("assemble", "assemble_one_sided", "position", "ell_matvec", "cheb_filter", "decimation"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        assert _kernels.LAUNCHES["decimation_library"] == 0
+        config.set_device("cpu")
+        cpu = run()
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() < 1e-10 * max(1.0, np.abs(want).max())
