@@ -37,12 +37,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the fourth slice's rows: the four flat-band states of magic-angle
    twisted bilayer graphene (11,164 orbitals) by solve_window at Gamma, K
    and M against the x64 pins, solve_lowest on the 3,600-site Peierls
-   flake, the Bianco-Resta marker of the 608-site Penrose patch, the spin
+   flake (each of the ten values within 5e-3 of the dense levels), the Bianco-Resta marker of the 608-site Penrose patch, the spin
    Chern marker of the 784-state Kane-Mele flake, the Bott index of the
    512-site disordered torus and the Weyl Fermi-arc map (10,201 pixels);
    then the steady wall time of the main calls;
-5. launches: every kernel's counter must have risen during phase 4, and
-   the decimation's plain-path shape rule must not have fired;
+5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
 
@@ -871,6 +870,17 @@ def slice4_kernels(torch, pt, device, rng, record, held):
         record("decimation", key + " iters 35", err, lambda: surface.decimate(H00, H01, w, 35),
                lambda: surface._decimate_plain(H00, H01, w, 35),
                cost_decimation(k.shape[0], len(energies), H00.shape[-1], 35), main)
+    # kernel 12's block path at its largest layer (S 40, the shared memory
+    # opted in), on random blocks whose decimation converges
+    S = surface.DECIMATION_MAX_S
+    a = rng.normal(size=(16, S, S)) + 1j * rng.normal(size=(16, S, S))
+    H00 = torch.as_tensor(np.ascontiguousarray(a + np.conj(np.swapaxes(a, -1, -2)))).to(device)
+    H01 = 0.3 * block((16, S, S))
+    w = torch.as_tensor(np.array([-1.0, 0.5]) + 0.05j).to(device)
+    got, want = surface.decimate(H00, H01, w, 35), surface._decimate_plain(H00, H01, w, 35)
+    err = max(max_diff(torch, g, p) / max(1.0, float(p.abs().max())) for g, p in zip(got, want))
+    record("decimation", "random E=2 K=16 S=%d iters 35" % S, err, lambda: surface.decimate(H00, H01, w, 35),
+           lambda: surface._decimate_plain(H00, H01, w, 35), cost_decimation(16, 2, S, 35), reps=5)
 
     # kernels 1 (dim_k 0) and 6 at the marker shapes: the Penrose patch
     # (nocc 50 of 608), the Kane-Mele flake (nocc 392 of 784, and a sector
@@ -973,21 +983,26 @@ def slice4_path(pt, where, reference):
     return out
 
 
+LOWEST_TOL = 5e-3  # the row's own E0 limit, applied to each of the ten values
+
+
 def check_lowest_bound(torch, pt, low, device):
-    """The ten Ritz values of solve_lowest are upper bounds of the ten
-    lowest eigenvalues (Cauchy interlacing), held against
-    torch.linalg.eigvalsh of the same dense H on the card; the distance is
-    printed.  The flux-1/9 flake's lowest Landau level holds ~400 levels
-    within 1e-3, so 300 LOBPCG iterations at tol 1e-7 stop well short of
-    1e-6 (the JAX package's own result is off by up to 7.6e-3)."""
+    """The ten Ritz values of solve_lowest against torch.linalg.eigvalsh of
+    the same dense H on the card, from both sides: none below its exact
+    level (Cauchy interlacing: a Ritz value is an upper bound), none above
+    it by LOWEST_TOL or more.  The flux-1/9 flake's lowest Landau level
+    holds ~400 levels within 1e-3, so 300 LOBPCG iterations at tol 1e-7
+    stop short of 1e-6 (the JAX package's own result is off by up to
+    7.6e-3); the distances are printed."""
     from pythtb_tpu_torch.ops import matvec
 
     H = torch.as_tensor(matvec.to_dense(matvec.sparse_h(lowest_flake(pt)))).to(device)
     ev = torch.linalg.eigvalsh(H).cpu().numpy()[:10]
     gap = low - ev
-    print("  solve_lowest vs torch.linalg.eigvalsh of the dense H on the card: Ritz - exact in [%.3e, %.3e]"
-          % (gap.min(), gap.max()))
+    print("  solve_lowest vs torch.linalg.eigvalsh of the dense H on the card: Ritz - exact in [%.3e, %.3e] "
+          "(limit %.0e)" % (gap.min(), gap.max(), LOWEST_TOL))
     check(gap.min() > -1e-10, "solve_lowest value below the exact eigenvalue by %.3e" % -gap.min())
+    check(gap.max() < LOWEST_TOL, "solve_lowest value above the exact eigenvalue by %.3e" % gap.max())
 
 
 def phase_main_path(torch, pt, where, reference=False):
@@ -1329,8 +1344,6 @@ def main():
                "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
-    check(launches["decimation_library"] == 0,
-          "the decimation took the plain path %d times on the main path" % launches["decimation_library"])
 
     # -- phase 6: results ------------------------------------------------
     sources = {

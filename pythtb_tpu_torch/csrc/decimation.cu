@@ -19,14 +19,17 @@
 // pixel runs `iters` dependent steps of small complex algebra.  Design:
 // the whole decimation of a pixel stays on chip.  At S <= 2 one thread
 // owns a pixel, its matrices in registers and the inverse in closed form;
-// for 3 <= S <= 16 one block owns a pixel, S*S threads one element each,
-// the matrices in shared memory and the inverse by Gauss-Jordan with
-// partial pivoting.  Larger S is refused; ops' caller takes the plain
-// path there under a counted shape rule.  Maxima propagate NaN (the
+// for 3 <= S <= 40 one block owns a pixel, its threads (as many as the
+// registers allow) striding over the S*S elements, the matrices in
+// dynamic shared memory (opted in above 48 KB: about 205 KB at S 40) and
+// the inverse by Gauss-Jordan with partial pivoting.  Larger S is refused (cudaErrorInvalidValue), and the
+// Python wrapper raises before it gets here.  Maxima propagate NaN (the
 // host's blow-up test needs it), so they are not fmax.
+#include <algorithm>
+
 #include "common.cuh"
 
-constexpr int kMaxS = 16;
+constexpr int kMaxS = 40;  // 8 S*S complex matrices in 227 KB of shared memory
 constexpr int kSmallThreads = 64;
 constexpr double kPi = 3.141592653589793;
 
@@ -132,13 +135,48 @@ __global__ void decimation_small(const cplx* __restrict__ H00, const cplx* __res
     peak[p] = pk;
 }
 
-// -- 3 <= S <= 16: one block a pixel, one thread an element -----------------
+// -- 3 <= S <= kMaxS: one block a pixel ------------------------------------
+//
+// Thread t owns the elements q = t, t + nt, ... of every S x S matrix
+// (nt = blockDim.x).  The eight matrices, three length-S vectors and the
+// reduction buffer live in dynamic shared memory, laid out by `BlockSmem`.
 
-// g = m^{-1} by Gauss-Jordan with partial pivoting; m is destroyed.
-// Thread (i, j) = (t / S, t % S); every thread of the block calls this.
-__device__ void block_inv(cplx* m, cplx* g, int S, int t, int* piv) {
-    const int i = t / S, j = t - (t / S) * S;
-    g[t] = make_cuDoubleComplex(i == j ? 1.0 : 0.0, 0.0);
+struct BlockSmem {
+    cplx *es, *e, *a, *b, *m, *g, *t1, *t2, *rowm, *rowg, *col;
+    double* red;
+    int* piv;
+};
+
+__host__ __device__ inline size_t block_smem_bytes(int S, int nt) {
+    return (size_t)(8 * S * S + 3 * S) * sizeof(cplx) + (size_t)nt * sizeof(double) + sizeof(int);
+}
+
+__device__ inline BlockSmem block_smem(cplx* base, int S, int nt) {
+    const int n = S * S;
+    BlockSmem s;
+    s.es = base;
+    s.e = s.es + n;
+    s.a = s.e + n;
+    s.b = s.a + n;
+    s.m = s.b + n;
+    s.g = s.m + n;
+    s.t1 = s.g + n;
+    s.t2 = s.t1 + n;
+    s.rowm = s.t2 + n;
+    s.rowg = s.rowm + S;
+    s.col = s.rowg + S;
+    s.red = (double*)(s.col + S);
+    s.piv = (int*)(s.red + nt);
+    return s;
+}
+
+// g = m^{-1} by Gauss-Jordan with partial pivoting; m is destroyed.  Every
+// thread of the block calls this; per column: the pivot search (thread 0),
+// the row swap, the scaled pivot row and the column saved, the update.
+__device__ void block_inv(const BlockSmem& s, int S) {
+    const int t = threadIdx.x, nt = blockDim.x, n = S * S;
+    cplx *m = s.m, *g = s.g;
+    for (int q = t; q < n; q += nt) g[q] = make_cuDoubleComplex(q / S == q % S ? 1.0 : 0.0, 0.0);
     __syncthreads();
     for (int c = 0; c < S; ++c) {
         if (t == 0) {
@@ -151,32 +189,36 @@ __device__ void block_inv(cplx* m, cplx* g, int S, int t, int* piv) {
                     r = q;
                 }
             }
-            *piv = r;
+            *s.piv = r;
         }
         __syncthreads();
-        const int r = *piv;
-        if (r != c && i == 0) {  // row swap, one thread a column
-            cplx tmp = m[c * S + j];
-            m[c * S + j] = m[r * S + j];
-            m[r * S + j] = tmp;
-            tmp = g[c * S + j];
-            g[c * S + j] = g[r * S + j];
-            g[r * S + j] = tmp;
-        }
+        const int r = *s.piv;
+        if (r != c)
+            for (int j = t; j < S; j += nt) {
+                cplx tmp = m[c * S + j];
+                m[c * S + j] = m[r * S + j];
+                m[r * S + j] = tmp;
+                tmp = g[c * S + j];
+                g[c * S + j] = g[r * S + j];
+                g[r * S + j] = tmp;
+            }
         __syncthreads();
         const cplx pv = m[c * S + c];
-        __syncthreads();
-        if (i == c) {
-            m[c * S + j] = cuCdiv(m[c * S + j], pv);
-            g[c * S + j] = cuCdiv(g[c * S + j], pv);
+        for (int j = t; j < S; j += nt) {
+            s.rowm[j] = cuCdiv(m[c * S + j], pv);
+            s.rowg[j] = cuCdiv(g[c * S + j], pv);
+            s.col[j] = m[j * S + c];
         }
         __syncthreads();
-        const cplx f = m[i * S + c];
-        const cplx mc = m[c * S + j], gc = g[c * S + j];
-        __syncthreads();
-        if (i != c) {
-            m[t] = csub(m[t], cuCmul(f, mc));
-            g[t] = csub(g[t], cuCmul(f, gc));
+        for (int q = t; q < n; q += nt) {
+            const int i = q / S, j = q - i * S;
+            if (i == c) {
+                m[q] = s.rowm[j];
+                g[q] = s.rowg[j];
+            } else {
+                m[q] = csub(m[q], cuCmul(s.col[i], s.rowm[j]));
+                g[q] = csub(g[q], cuCmul(s.col[i], s.rowg[j]));
+            }
         }
         __syncthreads();
     }
@@ -188,12 +230,14 @@ __device__ __forceinline__ cplx block_mm(const cplx* x, const cplx* y, int S, in
     return s;
 }
 
-__device__ double block_max(double v, double* red, int t, int n) {
+// the NaN-propagating maximum of every thread's v
+__device__ double block_max(double v, double* red) {
+    const int t = threadIdx.x, nt = blockDim.x;
     red[t] = v;
     __syncthreads();
     if (t == 0) {
         double m = red[0];
-        for (int q = 1; q < n; ++q) m = nan_max(m, red[q]);
+        for (int q = 1; q < nt; ++q) m = nan_max(m, red[q]);
         red[0] = m;
     }
     __syncthreads();
@@ -202,60 +246,85 @@ __device__ double block_max(double v, double* red, int t, int n) {
     return out;
 }
 
+// m = w I - x, then -Im diag(m^{-1}) / pi into out[0..S)
+__device__ void block_weights(const BlockSmem& s, const cplx* x, cplx w, int S, double* out) {
+    const int t = threadIdx.x, nt = blockDim.x, n = S * S;
+    for (int q = t; q < n; q += nt) {
+        const bool d = q / S == q % S;
+        s.m[q] = make_cuDoubleComplex((d ? w.x : 0.0) - x[q].x, (d ? w.y : 0.0) - x[q].y);
+    }
+    __syncthreads();
+    block_inv(s, S);
+    for (int i = t; i < S; i += nt) out[i] = -s.g[i * S + i].y / kPi;
+    __syncthreads();
+}
+
 __global__ void decimation_block(const cplx* __restrict__ H00, const cplx* __restrict__ H01,
                                  const cplx* __restrict__ wv, double* __restrict__ gs,
                                  double* __restrict__ gb, double* __restrict__ afin,
                                  double* __restrict__ peak, int64_t K, int S, int iters) {
-    __shared__ cplx es[kMaxS * kMaxS], e[kMaxS * kMaxS], a[kMaxS * kMaxS], b[kMaxS * kMaxS];
-    __shared__ cplx m[kMaxS * kMaxS], g[kMaxS * kMaxS], t1[kMaxS * kMaxS], t2[kMaxS * kMaxS];
-    __shared__ double red[kMaxS * kMaxS];
-    __shared__ int piv;
+    extern __shared__ cplx smem[];
+    const int t = threadIdx.x, nt = blockDim.x, n = S * S;
+    const BlockSmem s = block_smem(smem, S, nt);
     const int64_t p = blockIdx.x;
     const int64_t k = p % K;
     const cplx w = wv[p / K];
-    const int t = threadIdx.x;
-    const int i = t / S, j = t - (t / S) * S;
-    const int64_t base = k * S * S;
-    es[t] = e[t] = H00[base + t];
-    a[t] = H01[base + t];
-    b[t] = cconj(H01[base + j * S + i]);
-    double pk = cabs_(a[t]);
+    const int64_t base = k * n;
+    double pk = 0.0;
+    for (int q = t; q < n; q += nt) {
+        const int i = q / S, j = q - i * S;
+        s.es[q] = s.e[q] = H00[base + q];
+        s.a[q] = H01[base + q];
+        s.b[q] = cconj(H01[base + j * S + i]);
+        pk = nan_max(pk, cabs_(s.a[q]));
+    }
     __syncthreads();
     for (int it = 0; it < iters; ++it) {
-        m[t] = make_cuDoubleComplex((i == j ? w.x : 0.0) - e[t].x, (i == j ? w.y : 0.0) - e[t].y);
+        for (int q = t; q < n; q += nt) {
+            const bool d = q / S == q % S;
+            s.m[q] = make_cuDoubleComplex((d ? w.x : 0.0) - s.e[q].x, (d ? w.y : 0.0) - s.e[q].y);
+        }
         __syncthreads();
-        block_inv(m, g, S, t, &piv);
-        t1[t] = block_mm(g, b, S, i, j);
-        t2[t] = block_mm(g, a, S, i, j);
+        block_inv(s, S);
+        for (int q = t; q < n; q += nt) {
+            const int i = q / S, j = q - i * S;
+            s.t1[q] = block_mm(s.g, s.b, S, i, j);
+            s.t2[q] = block_mm(s.g, s.a, S, i, j);
+        }
         __syncthreads();
-        const cplx agb = block_mm(a, t1, S, i, j);
-        const cplx bga = block_mm(b, t2, S, i, j);
-        const cplx an = block_mm(a, t2, S, i, j);
-        const cplx bn = block_mm(b, t1, S, i, j);
+        // m, g <- agb = a t1, bga = b t2 (g is free once t1, t2 are made)
+        for (int q = t; q < n; q += nt) {
+            const int i = q / S, j = q - i * S;
+            s.m[q] = block_mm(s.a, s.t1, S, i, j);
+            s.g[q] = block_mm(s.b, s.t2, S, i, j);
+        }
         __syncthreads();
-        es[t] = cuCadd(es[t], agb);
-        e[t] = cuCadd(cuCadd(e[t], agb), bga);
-        a[t] = an;
-        b[t] = bn;
-        pk = nan_max(pk, cabs_(an));
+        // each thread reads back only its own elements of m and g here
+        for (int q = t; q < n; q += nt) {
+            const int i = q / S, j = q - i * S;
+            s.es[q] = cuCadd(s.es[q], s.m[q]);
+            s.e[q] = cuCadd(cuCadd(s.e[q], s.m[q]), s.g[q]);
+            s.m[q] = block_mm(s.a, s.t2, S, i, j);  // a_n
+            s.g[q] = block_mm(s.b, s.t1, S, i, j);  // b_n
+        }
+        __syncthreads();
+        for (int q = t; q < n; q += nt) {
+            s.a[q] = s.m[q];
+            s.b[q] = s.g[q];
+            pk = nan_max(pk, cabs_(s.a[q]));
+        }
         __syncthreads();
     }
-    const double af = block_max(cabs_(a[t]), red, t, S * S);
-    pk = block_max(pk, red, t, S * S);
+    double af = 0.0;
+    for (int q = t; q < n; q += nt) af = nan_max(af, cabs_(s.a[q]));
+    af = block_max(af, s.red);
+    pk = block_max(pk, s.red);
     if (t == 0) {
         afin[p] = af;
         peak[p] = pk;
     }
-    // surface and bulk weights
-    m[t] = make_cuDoubleComplex((i == j ? w.x : 0.0) - es[t].x, (i == j ? w.y : 0.0) - es[t].y);
-    __syncthreads();
-    block_inv(m, g, S, t, &piv);
-    if (i == j) gs[p * S + i] = -g[t].y / kPi;
-    __syncthreads();
-    m[t] = make_cuDoubleComplex((i == j ? w.x : 0.0) - e[t].x, (i == j ? w.y : 0.0) - e[t].y);
-    __syncthreads();
-    block_inv(m, g, S, t, &piv);
-    if (i == j) gb[p * S + i] = -g[t].y / kPi;
+    block_weights(s, s.es, w, S, gs + p * S);  // surface
+    block_weights(s, s.e, w, S, gb + p * S);   // bulk
 }
 
 // H00, H01 (K, S, S) complex; w (nE,) complex (E + i eta); gs, gb (nE, K, S)
@@ -275,10 +344,26 @@ extern "C" int pythtb_decimation(const void* H00, const void* H01, const void* w
     else if (S == 2)
         decimation_small<2><<<grid, kSmallThreads, 0, st>>>(h0, h1, wv, s, bk, af, pk, nE, K,
                                                             (int)iters);
-    else if (S <= kMaxS)
-        decimation_block<<<(unsigned int)n, (unsigned int)(S * S), 0, st>>>(
+    else if (S <= kMaxS) {
+        // as many threads as elements, up to what the kernel's registers
+        // allow in one block (fewer than 1,024 in float64)
+        cudaFuncAttributes fa;
+        cudaError_t err = cudaFuncGetAttributes(&fa, decimation_block);
+        if (err != cudaSuccess) return (int)err;
+        const int nt = (int)std::min<int64_t>(fa.maxThreadsPerBlock / 32 * 32, (S * S + 31) / 32 * 32);
+        const size_t smem = block_smem_bytes((int)S, nt);
+        int dev = 0, optin = 0;
+        err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err != cudaSuccess) return (int)err;
+        if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+        err = cudaFuncSetAttribute(decimation_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        decimation_block<<<(unsigned int)n, (unsigned int)nt, smem, st>>>(
             h0, h1, wv, s, bk, af, pk, K, (int)S, (int)iters);
-    else
+    } else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }

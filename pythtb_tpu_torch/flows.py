@@ -403,8 +403,10 @@ def solve_lowest(model, num_states, eig_vectors=False, max_iters=300, tol=None, 
     num_states) per iteration): the top eigenpairs of the spectrum-
     reversed ``sigma * I - H`` (Gershgorin shift) by the complex LOBPCG of
     :mod:`pythtb_tpu_torch.ops.lobpcg`, every application of H one
-    launch of kernel 8; then an SVD basis of the Ritz block and a small
-    Rayleigh-Ritz solve.
+    launch of kernel 8.  The complex LOBPCG returns k orthonormal Ritz
+    vectors with their Rayleigh-Ritz values, so the JAX package's post
+    step (an SVD and a second Rayleigh-Ritz solve, which shrink its real
+    embedding's doubled block) has no counterpart here.
 
     :param num_states: how many lowest states (needs ``10 * num_states <
       norb * nspin``)
@@ -441,24 +443,15 @@ def solve_lowest(model, num_states, eig_vectors=False, max_iters=300, tol=None, 
     gen = torch.Generator().manual_seed(int(seed))
     X0 = torch.complex(torch.randn((N, k), dtype=config.FLOAT, generator=gen),
                        torch.randn((N, k), dtype=config.FLOAT, generator=gen)).to(h.device)
-    _, V, _ = lobpcg_standard(amat, X0, m=int(max_iters), tol=tol)
-    w, vecs = _solve_lowest_post(V, h, k)
+    theta, V, _ = lobpcg_standard(amat, X0, m=int(max_iters), tol=tol)
+    # the Ritz pairs of sigma - H, descending, are those of H ascending
+    w = (sigma - theta).cpu().numpy().astype(np.float64)
     if not eig_vectors:
-        return w.cpu().numpy().astype(np.float64)
-    vecs = vecs.cpu().numpy()
+        return w
+    vecs = V.T.cpu().numpy()
     if h.nspin == 2:
         vecs = vecs.reshape(k, h.norb, 2)
-    return w.cpu().numpy().astype(np.float64), vecs
-
-
-def _solve_lowest_post(V, h, k):
-    """Ritz block -> eigenbasis: the SVD's k-dim column space, then a
-    small Rayleigh-Ritz solve (``_solve_lowest_post_jit``).  Returns w (k,)
-    and vecs (k, nsta), rows are states."""
-    U = torch.linalg.svd(V, full_matrices=False)[0][:, :k]
-    Hk = U.conj().T @ _hmat(h, U.contiguous())
-    w, S = torch.linalg.eigh(0.5 * (Hk + Hk.conj().T))
-    return w, (U @ S).T
+    return w, vecs
 
 
 def _window_round(h, X, coef, ab):

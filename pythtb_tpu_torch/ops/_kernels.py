@@ -54,14 +54,13 @@ _SIGNATURES = {
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
 # whole recursion from one C call; they count each step (kernel 9) or term
 # (kernels 10 and 11) that ran on the device.  "assemble_one_sided" counts
-# kernel 1's one-sided launches (not in "assemble").  "link_dets_library",
-# "wilson_loop_library" and "decimation_library" count the shape rules of
-# ops.berry (S > 8) and surface (S > 16), which launch no kernel of this
-# package.
+# kernel 1's one-sided launches (not in "assemble").  "link_dets_library"
+# and "wilson_loop_library" count the shape rules of ops.berry (S > 8),
+# which launch no kernel of this package.
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
-     "link_dets_library", "wilson_loop_library", "decimation_library"), 0
+     "link_dets_library", "wilson_loop_library"), 0
 )
 
 _lib = None

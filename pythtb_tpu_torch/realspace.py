@@ -40,7 +40,7 @@ import torch
 from . import config
 from .model import PythtbError
 from .ops import chebyshev
-from .ops.matvec import SparseH, _ell_tables, _upload, apply_rows, to_dense
+from .ops.matvec import SparseH, _ell_tables, _upload, apply_rows
 
 __all__ = [
     "TorusSample", "torus_sample", "kpm_conductivity", "kpm_ldos", "chern_marker", "bott_index",
@@ -409,45 +409,12 @@ def _marker_core(W, X, Y):
     return torch.sum(W * (K @ W.conj()), dim=0).imag
 
 
-def _use_host_eigh(eigensolver, caller):
-    """Resolve the marker ``eigensolver`` knob: "host" takes the host
-    float64 eigensolve; "auto" and "device" the device one (the port is
-    float64 on every device)."""
+def _check_eigensolver(eigensolver, caller):
+    """Validate the marker ``eigensolver`` knob.  All three values take the
+    device eigensolve: the JAX package's "host" path exists for its float32
+    devices, and the port is float64 on every device."""
     if eigensolver not in ("auto", "host", "device"):
         raise PythtbError('%s: eigensolver must be "auto", "host" or "device"' % caller)
-    return eigensolver == "host"
-
-
-def _dense_h(model):
-    """Dense one-body Hamiltonian of a finite model, host-side (a copy of
-    ``pythtb_tpu.ed.dense_h``).  For ``nspin == 2`` the flattened index
-    is ``2*orb + spin``, the layout of ``ops.hamiltonian.assemble``."""
-    if model._dim_k != 0:
-        raise PythtbError("ed: model must be finite (dim_k == 0); cut_piece a periodic model first")
-    norb = model._norb
-    if model._nspin == 1:
-        h = np.zeros((norb, norb), dtype=complex)
-        h[np.diag_indices(norb)] = model._site_energies
-        for hop in model._hoppings:
-            amp, i, j = hop[0], hop[1], hop[2]
-            h[i, j] += amp
-            h[j, i] += np.conj(amp)
-        return h
-    h = np.zeros((norb, 2, norb, 2), dtype=complex)
-    for i in range(norb):
-        h[i, :, i, :] = model._site_energies[i]
-    for hop in model._hoppings:
-        amp, i, j = np.asarray(hop[0], dtype=complex), hop[1], hop[2]
-        h[i, :, j, :] += amp
-        h[j, :, i, :] += amp.conj().T
-    return h.reshape(2 * norb, 2 * norb)
-
-
-def _host_occ_states(model, nocc):
-    """Host float64 dense eigensolve: (evals, W), W the nocc lowest states
-    as rows, orb-major (spin-fastest) flattening."""
-    evals, vecs = np.linalg.eigh(_dense_h(model))
-    return evals, vecs.T[:nocc]
 
 
 def _device_states(model, nocc):
@@ -486,9 +453,9 @@ def chern_marker(model, nocc=None, fermi=None, eigensolver="auto"):
       (``dim_r == 2``)
     :param nocc: number of occupied states, or
     :param fermi: Fermi energy used to count nocc (an extra eigensolve)
-    :param eigensolver: ``"device"`` or ``"auto"`` (H by kernel 1, eigh on
-      the device), or ``"host"`` (float64 NumPy eigh feeding the device
-      contraction)
+    :param eigensolver: ``"auto"``, ``"device"`` or ``"host"``, all the
+      device path (H by kernel 1, float64 eigh on the device); kept for
+      the JAX package's signature
     :returns: ``(norb,)`` marker per orbital site
     """
     if model._dim_k != 0:
@@ -506,12 +473,10 @@ def chern_marker(model, nocc=None, fermi=None, eigensolver="auto"):
         nocc = int(np.count_nonzero(evals < fermi))
         if nocc == 0 or nocc == evals.size:
             raise PythtbError("fermi = %g leaves no occupied/empty states" % fermi)
+    _check_eigensolver(eigensolver, "chern_marker")
     dev = config.checked_device()
     X, Y, cell_area = _positions(model, dev)
-    if _use_host_eigh(eigensolver, "chern_marker"):
-        W = torch.as_tensor(_host_occ_states(model, nocc)[1]).to(dev)
-    else:
-        W = _device_states(model, nocc)[1]
+    W = _device_states(model, nocc)[1]
     imdiag = _marker_core(W, X, Y).cpu().numpy().astype(np.float64)
     c = -4.0 * np.pi / cell_area * imdiag
     if model._nspin == 2:
@@ -532,13 +497,6 @@ def _dense_from_ell(h):
     return apply_rows(h, eye, torch.empty_like(eye))
 
 
-def _host_eigh_ell(h):
-    """Host float64 eigensolve of an ELL-table sample (the same densify
-    semantics as the device path); rows are states."""
-    evals, vecs = np.linalg.eigh(to_dense(h))
-    return evals, vecs.T
-
-
 def bott_index(sample, nocc=None, fermi=None, eigensolver="auto"):
     """Loring-Hastings Bott index of a 2-D torus sample.
 
@@ -553,19 +511,17 @@ def bott_index(sample, nocc=None, fermi=None, eigensolver="auto"):
     :param sample: 2-D :class:`TorusSample`
     :param nocc: occupied state count, or
     :param fermi: Fermi energy used to count occupied states
-    :param eigensolver: "device" / "auto" (the device eigh) or "host"
-      (float64 NumPy)
+    :param eigensolver: "auto", "device" or "host", all the device eigh
+      (as :func:`chern_marker`)
     :returns: the Bott index (float; near-integer when gapped)
     """
     if sample.theta.shape[1] != 2:
         raise PythtbError("bott_index requires a 2-D torus sample")
+    _check_eigensolver(eigensolver, "bott_index")
     h = sample.h
-    if _use_host_eigh(eigensolver, "bott_index"):
-        evals, W = _host_eigh_ell(h)
-    else:
-        w, V = torch.linalg.eigh(_dense_from_ell(h))
-        evals = w.cpu().numpy().astype(np.float64)
-        W = V.T.cpu().numpy()  # rows are states
+    w, V = torch.linalg.eigh(_dense_from_ell(h))
+    evals = w.cpu().numpy().astype(np.float64)
+    W = V.T.cpu().numpy()  # rows are states
     if (nocc is None) == (fermi is None):
         raise PythtbError("give exactly one of nocc / fermi")
     if nocc is None:
@@ -608,8 +564,8 @@ def sector_marker(model, op, nocc=None, fermi=None, split=None, eigensolver="aut
     :param fermi: Fermi energy used to count occupied states
     :param split: minus-sector size (default ``nocc // 2``); a warning
       reports when the projected spectrum does not straddle zero there
-    :param eigensolver: "device" / "auto" or "host" (float64 NumPy eigh
-      and sector split feeding the device contraction)
+    :param eigensolver: "auto", "device" or "host", all the device path
+      (as :func:`chern_marker`)
     :returns: dict with ``c_minus`` / ``c_plus`` ((norb,) per-site
       markers, spin-summed), ``sector_marker`` (their half-difference),
       ``total_marker`` (their sum), ``gap`` (P O P spectral gap at the
@@ -638,22 +594,16 @@ def sector_marker(model, op, nocc=None, fermi=None, split=None, eigensolver="aut
         raise PythtbError("op must be (%d, %d) (or a length-%d diagonal)" % (nsta, nsta, nsta))
     if np.abs(op - op.conj().T).max() > 1e-12:
         raise PythtbError("op must be Hermitian (for a spinful mirror M with M^2 = -1, pass 1j * M)")
+    _check_eigensolver(eigensolver, "sector_marker")
     dev = config.checked_device()
     X, Y, cell_area = _positions(model, dev)
-    if _use_host_eigh(eigensolver, "sector_marker"):
-        _, W = _host_occ_states(model, nocc)
-        M = np.einsum("ns,st,mt->nm", np.conj(W), op, W)
-        sig, U = np.linalg.eigh(0.5 * (M + np.conj(M.T)))
-        V_minus = torch.as_tensor(np.einsum("na,ns->as", U[:, :split], W)).to(dev)
-        V_plus = torch.as_tensor(np.einsum("na,ns->as", U[:, split:], W)).to(dev)
-    else:
-        W = _device_states(model, nocc)[1]
-        opd = torch.as_tensor(op).to(dev)
-        M = W.conj() @ opd @ W.T
-        sig, U = torch.linalg.eigh(0.5 * (M + M.conj().T))  # ascending
-        V_minus = U[:, :split].T @ W
-        V_plus = U[:, split:].T @ W
-        sig = sig.cpu().numpy()
+    W = _device_states(model, nocc)[1]
+    opd = torch.as_tensor(op).to(dev)
+    M = W.conj() @ opd @ W.T
+    sig, U = torch.linalg.eigh(0.5 * (M + M.conj().T))  # ascending
+    V_minus = U[:, :split].T @ W
+    V_plus = U[:, split:].T @ W
+    sig = sig.cpu().numpy()
     im_m = _marker_core(V_minus, X, Y).cpu().numpy()
     im_p = _marker_core(V_plus, X, Y).cpu().numpy()
     sig = np.asarray(sig, dtype=np.float64)

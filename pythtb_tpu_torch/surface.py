@@ -19,9 +19,9 @@ Convention-I phases.
 * :func:`decimate` -- kernel 12 (``csrc/decimation.cu``): the whole
   decimation of every (E, k) pixel on chip, one launch; on a CPU tensor
   the plain PyTorch version (the JAX scan body, batched
-  ``torch.linalg.solve_ex``).  Above S = 16 states per layer a CUDA
-  tensor takes the plain version under a counted shape rule
-  (``LAUNCHES["decimation_library"]``).
+  ``torch.linalg.solve_ex``).  The kernel takes principal layers of up
+  to ``DECIMATION_MAX_S`` = 40 states (its eight S x S matrices in shared
+  memory); above that a CUDA tensor raises.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ from .ops.hamiltonian import assemble, assemble_one_sided
 
 __all__ = ["spectral_function", "decimate"]
 
-# largest principal layer (states) kernel 12 takes; above it the plain path
-DECIMATION_MAX_S = 16
+# largest principal layer (states) kernel 12 takes: csrc/decimation.cu's kMaxS
+DECIMATION_MAX_S = 40
 # peak coupling relative to the bare one beyond which a pixel counts as
 # blown up (eta -> 0); the JAX package's float64 value
 _BLOW = 1e50
@@ -157,8 +157,8 @@ def decimate(H00, H01, w, iters: int):
         return _decimate_plain(H00, H01, w, iters)
     K, S = H00.shape[0], H00.shape[-1]
     if S > DECIMATION_MAX_S:
-        _kernels.LAUNCHES["decimation_library"] += 1
-        return _decimate_plain(H00, H01, w, iters)
+        raise ValueError("kernel 12 takes principal layers of at most %d states, got %d; run this surface "
+                         "on the CPU (config.set_device(\"cpu\"))" % (DECIMATION_MAX_S, S))
     dev = H00.device
     nE = w.shape[0]
     _kernels.require(H00, "H00", config.COMPLEX, (K, S, S), dev)

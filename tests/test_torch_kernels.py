@@ -423,30 +423,40 @@ def test_assemble_one_sided_kernel(dev, dim_k, nspin):
     assert _max_diff(H, hamiltonian._one_sided_plain(data, k)) < TOL
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 16, 17, 33, 40])
 def test_decimation_kernel(dev, S):
     """Random layer blocks (|H01| < |H00| spread, so the decimation
-    converges) at every kernel path; above S 16 the counted shape rule."""
+    converges) at every kernel path: one thread a pixel at S <= 2, one
+    block a pixel above, up to the shared-memory limit S 40."""
     from pythtb_tpu_torch import surface
 
     rng = np.random.default_rng(60 + S)
     K, nE = 23, 3
     a = rng.normal(size=(K, S, S)) + 1j * rng.normal(size=(K, S, S))
-    H00 = torch.as_tensor(a + np.conj(np.swapaxes(a, -1, -2))).to(dev)
+    H00 = torch.as_tensor(np.ascontiguousarray(a + np.conj(np.swapaxes(a, -1, -2)))).to(dev)
     H01 = torch.as_tensor(0.3 * (rng.normal(size=(K, S, S)) + 1j * rng.normal(size=(K, S, S)))).to(dev)
     w = torch.as_tensor(rng.uniform(-2, 2, nE) + 0.05j).to(dev)
-    before = (_kernels.LAUNCHES["decimation"], _kernels.LAUNCHES["decimation_library"])
+    before = _kernels.LAUNCHES["decimation"]
     got = surface.decimate(H00, H01, w, 12)
+    assert _kernels.LAUNCHES["decimation"] == before + 1
     want = surface._decimate_plain(H00, H01, w, 12)
     for g, p in zip(got, want):
         assert g.shape == p.shape
         assert _max_diff(g, p) < TOL * max(1.0, float(p.abs().max()))
-    if S > surface.DECIMATION_MAX_S:
-        assert (_kernels.LAUNCHES["decimation"], _kernels.LAUNCHES["decimation_library"]) == (before[0],
-                                                                                               before[1] + 1)
-    else:
-        assert (_kernels.LAUNCHES["decimation"], _kernels.LAUNCHES["decimation_library"]) == (before[0] + 1,
-                                                                                               before[1])
+
+
+def test_decimation_kernel_refuses_above_its_limit(dev):
+    """A CUDA tensor never reaches the plain version: above S 40 the
+    wrapper raises, naming the limit, and launches nothing."""
+    from pythtb_tpu_torch import surface
+
+    S = surface.DECIMATION_MAX_S + 1
+    H = torch.zeros((2, S, S), dtype=torch.complex128, device=dev)
+    w = torch.tensor([0.1 + 0.05j], device=dev)
+    before = _kernels.LAUNCHES["decimation"]
+    with pytest.raises(ValueError, match="at most %d states" % surface.DECIMATION_MAX_S):
+        surface.decimate(H, H, w, 5)
+    assert _kernels.LAUNCHES["decimation"] == before
 
 
 def test_slice_four_goes_through_kernels(dev):
@@ -479,7 +489,6 @@ def test_slice_four_goes_through_kernels(dev):
         card = run()
         for name in ("assemble", "assemble_one_sided", "position", "ell_matvec", "cheb_filter", "decimation"):
             assert _kernels.LAUNCHES[name] > 0, name
-        assert _kernels.LAUNCHES["decimation_library"] == 0
         config.set_device("cpu")
         cpu = run()
     finally:

@@ -14,9 +14,10 @@ import pytest
 
 import pythtb_tpu
 import pythtb_tpu_torch
+from pythtb_tpu import ed as jed
 from pythtb_tpu import flows as jflows
 from pythtb_tpu.models import library as jzoo
-from pythtb_tpu_torch import flows, realspace
+from pythtb_tpu_torch import flows
 from pythtb_tpu_torch.ops import lobpcg
 
 from .test_torch_ops import carry, on_cpu  # noqa: F401  (autouse: the port on the CPU)
@@ -34,7 +35,8 @@ def test_solve_lowest_matches_dense_and_jax(name):
     jm = CASES[name]()
     pm = carry(jm)
     k = 4
-    ev = np.linalg.eigvalsh(realspace._dense_h(pm))
+    H = jed.dense_h(jm)
+    ev = np.linalg.eigvalsh(H)
     w, vecs = flows.solve_lowest(pm, k, eig_vectors=True, max_iters=600, seed=3)
     np.testing.assert_allclose(w, ev[:k], rtol=0, atol=1e-8)
     np.testing.assert_allclose(w, jflows.solve_lowest(jm, k, max_iters=600), rtol=0, atol=1e-8)
@@ -42,7 +44,6 @@ def test_solve_lowest_matches_dense_and_jax(name):
     # dense lowest subspace where the cut at k falls in a gap
     assert vecs.shape == ((k, pm._norb, 2) if pm._nspin == 2 else (k, pm._norb))
     v = vecs.reshape(k, -1)
-    H = realspace._dense_h(pm)
     np.testing.assert_allclose(v.conj() @ v.T, np.eye(k), atol=1e-10)
     np.testing.assert_allclose(H @ v.T, v.T * w[None, :], atol=1e-6)
     if ev[k] - ev[k - 1] > 1e-3:

@@ -122,13 +122,17 @@ def test_wilson_window_on_folded_ssh():
 
 
 def test_chern_window_matches_chern_number():
-    m = carry(jzoo.haldane().make_supercell([[2, 0], [0, 2]]))
+    """Both manifolds against the JAX chern_window on the same model and
+    seed (its host link loop and periodic-gauge rows), and against the
+    port's own chern_number."""
+    jm = jzoo.haldane().make_supercell([[2, 0], [0, 2]])
+    m = carry(jm)
     evk = m.solve_all(np.array([[0.13, 0.21]]))[:, 0]
     ref = flows.chern_number(m, [0, 1, 2, 3], nk=(31, 31))
-    cw = flows.chern_window(m, float(evk[:4].mean()), 4, nk=(6, 6), block=6, seed=1)
-    assert abs(cw - ref) < 1e-6
-    cw_up = flows.chern_window(m, float(evk[4:].mean()), 4, nk=(6, 6), block=6, seed=1)
-    assert abs(cw_up + ref) < 1e-6
+    for sigma, sign in ((float(evk[:4].mean()), 1.0), (float(evk[4:].mean()), -1.0)):
+        cw = flows.chern_window(m, sigma, 4, nk=(6, 6), block=6, seed=1)
+        assert abs(cw - jflows.chern_window(jm, sigma, 4, nk=(6, 6), block=6, seed=1)) < 1e-10
+        assert abs(cw - sign * ref) < 1e-6
 
 
 def test_guards():
