@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: needs torch.cuda.is_available(); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compiles the eleven CUDA kernels with nvcc (sm_90a, one nvcc
+2. build: compiles the fourteen CUDA kernels with nvcc (sm_90a, one nvcc
    per source, all started together) into build/pythtb_tpu_torch/ and
    prints the build seconds and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -21,7 +21,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    Gaussian filters (the magic-angle moire cell's tables, degree 512 and
    6,144, and a spinful table) at 1e-10 relative, kernel 12's decimation
    (the Fermi-arc map and a spinful ribbon) and kernel 1's one-sided mode
-   at 1e-12;
+   at 1e-12; kernel 15 (dH/dk, d2H/dk dk) on every grid of the fifth
+   slice's rows at 1e-12, kernels 16 (spectral sums) and 17 (Fermi sweeps,
+   every weight kind) on the inputs those rows build at 1e-10 relative;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -40,7 +42,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    flake (each of the ten values within 5e-3 of the dense levels), the Bianco-Resta marker of the 608-site Penrose patch, the spin
    Chern marker of the 784-state Kane-Mele flake, the Bott index of the
    512-site disordered torus and the Weyl Fermi-arc map (10,201 pixels);
-   then the steady wall time of the main calls;
+   and the fifth slice's nine response rows at full width with their pins:
+   anomalous Hall (81 E_F) and thermal Hall (81 mu) on 101 x 101, orbital
+   magnetization 121 x 121, the Kubo tensor and the BN shift current on
+   161 x 161, the Rice-Mele shift current on 2,001 k, the integrated QGT
+   72 x 72, Boltzmann 512^2 (201 mu) and Edelstein 256^2 (201 mu), held
+   against the CPU run at 1e-10 relative (optics, shift, Boltzmann and
+   Edelstein on 64 x 64 there); then the steady wall time of the main calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -179,6 +187,25 @@ def device_us(torch, fn, reps=10):
     if not events:
         return None, None
     return sum(e.time_range.elapsed_us() for e in events) / reps, len(events) / reps
+
+
+def device_top(torch, fn, n=4, reps=2):
+    """The ``n`` device activities that take most of ``fn``'s device time
+    per call (profiler, summed by name), and the total."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    return sorted(per.items(), key=lambda kv: -kv[1])[:n], sum(per.values())
 
 
 def fmt(x):
@@ -341,6 +368,41 @@ def cost_decimation(K, nE, S, iters):
     nbytes = 2 * K * S * S * C128 + nE * C128 + 2 * nE * K * S * F64 + 2 * nE * K * F64
     flops = nE * K * (iters * (56 * S**3 + 6 * S * S) + 16 * S**3)
     return bound(nbytes, flops)
+
+
+def cost_assemble_deriv(data, B, order):
+    """Kernel 15: k, rv, amps and the gather index read once, the (B,
+    dim_k^order, S, S) derivative written once; per (k, hop) k.rv, sin and
+    cos, and per landing entry and spin-block element the term v (6 ops)
+    and a multiply-add (4) for each distinct direction."""
+    blk = 4 if data.nspin == 2 else 1
+    dim = data.dim_k
+    ndir = dim if order == 1 else dim * (dim + 1) // 2
+    nbytes = (B * dim * F64 + data.nhop * (dim * F64 + blk * C128) + (data.norb**2 + 1 + 2 * data.nhop) * 4
+              + B * dim**order * data.nsta**2 * C128)
+    return bound(nbytes, B * data.nhop * (2 * dim + 2 + 2 * blk * (6 + 4 * ndir)))
+
+
+def cost_spectral_sum(T, P, nw, lorentz):
+    """Kernel 16: de, W and the frequencies read once, the (P, nw) sums
+    written once; per (transition, frequency) the kernel value (6 ops) and
+    P multiply-adds (8 ops complex, 2 real)."""
+    w = C128 if lorentz else F64
+    nbytes = T * F64 + P * T * w + nw * F64 + P * nw * w
+    return bound(nbytes, T * nw * (6 + P * (8 if lorentz else 2)))
+
+
+# operations of one weight of kernel 17 (exp, log and division one op each;
+# the dilogarithm's two degree-7 polynomials 28)
+SWEEP_WEIGHT_OPS = {"step": 1, "fermi": 4, "entropy": 9, "c2": 45, "dfde": 6, "dfde_cosh": 6, "gauss": 5}
+
+
+def cost_fermi_sweep(T, P, M, kind):
+    """Kernel 17: E, G, the powers and mu read once, the (M, P) sums written
+    once; per (mu, t) the difference (1), the weight, its two powers (2)
+    and P multiply-adds (2 each)."""
+    nbytes = T * F64 + P * T * F64 + P * 4 + M * F64 + M * P * F64
+    return bound(nbytes, M * T * (3 + SWEEP_WEIGHT_OPS[kind] + 2 * P))
 
 
 # ----------------------------------------------------------------------------
@@ -516,6 +578,7 @@ def phase_kernels(torch, pt, device):
                lambda: position._xmat_plain(st, p, o), cost_position(257, S, F), reps=3)
     matrix_free_kernels(torch, pt, device, rng, record, held)
     slice4_kernels(torch, pt, device, rng, record, held)
+    slice5_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -1005,6 +1068,317 @@ def check_lowest_bound(torch, pt, low, device):
     check(gap.max() < LOWEST_TOL, "solve_lowest value above the exact eigenvalue by %.3e" % gap.max())
 
 
+# -- the fifth slice: velocity operators and the response family ----------------
+
+# grid sizes of the nine rows of tools/bench_suite.py (AHC and thermal Hall,
+# orbital magnetization, optics and BN shift current, Boltzmann, Edelstein,
+# QGT, Rice-Mele), and of the smaller calls the CPU reference repeats
+S5 = {"hall": 101, "orbmag": 121, "optical": 161, "boltzmann": 512, "edelstein": 256, "qgt": 72,
+      "rice_mele": 2001, "cpu": 64}
+AHC_EFS = np.linspace(-4.0, 4.0, 81)
+THERMAL_MUS = np.linspace(-3.5, 3.5, 81)
+OPTICAL_W = np.linspace(0.0, 6.0, 121)
+SHIFT_W = np.linspace(0.5, 4.0, 121)
+BT_MUS = np.linspace(-4.0, 4.0, 201)
+EDEL_MUS = np.linspace(-4.2, 4.2, 201)
+# Kramers pairs of the Rashba model at its TRIMs (E -4, 0, 4): there the
+# per-band <s> v of the Edelstein sum depends on the basis that the
+# eigensolver picks in the degenerate pair, so the card and the CPU agree
+# only where those energies lie 30 kT (1.5) outside the Fermi window
+EDEL_TRIM_E = np.array([-4.0, 0.0, 4.0])
+
+
+def rice_mele(pt):
+    """shift_current_rice_mele_2001k's polar chain."""
+    m = pt.tb_model(1, 1, lat=[[1.0]], orb=[[0.0], [0.5]])
+    m.set_onsite([0.4, -0.4])
+    m.set_hop(1.3, 0, 1, [0])
+    m.set_hop(0.7, 1, 0, [1])
+    return m
+
+
+def rashba(pt):
+    """edelstein_rashba_201mu_256grid's square-lattice Rashba model."""
+    sy = np.array([[0, -1j], [1j, 0]]) / 2
+    sx = np.array([[0, 1], [1, 0]], dtype=complex) / 2
+    m = pt.tb_model(2, 2, np.eye(2), [[0.0, 0.0]], nspin=2)
+    m.set_hop(-1.0 * np.eye(2) - 1j * 0.6 * sy, 0, 0, [1, 0])
+    m.set_hop(-1.0 * np.eye(2) + 1j * 0.6 * sx, 0, 0, [0, 1])
+    return m
+
+
+def orbmag_haldane(pt):
+    """orbital_magnetization_121x121's Haldane model."""
+    return pt.models.haldane(delta=0.2, t2=0.15 * np.exp(0.7j))
+
+
+def slice5_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernels 15, 16 and 17 at the fifth slice's main-path
+    shapes, on the inputs that path builds: kernel 15 at 1e-12 (relative
+    to max(1, |dH|)), kernels 16 and 17 (sums of up to 5e5 terms in another
+    order) at 1e-10 relative."""
+    from pythtb_tpu_torch import boltzmann, flows, optical
+    from pythtb_tpu_torch.ops import fermi_sweep as fs
+    from pythtb_tpu_torch.ops import hamiltonian, solver
+
+    hal = pt.models.haldane()
+    hal_d = hal._get_finalized()
+    lat = np.asarray(hal._lat, dtype=np.float64)
+
+    def grid(model, n):
+        data = model._get_finalized()
+        nk = (n,) * data.dim_k
+        return data, solver.device_uniform_grid(nk, np.zeros(data.dim_k), device)
+
+    # kernel 15: every grid of the slice's rows; Boltzmann 512^2 (both
+    # modes) and the spinful Edelstein grid timed
+    nb, ne = S5["boltzmann"], S5["edelstein"]
+    for key, model, n, orders, timed in (
+            ("boltzmann haldane %d^2" % nb, hal, nb, (1, 2), True),
+            ("edelstein rashba nspin2 %d^2" % ne, rashba(pt), ne, (1,), True),
+            ("orbital mag haldane %d^2" % S5["orbmag"], orbmag_haldane(pt), S5["orbmag"], (1,), False),
+            ("optical haldane %d^2" % S5["optical"], hal, S5["optical"], (1,), False),
+            ("shift bn %d^2" % S5["optical"], pt.models.bn(), S5["optical"], (1, 2), False),
+            ("qgt haldane %d^2" % S5["qgt"], hal, S5["qgt"], (1,), False),
+            ("shift rice_mele %d" % S5["rice_mele"], rice_mele(pt), S5["rice_mele"], (1, 2), False)):
+        data, k = grid(model, n)
+        for order in orders:
+            fn, plain = ((hamiltonian.assemble_dk, hamiltonian._assemble_dk_plain) if order == 1 else
+                         (hamiltonian.assemble_d2k, hamiltonian._assemble_d2k_plain))
+            want = plain(data, k)
+            err, scale = max_diff(torch, fn(data, k), want), max(1.0, float(want.abs().max()))
+            label = "%s B=%d %s" % (key, k.shape[0], "dk" if order == 1 else "d2k")
+            if timed:
+                record("assemble_dk", label, err, lambda: fn(data, k), lambda: plain(data, k),
+                       cost_assemble_deriv(data, k.shape[0], order), order == 1 and model is hal, scale=scale,
+                       profile=True)
+            else:
+                held("assemble_dk", label, err, TOL, scale)
+            del want
+
+    # kernel 16: the optical row's Lehmann scan (Lorentzian), the BN and
+    # Rice-Mele shift currents (Gaussian), on the weights those calls build
+    no = S5["optical"]
+    de, W, _ = optical._band_velocity_weights(hal_d, (no, no), (0,), (0.0, 0.0), lat)
+    Wl = W.permute(1, 2, 0, 3).reshape(4, -1).contiguous()
+    de = de.contiguous()
+    bn = pt.models.bn()
+    rm = rice_mele(pt)
+    cases = [("optical lorentz", Wl, de, OPTICAL_W, 0.04, "lorentz", True)]
+    for name, model, n, sigma in (("shift bn gauss", bn, no, 0.08),
+                                  ("shift rice_mele gauss", rm, S5["rice_mele"], 0.06)):
+        Wg, dg = optical._shift_weights(model._get_finalized(), (n,) * model._dim_k, [0], [1],
+                                        np.asarray(model._lat, dtype=np.float64))
+        cases.append((name, Wg, dg, SHIFT_W, sigma, "gauss", False))
+    for name, Wt, det, w, width, mode, main in cases:
+        om = torch.as_tensor(w).to(device)
+        P, T = Wt.shape
+        want = optical._spectral_sum_plain(Wt, det, om, width, mode)
+        err = max_diff(torch, optical.spectral_sum(Wt, det, om, width, mode), want)
+        lib = cuda_ms(torch, lambda: Wt @ optical._kernel_matrix(det, om, width, mode).to(Wt.dtype), 5)
+        record("spectral_sum", "%s T=%d P=%d nw=%d" % (name, T, P, len(w)), err,
+               lambda: optical.spectral_sum(Wt, det, om, width, mode),
+               lambda: optical._spectral_sum_plain(Wt, det, om, width, mode),
+               cost_spectral_sum(T, P, len(w), mode == "lorentz"), main, library_ms=lib,
+               scale=float(want.abs().max()), tol=1e-10, profile=True)
+
+    # kernel 17: the Hall-family sweeps on the per-band curvature of the
+    # 101^2 grid (T 20,000), Boltzmann 512^2 (M 201, T 524,288, P 16, the
+    # main shape) and Edelstein 256^2 (T 131,072, P 6); every weight kind
+    nh = S5["hall"]
+    data, (n0, n1), phases = flows._grid_inputs(hal, (nh, nh), "anomalous_hall")
+    om_c, E_c = flows._band_curvature_grid(data, n0, n1, np.array([-0.5, -0.5]), phases)
+    Ec = E_c.reshape(-1).contiguous()
+    Gc = (om_c / (2.0 * np.pi)).reshape(1, -1).contiguous()
+    data_b, kb = grid(hal, nb)
+    Eb, Gb, jb, _ = boltzmann._bt_columns(data_b, kb, lat)
+    data_e, ke = grid(rashba(pt), ne)
+    Ee, Ge = boltzmann._edelstein_columns(data_e, ke, np.eye(2))
+    cases = [
+        ("ahc step", Ec, Gc, AHC_EFS, 0.0, "step", None, True, False),
+        ("thermal hall c2", Ec, Gc, THERMAL_MUS, 0.15, "c2", None, True, False),
+        ("nernst entropy", Ec, Gc, THERMAL_MUS, 0.15, "entropy", None, False, False),
+        ("ahc fermi", Ec, Gc, AHC_EFS, 0.1, "fermi", None, False, False),
+        ("boltzmann -df/de", Eb, Gb, BT_MUS, 0.05, "dfde", jb, True, True),
+        ("boltzmann n_e fermi", Eb, torch.full_like(Gb[:1], 1.0 / kb.shape[0]), BT_MUS, 0.05, "fermi", None,
+         False, False),
+        ("edelstein -df/de", Ee, Ge, EDEL_MUS, 0.05, "dfde", None, True, False),
+        ("dipole -df/de cosh form", Eb, Gb[:2], BT_MUS, 0.05, "dfde_cosh", None, False, False),
+        ("transport distribution gauss", Eb, Gb[:4], BT_MUS, 0.05, "gauss", None, False, False),
+    ]
+    for name, E, G, mus, kt, kind, jpow, timed, main in cases:
+        mu_t = torch.as_tensor(mus).to(device)
+        want = fs._fermi_sweep_plain(E, G, mu_t, kt, kind, jpow or [0] * G.shape[0])
+        err = max_diff(torch, fs.fermi_sweep(E, G, mu_t, kt, kind, jpow), want)
+        label = "%s M=%d T=%d P=%d" % (name, len(mus), E.shape[0], G.shape[0])
+        scale = float(want.abs().max())
+        if timed:
+            record("fermi_sweep", label, err, lambda: fs.fermi_sweep(E, G, mu_t, kt, kind, jpow),
+                   lambda: fs._fermi_sweep_plain(E, G, mu_t, kt, kind, jpow or [0] * G.shape[0]),
+                   cost_fermi_sweep(E.shape[0], G.shape[0], len(mus), kind), main, scale=scale, tol=1e-10,
+                   reps=REPS if main else 5, profile=True)
+        else:
+            held("fermi_sweep", label, err, 1e-10, scale)
+
+
+def slice5_path(pt, where, reference):
+    """The nine rows of tools/bench_suite.py that the fifth slice carries,
+    through their public calls, with each row's own pin.  The CPU reference
+    (``reference``) runs the optics, BN shift, Boltzmann and Edelstein rows
+    at 64^2 only (the card repeats those calls for the comparison) and the
+    other five at full width."""
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    hal = pt.models.haldane()
+    nh, nc = S5["hall"], S5["cpu"]
+
+    # anomalous_hall_81ef_101x101
+    sxy, sec = timed(pt.flows.anomalous_hall, hal, AHC_EFS, nk=(nh, nh))
+    i0 = int(np.argmin(np.abs(AHC_EFS)))
+    out["ahc"] = sxy
+    print("  %s anomalous_hall %dx%d, 81 E_F: sigma(0) %.6f, sigma(-4) %.3e  [%.2f s]"
+          % (where, nh, nh, sxy[i0], sxy[0], sec))
+    check(abs(abs(sxy[i0]) - 1.0) < 5e-3 and abs(sxy[0]) < 5e-3, "AHC staircase off: %.6f, %.3e" % (sxy[i0], sxy[0]))
+
+    # thermal_hall_81mu_101x101
+    th, sec = timed(pt.flows.thermal_hall, hal, THERMAL_MUS, 0.15, nk=(nh, nh))
+    i0 = int(np.argmin(np.abs(THERMAL_MUS)))
+    out["thermal_hall"] = th
+    print("  %s thermal_hall %dx%d, 81 mu, kT 0.15: kappa(0) %.7f  [%.2f s]" % (where, nh, nh, th[i0], sec))
+    check(abs(th[i0] + 3.0470865) < 2e-3, "thermal Hall kappa(0) %.7f is not -3.0470865" % th[i0])
+
+    # orbital_magnetization_121x121
+    n = S5["orbmag"]
+    M, sec = timed(pt.flows.orbital_magnetization, orbmag_haldane(pt), [0], nk=(n, n))
+    out["orbmag"] = np.array([M])
+    print("  %s orbital_magnetization %dx%d: M %.8f  [%.2f s]" % (where, n, n, M, sec))
+    check(abs(M - 0.0117) < 2e-4, "orbital magnetization %.6f is not 0.0117" % M)
+
+    # optical_tensor_121w_161x161 (CPU: 64^2)
+    n = S5["optical"]
+    if not reference:
+        sig, sec = timed(pt.optical.optical_conductivity, hal, OPTICAL_W, occ=[0], nk=(n, n), eta=0.04)
+        print("  %s optical_conductivity %dx%d, 121 w: dc Re sigma_yx %.6f  [%.2f s]"
+              % (where, n, n, sig[0, 1, 0].real, sec))
+        check(np.isfinite(sig).all() and abs(sig[0, 1, 0].real + 1.0) < 2e-3,
+              "dc Re sigma_yx %.6f is not -1" % sig[0, 1, 0].real)
+    out["optical_cpu"], sec = timed(pt.optical.optical_conductivity, hal, OPTICAL_W, occ=[0], nk=(nc, nc), eta=0.04)
+    print("  %s optical_conductivity %dx%d (the CPU comparison's grid)  [%.2f s]" % (where, nc, nc, sec))
+
+    # shift_current_121w_161x161 (CPU: 64^2)
+    bn = pt.models.bn()
+    if not reference:
+        sc, sec = timed(pt.optical.shift_current, bn, SHIFT_W, [0], nk=(n, n), sigma=0.08)
+        print("  %s shift_current bn %dx%d, 121 w: max |sigma| %.6f  [%.2f s]" % (where, n, n, np.abs(sc).max(), sec))
+        check(np.isfinite(sc).all() and np.abs(sc).max() > 1e-3, "BN shift current max %.3e" % np.abs(sc).max())
+    out["shift_cpu"], sec = timed(pt.optical.shift_current, bn, SHIFT_W, [0], nk=(nc, nc), sigma=0.08)
+    print("  %s shift_current bn %dx%d (the CPU comparison's grid)  [%.2f s]" % (where, nc, nc, sec))
+
+    # shift_current_rice_mele_2001k
+    n = S5["rice_mele"]
+    srm, sec = timed(pt.optical.shift_current, rice_mele(pt), SHIFT_W, [0], nk=(n,), sigma=0.06)
+    out["rice_mele"] = srm
+    print("  %s shift_current rice_mele %d k: peak %.6f  [%.2f s]" % (where, n, srm[0, 0, 0].max(), sec))
+    check(abs(srm[0, 0, 0].max() - 0.0694) < 2e-3, "Rice-Mele peak %.6f is not 0.0694" % srm[0, 0, 0].max())
+
+    # qgt_integrated_72x72
+    n = S5["qgt"]
+    rg, sec = timed(pt.geometry.integrated_metric, hal, [0], nk=(n, n))
+    out["qgt"] = np.concatenate([[rg["chern"], rg["omega_i"]], rg["metric"].ravel(), rg["curvature"].ravel()])
+    print("  %s integrated_metric %dx%d: C %.8f, Omega_I %.8f  [%.2f s]"
+          % (where, n, n, rg["chern"], rg["omega_i"], sec))
+    check(abs(rg["chern"] + 1.0) < 1e-3 and abs(rg["omega_i"] - 0.223447) < 1e-3,
+          "QGT C %.6f / Omega_I %.6f off -1 / 0.223447" % (rg["chern"], rg["omega_i"]))
+
+    def bt_arrays(r):
+        """The linear sums (sigma, sigma_H, n) and the ratios (Seebeck,
+        kappa_e, Lorenz, R_H), one row per mu, and trace L0 per mu."""
+        lin = np.concatenate([r["sigma"].reshape(len(BT_MUS), -1), r["sigma_hall"][:, None], r["n"][:, None]], 1)
+        ratio = np.concatenate([r["seebeck"].reshape(len(BT_MUS), -1), r["kappa_e"].reshape(len(BT_MUS), -1),
+                                r["lorenz"][:, None], r["hall_coefficient"][:, None]], 1)
+        return lin, ratio, np.trace(r["sigma"], axis1=1, axis2=2)
+
+    # boltzmann_sweep_haldane (CPU: 64^2)
+    n = S5["boltzmann"]
+    if not reference:
+        r, sec = timed(quiet_warnings, pt.boltzmann.transport_coefficients, hal, BT_MUS, 0.05, n, tau=1.0)
+        i = int(np.argmin(np.abs(BT_MUS + 2.0)))
+        vals = (r["sigma"][i, 0, 0], r["seebeck"][i, 0, 0], r["sigma_hall"][i])
+        print("  %s transport_coefficients %d^2, 201 mu: at mu -2 sigma_xx %.6f, S_xx %.6f, sigma_H %.6f  [%.2f s]"
+              % (where, n, *vals, sec))
+        check(abs(vals[0] - 0.279203) < 3e-3 and abs(vals[1] + 0.127144) < 3e-3 and abs(vals[2] + 0.107893) < 3e-3,
+              "Boltzmann pins at mu -2 off: %s" % (vals,))
+    r, sec = timed(quiet_warnings, pt.boltzmann.transport_coefficients, hal, BT_MUS, 0.05, nc, tau=1.0)
+    out["boltzmann_lin_cpu"], out["boltzmann_ratio_cpu"], out["boltzmann_trace_cpu"] = bt_arrays(r)
+    print("  %s transport_coefficients %d^2 (the CPU comparison's grid)  [%.2f s]" % (where, nc, sec))
+
+    # edelstein_rashba_201mu_256grid (CPU: 64^2)
+    n = S5["edelstein"]
+    if not reference:
+        al, sec = timed(pt.boltzmann.edelstein, rashba(pt), EDEL_MUS, 0.05, n)
+        ayx = float(np.interp(-2.5, EDEL_MUS, al[:, 1, 0]))
+        asym = float(np.abs(al[:, 0, 1] + al[:, 1, 0]).max())
+        print("  %s edelstein rashba %d^2, 201 mu: alpha_yx(-2.5) %.7f, antisymmetry %.3e  [%.2f s]"
+              % (where, n, ayx, asym, sec))
+        check(abs(ayx - 0.0232659) < 5e-4 and asym < 1e-4, "Edelstein alpha_yx %.7f / antisymmetry %.3e" % (ayx, asym))
+    out["edelstein_cpu"], sec = timed(pt.boltzmann.edelstein, rashba(pt), EDEL_MUS, 0.05, nc)
+    print("  %s edelstein rashba %d^2 (the CPU comparison's grid)  [%.2f s]" % (where, nc, sec))
+    return out
+
+
+def quiet_warnings(fn, *args, **kwargs):
+    """fn(...) with its warnings dropped (the Boltzmann sweep warns for the
+    chemical potentials below its bands)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return fn(*args, **kwargs)
+
+
+# the ratios of the RTA set (Seebeck, kappa_e, Lorenz, R_H) are compared
+# where trace L0 is at least this share of its largest value: outside the
+# bands the reference's -df/de = f (1 - f) / kT (the plain version, as in
+# the JAX package) loses e^|x| eps of its relative precision to the
+# cancellation in 1 - f, which the ratios amplify (9.7e-7 at mu = 4, where
+# L0 is 1.1e-10 of its peak); kernel 17's stable form has no such loss
+BT_RATIO_FLOOR = 1e-4
+
+
+def compare_slice5(out, ref):
+    """The fifth slice's rows on the card against the CPU run: 1e-10
+    relative to each result's largest entry (NaN where the CPU has NaN)."""
+    far = np.abs(EDEL_MUS[:, None] - EDEL_TRIM_E[None]).min(axis=1) > 30 * 0.05
+    tr = ref["boltzmann_trace_cpu"]
+    cond = tr >= BT_RATIO_FLOOR * tr.max()
+    nc = S5["cpu"]
+    cases = [("ahc", None, ""), ("thermal_hall", None, ""), ("orbmag", None, ""), ("rice_mele", None, ""),
+             ("qgt", None, ""), ("optical_cpu", None, " (%d^2)" % nc), ("shift_cpu", None, " (%d^2)" % nc),
+             ("boltzmann_lin_cpu", None, " (%d^2; sigma, sigma_H, n at all 201 mu)" % nc),
+             ("boltzmann_ratio_cpu", cond, " (%d^2; Seebeck, kappa_e, Lorenz, R_H at the %d of 201 mu where trace L0 "
+                                           ">= %.0e of its peak)" % (nc, int(cond.sum()), BT_RATIO_FLOOR)),
+             ("edelstein_cpu", far, " (%d^2; the %d of 201 mu whose window excludes the Kramers pairs at E -4, 0, 4)"
+              % (nc, int(far.sum())))]
+    for key, sel, note in cases:
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        check(got.shape == want.shape and np.array_equal(np.isnan(got), np.isnan(want)),
+              "%s: shape or NaN pattern differs from the CPU run" % key)
+        if sel is not None:
+            ok = ~np.isnan(want)
+            full = float(np.abs(got - want)[ok].max() / np.abs(want[ok]).max())
+            print("  %s vs CPU at every mu: max|diff| %.3e (relative; reported, not held)" % (key, full))
+            got, want = got[sel], want[sel]
+        ok = ~np.isnan(want)
+        err = float(np.abs(got - want)[ok].max() / np.abs(want[ok]).max())
+        print("  %s vs CPU%s: max|diff| %.3e (relative)" % (key, note, err))
+        check(err < 1e-10, "%s differs from the CPU path by %.3e (relative)" % (key, err))
+
+
 def phase_main_path(torch, pt, where, reference=False):
     """Phase 4: the port's main path through the entry points a user calls.
     The CPU reference (``reference``) evolves the 90k flake 4 steps of the
@@ -1067,6 +1441,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out["si_bands"] = sm.solve_all(si.w90_bands_consistency()[0])
     out.update(matrix_free_path(pt, where, reference))
     out.update(slice4_path(pt, where, reference))
+    out.update(slice5_path(pt, where, reference))
     return out
 
 
@@ -1261,6 +1636,27 @@ def phase_walls(torch, pt, card):
             lambda: pt.surface.spectral_function(pt.models.weyl(), 0, k_par=ARC_K, energies=np.array([0.0]),
                                                  eta=0.02), 3, 20),
     }
+    hal, nh, no = pt.models.haldane(), S5["hall"], S5["optical"]
+    orb, bn, rm, ra = orbmag_haldane(pt), pt.models.bn(), rice_mele(pt), rashba(pt)
+    calls.update({
+        "flows.anomalous_hall 101x101 81 E_F": (lambda: pt.flows.anomalous_hall(hal, AHC_EFS, nk=(nh, nh)), 5, 3),
+        "flows.thermal_hall 101x101 81 mu": (
+            lambda: pt.flows.thermal_hall(hal, THERMAL_MUS, 0.15, nk=(nh, nh)), 5, 3),
+        "flows.orbital_magnetization 121x121": (
+            lambda: pt.flows.orbital_magnetization(orb, [0], nk=(S5["orbmag"],) * 2), 5, 3),
+        "optical.optical_conductivity 161x161 121 w": (
+            lambda: pt.optical.optical_conductivity(hal, OPTICAL_W, occ=[0], nk=(no, no), eta=0.04), 3, 2),
+        "optical.shift_current bn 161x161 121 w": (
+            lambda: pt.optical.shift_current(bn, SHIFT_W, [0], nk=(no, no), sigma=0.08), 3, 2),
+        "optical.shift_current rice_mele 2001 k": (
+            lambda: pt.optical.shift_current(rm, SHIFT_W, [0], nk=(S5["rice_mele"],), sigma=0.06), 5, 3),
+        "geometry.integrated_metric 72x72": (
+            lambda: pt.geometry.integrated_metric(hal, [0], nk=(S5["qgt"],) * 2), 5, 3),
+        "boltzmann.transport_coefficients 512^2 201 mu": (
+            lambda: quiet_warnings(pt.boltzmann.transport_coefficients, hal, BT_MUS, 0.05, S5["boltzmann"]), 3, 2),
+        "boltzmann.edelstein 256^2 201 mu": (
+            lambda: pt.boltzmann.edelstein(ra, EDEL_MUS, 0.05, S5["edelstein"]), 3, 2),
+    })
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
         ms = wall_ms(torch, fn, reps)
@@ -1269,6 +1665,12 @@ def phase_walls(torch, pt, card):
         walls[name] = {"wall_ms": ms, "device_us": dev_us, "device_activities": n, "busy_pct": busy}
         print("  steady wall %s: median %.3f ms, device %s us in %s activities per call, busy %s %% (%s)"
               % (name, ms, fmt(dev_us), fmt(n), fmt(busy), card))
+    # where the device time of the heaviest response rows goes
+    for name in ("boltzmann.transport_coefficients 512^2 201 mu", "optical.shift_current bn 161x161 121 w",
+                 "optical.optical_conductivity 161x161 121 w", "boltzmann.edelstein 256^2 201 mu"):
+        top, total = device_top(torch, calls[name][0])
+        print("  device time of %s: %.1f us per call; largest: %s" % (name, total, "; ".join(
+            "%s %.1f us" % (k[:70], us) for k, us in top)))
     return walls
 
 
@@ -1323,7 +1725,8 @@ def main():
 
     # -- phase 4: main path ----------------------------------------------
     print("[4 main] Haldane bands and Chern, Kane-Mele flows and Z2, slab HWF, flake, w90 silicon, "
-          "KPM DOS/LDOS/Kubo, Chebyshev evolution, quench echo:")
+          "KPM DOS/LDOS/Kubo, Chebyshev evolution, quench echo, interior and lowest states, markers, surfaces, "
+          "Hall sweeps, orbital magnetization, optics, shift current, QGT, Boltzmann, Edelstein:")
     t0 = time.perf_counter()
     _kernels.reset_launches()
     out = phase_main_path(torch, pt, "[gpu]")
@@ -1331,6 +1734,7 @@ def main():
     launches = dict(_kernels.LAUNCHES)
     print("[4 main] card run in %.1f s" % (time.perf_counter() - t0))
     compare_main_path(out, ref, gold_km, gold_si)
+    compare_slice5(out, ref)
     check_lowest_bound(torch, pt, out["lowest"], device)
 
     # steady wall times of the main calls, after the counted window
@@ -1341,7 +1745,8 @@ def main():
     # -- phase 5: launches -----------------------------------------------
     print("[5 launches] main path: %s" % json.dumps(launches))
     kernels = ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
-               "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation")
+               "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
+               "assemble_dk", "spectral_sum", "fermi_sweep")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -1359,6 +1764,9 @@ def main():
         "assemble_one_sided": ("assemble.cu", "pythtb_tpu/surface.py:117"),
         "cheb_filter": ("cheb_filter.cu", "pythtb_tpu/flows.py:696"),
         "decimation": ("decimation.cu", "pythtb_tpu/surface.py:138"),
+        "assemble_dk": ("assemble.cu", "pythtb_tpu/ops/hamiltonian.py:115"),
+        "spectral_sum": ("spectral_sum.cu", "pythtb_tpu/optical.py:124"),
+        "fermi_sweep": ("fermi_sweep.cu", "pythtb_tpu/flows.py:1284"),
     }
     rows = []
     for name in kernels:

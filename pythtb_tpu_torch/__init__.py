@@ -19,17 +19,23 @@ evolution and quench echoes (:mod:`dynamics`), Peierls fields
 Wilson loops and Chern numbers, real-space Chern, spin-Chern and Bott
 markers (:mod:`realspace`), semi-infinite surface spectra
 (:mod:`surface`), and the model zoo with moire and quasicrystal models
-(:mod:`models`).
+(:mod:`models`).  Response, on the velocity operators dH/dk and d2H/dk dk:
+the anomalous Hall, Nernst and thermal Hall sweeps, the Berry dipole,
+spin Hall conductivity and orbital magnetization (:mod:`flows`), the
+Kubo optical tensor, shift and injection currents and the joint DOS
+(:mod:`optical`), Boltzmann transport and the Edelstein tensor
+(:mod:`boltzmann`), and the quantum geometric tensor family with the
+Drude weight (:mod:`geometry`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through eleven hand-written CUDA
+an NVIDIA Hopper card the hot paths run through fourteen hand-written CUDA
 kernels (``csrc/``, built with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
-from . import config, dynamics, flows, magnetic, models, realspace, surface
+from . import boltzmann, config, dynamics, flows, geometry, magnetic, models, optical, realspace, surface
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
 from .w90 import w90
@@ -39,5 +45,5 @@ __version__ = "0.2.0"
 
 __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
-    "magnetic", "models", "realspace", "surface", "__version__",
+    "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "__version__",
 ]

@@ -1,0 +1,215 @@
+"""Semiclassical Boltzmann transport in the relaxation-time approximation
+(counterpart of ``pythtb_tpu.boltzmann``): the RTA coefficients of a
+chemical-potential batch, the transport distribution and the Edelstein
+tensor.
+
+Band velocities are the diagonal of the band-basis velocity matrices and
+the inverse-mass tensors come from the exact second-order sum rule, all
+from the analytic derivatives dH/dk and d2H/dk dk (kernel 15).  Every
+chemical-potential (or energy) sweep is one launch of kernel 17
+(:func:`pythtb_tpu_torch.ops.fermi_sweep.fermi_sweep`): the per-(k, band)
+products v_a v_b, v_a eps v_e Minv and <s_a> v_c are its columns, and the
+(M, B, S) arrays of the JAX programs are never formed.  Formalism, units
+and the insulator guard are those of the JAX package (hbar = 1, q = -1).
+``magnetotransport`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from . import config
+from .geometry import _prep
+from .model import PythtbError
+from .ops.fermi_sweep import fermi_sweep
+from .ops.solver import device_uniform_grid
+from .optical import _inverse_mass, _velocity_tensors
+
+__all__ = ["transport_coefficients", "transport_distribution", "edelstein"]
+
+
+def _band_v_minv(data, kpts, lat, need_minv=True):
+    """evals (B, S), vecs, diagonal velocities vd (B, d, S) and band
+    inverse-mass tensors minv (B, d, d, S) from the exact sum rule."""
+    evals, vecs, V, W2 = _velocity_tensors(data, kpts, lat, need_d2=need_minv)
+    vd = torch.diagonal(V, dim1=-2, dim2=-1).real
+    return evals, vecs, vd, (_inverse_mass(evals, V, W2) if need_minv else None)
+
+
+def _grid(model, caller, nk):
+    data, lat, _ = _prep(model, caller)
+    if np.ndim(nk) == 0:
+        nk = [int(nk)] * data.dim_k
+    nk = tuple(int(n) for n in nk)
+    if len(nk) != data.dim_k or min(nk) < 2:
+        raise PythtbError("nk must give %d sizes >= 2" % data.dim_k)
+    return data, lat, device_uniform_grid(nk, np.zeros(data.dim_k), data.device)
+
+
+def _columns(x):
+    """(B, *idx, S) per-(k, band) factors -> (prod(idx), B*S) columns of
+    kernel 17, t = (k, band)."""
+    B, S = x.shape[0], x.shape[-1]
+    return torch.movedim(x.reshape(B, -1, S), 1, 0).reshape(-1, B * S)
+
+
+def _levi_civita(d, device):
+    if d == 2:  # B along z: eps_{dez} = [[0, 1], [-1, 0]][d, e]
+        return torch.tensor([[0.0, 1.0], [-1.0, 0.0]], dtype=config.FLOAT, device=device)
+    eps = torch.zeros((3, 3, 3), dtype=config.FLOAT, device=device)
+    for i, j, k, s in ((0, 1, 2, 1.0), (1, 2, 0, 1.0), (2, 0, 1, 1.0),
+                       (0, 2, 1, -1.0), (2, 1, 0, -1.0), (1, 0, 2, -1.0)):
+        eps[i, j, k] = s
+    return eps
+
+
+def _bt_columns(data, kpts, lat):
+    """Kernel 17's inputs of the RTA sums: E (T,), G (P, T) and the powers
+    of E - mu -- the columns v_a v_c / B at powers 0, 1, 2 (L0, L1, L2)
+    and, in 2-D and 3-D, v_a eps v_e Minv / B at power 0 (the Hall tensor
+    of shape ``hall_shape``)."""
+    evals, _, vd, minv = _band_v_minv(data, kpts, lat)
+    B = evals.shape[0]
+    d = data.dim_k
+    vvc = _columns(vd[:, :, None] * vd[:, None, :])
+    blocks, jpow, hall_shape = [vvc, vvc, vvc], [0] * d * d + [1] * d * d + [2] * d * d, None
+    if d > 1:
+        eps = _levi_civita(d, vd.device)
+        if d == 2:
+            hall = torch.einsum("ban,de,ben,bdcn->bacn", vd, eps, vd, minv)
+        else:
+            hall = torch.einsum("ban,dec,ben,bdfn->bafcn", vd, eps, vd, minv)
+        hall_shape = tuple(hall.shape[1:-1])
+        blocks.append(_columns(hall))
+        jpow += [0] * math.prod(hall_shape)
+    return evals.reshape(-1).contiguous(), (torch.cat(blocks, dim=0) / B).contiguous(), jpow, hall_shape
+
+
+def _bt(data, kpts, lat, mus, kt):
+    """Raw grid means (L0, L1, L2 (M, d, d), hall (M, d, d[, d]), n_e (M,)),
+    before volume, spin and tau factors: one launch of kernel 17 for the
+    -df/de sums, one for the Fermi sum."""
+    E, G, jpow, hall_shape = _bt_columns(data, kpts, lat)
+    d, M = data.dim_k, mus.shape[0]
+    out = fermi_sweep(E, G, mus, kt, "dfde", jpow)
+    L0, L1, L2 = (out[:, i * d * d : (i + 1) * d * d].reshape(M, d, d) for i in range(3))
+    if hall_shape is None:
+        hall = torch.zeros((M, 1, 1), dtype=config.FLOAT, device=E.device)
+    else:
+        hall = out[:, 3 * d * d :].reshape((M,) + hall_shape)
+    ones = torch.full((1, E.shape[0]), 1.0 / kpts.shape[0], dtype=config.FLOAT, device=E.device)
+    n_e = fermi_sweep(E, ones, mus, kt, "fermi")[:, 0]
+    return L0, L1, L2, hall, n_e
+
+
+def transport_coefficients(model, mus, temperature, nk, tau=1.0):
+    """RTA transport coefficients for a chemical-potential batch
+    (counterpart of ``pythtb_tpu.boltzmann.transport_coefficients``): a
+    dict of ``sigma``, ``seebeck``, ``kappa_e`` (M, d, d), ``lorenz``
+    (M,), ``sigma_hall`` ((M,) in 2-D, (M, d, d, d) in 3-D),
+    ``hall_coefficient`` (2-D), ``n`` and ``mus``.  Gapped chemical
+    potentials give NaN ratios and a warning."""
+    data, lat, kpts = _grid(model, "transport_coefficients", nk)
+    kt = float(temperature)
+    if kt <= 0:
+        raise PythtbError("temperature must be positive")
+    tau = float(tau)
+    mus = np.atleast_1d(np.asarray(mus, dtype=float))
+    res = _bt(data, kpts, lat, torch.as_tensor(mus).to(data.device), kt)
+    L0, L1, L2, hall, n_e = (x.cpu().numpy().astype(np.float64) for x in res)
+
+    vol = abs(np.linalg.det(lat))
+    spin = 2.0 if data.nspin == 1 else 1.0
+    norm = spin / vol
+    L0, L1, L2, hall = (norm * L0, norm * L1, norm * L2, norm * hall)
+    n_e = spin * n_e / vol
+
+    q = -1.0  # electron charge in units of e
+    d = data.dim_k
+    M = mus.shape[0]
+    sigma = tau * L0
+    # insulator guard: L0 exponentially small -> ratios are 0/0
+    floor = max(np.max(np.trace(L0, axis1=1, axis2=2)), 0.0) * 1e-10 + 1e-300
+    dead = np.trace(L0, axis1=1, axis2=2) < floor
+    if np.any(dead):
+        warnings.warn(
+            "transport_coefficients: %d of %d chemical potentials sit "
+            "in a gap (sigma below the resolution floor); their "
+            "Seebeck / Lorenz / Hall-coefficient entries are NaN" % (int(dead.sum()), M), stacklevel=2)
+    seebeck = np.full((M, d, d), np.nan)
+    kappa = np.full((M, d, d), np.nan)
+    lorenz = np.full(M, np.nan)
+    for i in range(M):
+        if dead[i]:
+            continue
+        inv0 = np.linalg.inv(L0[i])
+        seebeck[i] = inv0 @ L1[i] / (q * kt)
+        kappa[i] = (tau / kt) * (L2[i] - L1[i] @ inv0 @ L1[i])
+        lorenz[i] = kappa[i][0, 0] / (sigma[i][0, 0] * kt)
+    out = {"mus": mus, "sigma": sigma, "seebeck": seebeck, "kappa_e": kappa, "lorenz": lorenz, "n": n_e}
+    if d == 2:
+        sig_h = -(q**3) * tau**2 * hall
+        out["sigma_hall"] = sig_h[:, 0, 1]
+        rh = np.full(M, np.nan)
+        for i in range(M):
+            if dead[i]:
+                continue
+            inv0 = np.linalg.inv(sigma[i])
+            rh[i] = -(inv0 @ sig_h[i] @ inv0)[1, 0]
+        out["hall_coefficient"] = rh
+    elif d == 3:
+        out["sigma_hall"] = -(q**3) * tau**2 * hall
+    return out
+
+
+def transport_distribution(model, energies, nk, smearing=0.05):
+    """Transport distribution Sigma_ab(eps) = (spin/(N_k V_c)) sum_kn v_a
+    v_b delta(eps - eps_kn), Gaussian delta of width ``smearing``
+    (counterpart of ``pythtb_tpu.boltzmann.transport_distribution``):
+    (nE, d, d), the energy sweep one launch of kernel 17."""
+    data, lat, kpts = _grid(model, "transport_distribution", nk)
+    if float(smearing) <= 0:
+        raise PythtbError("smearing must be positive")
+    energies = np.atleast_1d(np.asarray(energies, dtype=float))
+    evals, _, vd, _ = _band_v_minv(data, kpts, lat, need_minv=False)
+    B, d = evals.shape[0], data.dim_k
+    G = (_columns(vd[:, :, None] * vd[:, None, :]) / B).contiguous()
+    td = fermi_sweep(evals.reshape(-1).contiguous(), G, torch.as_tensor(energies).to(data.device),
+                     float(smearing), "gauss")
+    spin = 2.0 if data.nspin == 1 else 1.0
+    return spin * td.reshape(-1, d, d).cpu().numpy() / abs(np.linalg.det(lat))
+
+
+def _edelstein_columns(data, kpts, lat):
+    """Kernel 17's inputs of the Edelstein sum: E (T,) and the columns
+    <n|s_x|n> v_c / B, x the spin axis (3), c the field axis."""
+    evals, vecs, vd, _ = _band_v_minv(data, kpts, lat, need_minv=False)
+    B, S = evals.shape
+    vc = vecs.reshape(B, S, S // 2, 2)  # spin-fastest components
+    sig = torch.as_tensor(np.stack([[[0, 1], [1, 0]], [[0, -1j], [1j, 0]], [[1, 0], [0, -1]]]) / 2.0,
+                          dtype=config.COMPLEX).to(data.device)
+    sd = torch.einsum("bnor,xrs,bnos->bxn", vc.conj(), sig, vc).real  # (B, 3, S)
+    return evals.reshape(-1).contiguous(), (_columns(sd[:, :, None] * vd[:, None, :]) / B).contiguous()
+
+
+def edelstein(model, mus, temperature, nk, tau=1.0):
+    """Edelstein (inverse spin-galvanic) tensor of a spinful model,
+    alpha[mu, spin_axis, field_axis] = q tau / (N_k V_c) sum_kn (-df/de)
+    <nk|s_a|nk> v_b^{nk} (counterpart of ``pythtb_tpu.boltzmann.edelstein``):
+    (M, 3, dim_k), the mu sweep one launch of kernel 17."""
+    data, lat, _ = _prep(model, "edelstein")
+    if data.nspin != 2:
+        raise PythtbError("edelstein requires a spinful model (nspin == 2)")
+    data, lat, kpts = _grid(model, "edelstein", nk)
+    kt = float(temperature)
+    if kt <= 0:
+        raise PythtbError("temperature must be positive")
+    mus = np.atleast_1d(np.asarray(mus, dtype=float))
+    E, G = _edelstein_columns(data, kpts, lat)
+    K = fermi_sweep(E, G, torch.as_tensor(mus).to(data.device), kt, "dfde")
+    q = -1.0
+    return q * float(tau) * K.reshape(-1, 3, data.dim_k).cpu().numpy() / abs(np.linalg.det(lat))

@@ -13,6 +13,19 @@
 // entry amp_h[s, u] for a direct hit and conj(amp_h[u, s]) for a partner
 // hit (the spin-block rule of hamiltonian.py:105-111).
 //
+// Kernel 15, the derivative modes (pythtb_tpu/ops/hamiltonian.py:
+// assemble_dk / assemble_d2k, the scatters of :146-165 and :199-213):
+// the same gather walk, each term times (2 pi i rv_a) for dH/dk_a or
+// -(2 pi)^2 rv_a rv_b for d2H/dk_a dk_b; a partner entry carries the
+// conjugate of the direct value, conj(v (2 pi i rv_a)) =
+// conj(v) (-2 pi i rv_a) -- the factor is not negated a second time --
+// and no diagonal is added.  One thread per output element (b, p, q)
+// computes each phase once, in registers, and accumulates all dim_k
+// (or the dim_k (dim_k + 1) / 2 distinct (a <= b)) derivatives before
+// it stores them, so one walk of the gather list serves every
+// direction; d2H is written to (a, b) and (b, a).  Bound on the H100:
+// the store of dim_k (or dim_k^2) complex values per element.
+//
 // One-sided mode (pythtb_tpu/surface.py:_one_sided, the inter-layer block
 // H01 of a principal-layer chain): the direct terms only -- partner
 // entries of the gather list are skipped and no diagonal is added -- so
@@ -72,6 +85,112 @@ __global__ void assemble_kernel(const double* __restrict__ k, const double* __re
     }
     const cplx dg = diag[elem];
     H[t] = make_cuDoubleComplex(re + dg.x, im + dg.y);
+}
+
+template <int ORDER>
+__global__ void assemble_deriv_kernel(const double* __restrict__ k, const double* __restrict__ rv,
+                                      const cplx* __restrict__ amps, const int* __restrict__ ptr,
+                                      const int* __restrict__ ent, cplx* __restrict__ out,
+                                      int64_t total, int dim_k, int norb, int nspin) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= total) return;
+    const int nsta = norb * nspin;
+    const int64_t per_k = (int64_t)nsta * nsta;
+    const int64_t bk = t / per_k;
+    const int elem = (int)(t - bk * per_k);
+    const int p = elem / nsta;
+    const int q = elem - p * nsta;
+    const int a = p / nspin, s = p - a * nspin;
+    const int c = q / nspin, u = q - c * nspin;
+    const double* kb = k + bk * dim_k;
+    const int slot = a * norb + c;
+    const int direct_blk = s * nspin + u;
+    const int partner_blk = u * nspin + s;
+    const double two_pi = 6.283185307179586476925286766559;
+
+    // order 1: slot d is dH/dk_d; order 2: the pairs (0,0) (0,1) (0,2)
+    // (1,1) (1,2) (2,2) in that order
+    double re[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+    double im[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+    for (int e = ptr[slot]; e < ptr[slot + 1]; ++e) {
+        const int code = ent[e];
+        const int h = code >> 1;
+        const bool partner = (code & 1) != 0;
+        const double* r = rv + (int64_t)h * dim_k;
+        double x = 0.0;
+        for (int d = 0; d < dim_k; ++d) x = fma(kb[d], r[d], x);
+        double sn, cs;
+        sincospi(2.0 * x, &sn, &cs);  // e^{2 pi i x}
+        const cplx A = amps[(int64_t)h * nspin * nspin + (partner ? partner_blk : direct_blk)];
+        const double vr = A.x * cs - A.y * sn;
+        const double vi = partner ? -(A.x * sn + A.y * cs) : A.x * sn + A.y * cs;
+        if (ORDER == 1) {
+            // direct: v (i f); partner: conj(v) (-i f)
+            const double sg = partner ? -two_pi : two_pi;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+                if (d < dim_k) {
+                    const double f = sg * r[d];
+                    re[d] -= vi * f;
+                    im[d] += vr * f;
+                }
+            }
+        } else {
+            int slot2 = 0;
+#pragma unroll
+            for (int d0 = 0; d0 < 3; ++d0) {
+#pragma unroll
+                for (int d1 = d0; d1 < 3; ++d1) {
+                    if (d1 < dim_k) {
+                        const double f = -(two_pi * two_pi) * r[d0] * r[d1];
+                        re[slot2] += vr * f;
+                        im[slot2] += vi * f;
+                    }
+                    ++slot2;
+                }
+            }
+        }
+    }
+    if (ORDER == 1) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+            if (d < dim_k) out[(bk * dim_k + d) * per_k + elem] = make_cuDoubleComplex(re[d], im[d]);
+    } else {
+        int slot2 = 0;
+#pragma unroll
+        for (int d0 = 0; d0 < 3; ++d0) {
+#pragma unroll
+            for (int d1 = d0; d1 < 3; ++d1) {
+                if (d1 < dim_k) {
+                    const cplx v = make_cuDoubleComplex(re[slot2], im[slot2]);
+                    out[((bk * dim_k + d0) * dim_k + d1) * per_k + elem] = v;
+                    out[((bk * dim_k + d1) * dim_k + d0) * per_k + elem] = v;
+                }
+                ++slot2;
+            }
+        }
+    }
+}
+
+// Kernel 15: dH/dk (order 1, out (B, dim_k, nsta, nsta)) or d2H/dk dk
+// (order 2, out (B, dim_k, dim_k, nsta, nsta)); 1 <= dim_k <= 3.
+extern "C" int pythtb_assemble_deriv(const void* k, const void* rv, const void* amps, const void* ptr,
+                                     const void* ent, void* out, int64_t B, int64_t dim_k, int64_t norb,
+                                     int64_t nspin, int64_t order, void* stream) {
+    const int64_t nsta = norb * nspin;
+    const int64_t total = B * nsta * nsta;
+    if (total > 0) {
+        if (order == 1) {
+            assemble_deriv_kernel<1><<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+                (const double*)k, (const double*)rv, (const cplx*)amps, (const int*)ptr, (const int*)ent,
+                (cplx*)out, total, (int)dim_k, (int)norb, (int)nspin);
+        } else {
+            assemble_deriv_kernel<2><<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+                (const double*)k, (const double*)rv, (const cplx*)amps, (const int*)ptr, (const int*)ent,
+                (cplx*)out, total, (int)dim_k, (int)norb, (int)nspin);
+        }
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" int pythtb_assemble(const void* k, const void* rv, const void* amps, const void* diag,

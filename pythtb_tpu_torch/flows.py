@@ -15,8 +15,16 @@ Matrix-free, on the ELL tables of :mod:`pythtb_tpu_torch.ops.matvec`:
 filter is one call of kernel 11, H Q one launch of kernel 8, the Gram and
 Rayleigh-Ritz steps torch.linalg) with ``wilson_window`` and
 ``chern_window`` on its states; ``solve_lowest`` (complex block LOBPCG,
-:mod:`pythtb_tpu_torch.ops.lobpcg`, on kernel 8).  The other flows of
-the JAX package are not ported yet.
+:mod:`pythtb_tpu_torch.ops.lobpcg`, on kernel 8).
+
+Response sweeps: ``anomalous_hall``, ``anomalous_nernst`` and
+``thermal_hall`` weight per-band plaquette fluxes (kernels 1-4) with the
+occupation, entropy or c2 factor of every chemical potential in one
+launch of kernel 17 (:mod:`pythtb_tpu_torch.ops.fermi_sweep`);
+``berry_dipole``, ``spin_hall_conductivity`` and
+``orbital_magnetization`` build band-basis velocity matrices from
+dH/dk (kernel 15) and contract them with torch, the dipole's mu sweep
+on kernel 17.  The other flows of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,13 +40,16 @@ from .core import BlochData
 from .ops import chebyshev
 from .ops.berry import _dets, _plane_link_dets, _wrap, plaquette_flux, wilson_eigenphases, wilson_loop
 from .ops.eigh import eigh_batched
-from .ops.hamiltonian import assemble
+from .ops.fermi_sweep import fermi_sweep
+from .ops.hamiltonian import assemble, assemble_dk
 from .ops.solver import device_uniform_grid, extend_pbc_seq
+from .optical import _band_tensors, _inv_gaps
 
 __all__ = [
     "gauge_phases", "berry_flux_grid", "chern_number", "wilson_flow", "z2_fn",
     "z2_invariant", "polarization", "kpm_dos", "solve_lowest", "solve_window", "wilson_window",
-    "chern_window",
+    "chern_window", "anomalous_hall", "anomalous_nernst", "thermal_hall", "berry_dipole",
+    "spin_hall_conductivity", "orbital_magnetization",
 ]
 
 
@@ -741,3 +752,219 @@ def chern_window(model, sigma, num_states, nk=(12, 12), **solve_kwargs):
         )
     # orientation flip: the package-wide flux convention of chern_number
     return float(-total / (2.0 * np.pi))
+
+
+# ---------------------------------------------------------------------------
+# Berry-curvature sweeps and band-resolved response (velocity operators)
+# ---------------------------------------------------------------------------
+
+
+def _grid_inputs(model, nk, caller):
+    n0, n1 = int(nk[0]), int(nk[1])
+    data = model._get_finalized()
+    if data.dim_k != 2:
+        raise ValueError("%s requires a model with dim_k == 2" % caller)
+    return data, (n0, n1), [_phase_tensor(model, d, data.device) for d in (0, 1)]
+
+
+def _band_curvature_grid(data: BlochData, n0, n1, start, phases):
+    """Shared engine of the Hall / Nernst / thermal Hall sweeps: solve the
+    interior grid (kernels 1, 2), close it with the periodic gauge,
+    per-band plaquette fluxes (kernels 3, 4 at S 1, individual).  Returns
+    (om (nsta, n0-1, n1-1), E (nsta, n0-1, n1-1))."""
+    kpts = device_uniform_grid((n0 - 1, n1 - 1), start, data.device)
+    evals, v = eigh_batched(assemble(data, kpts))
+    w = v.reshape(n0 - 1, n1 - 1, data.nsta, data.nsta)
+    w = extend_pbc_seq(w, phases)
+    wb = torch.movedim(w, 2, 0)[..., None, :].contiguous()  # (nsta, n0, n1, 1, F)
+    om = plaquette_flux(*_plane_link_dets(wb), individual=True)[0]
+    E = evals.reshape(n0 - 1, n1 - 1, data.nsta).permute(2, 0, 1)
+    return om, E
+
+
+def _curvature_sweep(model, nk, start_k, caller, mus, kt, kind):
+    """Sum over (band, k) of the per-band curvature / 2 pi weighted by
+    ``kind`` at each chemical potential (kernel 17).  Returns the (nmu,)
+    sums and the energies E (nsta, n0-1, n1-1)."""
+    data, (n0, n1), phases = _grid_inputs(model, nk, caller)
+    om, E = _band_curvature_grid(data, n0, n1, np.asarray(start_k, dtype=np.float64), phases)
+    mus_t = torch.as_tensor(np.asarray(mus, dtype=np.float64)).to(data.device)
+    G = (om / (2.0 * np.pi)).reshape(1, -1).contiguous()
+    out = fermi_sweep(E.reshape(-1).contiguous(), G, mus_t, kt, kind)[:, 0]
+    return out, E, mus_t
+
+
+def anomalous_hall(model, fermi_levels, nk=(101, 101), start_k=(-0.5, -0.5), temperature=0.0):
+    """Intrinsic anomalous Hall conductivity sigma_xy(E_F) in units of
+    e^2/h from the band-resolved Berry curvature (counterpart of
+    ``pythtb_tpu.flows.anomalous_hall``): per-band plaquette fluxes on the
+    device, then the whole Fermi-level sweep in one launch of kernel 17
+    (T = 0 step, or Fermi-Dirac at ``temperature`` > 0).  Warns at T = 0
+    when E_F passes through a band degeneracy at a grid point.
+
+    :returns: sigma_xy float array (nef,) -- scalar input gives a float
+    """
+    efs = np.atleast_1d(np.asarray(fermi_levels, dtype=np.float64))
+    kt = float(temperature)
+    out, E, efs_t = _curvature_sweep(model, nk, start_k, "anomalous_hall", efs, kt,
+                                     "fermi" if kt > 0.0 else "step")
+    out = out.cpu().numpy().astype(np.float64)
+    if kt == 0.0 and E.shape[0] > 1:
+        # E_F through a degeneracy at a grid point: the occupation factor
+        # splits degenerate partners and the per-band curvature there is
+        # basis-arbitrary
+        tol = 100.0 * np.sqrt(np.finfo(np.float64).eps) * max(float(E.abs().max()), 1.0)
+        gap = E[1:] - E[:-1]
+        ef = efs_t[:, None, None, None]
+        near = (gap[None] < tol) & (E[None, :-1] <= ef + tol) & (E[None, 1:] >= ef - tol)
+        flagged = near.flatten(1).any(dim=1).cpu().numpy()
+        if flagged.any():
+            warnings.warn(
+                "anomalous_hall: E_F = %s passes through a band degeneracy at "
+                "a grid point -- the occupation factor splits degenerate "
+                "partners there and the band-resolved curvature is "
+                "basis-arbitrary. Shift the grid origin or E_F." % efs[flagged].tolist(),
+                UserWarning, stacklevel=2,
+            )
+    return float(out[0]) if np.ndim(fermi_levels) == 0 else out
+
+
+def anomalous_nernst(model, mu, temperature, nk=(101, 101), start_k=(-0.5, -0.5)):
+    """Intrinsic anomalous Nernst coefficient alpha_xy(mu, T) in units of
+    e k_B / h: the entropy-weighted band-resolved Berry curvature
+    (counterpart of ``pythtb_tpu.flows.anomalous_nernst``), the mu sweep
+    in one launch of kernel 17.
+
+    :returns: float array (nmu,) -- scalar input gives a float
+    """
+    if float(temperature) <= 0.0:
+        raise ValueError("anomalous_nernst requires temperature > 0")
+    out, _, _ = _curvature_sweep(model, nk, start_k, "anomalous_nernst", np.atleast_1d(mu),
+                                 float(temperature), "entropy")
+    out = out.cpu().numpy().astype(np.float64)
+    return float(out[0]) if np.ndim(mu) == 0 else out
+
+
+def thermal_hall(model, mu, temperature, nk=(101, 101), start_k=(-0.5, -0.5)):
+    """Intrinsic electronic thermal Hall conductivity kappa_xy(mu, T) in
+    units of k_B^2 T / h: the c2-weighted band-resolved Berry curvature
+    (counterpart of ``pythtb_tpu.flows.thermal_hall``; the weight is
+    :func:`pythtb_tpu_torch.ops.fermi_sweep.c2_weight`), the mu sweep in
+    one launch of kernel 17.
+
+    :returns: float array (nmu,) -- scalar input gives a float
+    """
+    if float(temperature) <= 0.0:
+        raise ValueError("thermal_hall requires temperature > 0")
+    out, _, _ = _curvature_sweep(model, nk, start_k, "thermal_hall", np.atleast_1d(mu),
+                                 float(temperature), "c2")
+    out = out.cpu().numpy().astype(np.float64)
+    return float(out[0]) if np.ndim(mu) == 0 else out
+
+
+def _grid_2d(model, caller, nk):
+    data = model._get_finalized()
+    if data.dim_k != 2 or model._dim_r != 2:
+        raise ValueError("%s requires a fully periodic 2-D model" % caller)
+    nk = tuple(int(x) for x in np.atleast_1d(nk))
+    if len(nk) != 2:
+        raise ValueError("nk must give two grid sizes")
+    return data, nk, np.asarray(model._lat, dtype=np.float64)
+
+
+def berry_dipole(model, mu, temperature, nk=(101, 101)):
+    """Berry-curvature dipole D_a(mu, T) of a 2-D metal (counterpart of
+    ``pythtb_tpu.flows.berry_dipole``): the analytic per-band curvature
+    and the group velocities from the velocity matrices (kernel 15), the
+    Fermi-surface sum over the mu batch in one launch of kernel 17.
+
+    :returns: (nmu, 2) array of (D_x, D_y) -- scalar mu gives (2,)
+    """
+    if float(temperature) <= 0.0:
+        raise ValueError("berry_dipole requires temperature > 0")
+    data, nk, lat = _grid_2d(model, "berry_dipole", nk)
+    mus = np.atleast_1d(np.asarray(mu, dtype=np.float64))
+    evals, _vecs, V, _ = _band_tensors(data, nk, lat, need_d2=False)
+    inv2 = _inv_gaps(evals, 1e-7)[1] ** 2  # 1 / (e_n - e_m)^2 off degeneracies
+    om = -2.0 * torch.einsum("bnm,bnm,bnm->bn", V[:, 0], V[:, 1].conj(), inv2.to(V.dtype)).imag
+    Vd = torch.diagonal(V, dim1=-2, dim2=-1).real  # (B, d, S)
+    norm = 1.0 / float(np.prod(nk))
+    G = (Vd * om[:, None, :] * norm).permute(1, 0, 2).reshape(2, -1).contiguous()
+    mus_t = torch.as_tensor(mus).to(data.device)
+    out = fermi_sweep(evals.reshape(-1).contiguous(), G, mus_t, float(temperature), "dfde_cosh")
+    out = out.cpu().numpy().astype(np.float64) / abs(np.linalg.det(lat))
+    return out[0] if np.ndim(mu) == 0 else out
+
+
+def spin_hall_conductivity(model, occ, nk=(101, 101)):
+    """Intrinsic spin Hall conductivity of a 2-D spinful insulator from the
+    Kubo spin Berry curvature (counterpart of
+    ``pythtb_tpu.flows.spin_hall_conductivity``), normalized so that an
+    s_z-conserving model gives the integer C_up - C_dn.  The velocity
+    matrices come from kernel 15; the band contractions are torch.
+
+    :returns: float
+    """
+    data, nk, lat = _grid_2d(model, "spin_hall_conductivity", nk)
+    if data.nspin != 2:
+        raise ValueError("spin_hall_conductivity requires a spinful model")
+    occ = tuple(int(o) for o in np.atleast_1d(occ))
+    if len(set(occ)) != len(occ) or any(not (0 <= o < data.nsta) for o in occ):
+        raise ValueError("occ must be distinct band indices")
+    evals, vecs, V, _ = _band_tensors(data, nk, lat, need_d2=False)
+    sz = torch.as_tensor(np.tile([1.0, -1.0], data.norb), dtype=config.COMPLEX).to(data.device)
+    Szb = torch.einsum("bns,s,bms->bnm", vecs.conj(), sz, vecs)
+    Jx = 0.5 * (V[:, 0] @ Szb + Szb @ V[:, 0])
+    inv2 = _inv_gaps(evals, 1e-7)[1] ** 2
+    om_sz = -2.0 * torch.einsum("bnm,bnm,bnm->bn", Jx, V[:, 1].conj(), inv2.to(V.dtype)).imag
+    occ_idx = torch.as_tensor(occ, device=data.device)
+    vol = abs(np.linalg.det(lat))
+    return float(om_sz[:, occ_idx].sum()) * (2.0 * np.pi) / (float(np.prod(nk)) * vol)
+
+
+def orbital_magnetization(model, occ, nk=(61, 61), mu=None):
+    """Orbital magnetization of a 2-D insulator (modern theory; counterpart
+    of ``pythtb_tpu.flows.orbital_magnetization``): the k-space band sum
+    of Im <n|dH/dk_1|m><m|dH/dk_2|n> (e_n + e_m - 2 mu) / (e_n - e_m)^2
+    over occupied n and empty m, with dH/dk from kernel 15.  M is linear
+    in mu, so one device pass serves any mu (default midgap).
+
+    :returns: float M per unit cell
+    """
+    data = model._get_finalized()
+    if data.dim_k != 2:
+        raise ValueError("orbital_magnetization requires dim_k == 2")
+    occ = tuple(sorted(int(o) for o in occ))
+    if not occ or min(occ) < 0 or max(occ) >= data.nsta:
+        raise IndexError("occ indices %s out of range for %d states" % (occ, data.nsta))
+    if len(occ) == data.nsta:
+        raise ValueError("orbital_magnetization needs at least one empty band")
+    n0, n1 = (int(nk), int(nk)) if np.isscalar(nk) else (int(nk[0]), int(nk[1]))
+    dev = data.device
+    kpts = device_uniform_grid((n0, n1), (0.0, 0.0), dev)
+    evals, vecs = eigh_batched(assemble(data, kpts))
+    dH = assemble_dk(data, kpts)  # (B, 2, S, S)
+    occ_idx = torch.as_tensor(occ, device=dev)
+    unocc_idx = torch.as_tensor([s for s in range(data.nsta) if s not in occ], device=dev)
+    uo, uu = vecs[:, occ_idx], vecs[:, unocc_idx]
+    eo, eu = evals[:, occ_idx], evals[:, unocc_idx]
+    V = torch.einsum("bns,bast,bmt->banm", uo.conj(), dH, uu)  # (B, 2, no, nu)
+    de = eo[:, :, None] - eu[:, None, :]
+    VV = V[:, 0] * V[:, 1].conj()
+    w0 = (eo[:, :, None] + eu[:, None, :]) / (de * de)
+    w1 = -2.0 / (de * de)
+    norm = 4.0 * np.pi**2 * kpts.shape[0]
+    M0 = float(torch.sum(VV * w0).imag) / norm
+    dMdmu = float(torch.sum(VV * w1).imag) / norm
+    emax_occ, emin_unocc = float(eo.max()), float(eu.min())
+    if mu is None:
+        mu = 0.5 * (emax_occ + emin_unocc)
+    M = M0 + float(mu) * dMdmu
+    if not emax_occ < mu < emin_unocc:
+        warnings.warn(
+            "orbital_magnetization: mu=%.6g is not inside the band gap of "
+            "the chosen occupation (occupied max %.6g, unoccupied min "
+            "%.6g); the insulating formula does not apply." % (mu, emax_occ, emin_unocc),
+            UserWarning, stacklevel=2,
+        )
+    return float(M)

@@ -8,8 +8,9 @@ sources and flags and lives in ``build/pythtb_tpu_torch/`` at the root
 of the checkout, so a changed source rebuilds it.  Nothing here runs at
 import: the CPU tests import every module.
 
-Each kernel wrapper (in the module of the JAX program it replaces, or
-in ``ops/chebyshev.py`` for the recursions of kernels 9, 10 and 11)
+Each kernel wrapper (in the module of the JAX program it replaces, in
+``ops/chebyshev.py`` for the recursions of kernels 9, 10 and 11, or in
+``ops/fermi_sweep.py`` for kernel 17, which serves three modules)
 validates its tensors with :func:`require`, allocates its outputs with
 ``torch.empty``, launches through :func:`launch` on the current stream,
 and counts the launch in :data:`LAUNCHES`.
@@ -34,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pythtb_tpu_torch"
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # C entry point -> argument types (all return cudaGetLastError())
 _SIGNATURES = {
     "pythtb_assemble": [_P] * 7 + [_I] * 5 + [_P],
@@ -49,18 +50,23 @@ _SIGNATURES = {
     "pythtb_cheb_evolve": [_P] * 7 + [_I] * 6 + [_P],
     "pythtb_cheb_filter": [_P] * 7 + [_I] * 5 + [_P],
     "pythtb_decimation": [_P] * 7 + [_I] * 4 + [_P],
+    "pythtb_assemble_deriv": [_P] * 6 + [_I] * 5 + [_P],
+    "pythtb_spectral_sum": [_P] * 5 + [_I] * 5 + [_D, _P],
+    "pythtb_fermi_sweep": [_P] * 5 + [_I] * 3 + [_D, _I, _P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
 # whole recursion from one C call; they count each step (kernel 9) or term
 # (kernels 10 and 11) that ran on the device.  "assemble_one_sided" counts
-# kernel 1's one-sided launches (not in "assemble").  "link_dets_library"
+# kernel 1's one-sided launches (not in "assemble"); "assemble_dk" counts
+# kernel 15 in both its modes (dH/dk and d2H/dk dk); "spectral_sum" counts
+# kernel 16's calls (a partial pass and a reduction each).  "link_dets_library"
 # and "wilson_loop_library" count the shape rules of ops.berry (S > 8),
 # which launch no kernel of this package.
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
-     "link_dets_library", "wilson_loop_library"), 0
+     "assemble_dk", "spectral_sum", "fermi_sweep", "link_dets_library", "wilson_loop_library"), 0
 )
 
 _lib = None
@@ -167,9 +173,9 @@ def require_rows(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device=N
 
 def launch(kernel: str, device: torch.device, *args, counter=None, count=1):
     """Call C entry point ``pythtb_<kernel>`` on ``device``'s current
-    stream; tensors in ``args`` pass as pointers, ints as sizes.  Raises
-    if the launch was refused; otherwise adds ``count`` device launches
-    to ``LAUNCHES[counter or kernel]``."""
+    stream; tensors in ``args`` pass as pointers, ints as sizes, floats
+    as doubles.  Raises if the launch was refused; otherwise adds
+    ``count`` device launches to ``LAUNCHES[counter or kernel]``."""
     fn = getattr(library(), "pythtb_" + kernel)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):

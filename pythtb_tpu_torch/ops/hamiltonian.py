@@ -22,7 +22,7 @@ from .. import config
 from ..core import BlochData
 from . import _kernels
 
-__all__ = ["assemble", "assemble_one_sided"]
+__all__ = ["assemble", "assemble_one_sided", "assemble_dk", "assemble_d2k"]
 
 
 def _phases(data: BlochData, kpts):
@@ -117,3 +117,99 @@ def assemble_one_sided(data: BlochData, kpts):
     if kpts.device.type == "cpu":
         return _one_sided_plain(data, kpts)
     return _launch(data, kpts, True)
+
+
+def _deriv_plain(data: BlochData, kpts, fac):
+    """Scatter of the direct terms times ``fac`` (nhop, *dirs) and of
+    their conjugates at the partner sites: the shared body of the plain
+    derivatives (``pythtb_tpu.ops.hamiltonian.assemble_dk`` :146-165 and
+    ``assemble_d2k`` :199-213).  Returns (B, *dirs, nsta, nsta)."""
+    B = kpts.shape[0]
+    n = data.norb
+    dirs = tuple(fac.shape[1:])
+    nd = len(dirs)
+    ph = _phases(data, kpts)
+    rows = torch.arange(B, device=kpts.device).reshape((B,) + (1,) * (nd + 1))
+    didx = torch.meshgrid(*[torch.arange(d, device=kpts.device) for d in dirs], indexing="ij")
+    didx = [g[None, ..., None] for g in didx]
+    ii = data.ii.reshape((1,) * (nd + 1) + (-1,))
+    jj = data.jj.reshape((1,) * (nd + 1) + (-1,))
+    # dv[b, *dirs, h]: the direct term's derivative
+    fac_h = torch.movedim(fac, 0, -1)[None]
+    if data.nspin == 1:
+        dv = (ph * data.amps[None, :]).reshape((B,) + (1,) * nd + (-1,)) * fac_h
+        out = torch.zeros((B,) + dirs + (n, n), dtype=config.COMPLEX, device=kpts.device)
+        out.index_put_((rows, *didx, ii, jj), dv, accumulate=True)
+        out.index_put_((rows, *didx, jj, ii), torch.conj_physical(dv), accumulate=True)
+        return out
+    vals = ph[:, :, None, None] * data.amps[None]  # (B, nhop, 2, 2)
+    dv = vals.reshape((B,) + (1,) * nd + tuple(vals.shape[1:])) * fac_h[..., None, None]
+    blk = torch.zeros((B,) + dirs + (n, n, 2, 2), dtype=config.COMPLEX, device=kpts.device)
+    blk.index_put_((rows, *didx, ii, jj), dv, accumulate=True)
+    blk.index_put_((rows, *didx, jj, ii), torch.conj_physical(dv.transpose(-1, -2)), accumulate=True)
+    # (B, *dirs, i, j, s, t) -> (B, *dirs, i, s, j, t)
+    blk = blk.permute(*range(nd + 1), nd + 1, nd + 3, nd + 2, nd + 4)
+    return blk.reshape((B,) + dirs + (data.nsta, data.nsta))
+
+
+def _assemble_dk_plain(data: BlochData, kpts):
+    """Plain PyTorch dH/dk_a: each direct term times 2 pi i rv_a, the
+    partner its conjugate, no diagonal.  The oracle of kernel 15."""
+    fac = torch.complex(torch.zeros_like(data.rv), (2.0 * math.pi) * data.rv)
+    return _deriv_plain(data, kpts, fac)
+
+
+def _assemble_d2k_plain(data: BlochData, kpts):
+    """Plain PyTorch d2H/dk_a dk_b: each direct term times
+    -(2 pi)^2 rv_a rv_b (real), the partner its conjugate.  The oracle
+    of kernel 15's second-order mode."""
+    rv = data.rv
+    fac2 = -((2.0 * math.pi) ** 2) * rv[:, :, None] * rv[:, None, :]
+    return _deriv_plain(data, kpts, fac2.to(config.COMPLEX))
+
+
+def _launch_deriv(data: BlochData, kpts, order):
+    B, dim = kpts.shape[0], data.dim_k
+    if dim > 3:
+        raise ValueError("kernel 15 takes dim_k <= 3, got %d" % dim)
+    dev = data.device
+    _kernels.require(kpts, "kpts", config.FLOAT, (B, dim), dev)
+    _kernels.require(data.rv, "rv", config.FLOAT, (data.nhop, dim), dev)
+    _kernels.require(data.amps, "amps", config.COMPLEX, (data.nhop,) + (2, 2)[: 2 * (data.nspin - 1)], dev)
+    _kernels.require(data.ptr, "ptr", torch.int32, (data.norb**2 + 1,), dev)
+    _kernels.require(data.ent, "ent", torch.int32, (2 * data.nhop,), dev)
+    out = torch.empty((B,) + (dim,) * order + (data.nsta, data.nsta), dtype=config.COMPLEX, device=dev)
+    _kernels.launch(
+        "assemble_deriv", dev, kpts, data.rv, data.amps, data.ptr, data.ent, out,
+        B, dim, data.norb, data.nspin, order, counter="assemble_dk",
+    )
+    return out
+
+
+def _derivative(data: BlochData, kpts, order):
+    B, dim = kpts.shape[0], data.dim_k
+    if data.nhop == 0 or dim == 0:
+        return torch.zeros((B,) + (dim,) * order + (data.nsta, data.nsta), dtype=config.COMPLEX,
+                           device=kpts.device)
+    if kpts.device.type == "cpu":
+        return (_assemble_dk_plain if order == 1 else _assemble_d2k_plain)(data, kpts)
+    return _launch_deriv(data, kpts, order)
+
+
+def assemble_dk(data: BlochData, kpts):
+    """Analytic k-gradient of H: dH/dk_a for a k-batch, (B, dim_k, nsta,
+    nsta) complex128, each slice Hermitian.
+
+    Derivatives are with respect to REDUCED k-coordinates.  Because
+    :func:`assemble` uses Convention I (phases carry the full r-vector
+    rv = R + t_j - t_i along the periodic directions), this is the
+    velocity operator including the orbital-position embedding.  Zeros
+    when the model has no hoppings or no periodic direction."""
+    return _derivative(data, kpts, 1)
+
+
+def assemble_d2k(data: BlochData, kpts):
+    """Analytic second k-derivative of H: d2H/dk_a dk_b for a k-batch,
+    (B, dim_k, dim_k, nsta, nsta) complex128, each slice Hermitian and
+    symmetric in (a, b); same conventions as :func:`assemble_dk`."""
+    return _derivative(data, kpts, 2)

@@ -495,3 +495,110 @@ def test_slice_four_goes_through_kernels(dev):
         config.set_device(prev)
     for got, want in zip(card, cpu):
         assert np.abs(got - want).max() < 1e-10 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("dim_k,nspin", [(1, 1), (2, 1), (3, 1), (1, 2), (2, 2), (3, 2)])
+def test_assemble_deriv_kernel(dev, dim_k, nspin):
+    """Kernel 15 in both modes (dH/dk, d2H/dk dk) against the plain
+    scatters, at every dim_k it takes and at both spin layouts."""
+    data, k = _random_data(70 + dim_k + 5 * nspin, dim_k, nspin, dev)
+    for fn, plain in ((hamiltonian.assemble_dk, hamiltonian._assemble_dk_plain),
+                      (hamiltonian.assemble_d2k, hamiltonian._assemble_d2k_plain)):
+        before = _kernels.LAUNCHES["assemble_dk"]
+        got = fn(data, k)
+        assert _kernels.LAUNCHES["assemble_dk"] == before + 1
+        want = plain(data, k)
+        assert _max_diff(got, want) < TOL * max(1.0, float(want.abs().max()))
+
+
+def test_assemble_deriv_kernel_refuses_dim_k_above_three(dev):
+    data, k = _random_data(80, 4, 1, dev)
+    before = _kernels.LAUNCHES["assemble_dk"]
+    with pytest.raises(ValueError, match="dim_k <= 3"):
+        hamiltonian.assemble_dk(data, k)
+    assert _kernels.LAUNCHES["assemble_dk"] == before
+
+
+@pytest.mark.parametrize("mode,P,T,nw", [("lorentz", 4, 1000, 121), ("lorentz", 4, 40001, 121),
+                                         ("lorentz", 9, 513, 3), ("gauss", 8, 2001, 121), ("gauss", 27, 700, 130),
+                                         ("gauss", 1, 1, 1)])
+def test_spectral_sum_kernel(dev, mode, P, T, nw):
+    """Kernel 16 in both modes against the plain chunked einsum: column
+    groups of 8 (P 9, 27), T off every chunk length (32 and 76 here), nw
+    over one tile."""
+    from pythtb_tpu_torch import optical
+
+    rng = np.random.default_rng(P * T + nw)
+    W = rng.normal(size=(P, T)) + (1j * rng.normal(size=(P, T)) if mode == "lorentz" else 0.0)
+    W = torch.as_tensor(W).to(dev)
+    de = torch.as_tensor(rng.uniform(0.0, 5.0, T)).to(dev)
+    om = torch.as_tensor(np.linspace(0.0, 6.0, nw)).to(dev)
+    before = _kernels.LAUNCHES["spectral_sum"]
+    got = optical.spectral_sum(W, de, om, 0.07, mode)
+    assert _kernels.LAUNCHES["spectral_sum"] == before + 1
+    want = optical._spectral_sum_plain(W, de, om, 0.07, mode)
+    assert _max_diff(got, want) < 1e-10 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["step", "fermi", "entropy", "c2", "dfde", "dfde_cosh", "gauss"])
+@pytest.mark.parametrize("M,P,T", [(1, 1, 1000), (7, 16, 3001), (3, 11, 1)])
+def test_fermi_sweep_kernel(dev, kind, M, P, T):
+    """Kernel 17 at every weight kind (both -df/de forms), powers 0-2,
+    column groups of 8, T off the block size, M 1."""
+    from pythtb_tpu_torch.ops import fermi_sweep
+
+    rng = np.random.default_rng(M * 1000 + P + T)
+    E = torch.as_tensor(rng.uniform(-4.0, 4.0, T)).to(dev)
+    E[: T // 3] = torch.round(E[: T // 3])  # energies equal to some mu
+    G = torch.as_tensor(rng.normal(size=(P, T))).to(dev)
+    mus = torch.as_tensor(np.round(np.linspace(-3.0, 3.0, M))).to(dev)
+    jpow = [p % 3 for p in range(P)]
+    before = _kernels.LAUNCHES["fermi_sweep"]
+    got = fermi_sweep.fermi_sweep(E, G, mus, 0.3, kind, jpow)
+    assert _kernels.LAUNCHES["fermi_sweep"] == before + 1
+    want = fermi_sweep._fermi_sweep_plain(E, G, mus, 0.3, kind, jpow)
+    assert _max_diff(got, want) < 1e-10 * max(1.0, float(want.abs().max()))
+
+
+def test_slice_five_goes_through_kernels(dev):
+    """The response calls on the card launch kernels 15, 16 and 17 and
+    agree with the CPU run of the same calls to 1e-10 relative."""
+    import pythtb_tpu_torch as pt
+
+    def rashba():
+        sy = np.array([[0, -1j], [1j, 0]]) / 2
+        sx = np.array([[0, 1], [1, 0]], dtype=complex) / 2
+        m = pt.tb_model(2, 2, np.eye(2), [[0.0, 0.0]], nspin=2)
+        m.set_hop(-1.0 * np.eye(2) - 1j * 0.6 * sy, 0, 0, [1, 0])
+        m.set_hop(-1.0 * np.eye(2) + 1j * 0.6 * sx, 0, 0, [0, 1])
+        return m
+
+    def run():
+        hal = pt.models.haldane()
+        mus = np.linspace(-3.0, 3.0, 5)
+        bt = pt.boltzmann.transport_coefficients(hal, [-2.0, 1.0], 0.1, 12)
+        return [
+            pt.flows.anomalous_hall(hal, mus, nk=(13, 13)),
+            pt.flows.thermal_hall(hal, mus, 0.15, nk=(13, 13)),
+            np.array([pt.flows.orbital_magnetization(pt.models.haldane(t2=0.15 * np.exp(0.7j)), [0], nk=(11, 11))]),
+            pt.optical.optical_conductivity(hal, np.linspace(0.0, 5.0, 7), occ=[0], nk=(11, 11), eta=0.1),
+            pt.optical.shift_current(pt.models.bn(), np.linspace(0.5, 4.0, 7), [0], nk=(11, 11), sigma=0.1),
+            pt.geometry.integrated_metric(hal, [0], nk=(10, 10))["metric"],
+            bt["sigma"], bt["seebeck"], bt["sigma_hall"],
+            pt.boltzmann.edelstein(rashba(), [-2.2, 2.0], 0.05, 12),
+        ]
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card = run()
+        for name in ("assemble", "eig2", "link_dets", "plaquette_flux", "assemble_dk", "spectral_sum",
+                     "fermi_sweep"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu = run()
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
