@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: needs torch.cuda.is_available(); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compiles the fourteen CUDA kernels with nvcc (sm_90a, one nvcc
+2. build: compiles the sixteen CUDA kernels with nvcc (sm_90a, one nvcc
    per source, all started together) into build/pythtb_tpu_torch/ and
    prints the build seconds and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -24,6 +24,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    at 1e-12; kernel 15 (dH/dk, d2H/dk dk) on every grid of the fifth
    slice's rows at 1e-12, kernels 16 (spectral sums) and 17 (Fermi sweeps,
    every weight kind) on the inputs those rows build at 1e-10 relative;
+   the sixth slice's kernels: kernel 12's Green's-function mode at the
+   Hall-bar leads and the graphene ribbon (1e-12 at eta 0.02; 1e-9 at the
+   main path's eta 1e-6, where the plain version alone parts that far
+   between the card and the CPU), kernel 13 (the CPA's
+   local Green's function) at the CPA row, one iteration at 1e-12 and the
+   whole fixed point at 1e-10 relative, kernel 18 (Lyapunov transfer
+   products) at 512 energies x 2,048 steps of the row's disordered strip
+   (1e-10 relative at stride 1; the non-negative half at 1e-8 at the row's
+   stride 8, where two correct QRs part at ~1e-9), kernel 16 at the impurity T-matrix's shape and kernel
+   1 at the leads' and the strip's principal layers;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -48,7 +58,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    161 x 161, the Rice-Mele shift current on 2,001 k, the integrated QGT
    72 x 72, Boltzmann 512^2 (201 mu) and Edelstein 256^2 (201 mu), held
    against the CPU run at 1e-10 relative (optics, shift, Boltzmann and
-   Edelstein on 64 x 64 there); then the steady wall time of the main calls;
+   Edelstein on 64 x 64 there); and the sixth slice's rows with their pins:
+   the QWZ Hall bar's R_xy (4 leads, 128 modes, 41 E), the 8-leg strip's
+   Lyapunov spectrum (512 E x 200,000 steps, W 1.5) and its clean-strip
+   arccosh check, the kagome alloy CPA (256 w x 48^2), with the published
+   widths of examples/quantum_transport.py (graphene ribbon at 301 E, the
+   Kane-Mele ribbon with a disordered layer at 121 E) and
+   examples/impurity_states.py (BN T-matrix at 96^2, 481 E), held against
+   the CPU run at 1e-10 relative (Lyapunov at 2,048 steps, CPA at 24^2
+   there); then the steady wall time of the main calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -141,8 +159,9 @@ def unit_states(torch, rng, shape, device):
 
 
 def cuda_ms(torch, fn, reps=REPS):
-    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up."""
-    for _ in range(3):
+    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up (up to
+    three runs, no more than ``reps``)."""
+    for _ in range(min(3, reps)):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -579,6 +598,7 @@ def phase_kernels(torch, pt, device):
     matrix_free_kernels(torch, pt, device, rng, record, held)
     slice4_kernels(torch, pt, device, rng, record, held)
     slice5_kernels(torch, pt, device, record, held)
+    slice6_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -1081,11 +1101,6 @@ OPTICAL_W = np.linspace(0.0, 6.0, 121)
 SHIFT_W = np.linspace(0.5, 4.0, 121)
 BT_MUS = np.linspace(-4.0, 4.0, 201)
 EDEL_MUS = np.linspace(-4.2, 4.2, 201)
-# Kramers pairs of the Rashba model at its TRIMs (E -4, 0, 4): there the
-# per-band <s> v of the Edelstein sum depends on the basis that the
-# eigensolver picks in the degenerate pair, so the card and the CPU agree
-# only where those energies lie 30 kT (1.5) outside the Fermi window
-EDEL_TRIM_E = np.array([-4.0, 0.0, 4.0])
 
 
 def rice_mele(pt):
@@ -1148,12 +1163,9 @@ def slice5_kernels(torch, pt, device, record, held):
             want = plain(data, k)
             err, scale = max_diff(torch, fn(data, k), want), max(1.0, float(want.abs().max()))
             label = "%s B=%d %s" % (key, k.shape[0], "dk" if order == 1 else "d2k")
-            if timed:
-                record("assemble_dk", label, err, lambda: fn(data, k), lambda: plain(data, k),
-                       cost_assemble_deriv(data, k.shape[0], order), order == 1 and model is hal, scale=scale,
-                       profile=True)
-            else:
-                held("assemble_dk", label, err, TOL, scale)
+            record("assemble_dk", label, err, lambda: fn(data, k), lambda: plain(data, k),
+                   cost_assemble_deriv(data, k.shape[0], order), order == 1 and model is hal and timed, scale=scale,
+                   profile=timed, reps=REPS if timed else 5)
             del want
 
     # kernel 16: the optical row's Lehmann scan (Lorentzian), the BN and
@@ -1212,13 +1224,10 @@ def slice5_kernels(torch, pt, device, record, held):
         err = max_diff(torch, fs.fermi_sweep(E, G, mu_t, kt, kind, jpow), want)
         label = "%s M=%d T=%d P=%d" % (name, len(mus), E.shape[0], G.shape[0])
         scale = float(want.abs().max())
-        if timed:
-            record("fermi_sweep", label, err, lambda: fs.fermi_sweep(E, G, mu_t, kt, kind, jpow),
-                   lambda: fs._fermi_sweep_plain(E, G, mu_t, kt, kind, jpow or [0] * G.shape[0]),
-                   cost_fermi_sweep(E.shape[0], G.shape[0], len(mus), kind), main, scale=scale, tol=1e-10,
-                   reps=REPS if main else 5, profile=True)
-        else:
-            held("fermi_sweep", label, err, 1e-10, scale)
+        record("fermi_sweep", label, err, lambda: fs.fermi_sweep(E, G, mu_t, kt, kind, jpow),
+               lambda: fs._fermi_sweep_plain(E, G, mu_t, kt, kind, jpow or [0] * G.shape[0]),
+               cost_fermi_sweep(E.shape[0], G.shape[0], len(mus), kind), main, scale=scale, tol=1e-10,
+               reps=REPS if main else 5, profile=timed)
 
 
 def slice5_path(pt, where, reference):
@@ -1297,11 +1306,11 @@ def slice5_path(pt, where, reference):
 
     def bt_arrays(r):
         """The linear sums (sigma, sigma_H, n) and the ratios (Seebeck,
-        kappa_e, Lorenz, R_H), one row per mu, and trace L0 per mu."""
+        kappa_e, Lorenz, R_H), one row per mu."""
         lin = np.concatenate([r["sigma"].reshape(len(BT_MUS), -1), r["sigma_hall"][:, None], r["n"][:, None]], 1)
         ratio = np.concatenate([r["seebeck"].reshape(len(BT_MUS), -1), r["kappa_e"].reshape(len(BT_MUS), -1),
                                 r["lorenz"][:, None], r["hall_coefficient"][:, None]], 1)
-        return lin, ratio, np.trace(r["sigma"], axis1=1, axis2=2)
+        return lin, ratio
 
     # boltzmann_sweep_haldane (CPU: 64^2)
     n = S5["boltzmann"]
@@ -1314,7 +1323,7 @@ def slice5_path(pt, where, reference):
         check(abs(vals[0] - 0.279203) < 3e-3 and abs(vals[1] + 0.127144) < 3e-3 and abs(vals[2] + 0.107893) < 3e-3,
               "Boltzmann pins at mu -2 off: %s" % (vals,))
     r, sec = timed(quiet_warnings, pt.boltzmann.transport_coefficients, hal, BT_MUS, 0.05, nc, tau=1.0)
-    out["boltzmann_lin_cpu"], out["boltzmann_ratio_cpu"], out["boltzmann_trace_cpu"] = bt_arrays(r)
+    out["boltzmann_lin_cpu"], out["boltzmann_ratio_cpu"] = bt_arrays(r)
     print("  %s transport_coefficients %d^2 (the CPU comparison's grid)  [%.2f s]" % (where, nc, sec))
 
     # edelstein_rashba_201mu_256grid (CPU: 64^2)
@@ -1341,42 +1350,372 @@ def quiet_warnings(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
-# the ratios of the RTA set (Seebeck, kappa_e, Lorenz, R_H) are compared
-# where trace L0 is at least this share of its largest value: outside the
-# bands the reference's -df/de = f (1 - f) / kT (the plain version, as in
-# the JAX package) loses e^|x| eps of its relative precision to the
-# cancellation in 1 - f, which the ratios amplify (9.7e-7 at mu = 4, where
-# L0 is 1.1e-10 of its peak); kernel 17's stable form has no such loss
-BT_RATIO_FLOOR = 1e-4
-
-
 def compare_slice5(out, ref):
     """The fifth slice's rows on the card against the CPU run: 1e-10
-    relative to each result's largest entry (NaN where the CPU has NaN)."""
-    far = np.abs(EDEL_MUS[:, None] - EDEL_TRIM_E[None]).min(axis=1) > 30 * 0.05
-    tr = ref["boltzmann_trace_cpu"]
-    cond = tr >= BT_RATIO_FLOOR * tr.max()
+    relative to each result's largest entry (NaN where the CPU has NaN), at
+    every chemical potential: both sides take -df/de in its stable form and
+    the Edelstein sum as a trace over each degenerate group."""
     nc = S5["cpu"]
-    cases = [("ahc", None, ""), ("thermal_hall", None, ""), ("orbmag", None, ""), ("rice_mele", None, ""),
-             ("qgt", None, ""), ("optical_cpu", None, " (%d^2)" % nc), ("shift_cpu", None, " (%d^2)" % nc),
-             ("boltzmann_lin_cpu", None, " (%d^2; sigma, sigma_H, n at all 201 mu)" % nc),
-             ("boltzmann_ratio_cpu", cond, " (%d^2; Seebeck, kappa_e, Lorenz, R_H at the %d of 201 mu where trace L0 "
-                                           ">= %.0e of its peak)" % (nc, int(cond.sum()), BT_RATIO_FLOOR)),
-             ("edelstein_cpu", far, " (%d^2; the %d of 201 mu whose window excludes the Kramers pairs at E -4, 0, 4)"
-              % (nc, int(far.sum())))]
-    for key, sel, note in cases:
+    cases = [("ahc", ""), ("thermal_hall", ""), ("orbmag", ""), ("rice_mele", ""), ("qgt", ""),
+             ("optical_cpu", " (%d^2)" % nc), ("shift_cpu", " (%d^2)" % nc),
+             ("boltzmann_lin_cpu", " (%d^2; sigma, sigma_H, n at all 201 mu)" % nc),
+             ("boltzmann_ratio_cpu", " (%d^2; Seebeck, kappa_e, Lorenz, R_H at all 201 mu)" % nc),
+             ("edelstein_cpu", " (%d^2; all 201 mu, the Kramers pairs at E -4, 0, 4 included)" % nc)]
+    for key, note in cases:
         got, want = np.asarray(out[key]), np.asarray(ref[key])
         check(got.shape == want.shape and np.array_equal(np.isnan(got), np.isnan(want)),
               "%s: shape or NaN pattern differs from the CPU run" % key)
-        if sel is not None:
-            ok = ~np.isnan(want)
-            full = float(np.abs(got - want)[ok].max() / np.abs(want[ok]).max())
-            print("  %s vs CPU at every mu: max|diff| %.3e (relative; reported, not held)" % (key, full))
-            got, want = got[sel], want[sel]
         ok = ~np.isnan(want)
         err = float(np.abs(got - want)[ok].max() / np.abs(want[ok]).max())
         print("  %s vs CPU%s: max|diff| %.3e (relative)" % (key, note, err))
         check(err < 1e-10, "%s differs from the CPU path by %.3e (relative)" % (key, err))
+
+
+# -- the sixth slice: Green's functions and disorder ---------------------------
+
+HALL_E = np.linspace(-0.8, 0.8, 41)  # hall_bar_qwz_4terminal_41E
+LYAP_E = np.linspace(-3.5, 3.5, 512)  # lyapunov_strip_512E_200k_steps
+LYAP_STEPS, LYAP_CPU_STEPS = 200000, 2048
+CPA_W = np.linspace(-5.0, 5.0, 256)  # cpa_alloy_dos_kagome
+CPA_DISORDER = ("binary", [0.3, 0.7], [1.2, -0.3])
+RIBBON_E = np.linspace(-3.0, 3.0, 301)  # examples/quantum_transport.py
+KM_RIBBON_E = np.linspace(-0.6, 0.6, 121)
+IMPURITY_E = np.linspace(-3.6, 3.6, 481)  # examples/impurity_states.py
+S6 = {"cpa_nk": 48, "cpa_cpu_nk": 24, "impurity_nk": 96}
+
+
+def qwz(pt):
+    """The QWZ model of hall_bar_qwz_4terminal_41E."""
+    m = pt.tb_model(2, 2, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0], [0.0, 0.0]])
+    m.set_onsite([-1.0, 1.0])
+    for amp, i, j, R in [(0.5, 0, 0, [1, 0]), (-0.5, 1, 1, [1, 0]), (0.5, 0, 0, [0, 1]), (-0.5, 1, 1, [0, 1]),
+                         (0.5j, 0, 1, [1, 0]), (0.5j, 1, 0, [1, 0]), (0.5, 0, 1, [0, 1]), (-0.5, 1, 0, [0, 1])]:
+        m.set_hop(amp, i, j, R)
+    return m
+
+
+def lyap_strip(pt):
+    """The 8-leg square strip of lyapunov_strip_512E_200k_steps."""
+    sq = pt.tb_model(2, 2, np.eye(2), [[0.0, 0.0]])
+    sq.set_hop(-1.0, 0, 0, [1, 0])
+    sq.set_hop(-1.0, 0, 0, [0, 1])
+    return sq.cut_piece(8, 1)
+
+
+def graphene_ribbon(pt):
+    return pt.models.graphene(t=-1.0).cut_piece(5, 1, glue_edgs=False)
+
+
+def km_ribbon(pt):
+    """The Kane-Mele 6-wide ribbon of examples/quantum_transport.py and its
+    disordered device layer (default_rng(1), both spins alike)."""
+    rib = pt.models.kane_mele(esite=1.0, rashba=0.0).cut_piece(6, 1, glue_edgs=False)
+    H00, _ = pt.negf.lead_blocks(rib)
+    dis = np.repeat(np.random.default_rng(1).uniform(-0.5, 0.5, len(H00) // 2), 2)
+    return rib, H00 + np.diag(dis)
+
+
+def cost_decimation_green(K, nE, S, iters):
+    """Kernel 12's Green's-function mode: H00, H01 and w read once, the
+    (nE, K, S, S) surface G and two (nE, K) maxima written once; per pixel
+    and iteration as kernel 12, then one final inverse (8 S^3)."""
+    nbytes = 2 * K * S * S * C128 + nE * C128 + nE * K * S * S * C128 + 2 * nE * K * F64
+    return bound(nbytes, nE * K * (iters * (56 * S**3 + 6 * S * S) + 8 * S**3))
+
+
+def cost_cpa(W, B, S):
+    """Kernel 13: H, z and Sigma read once, G (W, S) written once; per (w, k)
+    the matrix built (2 S ops) and the Gauss-Jordan elimination of [M | I]
+    (S columns x (S - 1) rows x 2S complex multiply-adds, 16 S^3), plus
+    the pivot row's 2S complex divisions."""
+    nbytes = B * S * S * C128 + W * C128 + 2 * W * S * C128
+    return bound(nbytes, W * B * (16 * S**3 + 2 * S * S * 11 + 2 * S))
+
+
+def cost_lyapunov(ndis, nE, S, steps, stride):
+    """Kernel 18: A, Hinv, Bm and the (steps, ndis, S) onsite values read
+    once, the frames Q and the log sums read and written once; per block
+    and step the 2 S^2 new entries of 2S complex multiply-adds (32 S^3) and
+    the S^2 entries of A - Hinv w (4 S^2); per QR the two Gram-Schmidt
+    passes (64 S^3) and 2S norms (8 S each)."""
+    n = 2 * S
+    nbytes = (nE * S * S + 2 * S * S) * C128 + steps * ndis * S * F64 + 2 * ndis * nE * (n * n * C128 + n * F64)
+    per_block = steps * (32 * S**3 + 4 * S * S) + steps // stride * (64 * S**3 + 16 * S * S)
+    return bound(nbytes, ndis * nE * per_block)
+
+
+def slice6_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernel 12's Green's-function mode, kernels 13 and 18, and
+    kernels 1 and 16 at the sixth slice's shapes: kernel 12G at the Hall-bar
+    leads and the graphene ribbon's two orientations (relative to max(1,
+    |G|): 1e-12 at eta 0.02, 1e-9 at the main path's eta 1e-6), kernel 13
+    one iteration at the CPA row (1e-12) and the whole fixed point against
+    the plain version's (1e-10 relative), kernel
+    18 at 512 E x 2,048 steps of the row's disordered strip (stride 8: the
+    non-negative half of the exponents at 1e-8 relative; stride 1: every
+    exponent at 1e-10), kernel 16 at the impurity shape (1e-10
+    relative)."""
+    from pythtb_tpu_torch import disorder, impurity, localization, negf, surface
+    from pythtb_tpu_torch.ops import hamiltonian
+
+    def rel_err(got, want):
+        return max_diff(torch, got, want), max(1.0, float(want.abs().max()))
+
+    def rel_all(got, want):
+        return max(max_diff(torch, g, p) / max(1.0, float(p.abs().max())) for g, p in zip(got, want))
+
+    # kernel 1 (both modes) at the principal layers of the slice's leads and strip
+    k0 = torch.zeros((1, 0), dtype=torch.float64, device=device)
+    for key, model in (("graphene ribbon 5", graphene_ribbon(pt)), ("kane_mele ribbon 6", km_ribbon(pt)[0]),
+                       ("lyapunov strip 8", lyap_strip(pt))):
+        d00, d01, _ = surface._layer_blocks(model, model._per[0])
+        held("assemble", key + " H00 dim_k 0",
+             max_diff(torch, hamiltonian.assemble(d00, k0), hamiltonian._assemble_plain(d00, k0)))
+        held("assemble_one_sided", key + " H01 dim_k 0",
+             max_diff(torch, hamiltonian.assemble_one_sided(d01, k0), hamiltonian._one_sided_plain(d01, k0)))
+
+    # kernel 12's Green's-function mode: the four Hall-bar leads (S 16, K 1,
+    # 41 E) and the ribbon's stacked orientations (S 10, K 2, 301 E), 60
+    # iterations.  At the main path's eta 1e-6 the inverses' condition is
+    # ~1e6, and two correct eliminations (the kernel's Gauss-Jordan, the
+    # plain LU; or the plain version on the card and on the CPU) differ by
+    # some 1e-10 relative: held there at 1e-9, and at 1e-12 at eta 0.02
+    def green(H0, H1, w_, plain=False):
+        return (surface._decimate_plain if plain else surface.decimate)(H0, H1, w_, 60, green=True)
+
+    def green_checks(key, H0, H1, energies):
+        w6, w2 = (torch.as_tensor(energies + 1j * eta).to(device) for eta in (1e-6, 0.02))
+        err6 = rel_all(green(H0, H1, w6), green(H0, H1, w6, True))
+        held("decimation_green", key + " eta 0.02", rel_all(green(H0, H1, w2), green(H0, H1, w2, True)))
+        cpu = [x.to(device) for x in green(H0.cpu(), H1.cpu(), w6.cpu(), True)]
+        print("  %-15s %-34s the plain version on the card vs on the CPU at eta 1e-6: max|diff| %.3e relative"
+              % ("decimation_green", key, rel_all(green(H0, H1, w6, True), cpu)))
+        return err6, w6
+
+    Hd, leads, _ = negf.hall_bar(qwz(pt), (8, 8))
+    H00, Hin = (torch.as_tensor(np.ascontiguousarray(x)).to(device)[None] for x in leads[0][:2])
+    err, w = green_checks("hall bar lead E=41 K=1 S=16", H00, Hin, HALL_E)
+    record("decimation_green", "hall bar lead E=41 K=1 S=16 iters 60", err, lambda: green(H00, Hin, w),
+           lambda: green(H00, Hin, w, True), cost_decimation_green(1, 41, 16, 60), True, profile=True, tol=1e-9)
+    for lead in leads[1:]:
+        a, b = (torch.as_tensor(np.ascontiguousarray(x)).to(device)[None] for x in lead[:2])
+        held("decimation_green", "hall bar lead S=%d eta 1e-6" % a.shape[-1],
+             green_checks("hall bar lead S=%d" % a.shape[-1], a, b, HALL_E)[0], 1e-9)
+    r00, r01 = (torch.as_tensor(x).to(device) for x in negf.lead_blocks(graphene_ribbon(pt)))
+    Hs, As = torch.stack([r00, r00]).contiguous(), torch.stack([r01.conj().T, r01]).contiguous()
+    err, wr = green_checks("graphene ribbon E=301 K=2 S=10", Hs, As, RIBBON_E)
+    record("decimation_green", "graphene ribbon E=301 K=2 S=10 iters 60", err, lambda: green(Hs, As, wr),
+           lambda: green(Hs, As, wr, True), cost_decimation_green(2, 301, 10, 60), tol=1e-9)
+
+    # kernel 13 at the CPA row: 256 w x 2,304 k, S 3, H once by kernel 1
+    kg = pt.models.kagome(t=-1.0)
+    data = kg._get_finalized()
+    nk = S6["cpa_nk"]
+    kpts = torch.as_tensor(np.stack([g.reshape(-1) for g in np.meshgrid(*[np.arange(nk) / nk] * 2, indexing="ij")],
+                                    axis=-1)).to(device)
+    H = hamiltonian.assemble(data, kpts)
+    z = torch.as_tensor(CPA_W + 0.05j).to(device)
+    probs, vals, _, _, mask = disorder._norm_disorder(kg, CPA_DISORDER)
+    sig0 = (torch.zeros((len(CPA_W), 3), dtype=torch.complex128, device=device)
+            + float(np.dot(probs, vals)) * torch.as_tensor(mask).to(device))
+    err, scale = rel_err(disorder.local_green(H, z, sig0), disorder._local_green_plain(H, z, sig0))
+    record("cpa", "kagome W=256 B=%d S=3 (one iteration)" % H.shape[0], err / scale,
+           lambda: disorder.local_green(H, z, sig0), lambda: disorder._local_green_plain(H, z, sig0),
+           cost_cpa(len(CPA_W), H.shape[0], 3), True, profile=True)
+    args = (H, z, probs, vals, mask, 200, False, 0.0, float(np.finfo(np.float64).eps ** (2.0 / 3.0)))
+    sk, gk, _, ik = disorder._cpa_loop(*args)
+    fast = disorder.local_green
+    disorder.local_green = disorder._local_green_plain  # the whole loop on the plain version
+    try:
+        t0 = time.perf_counter()
+        sp, gp, _, ip = disorder._cpa_loop(*args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        disorder.local_green = fast
+    check(ik == ip, "CPA iterations: kernel %d, plain %d" % (ik, ip))
+    err = max(max_diff(torch, sk, sp) / float(sp.abs().max()), max_diff(torch, gk, gp) / float(gp.abs().max()))
+    held("cpa", "kagome fixed point, %d iterations (plain loop %.2f s)" % (ik, plain_s), err, 1e-10)
+
+    # kernel 18 at the Lyapunov row's strip: 512 E x 2,048 steps, W 1.5
+    H00d, H01d, _ = localization._blocks_dense(lyap_strip(pt))
+    S = H00d.shape[0]
+    h00, h01 = torch.as_tensor(H00d).to(device), torch.as_tensor(H01d).to(device)
+    hinv = torch.linalg.solve(h01, torch.eye(S, dtype=torch.complex128, device=device)).contiguous()
+    E = torch.as_tensor(LYAP_E.astype(np.complex128)).to(device)
+    A = (E[:, None, None] * hinv[None] - (hinv @ h00)[None]).contiguous()
+    Bm = (-hinv @ h01.conj().T).contiguous()
+    wl = torch.as_tensor(localization._onsite(np.zeros((1, S)), 1.5, np.random.default_rng(2), 0, LYAP_CPU_STEPS,
+                                              1)).to(device)
+    Q0 = torch.eye(2 * S, dtype=torch.complex128, device=device).expand(1, len(LYAP_E), 2 * S, 2 * S).contiguous()
+    l0 = torch.zeros((1, len(LYAP_E), 2 * S), dtype=torch.float64, device=device)
+
+    def kern(w_, stride):
+        return localization.lyapunov_chunk(A, hinv, Bm, w_, Q0.clone(), l0.clone(), stride)[1]
+
+    def plain(w_, stride):
+        return localization._lyapunov_plain(A, hinv, Bm, w_, Q0, l0, stride)[1]
+
+    # the row's stride 8: a stride's product has a condition number up to
+    # e^{8 (gamma_max - gamma_min)} ~ 1e11, so two correct QRs (the
+    # kernel's Householder, LAPACK's on either device) part at ~1e-9
+    # relative on the non-negative half, ~1e-8 on the whole spectrum: the
+    # half is held at 1e-8 here, and every exponent at 1e-10 at stride 1
+    got = torch.sort(kern(wl, 8), -1, descending=True)[0]
+    want = torch.sort(plain(wl, 8), -1, descending=True)[0]
+    scale = float(want.abs().max())
+    cpu = torch.sort(localization._lyapunov_plain(A.cpu(), hinv.cpu(), Bm.cpu(), wl.cpu(), Q0.cpu(), l0.cpu(), 8)[1],
+                     -1, descending=True)[0].to(device)
+    print("  %-15s %-34s stride 8: whole spectrum max|diff| %.3e relative; the plain version on the card vs on the "
+          "CPU: half %.3e, whole %.3e" % ("lyapunov", "strip 8 E=512 2048 steps", max_diff(torch, got, want) / scale,
+                                          max_diff(torch, want[..., :S], cpu[..., :S]) / scale,
+                                          max_diff(torch, want, cpu) / scale))
+    record("lyapunov", "strip 8 E=512 2048 steps W=1.5 (upper half)", max_diff(torch, got[..., :S], want[..., :S]),
+           lambda: kern(wl, 8), lambda: plain(wl, 8), cost_lyapunov(1, len(LYAP_E), S, LYAP_CPU_STEPS, 8), True,
+           reps=2, scale=scale, tol=1e-8, prof_reps=3, prof_plain=False)
+    w1 = wl[:256].contiguous()
+    got, want = torch.sort(kern(w1, 1), -1)[0], torch.sort(plain(w1, 1), -1)[0]
+    held("lyapunov", "strip 8 E=512 256 steps stride 1 (whole)", max_diff(torch, got, want), 1e-10,
+         float(want.abs().max()))
+
+    # kernel 16 at the impurity shape: BN 96^2 (T 18,432, P 1, 481 E, eta 0.04)
+    bn = pt.models.bn(delta=1.0)
+    pos, states = impurity._cluster_arrays(bn, [0])
+    E16, W16, _ = impurity._spectrum(bn, bn._get_finalized(), pos, states, (S6["impurity_nk"],) * 2)
+    om = torch.as_tensor(IMPURITY_E).to(device)
+    from pythtb_tpu_torch import optical
+
+    want = optical._spectral_sum_plain(W16, E16, om, 0.04, "lorentz")
+    lib = cuda_ms(torch, lambda: W16 @ optical._kernel_matrix(E16, om, 0.04, "lorentz").to(W16.dtype), 5)
+    record("spectral_sum", "impurity bn 96^2 T=%d P=1 nw=481" % E16.shape[0],
+           max_diff(torch, optical.spectral_sum(W16, E16, om, 0.04, "lorentz"), want),
+           lambda: optical.spectral_sum(W16, E16, om, 0.04, "lorentz"),
+           lambda: optical._spectral_sum_plain(W16, E16, om, 0.04, "lorentz"),
+           cost_spectral_sum(E16.shape[0], 1, len(IMPURITY_E), True), library_ms=lib, scale=float(want.abs().max()),
+           tol=1e-10, profile=True)
+
+
+def slice6_path(pt, where, reference):
+    """The three rows of tools/bench_suite.py that the sixth slice carries
+    and the published widths of examples/quantum_transport.py and
+    examples/impurity_states.py, through their public calls, with each
+    row's own pin.  The CPU reference (``reference``) runs the Lyapunov
+    spectrum at 2,048 of the row's 200,000 steps and the CPA at 24^2 of its
+    48^2 k-points (the card repeats both for the comparison), the rest at
+    full width."""
+    import warnings
+
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    # hall_bar_qwz_4terminal_41E
+    Hd, leads, _ = pt.negf.hall_bar(qwz(pt), (8, 8))
+    T, sec = timed(pt.negf.multi_terminal, Hd, leads, HALL_E, eta=1e-6)
+    V = pt.negf.buttiker(T[20], source=0, drain=1)
+    rxy = float(V[3] - V[2])
+    out["hall_T"] = T
+    print("  %s multi_terminal qwz 8x8 hall bar (128 modes, 4 leads), 41 E: R_xy %.6f  [%.2f s]" % (where, rxy, sec))
+    check(abs(rxy - 1.0) < 5e-3, "Hall-bar R_xy %.6f is not 1" % rxy)
+
+    # lyapunov_strip_512E_200k_steps (CPU: 2,048 steps)
+    st = lyap_strip(pt)
+    if not reference:
+        ly, sec = timed(pt.localization.lyapunov_spectrum, st, LYAP_E, LYAP_STEPS, disorder=1.5, seed=2)
+        pair = float(np.abs(ly[0, :, :8] + ly[0, :, :7:-1]).max())
+        desc = bool(np.all(np.diff(ly[0], axis=-1) <= 1e-9))
+        print("  %s lyapunov_spectrum strip 8, 512 E x %d steps, W 1.5: gamma_min(0) %.6f, +- pairing %.2e  "
+              "[%.2f s]" % (where, LYAP_STEPS, ly[0, len(LYAP_E) // 2, 7], pair, sec))
+        check(np.isfinite(ly).all() and desc and pair < 1e-3, "Lyapunov exponents not finite, descending and paired "
+              "(pairing %.3e)" % pair)
+        eps = np.linalg.eigvalsh(-np.eye(8, k=1) - np.eye(8, k=-1))
+        lyc, sec = timed(pt.localization.lyapunov_spectrum, st, [4.6], 50000)
+        dev = float(np.abs(lyc[0, 0, :8] - np.sort(np.arccosh(np.abs(4.6 - eps) / 2.0))[::-1]).max())
+        print("  %s lyapunov_spectrum clean strip at E 4.6, 50,000 steps: arccosh deviation %.3e  [%.2f s]"
+              % (where, dev, sec))
+        check(dev < 5e-3, "clean-strip exponents off the arccosh values by %.3e" % dev)
+    out["lyap_cpu"], sec = timed(pt.localization.lyapunov_spectrum, st, LYAP_E, LYAP_CPU_STEPS, disorder=1.5, seed=2)
+    print("  %s lyapunov_spectrum strip 8, 512 E x %d steps (the CPU comparison's length)  [%.2f s]"
+          % (where, LYAP_CPU_STEPS, sec))
+    out["lyap_stride1"], sec = timed(pt.localization.lyapunov_spectrum, st, LYAP_E, 256, disorder=1.5, seed=2,
+                                     stride=1)
+    print("  %s lyapunov_spectrum strip 8, 512 E x 256 steps, QR every step  [%.2f s]" % (where, sec))
+
+    # cpa_alloy_dos_kagome (CPU: 24^2)
+    kg = pt.models.kagome(t=-1.0)
+    if not reference:
+        r, sec = timed(pt.disorder.cpa, kg, CPA_W, S6["cpa_nk"], CPA_DISORDER, eta=0.05)
+        wsum = float(np.trapezoid(r["dos"], CPA_W))
+        i0 = len(CPA_W) // 2  # the row reads its w index 128
+        print("  %s cpa kagome 256 w x %d^2: DOS weight %.5f, dos(0) %.6f, Sigma(0)_0 %.6f%+.6fi, %d iterations, "
+              "converged %s  [%.2f s]" % (where, S6["cpa_nk"], wsum, r["dos"][i0], r["sigma"][i0, 0].real,
+                                          r["sigma"][i0, 0].imag, r["iters"], r["converged"], sec))
+        check(abs(wsum - 2.9757) < 0.02 and abs(r["dos"][i0] - 0.473439) < 5e-3
+              and abs(r["sigma"][i0, 0] - (0.004903 - 0.167533j)) < 5e-3 and r["converged"],
+              "CPA pins off: weight %.5f, dos(0) %.6f, Sigma(0)_0 %s" % (wsum, r["dos"][i0], r["sigma"][i0, 0]))
+    r, sec = timed(pt.disorder.cpa, kg, CPA_W, S6["cpa_cpu_nk"], CPA_DISORDER, eta=0.05)
+    out["cpa_cpu"] = np.concatenate([r["sigma"].ravel(), r["gloc"].ravel(), [r["iters"]]])
+    print("  %s cpa kagome 256 w x %d^2 (the CPU comparison's grid): %d iterations  [%.2f s]"
+          % (where, S6["cpa_cpu_nk"], r["iters"], sec))
+
+    # examples/quantum_transport.py: the graphene staircase and the Kane-Mele ribbon
+    rib = graphene_ribbon(pt)
+    out["ribbon_T"], sec = timed(pt.negf.landauer_transmission, rib, RIBBON_E, eta=1e-6)
+    M = pt.negf.mode_count(rib, RIBBON_E + 0.005, stability_h=0.02)
+    Tc = pt.negf.landauer_transmission(rib, RIBBON_E + 0.005, eta=1e-6)
+    stair = float(np.abs(Tc - M)[M > 0].max())
+    print("  %s landauer_transmission graphene ribbon 5, 301 E: |T - modes| %.2e where the count is stable  [%.2f s]"
+          % (where, stair, sec))
+    check(stair < 1e-4, "graphene staircase off the mode count by %.3e" % stair)
+    km, dev_layer = km_ribbon(pt)
+    out["km_T"], sec = timed(pt.negf.landauer_transmission, km, KM_RIBBON_E, device=dev_layer, eta=1e-6)
+    # the helical pair in the gap (E -0.4, -0.2, 0.2, 0.4, as tests/test_negf.py holds it)
+    helical = out["km_T"][[20, 40, 80, 100]]
+    print("  %s landauer_transmission kane_mele ribbon 6 with a disordered layer, 121 E: T(+-0.2, +-0.4) %s  "
+          "[%.2f s]" % (where, np.array2string(helical, precision=6), sec))
+    check(np.abs(helical - 2.0).max() < 2e-2, "helical pair T %s is not 2" % helical)
+
+    # examples/impurity_states.py: the BN T-matrix at 96^2, 481 E
+    n = S6["impurity_nk"]
+    (G, Tm), sec = timed(pt.impurity.t_matrix, pt.models.bn(delta=1.0), np.array([[4.0]]), IMPURITY_E, [0],
+                         nk=(n, n), eta=0.04)
+    out["impurity"] = np.concatenate([G.ravel(), Tm.ravel()])
+    ldos = -G[:, 0, 0].imag / np.pi
+    gap = np.abs(IMPURITY_E) < 0.9
+    print("  %s t_matrix bn %d^2, 481 E, U 4: LDOS weight %.5f, peak in the gap %.4f  [%.2f s]"
+          % (where, n, float(np.trapezoid(ldos, IMPURITY_E)), ldos[gap].max(), sec))
+    check(np.isfinite(G).all() and ldos.min() > -1e-9, "impurity LDOS not finite and positive")
+    return out
+
+
+def compare_slice6(out, ref):
+    """The sixth slice's rows on the card against the CPU run: 1e-10
+    relative to each result's largest entry.  The Lyapunov exponents come
+    from the same numpy draws on both sides; at the row's stride 8 two
+    correct QRs part at ~1e-9 relative on the non-negative half (a
+    stride's product has a condition number up to 1e11), so that half is
+    held at 1e-8 and the whole spectrum at 1e-10 at stride 1."""
+    ly, lr = out["lyap_cpu"], ref["lyap_cpu"]
+    full = float(np.abs(ly - lr).max() / np.abs(lr).max())
+    print("  lyap_cpu vs CPU, whole spectrum: max|diff| %.3e (relative; reported, not held)" % full)
+    out = dict(out, lyap_cpu=ly[..., :8])
+    ref = dict(ref, lyap_cpu=lr[..., :8])
+    for key, note, tol in (("hall_T", " (41 E)", 1e-10),
+                           ("lyap_cpu", " (512 E x 2,048 steps, stride 8, the non-negative half)", 1e-8),
+                           ("lyap_stride1", " (512 E x 256 steps, stride 1, every exponent)", 1e-10),
+                           ("cpa_cpu", " (24^2, Sigma, G and the iteration count)", 1e-10),
+                           ("ribbon_T", " (301 E)", 1e-10), ("km_T", " (121 E)", 1e-10),
+                           ("impurity", " (96^2, 481 E, G and T)", 1e-10)):
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        check(got.shape == want.shape, "%s: shape differs from the CPU run" % key)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        print("  %s vs CPU%s: max|diff| %.3e (relative)" % (key, note, err))
+        check(err < tol, "%s differs from the CPU path by %.3e (relative, limit %.0e)" % (key, err, tol))
 
 
 def phase_main_path(torch, pt, where, reference=False):
@@ -1442,6 +1781,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out.update(matrix_free_path(pt, where, reference))
     out.update(slice4_path(pt, where, reference))
     out.update(slice5_path(pt, where, reference))
+    out.update(slice6_path(pt, where, reference))
     return out
 
 
@@ -1657,6 +1997,25 @@ def phase_walls(torch, pt, card):
         "boltzmann.edelstein 256^2 201 mu": (
             lambda: pt.boltzmann.edelstein(ra, EDEL_MUS, 0.05, S5["edelstein"]), 3, 2),
     })
+    Hd, leads, _ = pt.negf.hall_bar(qwz(pt), (8, 8))
+    st, kg, rib = lyap_strip(pt), pt.models.kagome(t=-1.0), graphene_ribbon(pt)
+    kmr, kdev = km_ribbon(pt)
+    bn1 = pt.models.bn(delta=1.0)
+    calls.update({
+        "negf.multi_terminal qwz hall bar 8x8 41 E": (
+            lambda: quiet_warnings(pt.negf.multi_terminal, Hd, leads, HALL_E, eta=1e-6), 3, 2),
+        "localization.lyapunov_spectrum strip 8 512 E x 200,000 steps": (
+            lambda: pt.localization.lyapunov_spectrum(st, LYAP_E, LYAP_STEPS, disorder=1.5, seed=2), 2, 1),
+        "disorder.cpa kagome 256 w x 48^2": (
+            lambda: pt.disorder.cpa(kg, CPA_W, S6["cpa_nk"], CPA_DISORDER, eta=0.05), 2, 1),
+        "negf.landauer_transmission graphene ribbon 5 301 E": (
+            lambda: pt.negf.landauer_transmission(rib, RIBBON_E, eta=1e-6), 3, 2),
+        "negf.landauer_transmission kane_mele ribbon 6 disordered 121 E": (
+            lambda: pt.negf.landauer_transmission(kmr, KM_RIBBON_E, device=kdev, eta=1e-6), 3, 2),
+        "impurity.t_matrix bn 96^2 481 E": (
+            lambda: pt.impurity.t_matrix(bn1, np.array([[4.0]]), IMPURITY_E, [0], nk=(S6["impurity_nk"],) * 2,
+                                         eta=0.04), 3, 2),
+    })
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
         ms = wall_ms(torch, fn, reps)
@@ -1667,7 +2026,9 @@ def phase_walls(torch, pt, card):
               % (name, ms, fmt(dev_us), fmt(n), fmt(busy), card))
     # where the device time of the heaviest response rows goes
     for name in ("boltzmann.transport_coefficients 512^2 201 mu", "optical.shift_current bn 161x161 121 w",
-                 "optical.optical_conductivity 161x161 121 w", "boltzmann.edelstein 256^2 201 mu"):
+                 "optical.optical_conductivity 161x161 121 w", "boltzmann.edelstein 256^2 201 mu",
+                 "negf.multi_terminal qwz hall bar 8x8 41 E", "disorder.cpa kagome 256 w x 48^2",
+                 "negf.landauer_transmission kane_mele ribbon 6 disordered 121 E"):
         top, total = device_top(torch, calls[name][0])
         print("  device time of %s: %.1f us per call; largest: %s" % (name, total, "; ".join(
             "%s %.1f us" % (k[:70], us) for k, us in top)))
@@ -1726,7 +2087,8 @@ def main():
     # -- phase 4: main path ----------------------------------------------
     print("[4 main] Haldane bands and Chern, Kane-Mele flows and Z2, slab HWF, flake, w90 silicon, "
           "KPM DOS/LDOS/Kubo, Chebyshev evolution, quench echo, interior and lowest states, markers, surfaces, "
-          "Hall sweeps, orbital magnetization, optics, shift current, QGT, Boltzmann, Edelstein:")
+          "Hall sweeps, orbital magnetization, optics, shift current, QGT, Boltzmann, Edelstein, Hall bar, Lyapunov "
+          "spectra, CPA, ribbons, impurity T-matrix:")
     t0 = time.perf_counter()
     _kernels.reset_launches()
     out = phase_main_path(torch, pt, "[gpu]")
@@ -1735,6 +2097,7 @@ def main():
     print("[4 main] card run in %.1f s" % (time.perf_counter() - t0))
     compare_main_path(out, ref, gold_km, gold_si)
     compare_slice5(out, ref)
+    compare_slice6(out, ref)
     check_lowest_bound(torch, pt, out["lowest"], device)
 
     # steady wall times of the main calls, after the counted window
@@ -1746,7 +2109,7 @@ def main():
     print("[5 launches] main path: %s" % json.dumps(launches))
     kernels = ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
                "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
-               "assemble_dk", "spectral_sum", "fermi_sweep")
+               "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -1767,6 +2130,9 @@ def main():
         "assemble_dk": ("assemble.cu", "pythtb_tpu/ops/hamiltonian.py:115"),
         "spectral_sum": ("spectral_sum.cu", "pythtb_tpu/optical.py:124"),
         "fermi_sweep": ("fermi_sweep.cu", "pythtb_tpu/flows.py:1284"),
+        "decimation_green": ("decimation.cu", "pythtb_tpu/negf.py:79"),
+        "cpa": ("cpa.cu", "pythtb_tpu/disorder.py:61"),
+        "lyapunov": ("lyapunov.cu", "pythtb_tpu/localization.py:73"),
     }
     rows = []
     for name in kernels:

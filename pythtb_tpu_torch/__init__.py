@@ -25,17 +25,23 @@ spin Hall conductivity and orbital magnetization (:mod:`flows`), the
 Kubo optical tensor, shift and injection currents and the joint DOS
 (:mod:`optical`), Boltzmann transport and the Edelstein tensor
 (:mod:`boltzmann`), and the quantum geometric tensor family with the
-Drude weight (:mod:`geometry`).
+Drude weight (:mod:`geometry`).  Green's functions and disorder: NEGF
+transport through two- and multi-terminal devices (:mod:`negf`),
+Lyapunov spectra and localization measures (:mod:`localization`),
+impurity T-matrices and bound states (:mod:`impurity`), and the
+coherent-potential approximation (:mod:`disorder`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through fourteen hand-written CUDA
-kernels (``csrc/``, built with nvcc at first use); on the CPU the same
+an NVIDIA Hopper card the hot paths run through sixteen hand-written CUDA
+kernels, with kernel 1's one-sided and kernel 12's Green's-function
+modes (``csrc/``, built with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
-from . import boltzmann, config, dynamics, flows, geometry, magnetic, models, optical, realspace, surface
+from . import (boltzmann, config, disorder, dynamics, flows, geometry, impurity, localization, magnetic, models,
+               negf, optical, realspace, surface)
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
 from .w90 import w90
@@ -45,5 +51,6 @@ __version__ = "0.2.0"
 
 __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
-    "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "__version__",
+    "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
+    "impurity", "disorder", "__version__",
 ]

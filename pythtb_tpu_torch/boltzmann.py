@@ -184,23 +184,43 @@ def transport_distribution(model, energies, nk, smearing=0.05):
     return spin * td.reshape(-1, d, d).cpu().numpy() / abs(np.linalg.det(lat))
 
 
-def _edelstein_columns(data, kpts, lat):
-    """Kernel 17's inputs of the Edelstein sum: E (T,) and the columns
-    <n|s_x|n> v_c / B, x the spin axis (3), c the field axis."""
-    evals, vecs, vd, _ = _band_v_minv(data, kpts, lat, need_minv=False)
+# bands within this energy of each other form one degenerate group of the
+# Edelstein sum
+_DEGENERATE_TOL = 1e-9
+
+
+def _spin_velocity(evals, vecs, V):
+    """(B, 3, d, S) per-band Edelstein factors Re sum_{m in g(n)} <n|s_x|m>
+    <m|v_c|n> over the degenerate group g(n) of band n (|e_n - e_m| <=
+    1e-9).  Summed over a group with one weight they give
+    Tr(P_g s_x P_g v_c), which does not depend on the basis chosen inside
+    the group (a Kramers pair's, say), where <n|s_x|n> v_c^n does.  V (B,
+    d, S, S) are the band-basis velocity matrices of ``vecs``."""
     B, S = evals.shape
     vc = vecs.reshape(B, S, S // 2, 2)  # spin-fastest components
     sig = torch.as_tensor(np.stack([[[0, 1], [1, 0]], [[0, -1j], [1j, 0]], [[1, 0], [0, -1]]]) / 2.0,
-                          dtype=config.COMPLEX).to(data.device)
-    sd = torch.einsum("bnor,xrs,bnos->bxn", vc.conj(), sig, vc).real  # (B, 3, S)
-    return evals.reshape(-1).contiguous(), (_columns(sd[:, :, None] * vd[:, None, :]) / B).contiguous()
+                          dtype=config.COMPLEX).to(evals.device)
+    snm = torch.einsum("bnor,xrs,bmos->bxnm", vc.conj(), sig, vc)  # (B, 3, S, S)
+    group = ((evals[:, :, None] - evals[:, None, :]).abs() <= _DEGENERATE_TOL).to(snm.dtype)
+    return torch.einsum("bxnm,bnm,bcmn->bxcn", snm, group, V).real
+
+
+def _edelstein_columns(data, kpts, lat):
+    """Kernel 17's inputs of the Edelstein sum: E (T,) and the columns of
+    :func:`_spin_velocity` / B, x the spin axis (3), c the field axis."""
+    evals, vecs, V, _ = _velocity_tensors(data, kpts, lat, need_d2=False)
+    B = evals.shape[0]
+    return evals.reshape(-1).contiguous(), (_columns(_spin_velocity(evals, vecs, V)) / B).contiguous()
 
 
 def edelstein(model, mus, temperature, nk, tau=1.0):
     """Edelstein (inverse spin-galvanic) tensor of a spinful model,
     alpha[mu, spin_axis, field_axis] = q tau / (N_k V_c) sum_kn (-df/de)
     <nk|s_a|nk> v_b^{nk} (counterpart of ``pythtb_tpu.boltzmann.edelstein``):
-    (M, 3, dim_k), the mu sweep one launch of kernel 17."""
+    (M, 3, dim_k), the mu sweep one launch of kernel 17.  Within each
+    degenerate group of bands the sum is the basis-free trace of
+    :func:`_spin_velocity` (the JAX package takes <n|s_a|n> v_b^n band by
+    band, which depends on the basis at Kramers-degenerate points)."""
     data, lat, _ = _prep(model, "edelstein")
     if data.nspin != 2:
         raise PythtbError("edelstein requires a spinful model (nspin == 2)")

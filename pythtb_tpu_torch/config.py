@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["FLOAT", "COMPLEX", "set_device", "device", "checked_device"]
+__all__ = ["FLOAT", "COMPLEX", "set_device", "device", "checked_device", "require_no_mesh"]
 
 FLOAT = torch.float64
 COMPLEX = torch.complex128
@@ -69,3 +69,14 @@ def checked_device(dev=None) -> torch.device:
             'pythtb_tpu_torch.config.set_device("cpu") to run on the CPU.'
         )
     return dev
+
+
+def require_no_mesh(mesh):
+    """The ``mesh=`` argument of the JAX package's public calls: accepted
+    as None (one device); any mesh raises, since sharding over several
+    cards is not ported (ROADMAP.md queue 1 item 10)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= sharding is not ported: pythtb_tpu_torch runs on one device "
+            "(multi-GPU sharding is ROADMAP.md queue 1 item 10); pass mesh=None"
+        )

@@ -1,4 +1,4 @@
-"""Carry models across from pythtb_tpu (or any PythTB-style model).
+"""Carry models across from the JAX package, pythtb_tpu, or any PythTB-style model.
 
 Every function takes plain NumPy data, so this module imports neither
 package it converts from:

@@ -25,3 +25,5 @@ __device__ __forceinline__ cplx cconj(cplx a) { return make_cuDoubleComplex(a.x,
 __device__ __forceinline__ cplx cmul_conj(cplx a, cplx b) {
     return make_cuDoubleComplex(a.x * b.x + a.y * b.y, a.x * b.y - a.y * b.x);
 }
+
+__device__ __forceinline__ cplx csub(cplx a, cplx b) { return make_cuDoubleComplex(a.x - b.x, a.y - b.y); }

@@ -13,6 +13,14 @@
 // the convergence residual and escalates `iters` as spectral_function
 // does, so both packages run the same number of iterations.
 //
+// Green's-function mode (pythtb_decimation_green): the same recursion,
+// but after the last iteration the kernel writes the whole surface
+// Green's function G_s = (w - es)^{-1}, S x S complex per pixel, in place
+// of the two weight vectors (the bulk inverse is not formed).  It replaces
+// the decimation of pythtb_tpu/negf.py:_sancho_scan, the lead self-
+// energies of NEGF transport: the host stacks the two orientations of a
+// lead (H01^H for the left lead, H01 for the right one) on the K axis.
+//
 // What bounds it on the H100: latency.  The inputs are read once and
 // the outputs written once (the Fermi-arc map, 10,201 pixels of S 2:
 // 1.3 MB in, 0.3 MB out, well under a microsecond of bandwidth), but each
@@ -38,10 +46,6 @@ __device__ __forceinline__ double nan_max(double m, double x) {
 }
 
 __device__ __forceinline__ double cabs_(cplx z) { return hypot(z.x, z.y); }
-
-__device__ __forceinline__ cplx csub(cplx a, cplx b) {
-    return make_cuDoubleComplex(a.x - b.x, a.y - b.y);
-}
 
 // -- S <= 2: one thread a pixel ---------------------------------------------
 
@@ -84,11 +88,26 @@ __device__ __forceinline__ void small_weights(cplx w, const cplx* m, double* out
     for (int s = 0; s < S; ++s) out[s] = -g[s * S + s].y / kPi;
 }
 
+// (w - m)^{-1} into out[0..S*S)
 template <int S>
+__device__ __forceinline__ void small_green(cplx w, const cplx* m, cplx* out) {
+    cplx r[S * S], g[S * S];
+#pragma unroll
+    for (int q = 0; q < S * S; ++q) r[q] = make_cuDoubleComplex(-m[q].x, -m[q].y);
+#pragma unroll
+    for (int s = 0; s < S; ++s) r[s * S + s] = cuCadd(r[s * S + s], w);
+    small_inv<S>(r, g);
+#pragma unroll
+    for (int q = 0; q < S * S; ++q) out[q] = g[q];
+}
+
+// GREEN: write G_s into G (nE, K, S, S) and leave gs, gb alone
+template <int S, bool GREEN>
 __global__ void decimation_small(const cplx* __restrict__ H00, const cplx* __restrict__ H01,
                                  const cplx* __restrict__ wv, double* __restrict__ gs,
-                                 double* __restrict__ gb, double* __restrict__ afin,
-                                 double* __restrict__ peak, int64_t nE, int64_t K, int iters) {
+                                 double* __restrict__ gb, cplx* __restrict__ G,
+                                 double* __restrict__ afin, double* __restrict__ peak, int64_t nE,
+                                 int64_t K, int iters) {
     const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= nE * K) return;
     const int64_t k = p % K;
@@ -126,8 +145,12 @@ __global__ void decimation_small(const cplx* __restrict__ H00, const cplx* __res
             pk = nan_max(pk, cabs_(a[q]));
         }
     }
-    small_weights<S>(w, es, gs + p * S);
-    small_weights<S>(w, e, gb + p * S);
+    if (GREEN) {
+        small_green<S>(w, es, G + p * S * S);
+    } else {
+        small_weights<S>(w, es, gs + p * S);
+        small_weights<S>(w, e, gb + p * S);
+    }
     double af = 0.0;
 #pragma unroll
     for (int q = 0; q < S * S; ++q) af = nan_max(af, cabs_(a[q]));
@@ -259,10 +282,12 @@ __device__ void block_weights(const BlockSmem& s, const cplx* x, cplx w, int S, 
     __syncthreads();
 }
 
+template <bool GREEN>
 __global__ void decimation_block(const cplx* __restrict__ H00, const cplx* __restrict__ H01,
                                  const cplx* __restrict__ wv, double* __restrict__ gs,
-                                 double* __restrict__ gb, double* __restrict__ afin,
-                                 double* __restrict__ peak, int64_t K, int S, int iters) {
+                                 double* __restrict__ gb, cplx* __restrict__ G,
+                                 double* __restrict__ afin, double* __restrict__ peak, int64_t K,
+                                 int S, int iters) {
     extern __shared__ cplx smem[];
     const int t = threadIdx.x, nt = blockDim.x, n = S * S;
     const BlockSmem s = block_smem(smem, S, nt);
@@ -323,32 +348,42 @@ __global__ void decimation_block(const cplx* __restrict__ H00, const cplx* __res
         afin[p] = af;
         peak[p] = pk;
     }
-    block_weights(s, s.es, w, S, gs + p * S);  // surface
-    block_weights(s, s.e, w, S, gb + p * S);   // bulk
+    if (GREEN) {
+        for (int q = t; q < n; q += nt) {
+            const bool d = q / S == q % S;
+            s.m[q] = make_cuDoubleComplex((d ? w.x : 0.0) - s.es[q].x, (d ? w.y : 0.0) - s.es[q].y);
+        }
+        __syncthreads();
+        block_inv(s, S);
+        for (int q = t; q < n; q += nt) G[p * n + q] = s.g[q];
+    } else {
+        block_weights(s, s.es, w, S, gs + p * S);  // surface
+        block_weights(s, s.e, w, S, gb + p * S);   // bulk
+    }
 }
 
-// H00, H01 (K, S, S) complex; w (nE,) complex (E + i eta); gs, gb (nE, K, S)
-// float64; afin, peak (nE, K) float64.
-extern "C" int pythtb_decimation(const void* H00, const void* H01, const void* w, void* gs,
-                                 void* gb, void* afin, void* peak, int64_t nE, int64_t K,
-                                 int64_t S, int64_t iters, void* stream) {
+template <bool GREEN>
+static int decimation_launch(const void* H00, const void* H01, const void* w, void* gs, void* gb,
+                             void* G, void* afin, void* peak, int64_t nE, int64_t K, int64_t S,
+                             int64_t iters, void* stream) {
     const int64_t n = nE * K;
     if (n == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     const cplx *h0 = (const cplx*)H00, *h1 = (const cplx*)H01, *wv = (const cplx*)w;
     double *s = (double*)gs, *bk = (double*)gb, *af = (double*)afin, *pk = (double*)peak;
+    cplx* g = (cplx*)G;
     const unsigned int grid = (unsigned int)((n + kSmallThreads - 1) / kSmallThreads);
     if (S == 1)
-        decimation_small<1><<<grid, kSmallThreads, 0, st>>>(h0, h1, wv, s, bk, af, pk, nE, K,
-                                                            (int)iters);
+        decimation_small<1, GREEN><<<grid, kSmallThreads, 0, st>>>(h0, h1, wv, s, bk, g, af, pk, nE,
+                                                                   K, (int)iters);
     else if (S == 2)
-        decimation_small<2><<<grid, kSmallThreads, 0, st>>>(h0, h1, wv, s, bk, af, pk, nE, K,
-                                                            (int)iters);
+        decimation_small<2, GREEN><<<grid, kSmallThreads, 0, st>>>(h0, h1, wv, s, bk, g, af, pk, nE,
+                                                                   K, (int)iters);
     else if (S <= kMaxS) {
         // as many threads as elements, up to what the kernel's registers
         // allow in one block (fewer than 1,024 in float64)
         cudaFuncAttributes fa;
-        cudaError_t err = cudaFuncGetAttributes(&fa, decimation_block);
+        cudaError_t err = cudaFuncGetAttributes(&fa, decimation_block<GREEN>);
         if (err != cudaSuccess) return (int)err;
         const int nt = (int)std::min<int64_t>(fa.maxThreadsPerBlock / 32 * 32, (S * S + 31) / 32 * 32);
         const size_t smem = block_smem_bytes((int)S, nt);
@@ -358,12 +393,29 @@ extern "C" int pythtb_decimation(const void* H00, const void* H01, const void* w
             err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
         if (err != cudaSuccess) return (int)err;
         if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-        err = cudaFuncSetAttribute(decimation_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+        err = cudaFuncSetAttribute(decimation_block<GREEN>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
-        decimation_block<<<(unsigned int)n, (unsigned int)nt, smem, st>>>(
-            h0, h1, wv, s, bk, af, pk, K, (int)S, (int)iters);
+        decimation_block<GREEN><<<(unsigned int)n, (unsigned int)nt, smem, st>>>(
+            h0, h1, wv, s, bk, g, af, pk, K, (int)S, (int)iters);
     } else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
+}
+
+// H00, H01 (K, S, S) complex; w (nE,) complex (E + i eta); gs, gb (nE, K, S)
+// float64; afin, peak (nE, K) float64.
+extern "C" int pythtb_decimation(const void* H00, const void* H01, const void* w, void* gs,
+                                 void* gb, void* afin, void* peak, int64_t nE, int64_t K,
+                                 int64_t S, int64_t iters, void* stream) {
+    return decimation_launch<false>(H00, H01, w, gs, gb, nullptr, afin, peak, nE, K, S, iters,
+                                    stream);
+}
+
+// Green's-function mode: G (nE, K, S, S) complex in place of gs, gb.
+extern "C" int pythtb_decimation_green(const void* H00, const void* H01, const void* w, void* G,
+                                       void* afin, void* peak, int64_t nE, int64_t K, int64_t S,
+                                       int64_t iters, void* stream) {
+    return decimation_launch<true>(H00, H01, w, nullptr, nullptr, G, afin, peak, nE, K, S, iters,
+                                   stream);
 }

@@ -92,11 +92,13 @@ def _total_flux(w):
     return plaquette_flux(*_plane_link_dets(w.contiguous()))
 
 
-def berry_flux_grid(model, occ, nk=(101, 101), start_k=(-0.5, -0.5)):
+def berry_flux_grid(model, occ, nk=(101, 101), start_k=(-0.5, -0.5), mesh=None):
     """Total Berry flux of ``occ`` bands over the BZ on an (n0 x n1)
     grid, computed on the device.  Equals
     ``wf_array(model, nk).solve_on_grid(start_k); wf.berry_flux(occ)``.
+    ``mesh`` must be None (:func:`config.require_no_mesh`).
     """
+    config.require_no_mesh(mesh)
     n0, n1 = int(nk[0]), int(nk[1])
     data = model._get_finalized()
     if data.dim_k != 2:
@@ -108,9 +110,10 @@ def berry_flux_grid(model, occ, nk=(101, 101), start_k=(-0.5, -0.5)):
     return float(_total_flux(w)[0])
 
 
-def chern_number(model, occ, nk=(101, 101), start_k=(-0.5, -0.5)):
-    """Chern number of the ``occ`` bands (flux / 2 pi)."""
-    return berry_flux_grid(model, occ, nk, start_k) / (2.0 * np.pi)
+def chern_number(model, occ, nk=(101, 101), start_k=(-0.5, -0.5), mesh=None):
+    """Chern number of the ``occ`` bands (flux / 2 pi); ``mesh`` must be
+    None."""
+    return berry_flux_grid(model, occ, nk, start_k, mesh) / (2.0 * np.pi)
 
 
 def wilson_flow(model, occ, nk=(41, 41), loop_dir=1, start_k=(-0.5, -0.5)):

@@ -50,9 +50,12 @@ _SIGNATURES = {
     "pythtb_cheb_evolve": [_P] * 7 + [_I] * 6 + [_P],
     "pythtb_cheb_filter": [_P] * 7 + [_I] * 5 + [_P],
     "pythtb_decimation": [_P] * 7 + [_I] * 4 + [_P],
+    "pythtb_decimation_green": [_P] * 6 + [_I] * 4 + [_P],
     "pythtb_assemble_deriv": [_P] * 6 + [_I] * 5 + [_P],
     "pythtb_spectral_sum": [_P] * 5 + [_I] * 5 + [_D, _P],
     "pythtb_fermi_sweep": [_P] * 5 + [_I] * 3 + [_D, _I, _P],
+    "pythtb_cpa": [_P] * 4 + [_I] * 3 + [_P],
+    "pythtb_lyapunov": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -60,13 +63,16 @@ _SIGNATURES = {
 # (kernels 10 and 11) that ran on the device.  "assemble_one_sided" counts
 # kernel 1's one-sided launches (not in "assemble"); "assemble_dk" counts
 # kernel 15 in both its modes (dH/dk and d2H/dk dk); "spectral_sum" counts
-# kernel 16's calls (a partial pass and a reduction each).  "link_dets_library"
+# kernel 16's calls (a partial pass and a reduction each); "decimation_green"
+# counts kernel 12's Green's-function mode (not in "decimation"); "lyapunov"
+# counts kernel 18's launches, one per chunk of steps.  "link_dets_library"
 # and "wilson_loop_library" count the shape rules of ops.berry (S > 8),
 # which launch no kernel of this package.
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
-     "assemble_dk", "spectral_sum", "fermi_sweep", "link_dets_library", "wilson_loop_library"), 0
+     "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov",
+     "link_dets_library", "wilson_loop_library"), 0
 )
 
 _lib = None

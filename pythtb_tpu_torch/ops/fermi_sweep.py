@@ -14,15 +14,18 @@ factors out as the columns of G over t = (k, band) and picks a weight:
 * ``"fermi"``: f(x) = 1 / (1 + e^x);
 * ``"entropy"``: x f(x) + ln(1 + e^-x);
 * ``"c2"``: the thermal-transport weight :func:`c2_weight`;
-* ``"dfde"``: -df/de as f (1 - f) / kT (``boltzmann._bt_jit``);
+* ``"dfde"``: -df/de = e^-|x| / ((1 + e^-|x|)^2 kT), the stable form of
+  ``boltzmann._bt_jit``'s f (1 - f) / kT, which loses e^|x| eps to the
+  cancellation in 1 - f outside the bands;
 * ``"dfde_cosh"``: -df/de as 0.25 / (kT cosh^2(x / 2)), clipped
   (``flows._dipole_jit``);
 * ``"gauss"``: exp(-x^2 / 2) / (kT sqrt(2 pi)), kT the width.
 
 On a CUDA tensor :func:`fermi_sweep` launches kernel 17
-(``csrc/fermi_sweep.cu``), which uses one stable form for both -df/de
-weights; on a CPU tensor it runs :func:`_fermi_sweep_plain`, each weight
-in its caller's own formula, over bounded chunks of mu.
+(``csrc/fermi_sweep.cu``), which uses the stable form for both -df/de
+weights; on a CPU tensor it runs :func:`_fermi_sweep_plain` over bounded
+chunks of mu, with the same ``"dfde"`` form and the dipole's own clipped
+cosh form.
 """
 
 from __future__ import annotations
@@ -105,8 +108,8 @@ def _weight(kind, d, kt):
     if kind == "c2":
         return c2_weight(x)
     if kind == "dfde":
-        f = torch.sigmoid(-x)
-        return f * (1.0 - f) / kt
+        e = torch.exp(-x.abs())
+        return e / ((1.0 + e) ** 2 * kt)
     if kind == "dfde_cosh":
         return 0.25 / kt / torch.cosh(torch.clamp(x / 2.0, -40.0, 40.0)) ** 2
     return torch.exp(-0.5 * x * x) / (kt * math.sqrt(2.0 * math.pi))

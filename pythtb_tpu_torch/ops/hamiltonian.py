@@ -8,8 +8,8 @@ the gather index of :class:`pythtb_tpu_torch.core.BlochData`; on a CPU
 tensor it runs the plain scatter version below, the scatter path of the
 JAX package.  :func:`assemble_one_sided` is kernel 1's one-sided mode:
 the direct terms only, no partner and no diagonal (the inter-layer block
-of ``pythtb_tpu.surface._one_sided``).  ``assemble_dk``/``assemble_d2k``
-are not ported yet.
+of ``pythtb_tpu.surface._one_sided``).  :func:`assemble_dk` and
+:func:`assemble_d2k` are kernel 15, the analytic k-derivatives.
 """
 
 from __future__ import annotations

@@ -59,17 +59,21 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return np.array(t.detach().cpu().numpy(), copy=True)
 
 
-def hamiltonian_kpts(data: BlochData, k_list):
-    """Dense H(k) for a k-list -> (nkp, nsta, nsta) complex128 NumPy."""
+def hamiltonian_kpts(data: BlochData, k_list, mesh=None):
+    """Dense H(k) for a k-list -> (nkp, nsta, nsta) complex128 NumPy;
+    ``mesh`` must be None (:func:`config.require_no_mesh`)."""
+    config.require_no_mesh(mesh)
     return _to_host(assemble(data, _prep_kpts(data, k_list)))
 
 
-def solve_kpts(data: BlochData, k_list, eig_vectors=False):
+def solve_kpts(data: BlochData, k_list, eig_vectors=False, mesh=None):
     """Batched solve of a k-list (k-batch leading).
 
     Returns eval (nkp, nsta) float64, and with ``eig_vectors`` also evec
-    (nkp, nsta, norb[, 2]) complex128 with rows as states.
+    (nkp, nsta, norb[, 2]) complex128 with rows as states.  ``mesh`` must
+    be None.
     """
+    config.require_no_mesh(mesh)
     H = assemble(data, _prep_kpts(data, k_list))
     if not eig_vectors:
         return _to_host(eigvalsh_batched(H))
@@ -139,12 +143,14 @@ def _solve_grid_core(data: BlochData, interior, start, phases):
     return min_gaps, eg, w
 
 
-def solve_grid_device(data: BlochData, mesh_sizes, start_k, orb, per, nspin):
-    """Uniform-grid solve that leaves its results on the device.
+def solve_grid_device(data: BlochData, mesh_sizes, start_k, orb, per, nspin, mesh=None):
+    """Uniform-grid solve that leaves its results on the device (``mesh``
+    must be None).
 
     Returns (min_gaps (nsta-1,) float64 NumPy, evals tensor
     (*mesh_sizes, nsta), wfs tensor (*mesh_sizes, nsta, norb[, 2])).
     """
+    config.require_no_mesh(mesh)
     interior = tuple(int(m) - 1 for m in mesh_sizes)
     start = np.asarray(start_k, dtype=np.float64).reshape(len(interior))
     phases = grid_phases(orb, per, nspin, len(interior), data.device)

