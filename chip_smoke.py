@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: needs torch.cuda.is_available(); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compiles the sixteen CUDA kernels with nvcc (sm_90a, one nvcc
+2. build: compiles the seventeen CUDA kernels with nvcc (sm_90a, one nvcc
    per source, all started together) into build/pythtb_tpu_torch/ and
    prints the build seconds and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -33,7 +33,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    products) at 512 energies x 2,048 steps of the row's disordered strip
    (1e-10 relative at stride 1; the non-negative half at 1e-8 at the row's
    stride 8, where two correct QRs part at ~1e-9), kernel 16 at the impurity T-matrix's shape and kernel
-   1 at the leads' and the strip's principal layers;
+   1 at the leads' and the strip's principal layers; the seventh slice's
+   kernel 7 (batched Jacobi eigensolver) against its plain version and
+   torch.linalg.eigh at m 33-64, the slab's and the Hofstadter row's
+   matrices (eigenvalues 1e-12 of max(1, ||H||_F), projectors 1e-10),
+   timed against torch.linalg.eigh there and at m 8, 16, 32, and kernel
+   1's flux-batch mode at the Hofstadter row (1e-14);
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -66,7 +71,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    Kane-Mele ribbon with a disordered layer at 121 E) and
    examples/impurity_states.py (BN T-matrix at 96^2, 481 E), held against
    the CPU run at 1e-10 relative (Lyapunov at 2,048 steps, CPA at 24^2
-   there); then the steady wall time of the main calls;
+   there); and the seventh slice's rows with their pins: the Hofstadter
+   butterfly at q 40 (41 fluxes x 16 k), the BBH quadrupole 21 x 21, the
+   spin Chern number 41 x 41, the bilayer sector Chern numbers 41 x 41
+   and the Weyl node search on 40^3 with both charges, with Streda labels
+   at 1/5, a family whose stacked eigensolve is 40 x 40, the Haldane DOS
+   and the Fu-Kane-Mele second Chern number, against the CPU run at 1e-10
+   relative (the nodes at 5e-6, the second Chern number at 8^3 there);
+   kernel 7 must carry the slab's solve and the Hofstadter call, and the
+   flux-batch mode the latter; then the steady wall time of the main
+   calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -599,6 +613,7 @@ def phase_kernels(torch, pt, device):
     slice4_kernels(torch, pt, device, rng, record, held)
     slice5_kernels(torch, pt, device, record, held)
     slice6_kernels(torch, pt, device, record, held)
+    slice7_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -983,7 +998,7 @@ def slice4_kernels(torch, pt, device, rng, record, held):
             record("position", "marker %s%s B=1 S=%d F=%d" % (key, sub, S, F), err,
                    lambda: position.xmat(wi, X), lambda: position._xmat_plain(wi, X), cost_position(1, S, F),
                    library_ms=cuda_ms(torch, lambda: torch.einsum("nf,f,mf->nm", Wi.conj(), X.to(Wi.dtype), Wi)),
-                   reps=5)
+                   reps=5, profile=True, prof_reps=5)
 
 
 def slice4_path(pt, where, reference):
@@ -1067,6 +1082,53 @@ def slice4_path(pt, where, reference):
 
 
 LOWEST_TOL = 5e-3  # the row's own E0 limit, applied to each of the ten values
+
+
+def composite_bounds(torch, pt, card):
+    """Bounds of two torch compositions that have no kernel of their own,
+    by this file's convention (bytes over 3.35 TB/s or float64 operations
+    over 34 TFLOP/s, whichever is larger), beside their device time a call
+    (profiler):
+
+    * ``flows.solve_lowest`` (3,600 sites, k 10): each LOBPCG iteration
+      applies H to 3k and to k columns (two kernel-8 launches, counted in
+      this run: 1 + 2 per iteration) and does ~38 N k^2 complex
+      multiply-adds of GEMMs (the 3k Gram and Rayleigh-Ritz, the X and P
+      updates, two projections and orthonormalizations), 8 operations
+      each, plus a 3k-state eigh (36 (3k)^3);
+    * the markers (``realspace.chern_marker`` Penrose 608, nocc 50;
+      ``spin_chern_marker`` Kane-Mele 784, nocc 392 split into two
+      196-state sectors): H by kernel 1 (n^2 written), one dense eigh
+      with vectors (36 n^3), for the spin marker the projected S_z (8 n^2
+      S + 8 S^2 n), its eigh (36 S^3) and the two sector bases (8 S^2 n),
+      then per marker core three kernel-6 products (cost_position), K = C
+      - A B (8 S^3) and the trace against W (8 S^2 n)."""
+    from pythtb_tpu_torch.ops import _kernels, matvec
+
+    fl = lowest_flake(pt)
+    h = matvec.sparse_h(fl)
+    N, k = h.nsta, 10
+    before = _kernels.LAUNCHES["ell_matvec"]
+    pt.flows.solve_lowest(fl, k, max_iters=300, tol=1e-7)
+    iters = (_kernels.LAUNCHES["ell_matvec"] - before - 1) // 2
+    t_mv = cost_ell_matvec(h, 3 * k)[0] + cost_ell_matvec(h, k)[0]
+    t_dense = bound(0, 8 * 38 * N * k * k + 36 * (3 * k) ** 3)[0]
+    out = {"solve_lowest": (iters, iters * (t_mv + t_dense))}
+    print("  bound of flows.solve_lowest %d sites k %d: %d LOBPCG iterations x (kernel 8 %.5f ms + GEMMs and eigh "
+          "%.5f ms) = %.4f ms (%s)" % (N, k, iters, t_mv, t_dense, out["solve_lowest"][1], card))
+
+    def pos_ops(S, F):
+        return S * (S + 1) // 2 * F * 8
+
+    for key, n, nocc, parts in (("chern_marker penrose 608 nocc 50", 608, 50, [(50, 608)]),
+                                ("spin_chern_marker kane_mele 784 nocc 392", 784, 392, [(196, 784), (196, 784)])):
+        nbytes = 2 * n * n * C128 + sum(S * n * C128 for S, _ in parts)
+        sector = 8 * n * n * nocc + 16 * nocc * nocc * n + 36 * nocc**3 if len(parts) > 1 else 0
+        ops = 36 * n**3 + sector + sum(3 * pos_ops(S, F) + 8 * S**3 + 8 * S * S * F for S, F in parts)
+        out[key] = bound(nbytes, ops)
+        print("  bound of realspace.%s: %.4f ms (%s): dense eigh 36 n^3, three kernel-6 products a marker, "
+              "K = C - A B and its trace (%s)" % (key, out[key][0], out[key][1], card))
+    return out
 
 
 def check_lowest_bound(torch, pt, low, device):
@@ -1718,10 +1780,292 @@ def compare_slice6(out, ref):
         check(err < tol, "%s differs from the CPU path by %.3e (relative, limit %.0e)" % (key, err, tol))
 
 
+# -- the seventh slice: kernel 7, kernel 1's flux-batch mode, the rest of
+# flows, the Hofstadter solver and model families ---------------------------
+
+HOF_Q = 40  # hofstadter_butterfly_q40: 41 fluxes x 16 k x 40 bands
+HOF_K = np.stack(np.meshgrid(np.arange(4) / 4.0, np.arange(4) / 4.0, indexing="ij"), -1).reshape(-1, 2)
+S7 = {"quadrupole": 21, "spin_chern": 41, "sector": 41, "nodes": 40, "family": 16, "c2": 16, "c2_slices": 16,
+      "c2_cpu": 8}
+JACOBI_M = (33, 39, 40, 48, 63, 64)  # kernel 7 held at these sizes
+JACOBI_LIBRARY_M = (8, 16, 32)  # kernel 7 against torch.linalg.eigh below its range: recorded only
+
+
+def haldane_bilayer(pt):
+    """The opposite-Chern Haldane bilayer of sector_chern_bilayer_41x41
+    (tools/bench_suite.py:426), coupled by tperp 0.3."""
+    m = pt.tb_model(2, 2, [[1.0, 0.0], [0.5, np.sqrt(3.0) / 2.0]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]] * 2)
+    m.set_onsite([-0.2, 0.2, -0.2, 0.2])
+    for off, sgn in ((0, 1.0), (2, -1.0)):
+        t2v = 0.15 * np.exp(1.0j * np.pi / 2.0 * sgn)
+        m.set_hop(-1.0, 0 + off, 1 + off, [0, 0])
+        m.set_hop(-1.0, 1 + off, 0 + off, [1, 0])
+        m.set_hop(-1.0, 1 + off, 0 + off, [0, 1])
+        for lv in ([1, 0], [-1, 1], [0, -1]):
+            m.set_hop(t2v, 0 + off, 0 + off, lv)
+            m.set_hop(np.conj(t2v), 1 + off, 1 + off, lv)
+    m.set_hop(0.3, 0, 2, [0, 0])
+    m.set_hop(0.3, 1, 3, [0, 0])
+    return m
+
+
+def haldane_family(pt):
+    """Haldane supercells of 1, 4 and 20 cells: the family's stacked
+    eigensolve is 40 x 40 (kernel 7)."""
+    hal = pt.models.haldane()
+    return [hal] + [quiet(hal.make_supercell, M, to_home=False) for M in ([[2, 0], [0, 2]], [[4, 0], [0, 5]])]
+
+
+def cost_eigh(B, m, vectors=True):
+    """Kernel 7's bound: H read once, w (and v) written once; the operations
+    of a Householder-tridiagonal eigensolve, ~36 m^3 float64 operations a
+    complex Hermitian matrix with vectors (16 m^3 / 3 without), which is
+    less than the Jacobi sweeps do (~48 m^3 a sweep)."""
+    nbytes = B * m * m * C128 + B * m * F64 + (B * m * m * C128 if vectors else 0)
+    return bound(nbytes, B * (36.0 if vectors else 16.0 / 3.0) * m**3)
+
+
+def cost_assemble_members(data, P, NK):
+    """Kernel 1's flux-batch mode: as kernel 1 with P members' amplitudes
+    and diagonals read once and P * NK matrices written."""
+    blk = 4 if data.nspin == 2 else 1
+    nbytes = (NK * data.dim_k * F64 + data.nhop * data.dim_k * F64 + P * (data.nhop * blk + data.nsta**2) * C128
+              + (data.norb**2 + 1 + 2 * data.nhop) * 4 + P * NK * data.nsta**2 * C128)
+    return bound(nbytes, P * NK * data.nhop * (2 * data.dim_k + 2 + 2 * blk * 8))
+
+
+def projector_diff(torch, w_ref, v, v_ref, scale, gap=1e-8, chunk=128):
+    """The spectral projectors of the groups of eigenvalues that ``w_ref``
+    (B, m) splits by more than ``gap`` (v, v_ref row eigenvectors
+    (B, m, m)), each group's max |P_g - Q_g| over its limit max(1e-10,
+    1e-14 scale / gap_g), gap_g the distance to the nearest eigenvalue
+    outside the group: two correct eigensolvers part by ~eps ||H|| / gap_g
+    there (first-order perturbation theory), so a group split by 1e-7
+    cannot be held at 1e-10.  Returns (the largest ratio, the largest
+    |P_g - Q_g| of the groups held at 1e-10)."""
+    m = w_ref.shape[-1]
+    d = w_ref[:, 1:] - w_ref[:, :-1]
+    cut = d > gap
+    labels = torch.cat([torch.zeros_like(w_ref[:, :1], dtype=torch.int64), torch.cumsum(cut.to(torch.int64), -1)], -1)
+    vals = torch.where(cut, d, torch.full_like(d, math.inf))
+    inf = torch.full_like(w_ref, math.inf)
+    left = inf.scatter_reduce(1, labels[:, 1:], vals, "amin")
+    right = inf.scatter_reduce(1, labels[:, :-1], vals, "amin")
+    limit = torch.clamp(1e-14 * scale / torch.minimum(left, right), min=1e-10)  # (B, groups)
+    ratio, plain = 0.0, 0.0
+    for b0 in range(0, w_ref.shape[0], chunk):
+        sl = slice(b0, b0 + chunk)
+        G = torch.nn.functional.one_hot(labels[sl], m).transpose(1, 2).to(v.dtype)  # (b, g, i)
+        P = torch.einsum("bgi,bif,bih->bgfh", G, v[sl], v[sl].conj())
+        Q = torch.einsum("bgi,bif,bih->bgfh", G, v_ref[sl], v_ref[sl].conj())
+        err = (P - Q).abs().amax(dim=(-2, -1))  # (b, g)
+        ratio = max(ratio, float((err / limit[sl]).max()))
+        plain = max(plain, float(torch.where(limit[sl] == 1e-10, err, torch.zeros_like(err)).max()))
+    return ratio, plain
+
+
+def slice7_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernel 7 and kernel 1's flux-batch mode: kernel 7 against
+    its plain version (the same Jacobi rotations in torch) and against
+    torch.linalg.eigh, at m 33, 39, 40, 48, 63 and 64 (random Hermitian
+    batches, one with exact four-fold degeneracies), on the slab's own
+    matrices (B 1,600, m 39) and the Hofstadter row's (B 656, m 40, exact
+    degeneracies at flux 0): eigenvalues within 1e-12 of max(1, ||H||_F),
+    the projectors of eigenvalue groups split by more than 1e-8 within
+    1e-10; timed against torch.linalg.eigh at the slab and Hofstadter
+    shapes and (recorded only) at m 8, 16 and 32.  A group split from its
+    neighbours by less than 1e-4 ||H||_F (the Hofstadter spectra have
+    splittings of 1e-7) is held at its perturbation bound, 1e-14
+    ||H||_F / gap, instead: no eigensolver meets 1e-10 there.  The
+    flux-batch mode at the Hofstadter row's 41 fluxes x 16 k within
+    1e-14."""
+    from pythtb_tpu_torch.ops import eigh, hamiltonian, solver
+
+    rng = np.random.default_rng(7)
+
+    def hermitian(B, m, degenerate=False):
+        if degenerate:
+            Q = torch.linalg.qr(torch.as_tensor(rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))))[0]
+            d = torch.as_tensor(np.sort(np.repeat(rng.normal(size=(B, m)), 4, axis=1)[:, :m], axis=1))
+            return ((Q * d[:, None, :]) @ Q.conj().transpose(-1, -2)).contiguous().to(device)
+        X = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+        return torch.as_tensor(np.ascontiguousarray(0.5 * (X + np.conj(np.swapaxes(X, -1, -2))))).to(device)
+
+    def hold(key, H, timed=False, cost=None, main=False):
+        scale = max(1.0, float(torch.linalg.matrix_norm(H).max()))
+        w, v = eigh.eigh_jacobi(H)
+        wp, vp = eigh._eigh_jacobi_plain(H)
+        wl, vl = torch.linalg.eigh(H)
+        vl = vl.transpose(-1, -2)
+        err_w = max(max_diff(torch, w, wp), max_diff(torch, w, wl))
+        (rp, ep), (rl, el) = projector_diff(torch, wp, v, vp, scale), projector_diff(torch, wl, v, vl, scale)
+        held("eigh_jacobi", key + " projectors (gaps >= 1e-4 ||H||)", max(ep, el), 1e-10)
+        print("  %-15s %-34s every projector within %.3f of its limit max(1e-10, 1e-14 ||H|| / gap)"
+              % ("eigh_jacobi", key, max(rp, rl)))
+        check(max(rp, rl) <= 1.0, "eigh_jacobi %s: a projector exceeds its perturbation limit" % key)
+        if not timed:
+            held("eigh_jacobi", key + " eigenvalues", err_w, scale=scale)
+            return
+        record("eigh_jacobi", key, err_w, lambda: eigh.eigh_jacobi(H), lambda: eigh._eigh_jacobi_plain(H), cost,
+               main, cuda_ms(torch, lambda: torch.linalg.eigh(H), 3), reps=5, scale=scale, prof_reps=3,
+               prof_plain=False, profile=True)
+
+    for m in JACOBI_M:
+        hold("random B=64 m=%d" % m, hermitian(64, m))
+    hold("degenerate B=64 m=40", hermitian(64, 40, degenerate=True))
+    slab = cubic_slab(pt)
+    sd = slab._get_finalized()
+    Hs = hamiltonian.assemble(sd, solver.device_uniform_grid((40, 40), (0.0, 0.0), device))
+    hold("slab B=%d m=%d" % tuple(Hs.shape[:2]), Hs, True, cost_eigh(Hs.shape[0], sd.nsta), True)
+    from pythtb_tpu_torch import magnetic
+
+    sc, slope = magnetic._magnetic_sc_base(pt.models.square(), HOF_Q, (0, 1))
+    sd_h = sc._get_finalized()
+    pv = torch.arange(HOF_Q + 1, dtype=torch.float64, device=device)
+    amps, diag = magnetic._flux_members(sd_h, torch.as_tensor(slope).to(device), pv)
+    kh = torch.as_tensor(HOF_K).to(device)
+    err = max_diff(torch, hamiltonian.assemble_members(sd_h, amps, diag, kh),
+                   hamiltonian._assemble_members_plain(sd_h, amps, diag, kh))
+    record("assemble_members", "hofstadter q40 P=41 NK=16 nsta 40", err,
+           lambda: hamiltonian.assemble_members(sd_h, amps, diag, kh),
+           lambda: hamiltonian._assemble_members_plain(sd_h, amps, diag, kh),
+           cost_assemble_members(sd_h, HOF_Q + 1, len(HOF_K)), True, tol=1e-14)
+    Hh = hamiltonian.assemble_members(sd_h, amps, diag, kh)
+    hold("hofstadter B=656 m=40", Hh, True, cost_eigh(Hh.shape[0], 40))
+    H0 = Hh[: len(HOF_K)].contiguous()  # flux 0: the folded free band, exact degeneracies
+    hold("hofstadter flux 0 B=16 m=40", H0)
+    wv = eigh.eigh_jacobi(Hh, vectors=False)
+    held("eigh_jacobi", "hofstadter eigenvalues-only mode", max_diff(torch, wv, eigh._eigh_jacobi_plain(Hh, False)),
+         scale=max(1.0, float(torch.linalg.matrix_norm(Hh).max())))
+    for m in JACOBI_LIBRARY_M:
+        H = hermitian(Hs.shape[0], m)
+        hold("below the range B=%d m=%d" % (Hs.shape[0], m), H, True, cost_eigh(Hs.shape[0], m))
+
+
+def slice7_path(pt, where, reference):
+    """The five rows of tools/bench_suite.py that the seventh slice carries
+    (hofstadter_butterfly_q40 :190, bbh_quadrupole_21x21 :254,
+    spin_chern_41x41 :261, sector_chern_bilayer_41x41 :426,
+    weyl_node_search_40cube :972) with their pins, Streda labels at flux
+    1/5 against TKNN, a family of Haldane supercells whose stacked
+    eigensolve is 40 x 40, the DOS of the Haldane model, and the second
+    Chern number of the Fu-Kane-Mele beta cycle (16 slices, 16^3 k,
+    refined) against its integer.  The CPU reference runs the second Chern
+    number at 8^3 unrefined (the card repeats it for the comparison), the
+    rest at full width.  On the card, the launches of kernel 7 and the
+    flux-batch mode during the Hofstadter call are returned."""
+    from pythtb_tpu_torch.ops import _kernels
+
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    # hofstadter_butterfly_q40
+    fn, _ = pt.magnetic.hofstadter_fn(pt.models.square(), HOF_Q)
+    before = dict(_kernels.LAUNCHES)
+    evb, sec = timed(lambda: fn(np.arange(HOF_Q + 1.0), HOF_K).cpu().numpy())
+    out["hof_launches"] = {k: _kernels.LAUNCHES[k] - before[k] for k in ("eigh_jacobi", "assemble_members")}
+    out["hofstadter"] = evb
+    print("  %s hofstadter_fn square q40: 41 fluxes x 16 k x %d bands, range [%.6f, %.6f]  [%.2f s]"
+          % (where, evb.shape[-1], evb.min(), evb.max(), sec))
+    check(evb.shape == (41, 16, 40) and np.isfinite(evb).all(), "bad Hofstadter eigenvalues %s" % (evb.shape,))
+    lab, sec = timed(pt.magnetic.streda_labels, pt.models.square(), 1, 5, nk=21)
+    out["streda"] = np.array(lab["labels"], float)
+    print("  %s streda_labels square 1/5 nk 21: %s  [%.2f s]" % (where, lab["labels"], sec))
+    # TKNN: r = s q + t p with |t| <= q / 2 gives t = 1, 2, -2, -1
+    check(lab["labels"] == [1, 2, -2, -1] and lab["filling"] == [1, 2, 3, 4],
+          "Streda labels %s are not TKNN's" % lab["labels"])
+
+    # bbh_quadrupole_21x21
+    n = S7["quadrupole"]
+    q, sec = timed(pt.flows.quadrupole, pt.models.bbh(gamma=0.5), nk=(n, n))
+    out["quadrupole"] = np.concatenate([q["px"], q["py"], [q["qxy"]]])
+    print("  %s quadrupole bbh %dx%d: qxy %.10f, Wannier gap %.4f  [%.2f s]" % (where, n, n, q["qxy"],
+                                                                             q["wannier_gap"], sec))
+    check(abs(q["qxy"] - 0.5) < 1e-3, "BBH qxy %.6f is not 1/2" % q["qxy"])
+
+    # spin_chern_41x41
+    n = S7["spin_chern"]
+    sc, sec = timed(pt.flows.spin_chern, pt.models.kane_mele(esite=1.0), (0, 1), nk=(n, n))
+    out["spin_chern"] = np.array([sc["spin_chern"], sc["chern_plus"], sc["chern_minus"], sc["sz_gap"]])
+    print("  %s spin_chern kane_mele %dx%d: Cs %.10f, sz gap %.4f  [%.2f s]" % (where, n, n, sc["spin_chern"],
+                                                                          sc["sz_gap"], sec))
+    check(abs(abs(sc["spin_chern"]) - 1.0) < 1e-3, "spin Chern %.6f is not +-1" % sc["spin_chern"])
+
+    # sector_chern_bilayer_41x41
+    n = S7["sector"]
+    rs, sec = timed(pt.flows.sector_chern, haldane_bilayer(pt), (0, 1), np.array([1.0, 1.0, -1.0, -1.0]),
+                    nk=(n, n))
+    out["sector"] = np.array([rs["chern_plus"], rs["chern_minus"], rs["gap"]])
+    print("  %s sector_chern haldane bilayer %dx%d: C+ %.10f, C- %.10f, gap %.4f  [%.2f s]"
+          % (where, n, n, rs["chern_plus"], rs["chern_minus"], rs["gap"], sec))
+    check(abs(rs["chern_plus"] + 1.0) < 1e-3 and abs(rs["chern_minus"] - 1.0) < 1e-3,
+          "sector Chern C+ %.6f, C- %.6f are not -1, +1" % (rs["chern_plus"], rs["chern_minus"]))
+
+    # weyl_node_search_40cube
+    wy = pt.models.weyl()
+    (kn, gn), sec = timed(pt.flows.find_nodes, wy, band=0, nk=S7["nodes"], gap_tol=0.05)
+    chis, sec2 = timed(lambda: [pt.flows.node_chirality(wy, k, band=0) for k in kn])
+    targets = [np.array([0.0, 0.0, 0.25]), np.array([0.0, 0.0, 0.75])]
+    dev = max((min(np.linalg.norm((k - t) - np.round(k - t)) for t in targets) for k in kn), default=1e9)
+    order = np.argsort(kn[:, 2])
+    out["weyl"] = np.concatenate([kn[order].ravel(), np.array(chis, float)[order]])
+    print("  %s find_nodes weyl %d^3 + node_chirality: %d nodes, deviation %.2e, charges %s  [%.2f s + %.2f s]"
+          % (where, S7["nodes"], len(kn), dev, sorted(chis), sec, sec2))
+    check(len(kn) == 2 and dev < 2e-3 and sorted(chis) == [-1, 1], "Weyl nodes %s, charges %s" % (kn, chis))
+
+    # a family whose stacked eigensolve is 40 x 40 (kernel 7)
+    fam = pt.family(haldane_family(pt))
+    n = S7["family"]
+    c, sec = timed(fam.chern, nocc=[1, 4, 20], nk=(n, n))
+    out["family"] = c
+    print("  %s family of haldane supercells (2, 8, 40 states), %dx%d: Chern %s  [%.2f s]"
+          % (where, n, n, np.array2string(c, precision=10), sec))
+    check(np.abs(c + 1.0).max() < 1e-8, "family Chern numbers %s are not -1" % c)
+    (e, dos), sec = timed(pt.flows.density_of_states, pt.models.haldane(), (64, 64), n_energies=401)
+    out["dos"] = dos
+    integral = float(np.trapezoid(dos, e))
+    print("  %s density_of_states haldane 64x64, 401 E: integral %.8f  [%.2f s]" % (where, integral, sec))
+    check(abs(integral - 2.0) < 1e-3, "DOS integral %.6f is not 2" % integral)
+
+    # the second Chern number of the Fu-Kane-Mele beta cycle
+    L = S7["c2_slices"]
+    loop = [pt.models.fu_kane_mele(beta=2 * np.pi * i / L) for i in range(L)]
+    if not reference:
+        c2, sec = timed(pt.flows.second_chern, loop, (0, 1), nk=(S7["c2"],) * 3)
+        print("  %s second_chern fkm beta cycle, %d slices, %d^3 k, refined: C2 %.6f  [%.2f s]"
+              % (where, L, S7["c2"], c2, sec))
+        check(abs(c2 + 1.0) < 0.02, "second Chern number %.6f is not -1" % c2)
+    out["c2_cpu"], sec = timed(pt.flows.second_chern, loop, (0, 1), nk=(S7["c2_cpu"],) * 3, refine=False)
+    print("  %s second_chern fkm, %d^3 k, unrefined (the CPU comparison's grid): %.10f  [%.2f s]"
+          % (where, S7["c2_cpu"], out["c2_cpu"], sec))
+    return out
+
+
+def compare_slice7(out, ref):
+    """The seventh slice on the card against the CPU run: eigenvalues, the
+    DOS and the invariants within 1e-10 (relative to the largest entry);
+    the Weyl nodes within 5e-6 (the descent's resolution: the gap is a
+    cone at a node, and rounding picks the last steps' directions)."""
+    for key, tol, note in (("hofstadter", 1e-10, " (41 x 16 x 40)"), ("streda", 0.0, " (labels)"),
+                           ("quadrupole", 1e-10, " (px, py, qxy)"), ("spin_chern", 1e-10, ""),
+                           ("sector", 1e-10, ""), ("weyl", 5e-6, " (nodes and charges)"),
+                           ("family", 1e-10, ""), ("dos", 1e-10, ""), ("c2_cpu", 1e-10, " (8^3, unrefined)")):
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        check(got.shape == want.shape, "%s: shape differs from the CPU run" % key)
+        err = float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+        print("  %s vs CPU%s: max|diff| %.3e (relative)" % (key, note, err))
+        check(err <= tol, "%s differs from the CPU path by %.3e (relative, limit %.0e)" % (key, err, tol))
+
+
 def phase_main_path(torch, pt, where, reference=False):
     """Phase 4: the port's main path through the entry points a user calls.
     The CPU reference (``reference``) evolves the 90k flake 4 steps of the
     card's 20, to keep the run short; the steps are the same."""
+    from pythtb_tpu_torch.ops import _kernels
     from tests import workloads, zoo
 
     out = {}
@@ -1760,7 +2104,9 @@ def phase_main_path(torch, pt, where, reference=False):
     # the 20-layer slab: hybrid Wannier centres over a 41 x 41 grid (kernel 6)
     slab = cubic_slab(pt)
     ws = pt.wf_array(slab, [41, 41])
+    before = _kernels.LAUNCHES["eigh_jacobi"]
     ws.solve_on_grid([0.0, 0.0])
+    out["slab_jacobi_launches"] = _kernels.LAUNCHES["eigh_jacobi"] - before
     out["slab_hwfc"] = ws.position_hwf_all(list(range(20)), 2)
     check(out["slab_hwfc"].shape == (41, 41, 20) and np.isfinite(out["slab_hwfc"]).all(),
           "bad slab centres %s" % (out["slab_hwfc"].shape,))
@@ -1782,6 +2128,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out.update(slice4_path(pt, where, reference))
     out.update(slice5_path(pt, where, reference))
     out.update(slice6_path(pt, where, reference))
+    out.update(slice7_path(pt, where, reference))
     return out
 
 
@@ -1937,11 +2284,9 @@ def phase_walls(torch, pt, card):
     fl90, f5, torus = peierls_flake(pt), haldane_flake5k(pt), kubo_torus(pt)
     p0 = np.zeros(fl90._nsta, complex)
     p0[fl90._nsta // 2] = 1.0
-    # (call, timed calls, profiled calls): the slab solve launches some
-    # 170,000 kernels per call, which would take the profiler a minute to
-    # read, so it is timed on the host's clock alone; the profiler drops
-    # the last events of a window, so the short Fermi-arc call is profiled
-    # 20 times (2 calls recorded none)
+    # (call, timed calls, profiled calls): the profiler drops the last
+    # events of a window, so the short Fermi-arc call is profiled 20 times
+    # (2 calls recorded none)
     calls = {
         "flows.chern_number haldane 301x301": (
             lambda: pt.flows.chern_number(m, [0], nk=(GRID, GRID)), 10, 10),
@@ -1950,7 +2295,7 @@ def phase_walls(torch, pt, card):
         "flows.z2_invariant kane_mele check=True (31x31 + 61x61)": (
             lambda: pt.flows.z2_invariant(kmo, check=True), 5, 5),
         "flake 800 solve_all(eig_vectors=True)": (lambda: fl.solve_all(eig_vectors=True), 3, 3),
-        "slab 41x41 wf_array.solve_on_grid (nsta 39)": (lambda: ws.solve_on_grid([0.0, 0.0]), 2, 0),
+        "slab 41x41 wf_array.solve_on_grid (nsta 39, kernel 7)": (lambda: ws.solve_on_grid([0.0, 0.0]), 5, 3),
         "slab 41x41 position_hwf_all (20 states)": (
             lambda: ws.position_hwf_all(list(range(20)), 2), 5, 5),
         "flows.kpm_dos 90k M=512 R=8": (
@@ -2016,6 +2361,28 @@ def phase_walls(torch, pt, card):
             lambda: pt.impurity.t_matrix(bn1, np.array([[4.0]]), IMPURITY_E, [0], nk=(S6["impurity_nk"],) * 2,
                                          eta=0.04), 3, 2),
     })
+    sq, bbh, kme, bil, wy = (pt.models.square(), pt.models.bbh(gamma=0.5), pt.models.kane_mele(esite=1.0),
+                             haldane_bilayer(pt), pt.models.weyl())
+    hof, _ = pt.magnetic.hofstadter_fn(sq, HOF_Q)
+    fam = pt.family(haldane_family(pt))
+
+    def node_search():
+        kn, _ = pt.flows.find_nodes(wy, band=0, nk=S7["nodes"], gap_tol=0.05)
+        return [pt.flows.node_chirality(wy, k, band=0) for k in kn]
+
+    calls.update({
+        "magnetic.hofstadter_fn square q40, 41 fluxes x 16 k": (
+            lambda: hof(np.arange(HOF_Q + 1.0), HOF_K).cpu().numpy(), 10, 5),
+        "flows.quadrupole bbh 21x21": (lambda: pt.flows.quadrupole(bbh, nk=(S7["quadrupole"],) * 2), 5, 3),
+        "flows.spin_chern kane_mele 41x41": (
+            lambda: pt.flows.spin_chern(kme, (0, 1), nk=(S7["spin_chern"],) * 2), 5, 3),
+        "flows.sector_chern haldane bilayer 41x41": (
+            lambda: pt.flows.sector_chern(bil, (0, 1), np.array([1.0, 1.0, -1.0, -1.0]), nk=(S7["sector"],) * 2),
+            5, 3),
+        "flows.find_nodes + node_chirality weyl 40^3": (node_search, 3, 1),
+        "family.chern haldane supercells (40 states) 16x16": (
+            lambda: fam.chern(nocc=[1, 4, 20], nk=(S7["family"],) * 2), 5, 3),
+    })
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
         ms = wall_ms(torch, fn, reps)
@@ -2028,7 +2395,10 @@ def phase_walls(torch, pt, card):
     for name in ("boltzmann.transport_coefficients 512^2 201 mu", "optical.shift_current bn 161x161 121 w",
                  "optical.optical_conductivity 161x161 121 w", "boltzmann.edelstein 256^2 201 mu",
                  "negf.multi_terminal qwz hall bar 8x8 41 E", "disorder.cpa kagome 256 w x 48^2",
-                 "negf.landauer_transmission kane_mele ribbon 6 disordered 121 E"):
+                 "negf.landauer_transmission kane_mele ribbon 6 disordered 121 E",
+                 "slab 41x41 wf_array.solve_on_grid (nsta 39, kernel 7)",
+                 "magnetic.hofstadter_fn square q40, 41 fluxes x 16 k",
+                 "flows.find_nodes + node_chirality weyl 40^3"):
         top, total = device_top(torch, calls[name][0])
         print("  device time of %s: %.1f us per call; largest: %s" % (name, total, "; ".join(
             "%s %.1f us" % (k[:70], us) for k, us in top)))
@@ -2098,18 +2468,25 @@ def main():
     compare_main_path(out, ref, gold_km, gold_si)
     compare_slice5(out, ref)
     compare_slice6(out, ref)
+    compare_slice7(out, ref)
     check_lowest_bound(torch, pt, out["lowest"], device)
+    print("[4 main] kernel 7 launches in the slab's solve_on_grid: %d; in hofstadter_fn: %s"
+          % (out["slab_jacobi_launches"], out["hof_launches"]))
+    check(out["slab_jacobi_launches"] > 0, "the slab's 39-state solve did not go through kernel 7")
+    check(min(out["hof_launches"].values()) > 0, "the Hofstadter call did not launch kernel 7 and the flux-batch mode")
 
     # steady wall times of the main calls, after the counted window
     t0 = time.perf_counter()
     walls = phase_walls(torch, pt, card)
+    walls["bounds"] = composite_bounds(torch, pt, card)
     print("[4 main] steady walls in %.1f s" % (time.perf_counter() - t0))
 
     # -- phase 5: launches -----------------------------------------------
     print("[5 launches] main path: %s" % json.dumps(launches))
     kernels = ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
                "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
-               "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov")
+               "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov", "eigh_jacobi",
+               "assemble_members")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -2133,6 +2510,8 @@ def main():
         "decimation_green": ("decimation.cu", "pythtb_tpu/negf.py:79"),
         "cpa": ("cpa.cu", "pythtb_tpu/disorder.py:61"),
         "lyapunov": ("lyapunov.cu", "pythtb_tpu/localization.py:73"),
+        "eigh_jacobi": ("eigh_jacobi.cu", "pythtb_tpu/ops/eigh.py:69"),
+        "assemble_members": ("assemble.cu", "pythtb_tpu/magnetic.py:241"),
     }
     rows = []
     for name in kernels:

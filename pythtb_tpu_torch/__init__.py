@@ -29,19 +29,26 @@ Drude weight (:mod:`geometry`).  Green's functions and disorder: NEGF
 transport through two- and multi-terminal devices (:mod:`negf`),
 Lyapunov spectra and localization measures (:mod:`localization`),
 impurity T-matrices and bound states (:mod:`impurity`), and the
-coherent-potential approximation (:mod:`disorder`).
+coherent-potential approximation (:mod:`disorder`).  Topology beyond the
+Chern number: nested Wilson loops, sector, spin and valley Chern
+numbers, parity indicators, Weyl nodes and their charges, the second
+Chern number and the axion angle (:mod:`flows`), with densities of
+states, band velocities and spin textures; the Hofstadter butterfly and
+its Streda labels (:mod:`magnetic`); and padded families of models with
+different graphs solved together (:func:`family`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through sixteen hand-written CUDA
-kernels, with kernel 1's one-sided and kernel 12's Green's-function
-modes (``csrc/``, built with nvcc at first use); on the CPU the same
+an NVIDIA Hopper card the hot paths run through seventeen hand-written
+CUDA kernels, with kernel 1's one-sided and flux-batch modes and kernel
+12's Green's-function mode (``csrc/``, built with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
 from . import (boltzmann, config, disorder, dynamics, flows, geometry, impurity, localization, magnetic, models,
                negf, optical, realspace, surface)
+from .family import ModelFamily, family
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
 from .w90 import w90
@@ -52,5 +59,5 @@ __version__ = "0.2.0"
 __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
     "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
-    "impurity", "disorder", "__version__",
+    "impurity", "disorder", "family", "ModelFamily", "__version__",
 ]

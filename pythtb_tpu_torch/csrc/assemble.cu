@@ -32,6 +32,14 @@
 // H[b, p, q] = sum over hoppings h with (i_h, j_h) landing on (p, q) of
 // amp_h e^{2 pi i k_b.rv_h}, not Hermitian.
 //
+// Flux-batch mode (pythtb_tpu/magnetic.py:hofstadter_fn, whose vmap over
+// the flux index runs one assemble per flux: magnetic.py:241): one graph
+// (rv, ptr, ent shared) and P members of it, each with its own amplitudes
+// amps[p] (P, nhop[, 2, 2]) and on-site matrix diag[p] (P, nsta, nsta),
+// at NK shared k-points; H is (P * NK, nsta, nsta), member-major, from one
+// launch.  Row b of H is member b / NK at k-point b mod NK; the walk is
+// the plain mode's.
+//
 // What bounds it on the H100: the store of H, 16 bytes per element, and
 // for models with many hoppings per element the double-precision sincospi
 // per (k, hopping, element).  Design: one thread per output element walks
@@ -43,11 +51,14 @@
 // of the TPU version is not carried over.
 #include "common.cuh"
 
+// nk: k-points per member (every row when there is one member); a row's
+// member reads its amplitudes at member * nhop * nspin^2 and its diagonal
+// at member * nsta^2.
 __global__ void assemble_kernel(const double* __restrict__ k, const double* __restrict__ rv,
                                 const cplx* __restrict__ amps, const cplx* __restrict__ diag,
                                 const int* __restrict__ ptr, const int* __restrict__ ent,
-                                cplx* __restrict__ H, int64_t total, int dim_k, int norb,
-                                int nspin, bool one_sided) {
+                                cplx* __restrict__ H, int64_t total, int64_t nk, int dim_k, int norb,
+                                int nspin, int64_t nhop, bool one_sided) {
     const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= total) return;
     const int nsta = norb * nspin;
@@ -58,7 +69,10 @@ __global__ void assemble_kernel(const double* __restrict__ k, const double* __re
     const int q = elem - p * nsta;
     const int a = p / nspin, s = p - a * nspin;
     const int c = q / nspin, u = q - c * nspin;
-    const double* kb = k + b * dim_k;
+    const int64_t member = b / nk;
+    const double* kb = k + (b - member * nk) * dim_k;
+    amps += member * nhop * nspin * nspin;
+    diag += member * per_k;
     const int slot = a * norb + c;
     const int direct_blk = s * nspin + u;
     const int partner_blk = u * nspin + s;
@@ -202,8 +216,25 @@ extern "C" int pythtb_assemble(const void* k, const void* rv, const void* amps, 
     if (total > 0) {
         assemble_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
             (const double*)k, (const double*)rv, (const cplx*)amps, (const cplx*)diag,
-            (const int*)ptr, (const int*)ent, (cplx*)H, total, (int)dim_k, (int)norb,
-            (int)nspin, one_sided != 0);
+            (const int*)ptr, (const int*)ent, (cplx*)H, total, B, (int)dim_k, (int)norb,
+            (int)nspin, 0, one_sided != 0);
+    }
+    return (int)cudaGetLastError();
+}
+
+// Flux-batch mode: amps (P, nhop[, 2, 2]), diag (P, nsta, nsta), k (NK,
+// dim_k) -> H (P * NK, nsta, nsta).
+extern "C" int pythtb_assemble_members(const void* k, const void* rv, const void* amps, const void* diag,
+                                       const void* ptr, const void* ent, void* H, int64_t P, int64_t NK,
+                                       int64_t dim_k, int64_t norb, int64_t nspin, int64_t nhop,
+                                       void* stream) {
+    const int64_t nsta = norb * nspin;
+    const int64_t total = P * NK * nsta * nsta;
+    if (total > 0) {
+        assemble_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+            (const double*)k, (const double*)rv, (const cplx*)amps, (const cplx*)diag,
+            (const int*)ptr, (const int*)ent, (cplx*)H, total, NK, (int)dim_k, (int)norb,
+            (int)nspin, nhop, false);
     }
     return (int)cudaGetLastError();
 }

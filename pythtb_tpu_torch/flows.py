@@ -24,7 +24,24 @@ launch of kernel 17 (:mod:`pythtb_tpu_torch.ops.fermi_sweep`);
 ``berry_dipole``, ``spin_hall_conductivity`` and
 ``orbital_magnetization`` build band-basis velocity matrices from
 dH/dk (kernel 15) and contract them with torch, the dipole's mu sweep
-on kernel 17.  The other flows of the JAX package are not ported yet.
+on kernel 17.
+
+Spectra and band-resolved calls: ``density_of_states`` and
+``projected_dos`` broaden the grid's levels with kernel 16's Gaussian
+mode; ``band_velocities`` are Hellmann-Feynman diag(U^H dH/dk U) on
+kernel 15; ``spin_texture`` reads the states of kernels 1-2 (or 7).
+
+Invariants beyond the Chern number: ``quadrupole`` (nested Wilson loops:
+kernel 5 and ``unitary_eig``), ``sector_chern`` / ``spin_chern`` (the
+P O P eigenstates, then kernels 3-4 per sector), ``valley_chern`` (the
+per-band fluxes of the Hall sweeps, partitioned on the host),
+``parity_z2`` / ``parity_polarization`` (inversion eigenvalues at the
+TRIMs), ``find_nodes`` / ``node_chirality`` (a gap scan on kernels 1-2,
+a Hellmann-Feynman descent on kernels 1, 2 and 15, cube fluxes on
+kernels 3-4) and ``second_chern`` / ``axion_theta`` (the projector
+curvature of a model family as torch einsums).  The JAX package's
+``energy_fn`` and ``chern_fn`` exist to be differentiated or vmapped and
+are not ported (they need backward kernels).
 """
 
 from __future__ import annotations
@@ -39,7 +56,7 @@ from . import config
 from .core import BlochData
 from .ops import chebyshev
 from .ops.berry import _dets, _plane_link_dets, _wrap, plaquette_flux, wilson_eigenphases, wilson_loop
-from .ops.eigh import eigh_batched
+from .ops.eigh import eigh_batched, eigvalsh_batched
 from .ops.fermi_sweep import fermi_sweep
 from .ops.hamiltonian import assemble, assemble_dk
 from .ops.solver import device_uniform_grid, extend_pbc_seq
@@ -49,7 +66,9 @@ __all__ = [
     "gauge_phases", "berry_flux_grid", "chern_number", "wilson_flow", "z2_fn",
     "z2_invariant", "polarization", "kpm_dos", "solve_lowest", "solve_window", "wilson_window",
     "chern_window", "anomalous_hall", "anomalous_nernst", "thermal_hall", "berry_dipole",
-    "spin_hall_conductivity", "orbital_magnetization",
+    "spin_hall_conductivity", "orbital_magnetization", "density_of_states", "projected_dos",
+    "band_velocities", "spin_texture", "quadrupole", "sector_chern", "spin_chern", "valley_chern",
+    "parity_z2", "parity_polarization", "find_nodes", "node_chirality", "second_chern", "axion_theta",
 ]
 
 
@@ -971,3 +990,825 @@ def orbital_magnetization(model, occ, nk=(61, 61), mu=None):
             UserWarning, stacklevel=2,
         )
     return float(M)
+
+
+# ---------------------------------------------------------------------------
+# Spectra and band-resolved quantities
+# ---------------------------------------------------------------------------
+
+
+def _grid_dos(model, k_mesh, energies, sigma, n_energies, projected):
+    """Gaussian-broadened (P)DOS on the Gamma-inclusive device grid: the
+    levels of kernels 1 and 2 (or 7), broadened by kernel 16's Gaussian
+    mode, whose 1/(sigma sqrt(2 pi)) norm is the only one applied; the
+    1/B k-average rides on the weights.  Returns NumPy (e_grid, dos (nE,)
+    or pdos (nE, norb))."""
+    from .optical import spectral_sum
+
+    data = model._get_finalized()
+    if data.dim_k == 0 or len(k_mesh) != data.dim_k:
+        raise ValueError("k_mesh must give one size per periodic direction")
+    mesh_shape = tuple(int(n) for n in k_mesh)
+    if energies is None:
+        probe = model.solve_all(model.k_uniform_mesh([max(4, n // 4) for n in mesh_shape]))
+        energies = (probe.min() - 3.0 * sigma, probe.max() + 3.0 * sigma)
+    erange = np.asarray(energies, dtype=np.float64)
+    e_grid = np.linspace(erange[0], erange[1], int(n_energies))
+    dev = data.device
+    kpts = device_uniform_grid(mesh_shape, np.zeros(data.dim_k), dev)
+    B = kpts.shape[0]
+    H = assemble(data, kpts)
+    if projected:
+        evals, v = eigh_batched(H)  # rows are states
+        wts = v.abs() ** 2  # (B, nsta, F)
+        if data.nspin == 2:
+            wts = wts.reshape(B, data.nsta, data.norb, 2).sum(-1)
+        W = (wts.reshape(-1, data.norb).T / B).contiguous()  # (norb, B nsta)
+    else:
+        evals = eigvalsh_batched(H)
+        W = torch.full((1, evals.numel()), 1.0 / B, dtype=config.FLOAT, device=dev)
+    out = spectral_sum(W, evals.reshape(-1).contiguous(), torch.as_tensor(e_grid).to(dev), float(sigma), "gauss")
+    out = out.cpu().numpy().astype(np.float64)
+    return e_grid, (out.T if projected else out[0])
+
+
+def density_of_states(model, k_mesh, energies=None, sigma=0.1, n_energies=201):
+    """Gaussian-broadened density of states on the device (counterpart of
+    ``pythtb_tpu.flows.density_of_states``).
+
+    :param k_mesh: per-periodic-direction mesh sizes (Gamma-inclusive
+      uniform mesh, built on the device)
+    :param energies: (emin, emax) energy window; defaults to the band
+      range padded by 3 sigma
+    :param sigma: Gaussian broadening width
+    :returns: (energy_grid, dos) with dos normalized to states per unit
+      cell (integrates to norb*nspin)
+    """
+    return _grid_dos(model, k_mesh, energies, sigma, n_energies, False)
+
+
+def projected_dos(model, k_mesh, energies=None, sigma=0.1, n_energies=201):
+    """Orbital-projected (Gaussian-broadened) density of states:
+    ``pdos[e, orb] = sum_kn |u_nk[orb]|^2 g(e - E_nk)`` (spin components
+    summed for nspin=2), one launch of kernel 16 with a row per orbital.
+    Returns (energy_grid, pdos (nE, norb))."""
+    return _grid_dos(model, k_mesh, energies, sigma, n_energies, True)
+
+
+def band_velocities(model, k_list):
+    """Band group velocities dE_n/dk at each k-point by Hellmann-Feynman,
+    diag(U^H dH/dk U), with dH/dk from kernel 15 (the JAX package
+    differentiates through the eigensolver: the same derivative away from
+    band crossings, where neither is defined).
+
+    :param k_list: (nkp, dim_k) reduced k-points
+    :returns: (vels, evals) with vels[band, kpt, dir] = dE/dk in reduced
+      coordinates and evals[band, kpt] as in solve_all.
+    """
+    data = model._get_finalized()
+    if data.dim_k == 0:
+        raise ValueError("band velocities require a periodic model")
+    kpts = np.asarray(k_list, dtype=np.float64)
+    if kpts.ndim == 1:
+        kpts = kpts[:, None] if data.dim_k == 1 else kpts[None, :]
+    k = torch.as_tensor(np.ascontiguousarray(kpts)).to(data.device)
+    evals, v = eigh_batched(assemble(data, k))  # rows are states
+    vel = torch.einsum("bns,bast,bnt->nba", v.conj(), assemble_dk(data, k), v).real
+    return vel.cpu().numpy().astype(np.float64), evals.T.cpu().numpy().astype(np.float64)
+
+
+def spin_texture(model, bands, k_list):
+    """Spin expectation values ``<S_a>_n(k) = <psi_n| sigma_a (x) 1
+    |psi_n>`` (units of hbar/2) for a batch of k-points and bands.  Warns
+    where a requested band is within 1e-8 of a neighbour (per-band spin is
+    basis-arbitrary there).
+
+    :param bands: band indices
+    :param k_list: (B, dim_k) reduced k-points
+    :returns: (B, nb, 3) float array
+    """
+    from .model import PythtbError
+
+    data = model._get_finalized()
+    if data.nspin != 2:
+        raise PythtbError("spin_texture requires a spinful model")
+    bands = tuple(int(b) for b in np.atleast_1d(bands))
+    if len(bands) == 0 or min(bands) < 0 or max(bands) >= data.nsta:
+        raise PythtbError("bands out of range")
+    kpts = np.asarray(k_list, dtype=np.float64)
+    if kpts.ndim != 2 or kpts.shape[1] != data.dim_k:
+        raise PythtbError("k_list must be (B, %d)" % data.dim_k)
+    k = torch.as_tensor(np.ascontiguousarray(kpts)).to(data.device)
+    evals, vecs = eigh_batched(assemble(data, k))
+    bidx = torch.as_tensor(bands, device=data.device)
+    D = (evals[:, :, None] - evals[:, None, :]).abs()
+    D = D + torch.eye(data.nsta, dtype=config.FLOAT, device=data.device)[None] * 1e30
+    mingap = float(D.amin(dim=-1)[:, bidx].min())
+    v = vecs[:, bidx, :]
+    vv = v.reshape(v.shape[0], v.shape[1], data.norb, 2)  # spin fastest
+    up, dn = vv[..., 0], vv[..., 1]
+    ud = torch.einsum("bno,bno->bn", up.conj(), dn)
+    sz = (up.abs() ** 2).sum(-1) - (dn.abs() ** 2).sum(-1)
+    out = torch.stack([2.0 * ud.real, 2.0 * ud.imag, sz], dim=-1)
+    if mingap < 1e-8:
+        warnings.warn(
+            "spin_texture: a requested band is within %.1e of a "
+            "neighbor somewhere in the batch -- per-band spin "
+            "expectations are basis-arbitrary at (near-)degenerate "
+            "k-points (Kramers points of TRS models); only degenerate-"
+            "subspace sums are well-defined there." % mingap,
+            UserWarning, stacklevel=2,
+        )
+    return out.cpu().numpy().astype(np.float64)
+
+
+# ---------------------------------------------------------------------------
+# Nested Wilson loops, sector and valley Chern numbers
+# ---------------------------------------------------------------------------
+
+
+def _nested_wilson(data, occ, n0, n1, nest_dir, start, phases):
+    """Wannier-sector polarizations by nested Wilson loops (Benalcazar,
+    Bernevig & Hughes, PRB 96, 245115 (2017), Sec. VI), as
+    ``pythtb_tpu.flows._nested_wilson_jit``: Wilson loops wind along grid
+    axis 1, the nested loop along axis 0 (``nest_dir`` 1 transposes).  The
+    polar factor of every link is kernel 5 on two-point strings (one
+    launch); their running products C_j = W_0 ... W_j are batched torch
+    matmuls; the eigenvectors of the whole loop come from ``unitary_eig``.
+    Returns (p (nsec, ny-1) in [0, 1), min Wannier gap, min link singular
+    value)."""
+    from .ops.berry import unitary_eig
+
+    kpts = device_uniform_grid((n0 - 1, n1 - 1), start, data.device)
+    w = _solve_grid_states(data, kpts, occ, n0, n1)  # (n0-1, n1-1, S, F)
+    p_loop, p_nest = phases[1], phases[0]
+    if nest_dir == 1:
+        w = w.transpose(0, 1)
+        p_loop, p_nest = p_nest, p_loop
+    w = torch.cat([w, w[:, :1] * p_loop], dim=1)  # close the loop axis
+    nx, ny, S, F = w.shape
+    links = torch.stack([w[:, :-1], w[:, 1:]], dim=2).contiguous()  # (nx, ny-1, 2, S, F)
+    Wl, smin = wilson_loop(links, 2)  # polar factor of each link
+    C = [Wl[:, 0]]
+    for j in range(1, ny - 1):
+        C.append(C[-1] @ Wl[:, j])
+    theta, P = unitary_eig(C[-1])  # the whole loop based at 0
+    order = torch.argsort(theta, dim=-1)
+    theta = torch.take_along_dim(theta, order, dim=-1)
+    P = torch.take_along_dim(P, order[:, None, :], dim=-1)
+    gaps = torch.cat([theta[:, 1:] - theta[:, :-1], (2.0 * np.pi - (theta[:, -1] - theta[:, 0]))[:, None]], dim=-1)
+    # eigenvectors of the loop based at j: nu_j = C_{j-1}^H P (identity at 0)
+    eye = torch.eye(S, dtype=config.COMPLEX, device=w.device).expand(nx, S, S)
+    Cfull = torch.stack([eye] + C[:-1], dim=1)  # (nx, ny-1, S, S)
+    nu = torch.einsum("xjmn,xms->xjns", Cfull.conj(), P)
+    ws = torch.einsum("xjnf,xjns->xjsf", w[:, :-1], nu)  # Wannier-band basis, rows = sector
+    ws = extend_pbc_seq(ws, [p_nest])  # close the nested axis with the periodic gauge
+    link = torch.einsum("xjsf,xjsf->xjs", ws[:-1].conj(), ws[1:])
+    p = _wrap(-torch.angle(link).sum(dim=0)).T / (2.0 * np.pi)
+    return torch.remainder(p, 1.0), float(gaps.min()), float(smin.amin())
+
+
+def quadrupole(model, occ=(0, 1), nk=(31, 31), start_k=(0.0, 0.0)):
+    """Wannier-sector polarizations and the quadrupole invariant by nested
+    Wilson loops (Benalcazar-Bernevig-Hughes, PRB 96, 245115 (2017)).
+
+    :param occ: occupied bands (even count; sectors = Wannier bands)
+    :returns: dict with ``px``/``py`` ((nsec,) sector polarizations,
+      circular means over base points), ``px_spread``/``py_spread``,
+      ``qxy`` (2 px[0] py[0] mod 1), ``wannier_gap``
+    """
+    data, (n0, n1), phases = _grid_inputs(model, nk, "quadrupole")
+    occ = _check_occ(occ, data.nsta)
+    start = np.asarray(start_k, dtype=np.float64)
+    out = {}
+    for name, nest_dir in (("px", 0), ("py", 1)):
+        p, wgap, sing = _nested_wilson(data, occ, n0, n1, nest_dir, start, phases)
+        p = p.cpu().numpy().astype(np.float64)
+        # circular mean over base points (values live on a circle)
+        mean = np.mod(np.angle(np.exp(2j * np.pi * p).mean(axis=1)) / (2 * np.pi), 1.0)
+        dev = np.abs(np.angle(np.exp(2j * np.pi * (p - mean[:, None])))).max() / (2 * np.pi)
+        out[name] = mean
+        out[name + "_spread"] = float(dev)
+        out["wannier_gap"] = min(out.get("wannier_gap", np.inf), wgap)
+        if sing < 1e-8:
+            warnings.warn("quadrupole: (near-)singular Wilson links -- refine the grid.", UserWarning, stacklevel=2)
+    out["qxy"] = float(np.mod(2.0 * out["px"][0] * out["py"][0], 1.0))
+    return out
+
+
+def _sector_chern(data, occ, n0, n1, split, start, phases, op):
+    """Prodan sector Chern engine (PRB 80, 125327 (2009)): the projected
+    operator P O P in the occupied space of every closed-grid point,
+    diagonalized by ``eigh_batched`` (kernel 2 at two occupied bands), its
+    lowest ``split`` and remaining eigenstates integrated as two sectors
+    (kernels 3-4).  Returns (flux-, flux+, min projection gap at the split,
+    max eigenvalue below it, min eigenvalue above it)."""
+    kpts = device_uniform_grid((n0 - 1, n1 - 1), start, data.device)
+    w = extend_pbc_seq(_solve_grid_states(data, kpts, occ, n0, n1), phases)  # (n0, n1, nocc, F)
+    nocc = len(occ)
+    M = torch.einsum("...nf,fg,...mg->...nm", w.conj(), op, w)
+    ev, V = eigh_batched(M.reshape(-1, nocc, nocc).contiguous())  # V: rows are eigenstates
+    ev = ev.reshape(n0, n1, nocc)
+    ws = torch.einsum("...nf,...sn->...sf", w, V.reshape(n0, n1, nocc, nocc))
+    fm = float(_total_flux(ws[..., :split, :])[0])
+    fp = float(_total_flux(ws[..., split:, :])[0])
+    gap = float((ev[..., split] - ev[..., split - 1]).min())
+    return fm, fp, gap, float(ev[..., split - 1].max()), float(ev[..., split].min())
+
+
+def sector_chern(model, occ, op, nk=(41, 41), start_k=(-0.5, -0.5), split=None):
+    """Chern numbers of the eigensectors of a Hermitian, k-independent
+    operator projected into the occupied space (the Prodan construction):
+    ``op`` = the spin matrix gives the spin Chern number, ``op`` = i M for
+    a spinful mirror M the mirror Chern number.  ``op`` acts in the
+    flattened state space (orb x spin, spin fastest).
+
+    :param occ: occupied band indices
+    :param op: (nsta, nsta) Hermitian matrix (or a length-nsta diagonal)
+    :param split: size of the lower-eigenvalue sector (default
+      ``len(occ) // 2``); warns when the projected spectrum does not
+      straddle zero there, or is gapless
+    :returns: dict with ``sector_chern`` ((C+ - C-)/2), ``chern_plus``,
+      ``chern_minus``, ``gap``
+    """
+    data, (n0, n1), phases = _grid_inputs(model, nk, "sector_chern")
+    occ = tuple(int(o) for o in np.atleast_1d(occ))
+    if len(occ) < 2:
+        raise ValueError("sector_chern needs at least two occupied bands")
+    if min(occ) < 0 or max(occ) >= data.nsta:
+        raise IndexError("occ indices %s out of range for %d states" % (sorted(set(occ)), data.nsta))
+    split = len(occ) // 2 if split is None else int(split)
+    if not (1 <= split <= len(occ) - 1):
+        raise ValueError("split must be in [1, %d]" % (len(occ) - 1))
+    op = np.asarray(op, dtype=np.complex128)
+    if op.ndim == 1:
+        op = np.diag(op)
+    if op.shape != (data.nsta, data.nsta):
+        raise ValueError("op must be (%d, %d) (or a length-%d diagonal)" % (data.nsta, data.nsta, data.nsta))
+    if np.abs(op - op.conj().T).max() > 1e-12:
+        raise ValueError("op must be Hermitian (for a spinful mirror M with M^2 = -1, pass 1j * M)")
+    fm, fp, gap, lo_max, hi_min = _sector_chern(data, occ, n0, n1, split, np.asarray(start_k, dtype=np.float64),
+                                                phases, torch.as_tensor(op).to(data.device))
+    cm, cp = fm / (2.0 * np.pi), fp / (2.0 * np.pi)
+    if gap < 1e-3:
+        warnings.warn(
+            "sector_chern: the P O P spectrum is (nearly) gapless at the "
+            "split (min gap %.2e) -- the sector Chern numbers are "
+            "ill-defined for this model/operator/band choice." % gap,
+            UserWarning, stacklevel=2,
+        )
+    elif not (lo_max < 0.0 < hi_min):
+        warnings.warn(
+            "sector_chern: the P O P spectrum does not straddle zero at "
+            "the requested split (eigenvalues around it in [%.3f, %.3f]) "
+            "-- the +- sector labels are arbitrary; check `split`." % (lo_max, hi_min),
+            UserWarning, stacklevel=2,
+        )
+    return {"sector_chern": 0.5 * (cp - cm), "chern_plus": cp, "chern_minus": cm, "gap": gap}
+
+
+def spin_chern(model, occ=(0, 1), nk=(41, 41), start_k=(-0.5, -0.5)):
+    """Spin Chern number by the Prodan construction: :func:`sector_chern`
+    with the spin matrix S_z (its warnings re-worded for P Sz P).
+
+    :param occ: occupied bands (even count)
+    :returns: dict with ``spin_chern`` ((C+ - C-)/2), ``chern_plus``,
+      ``chern_minus``, ``sz_gap``
+    """
+    data = model._get_finalized()
+    if data.dim_k != 2:
+        raise ValueError("spin_chern requires a model with dim_k == 2")
+    if data.nspin != 2:
+        raise ValueError("spin_chern requires a spinful model (nspin=2)")
+    occ = tuple(int(o) for o in occ)
+    if len(occ) % 2 != 0 or len(occ) == 0:
+        raise ValueError("spin_chern needs an even, nonempty set of occupied bands")
+    sz = np.tile([1.0, -1.0], data.norb)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = sector_chern(model, occ, sz, nk=nk, start_k=start_k)
+    for w in caught:
+        msg = str(w.message).replace("sector_chern", "spin_chern").replace("P O P", "P Sz P")
+        warnings.warn(msg, w.category, stacklevel=2)
+    return {"spin_chern": out["sector_chern"], "chern_plus": out["chern_plus"],
+            "chern_minus": out["chern_minus"], "sz_gap": out["gap"]}
+
+
+def valley_chern(model, occ, valley_points, nk=(101, 101), start_k=(-0.5, -0.5)):
+    """Valley-resolved Chern numbers: the occupied bands' plaquette fluxes
+    (the per-band engine of the Hall sweeps, kernels 1-4) partitioned by
+    the nearest valley in the reciprocal metric of the periodic lattice
+    vectors (torus distance over the nine neighbour images), each basin
+    integrated.  The valley values sum to the total Chern number exactly.
+
+    :param occ: occupied bands
+    :param valley_points: (nv, 2) reduced valley centres
+    :returns: (nv,) float array
+    """
+    data, (n0, n1), phases = _grid_inputs(model, nk, "valley_chern")
+    occ = tuple(int(o) for o in np.atleast_1d(occ))
+    if len(occ) == 0 or min(occ) < 0 or max(occ) >= data.nsta:
+        raise ValueError("occ out of range")
+    vp = np.asarray(valley_points, dtype=np.float64)
+    if vp.ndim != 2 or vp.shape[1] != 2 or len(vp) < 1:
+        raise ValueError("valley_points must be (nv, 2) reduced points")
+    start = np.asarray(start_k, dtype=np.float64)
+    om, _ = _band_curvature_grid(data, n0, n1, start, phases)
+    om_occ = om[torch.as_tensor(occ, device=data.device)].sum(dim=0).cpu().numpy().astype(np.float64)
+    c0 = (np.arange(n0 - 1) + 0.5) / (n0 - 1) + start[0]
+    c1 = (np.arange(n1 - 1) + 0.5) / (n1 - 1) + start[1]
+    cc = np.stack(np.meshgrid(c0, c1, indexing="ij"), axis=-1)
+    lat_per = np.asarray(model._lat, dtype=np.float64)[list(model._per)]
+    k_metric = np.linalg.inv(lat_per @ lat_per.T)
+    imgs = np.array([(i, j) for i in (-1, 0, 1) for j in (-1, 0, 1)])
+    d2 = np.empty((len(vp),) + cc.shape[:2])
+    for v, kv in enumerate(vp):
+        dred = cc - kv[None, None, :]
+        best = None
+        for im in imgs:
+            dk = dred + im[None, None, :]
+            dd = np.einsum("ija,ab,ijb->ij", dk, k_metric, dk)
+            best = dd if best is None else np.minimum(best, dd)
+        d2[v] = best
+    owner = np.argmin(d2, axis=0)
+    return np.array([om_occ[owner == v].sum() / (2.0 * np.pi) for v in range(len(vp))])
+
+
+# ---------------------------------------------------------------------------
+# Inversion-parity indicators
+# ---------------------------------------------------------------------------
+
+
+def _inversion_partners(orb, c):
+    """Partner map p(a), R_a with 2c - t_a = t_{p(a)} + R_a (the rule of
+    ``pythtb_tpu.flows._inversion_partners``: the self-map preferred at
+    inversion-fixed positions, coincident partners consumed from a pool)."""
+    from .model import PythtbError
+
+    norb, d = orb.shape
+    p = np.full(norb, -1, dtype=np.int64)
+    Ra = np.zeros((norb, d))
+    available = set(range(norb))
+    for a in range(norb):
+        if p[a] >= 0:
+            continue
+        target = 2.0 * c - orb[a]
+        diff = target[None, :] - orb
+        Rcand = np.round(diff)
+        hit = [int(b) for b in np.where(np.abs(diff - Rcand).max(axis=1) < 1e-8)[0] if b in available]
+        if not hit:
+            raise PythtbError("no inversion partner for orbital %d about center %s "
+                              "-- wrong center or no inversion symmetry" % (a, c.tolist()))
+        use = a if a in hit else hit[0]
+        p[a] = use
+        Ra[a] = Rcand[use]
+        available.discard(a)
+        if use != a:
+            p[use] = a
+            back = 2.0 * c - orb[use] - orb[a]
+            Ra[use] = np.round(back)
+            if np.abs(back - Ra[use]).max() > 1e-8:
+                raise PythtbError("inversion partner mismatch for orbitals %d/%d" % (a, use))
+            available.discard(use)
+    return p, Ra
+
+
+def _inversion_matrix(p, Ra, xi, k):
+    """Convention-II inversion representation at reduced k:
+    P_{p(a), a} = xi_a e^{2 pi i k . R_a} (orbital space only)."""
+    norb = len(p)
+    P = np.zeros((norb, norb), dtype=complex)
+    P[p, np.arange(norb)] = xi * np.exp(2.0j * np.pi * (Ra @ np.asarray(k)))
+    return P
+
+
+def _verify_inversion(data, orb, spinful, P_of_k, c, tol, caller):
+    """Vet the inversion representation: P H_II(-k) P^+ == H_II(k) at three
+    random k (numpy default_rng(0), as the JAX package draws them)."""
+    from .model import PythtbError
+
+    def H_II(k):
+        kt = torch.as_tensor(np.ascontiguousarray(np.asarray(k, dtype=np.float64)[None])).to(data.device)
+        Hk = assemble(data, kt)[0].cpu().numpy()
+        t = np.repeat(orb, 2, axis=0) if spinful else orb
+        ph = np.exp(2.0j * np.pi * (t @ np.asarray(k)))
+        return ph[:, None] * Hk * np.conj(ph)[None, :]
+
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        k = rng.random(orb.shape[1])
+        Pk = P_of_k(k)
+        dev = np.abs(Pk @ H_II(-k) @ Pk.conj().T - H_II(k)).max()
+        if dev > tol:
+            raise PythtbError(
+                "%s: model is not inversion symmetric about %s with "
+                "the given orbital parities (|P H(-k) P^+ - H(k)| = "
+                "%.2e).  Note coincident-orbital partners are paired "
+                "greedily by position -- if your model's true partner "
+                "map differs, relabel the orbitals so partners are "
+                "geometrically distinct." % (caller, c.tolist(), dev)
+            )
+
+
+def _trim_parities(model, kap, occ, orb, P_of_k, tol, spinful, not_closed, not_quantized):
+    """Inversion eigenvalues of the occupied states at the TRIM ``kap``:
+    the Convention-II states of ``solve_one``, M = u^H P u, checked unitary
+    and quantized."""
+    from .model import PythtbError
+
+    _, vec = model.solve_one(kap, eig_vectors=True)
+    vec = np.atleast_2d(np.asarray(vec)).reshape(model._nsta, -1)
+    t = np.repeat(orb, 2, axis=0) if spinful else orb
+    uo = (vec * np.exp(2.0j * np.pi * (t @ kap))[None, :])[list(occ)]
+    M = uo.conj() @ P_of_k(kap) @ uo.T
+    if np.abs(M @ M.conj().T - np.eye(len(occ))).max() > 10.0 * tol:
+        raise PythtbError(not_closed)
+    xis = np.linalg.eigvalsh(0.5 * (M + M.conj().T))
+    if np.abs(np.abs(xis) - 1.0).max() > 10.0 * tol:
+        raise PythtbError(not_quantized)
+    return xis
+
+
+def _parity_setup(model, c, parity):
+    """Orbital positions, inversion centre, parities and the verified
+    partner map shared by :func:`parity_z2` and :func:`parity_polarization`."""
+    from .model import PythtbError
+
+    norb = model._norb
+    orb = np.asarray(model._orb, dtype=np.float64)[:, model._per]
+    xi = np.ones(norb) if parity is None else np.asarray(parity, dtype=np.float64)
+    if xi.shape != (norb,) or np.abs(np.abs(xi) - 1.0).max() > 0:
+        raise PythtbError("parity must give +-1 per orbital")
+    p, Ra = _inversion_partners(orb, c)
+    spinful = model._nspin == 2
+
+    def P_of_k(k):
+        P = _inversion_matrix(p, Ra, xi, k)
+        return np.kron(P, np.eye(2)) if spinful else P  # spin untouched, spin-fastest
+
+    return orb, P_of_k, spinful
+
+
+def parity_z2(model, occ, center=None, parity=None, tol=1e-6):
+    """Fu-Kane Z2 invariants from parity eigenvalues at the TRIMs (PRB 76,
+    045302 (2007)).  The inversion operator is built from the geometry
+    (orbital a at t_a maps to the orbital at 2c - t_a, up to a lattice
+    vector R_a; intrinsic parities ``parity``) and verified numerically
+    (P H(-k) P^+ == H(k), kernel 1) before any invariant is computed.
+
+    :param occ: occupied bands (even count; Kramers pairs)
+    :param center: inversion center in reduced coordinates (default 0)
+    :param parity: per-orbital intrinsic parities (+-1; default all +1)
+    :param tol: symmetry/quantization tolerance
+    :returns: dict with ``nu0`` (strong index), ``delta`` ({TRIM: +-1}),
+      and for dim_k == 3 ``weak`` (three 0/1 indices)
+    """
+    from .model import PythtbError
+
+    data = model._get_finalized()
+    d = data.dim_k
+    if d < 1:
+        raise PythtbError("parity_z2 needs a periodic model")
+    if data.nspin != 2:
+        raise PythtbError("parity_z2 requires a spinful model (the Fu-Kane formula counts Kramers pairs)")
+    occ = tuple(int(o) for o in np.atleast_1d(occ))
+    if len(occ) == 0 or len(occ) % 2 != 0 or len(set(occ)) != len(occ):
+        raise PythtbError("occ must be an even number of distinct bands")
+    if min(occ) < 0 or max(occ) >= data.nsta:
+        raise PythtbError("occ indices %s out of range for %d states" % (sorted(occ), data.nsta))
+    c = np.zeros(d) if center is None else np.asarray(center, dtype=np.float64)
+    if c.shape != (d,):
+        raise PythtbError("center must have dim_k components")
+    orb, P_of_k, _ = _parity_setup(model, c, parity)
+    _verify_inversion(data, orb, True, P_of_k, c, tol, "parity_z2")
+
+    trims = np.stack(np.meshgrid(*([[0.0, 0.5]] * d), indexing="ij"), axis=-1).reshape(-1, d)
+    delta = {}
+    for kappa in trims:
+        where = np.asarray(kappa).tolist()
+        xis = _trim_parities(
+            model, kappa, occ, orb, P_of_k, tol, True,
+            "occupied space at TRIM %s is not closed under inversion -- check that occ is an isolated group" % (where,),
+            "parity eigenvalues not quantized at TRIM %s" % (where,))
+        n_minus = int(np.sum(xis < 0))
+        if n_minus % 2 != 0:
+            raise PythtbError("odd parity count at a TRIM -- Kramers pairing violated (is the model TRS?)")
+        delta[tuple(float(x) for x in kappa)] = int((-1) ** (n_minus // 2))
+    prod_all = int(np.prod(list(delta.values())))
+    out = {"nu0": 0 if prod_all == 1 else 1, "delta": delta}
+    if d == 3:
+        weak = []
+        for i in range(3):
+            pr = int(np.prod([v for k_, v in delta.items() if k_[i] == 0.5]))
+            weak.append(0 if pr == 1 else 1)
+        out["weak"] = tuple(weak)
+    return out
+
+
+def parity_polarization(model, occ, center=None, parity=None, tol=1e-6):
+    """Quantized polarization of a 1-D inversion-symmetric insulator from
+    the TRIM parity products (Zak): ``p = n_occ c + {0 or 1/2} mod 1``
+    with the product over all occupied states; the inversion operator is
+    built and verified as in :func:`parity_z2`.
+
+    :returns: float polarization in [0, 1)
+    """
+    from .model import PythtbError
+
+    data = model._get_finalized()
+    if data.dim_k != 1:
+        raise PythtbError("parity_polarization is 1-D (reduce_dim higher-dimensional models first)")
+    occ = tuple(int(o) for o in np.atleast_1d(occ))
+    if len(occ) == 0 or len(set(occ)) != len(occ) or min(occ) < 0 or max(occ) >= data.nsta:
+        raise PythtbError("occ must be distinct bands in range")
+    c = np.zeros(1) if center is None else np.atleast_1d(np.asarray(center, dtype=np.float64))
+    if c.shape != (1,):
+        raise PythtbError("center must have dim_k = 1 components")
+    orb, P_of_k, spinful = _parity_setup(model, c, parity)
+    _verify_inversion(data, orb, spinful, P_of_k, c, tol, "parity_polarization")
+    prod = 1.0
+    for kap in (np.zeros(1), np.array([0.5])):
+        xis = _trim_parities(model, kap, occ, orb, P_of_k, tol, spinful,
+                             "occupied space at TRIM %s not closed under inversion" % kap.tolist(),
+                             "parity eigenvalues not quantized")
+        prod *= float(np.prod(np.sign(xis)))
+    branch = 0.0 if prod > 0 else 0.5
+    return float((len(occ) * float(c[0]) + branch) % 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Band-touching points
+# ---------------------------------------------------------------------------
+
+
+def _node_band(data, band):
+    if band is None:
+        band = data.nsta // 2 - 1
+    band = int(band)
+    if not (0 <= band < data.nsta - 1):
+        raise ValueError("band must satisfy 0 <= band < nsta - 1")
+    return band
+
+
+def _node_refine(data, k, band, steps, step0, decay):
+    """Normalized-gradient descent on the direct gap, the whole candidate
+    batch per step (``pythtb_tpu.flows._node_refine_jit`` as a host loop):
+    each step assembles H (kernel 1), solves it (kernel 2 or the library),
+    and takes the Hellmann-Feynman gap gradient <u_{b+1}|dH|u_{b+1}> -
+    <u_b|dH|u_b> from dH/dk (kernel 15); eigenvectors are ROWS.  Returns
+    the final points, their direct gaps and band-``band`` energies."""
+    for i in range(int(steps)):
+        _, v = eigh_batched(assemble(data, k))
+        dH = assemble_dk(data, k)  # (B, dim, nsta, nsta)
+        vn, vm = v[:, band, :], v[:, band + 1, :]
+        gm = torch.einsum("bn,banm,bm->ba", vm.conj(), dH, vm).real
+        gn = torch.einsum("bn,banm,bm->ba", vn.conj(), dH, vn).real
+        g = gm - gn
+        norm = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+        step = step0 * decay**i
+        k = k - step * g / torch.where(norm > 1e-30, norm, torch.ones_like(norm))
+    w = eigvalsh_batched(assemble(data, k))
+    return k, w[:, band + 1] - w[:, band], w[:, band]
+
+
+def find_nodes(model, band=None, nk=24, gap_tol=1e-5, steps=120, merge_tol=1e-3, return_energies=False):
+    """Band-touching points (Dirac/Weyl nodes, band crossings) between
+    bands ``band`` and ``band + 1`` anywhere in the BZ: the direct gap on
+    a uniform ``nk^dim_k`` grid (kernels 1-2), every axis-aligned periodic
+    local minimum refined by normalized Hellmann-Feynman descent with a
+    geometrically decaying step (:func:`_node_refine`), wrapped to [0, 1),
+    filtered to ``gap < gap_tol`` and merged within ``merge_tol``
+    (minimum-image metric in reduced coordinates).
+
+    :returns: ``(kpts (M, dim_k), gaps (M,))`` sorted by gap, plus
+      ``energies (M,)`` if requested; empty arrays when gapped
+    """
+    data = model._get_finalized()
+    dim = data.dim_k
+    if dim < 1:
+        raise ValueError("find_nodes requires at least one periodic direction")
+    band = _node_band(data, band)
+    nk = tuple(int(x) for x in np.atleast_1d(nk))
+    if len(nk) == 1:
+        nk = nk * dim
+    if len(nk) != dim or any(n < 3 for n in nk):
+        raise ValueError("nk must give >= 3 points per periodic direction")
+    dev = data.device
+    w = eigvalsh_batched(assemble(data, device_uniform_grid(nk, np.zeros(dim), dev)))
+    gaps = (w[:, band + 1] - w[:, band]).reshape(nk).cpu().numpy()
+    is_min = np.ones(nk, dtype=bool)
+    for ax in range(dim):
+        is_min &= gaps <= np.roll(gaps, 1, axis=ax)
+        is_min &= gaps <= np.roll(gaps, -1, axis=ax)
+    idx = np.argwhere(is_min)
+    if idx.size == 0:
+        empty = (np.zeros((0, dim)), np.zeros((0,)))
+        return empty + (np.zeros((0,)),) if return_energies else empty
+    k0 = idx.astype(np.float64) / np.asarray(nk, np.float64)
+    h = float(max(1.0 / n for n in nk))
+    decay = float((1e-7 / h) ** (1.0 / max(steps, 1)))
+    # np.argwhere's rows are a transposed view: the kernels read C order
+    k_fin, g_fin, e_fin = _node_refine(data, torch.as_tensor(np.ascontiguousarray(k0)).to(dev), band, steps, h, decay)
+    k_fin = k_fin.cpu().numpy().astype(np.float64) % 1.0
+    g_fin = g_fin.cpu().numpy().astype(np.float64)
+    e_fin = e_fin.cpu().numpy().astype(np.float64)
+    keep = g_fin < float(gap_tol)
+    k_fin, g_fin, e_fin = k_fin[keep], g_fin[keep], e_fin[keep]
+    # merge duplicates, keeping the smallest-gap representative
+    order = np.argsort(g_fin, kind="stable")
+    sel_k, sel_g, sel_e = [], [], []
+    for i in order:
+        dup = False
+        for kk in sel_k:
+            d = k_fin[i] - kk
+            d -= np.round(d)
+            if np.linalg.norm(d) < merge_tol:
+                dup = True
+                break
+        if not dup:
+            sel_k.append(k_fin[i])
+            sel_g.append(g_fin[i])
+            sel_e.append(e_fin[i])
+    kpts = np.asarray(sel_k, np.float64).reshape(-1, dim)
+    out = (kpts, np.asarray(sel_g, np.float64))
+    return out + (np.asarray(sel_e, np.float64),) if return_energies else out
+
+
+def node_chirality(model, k0, band=None, radius=0.02, nf=10):
+    """Topological charge of a 3-D band-touching point: the Chern number
+    of bands ``0..band`` over the six faces of a cube of half-width
+    ``radius`` around ``k0`` (reduced coordinates), faces oriented with
+    the outward normal (the package's slice-Chern convention: C above the
+    node minus C below).  All six faces are assembled and solved as one
+    batch (kernels 1-2), their plaquette fluxes from kernels 3-4.  Warns
+    when a plaquette carries more than pi/2 (another touching on or near
+    the cube) or the total is not near an integer.
+
+    :returns: integer charge
+    """
+    data = model._get_finalized()
+    if data.dim_k != 3:
+        raise ValueError("node_chirality requires a 3-D periodic model")
+    band = _node_band(data, band)
+    dev = data.device
+    k0 = torch.as_tensor(np.asarray(k0, np.float64).reshape(3)).to(dev)
+    nf = int(nf)
+    radius = float(radius)
+    offs = (torch.arange(nf, dtype=config.FLOAT, device=dev) / (nf - 1.0) * 2.0 - 1.0) * radius
+    U, V = torch.meshgrid(offs, offs, indexing="ij")
+
+    def face(d, s, a, b):
+        k = k0.expand(nf, nf, 3).clone()
+        k[..., d] += s * radius
+        k[..., a] += U
+        k[..., b] += V
+        return k
+
+    faces = torch.stack([
+        face(0, +1.0, 1, 2), face(0, -1.0, 2, 1),
+        face(1, +1.0, 2, 0), face(1, -1.0, 0, 2),
+        face(2, +1.0, 0, 1), face(2, -1.0, 1, 0),
+    ])  # (6, nf, nf, 3)
+    w, v = eigh_batched(assemble(data, faces.reshape(-1, 3)))
+    states = v[:, : band + 1, :].reshape(6, nf, nf, band + 1, data.nsta).contiguous()
+    ph = plaquette_flux(*_plane_link_dets(states), individual=True)[0]
+    chi = float(ph.sum()) / (2.0 * np.pi)
+    surf_gap = float((w[:, band + 1] - w[:, band]).min())
+    max_ph = float(ph.abs().max())
+    if max_ph > 0.5 * np.pi:
+        warnings.warn(
+            "node_chirality: a surface plaquette carries %.2f rad of "
+            "flux (band-pair surface gap %.2e) -- another touching "
+            "sits on or near the cube; shrink radius, re-center, or "
+            "raise nf.  The charge is unreliable." % (max_ph, surf_gap))
+    out = int(round(chi))
+    if abs(chi - out) > 0.05:
+        warnings.warn("node_chirality: non-integer total flux %.4f (unresolved curvature -- raise nf or shrink "
+                      "radius)" % chi)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Second Chern number and the axion angle of a model family
+# ---------------------------------------------------------------------------
+
+
+def _c2_dens(G, closed_lam, nlam):
+    """Second-Chern density of a (L, n1, n2, n3, no, S) state family:
+    per-lambda-slice k-means of eps^{abcd} Tr[F_ab F_cd], F_ab = P [d_a P,
+    d_b P] P, with P the occupied projector (gauge-invariant), as
+    ``pythtb_tpu.flows._c2_dens_jit``: k-derivatives 4th-order central,
+    the lambda axis periodic when ``closed_lam`` else one-sided 2nd-order
+    at the path ends.  Torch einsums and matmuls.  Returns (L,)."""
+    P = torch.einsum("...ms,...mt->...st", G, G.conj())
+    nvec = (nlam,) + tuple(P.shape[1:4])
+    d0 = 1.0 / nvec[0]
+
+    def central(ax, d):
+        def r(s):
+            return torch.roll(P, -s, dims=ax)
+        return (-r(2) + 8 * r(1) - 8 * r(-1) + r(-2)) / (12 * d)
+
+    if closed_lam:
+        dPl = central(0, d0)
+    else:
+        dPl = (torch.roll(P, -1, dims=0) - torch.roll(P, 1, dims=0)) / (2 * d0)
+        dPl[0] = (-3 * P[0] + 4 * P[1] - P[2]) / (2 * d0)
+        dPl[-1] = (3 * P[-1] - 4 * P[-2] + P[-3]) / (2 * d0)
+    dP = [dPl] + [central(ax, 1.0 / nvec[ax]) for ax in range(1, 4)]
+
+    def fab(a, b):
+        return P @ (dP[a] @ dP[b] - dP[b] @ dP[a]) @ P
+
+    def tr2(X, Y):
+        return torch.einsum("...ij,...ji->...", X, Y)
+
+    dens = (tr2(fab(0, 1), fab(2, 3)) - tr2(fab(0, 2), fab(1, 3)) + tr2(fab(0, 3), fab(1, 2))).real
+    return dens.mean(dim=(1, 2, 3))
+
+
+def _family_states(models, occ, nk):
+    """(L, n1, n2, n3, no, S) Convention-II occupied states of a model
+    family on a shared k-grid from the origin: per slice one assembly
+    (kernel 1) and one ``eigh_batched`` (kernels 2/7 or the library), the
+    states times e^{2 pi i k.t_orb}."""
+    out = []
+    n1, n2, n3 = nk
+    for m in models:
+        data = m._get_finalized()
+        if data.dim_k != 3:
+            raise ValueError("second_chern/axion_theta require dim_k == 3")
+        if max(occ) >= data.nsta or min(occ) < 0:
+            raise IndexError("occ indices out of range")
+        t = np.asarray(m._orb)[:, m._per].T
+        if m._nspin == 2:
+            t = np.repeat(t, 2, axis=1)
+        kpts = device_uniform_grid(tuple(nk), np.zeros(3), data.device)
+        _, vecs = eigh_batched(assemble(data, kpts))
+        u = vecs[:, list(occ), :]
+        ang = (2.0 * np.pi) * (kpts @ torch.as_tensor(t, dtype=config.FLOAT).to(data.device))
+        u = u * torch.polar(torch.ones_like(ang), ang)[:, None, :]
+        out.append(u.reshape(n1, n2, n3, len(occ), -1))
+    return torch.stack(out)
+
+
+def _refined(nk):
+    return tuple(max(n + 4, int(round(n * 1.25))) for n in nk)
+
+
+def second_chern(models, occ, nk=(16, 16, 16), refine=True):
+    """Second Chern number of a CLOSED gapped family of 3-D models (axion
+    pump): models[i] is the lambda = i/L slice (endpoint not duplicated).
+    The gauge-invariant projector-curvature density (:func:`_c2_dens`);
+    with ``refine`` the ~n^-3 tail is Richardson-extrapolated from nk and
+    ~1.25 nk.
+
+    :returns: float (near-integer)
+    """
+    occ = tuple(int(o) for o in occ)
+    nk = (nk,) * 3 if np.isscalar(nk) else tuple(int(n) for n in nk)
+    L = len(models)
+    if L < 5:
+        raise ValueError("need at least 5 lambda slices")
+
+    def raw(nkv):
+        dk = _c2_dens(_family_states(models, occ, nkv), True, L)
+        return -float(dk.mean()) / (4.0 * np.pi**2)
+
+    c = raw(nk)
+    if not refine:
+        return c
+    nk2 = _refined(nk)
+    c2_ = raw(nk2)
+    rr = float(np.prod(nk2)) / float(np.prod(nk))
+    return c2_ + (c2_ - c) / (rr - 1.0)
+
+
+def axion_theta(models_path, occ, nk=(16, 16, 16), refine=True):
+    """Chern-Simons axion angle theta of ``models_path[0]`` by adiabatic
+    pumping along a GAPPED path to a theta = 0 reference at
+    ``models_path[-1]`` (endpoints included): theta = -2 pi C2_open(path),
+    from the same projector-curvature density as :func:`second_chern`
+    (open lambda axis, trapezoid rule).
+
+    :returns: theta in (-pi, pi]
+    """
+    occ = tuple(int(o) for o in occ)
+    nk = (nk,) * 3 if np.isscalar(nk) else tuple(int(n) for n in nk)
+    L = len(models_path)
+    if L < 5:
+        raise ValueError("need at least 5 path slices")
+    w = np.ones(L)
+    w[0] = w[-1] = 0.5
+
+    def raw(nkv):
+        dk = _c2_dens(_family_states(models_path, occ, nkv), False, L - 1).cpu().numpy()
+        return float((dk * w).sum() / (L - 1)) / (2.0 * np.pi)
+
+    th = raw(nk)
+    if refine:
+        nk2 = _refined(nk)
+        th2 = raw(nk2)
+        rr = float(np.prod(nk2)) / float(np.prod(nk))
+        th = th2 + (th2 - th) / (rr - 1.0)
+    return float((th + np.pi) % (2.0 * np.pi) - np.pi)

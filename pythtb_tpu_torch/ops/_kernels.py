@@ -56,6 +56,8 @@ _SIGNATURES = {
     "pythtb_fermi_sweep": [_P] * 5 + [_I] * 3 + [_D, _I, _P],
     "pythtb_cpa": [_P] * 4 + [_I] * 3 + [_P],
     "pythtb_lyapunov": [_P] * 6 + [_I] * 5 + [_P],
+    "pythtb_eigh_jacobi": [_P] * 4 + [_I] * 3 + [_D, _I, _P],
+    "pythtb_assemble_members": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -65,14 +67,16 @@ _SIGNATURES = {
 # kernel 15 in both its modes (dH/dk and d2H/dk dk); "spectral_sum" counts
 # kernel 16's calls (a partial pass and a reduction each); "decimation_green"
 # counts kernel 12's Green's-function mode (not in "decimation"); "lyapunov"
-# counts kernel 18's launches, one per chunk of steps.  "link_dets_library"
+# counts kernel 18's launches, one per chunk of steps; "eigh_jacobi" counts
+# kernel 7; "assemble_members" counts kernel 1's flux-batch mode (not in
+# "assemble").  "link_dets_library"
 # and "wilson_loop_library" count the shape rules of ops.berry (S > 8),
 # which launch no kernel of this package.
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
      "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov",
-     "link_dets_library", "wilson_loop_library"), 0
+     "eigh_jacobi", "assemble_members", "link_dets_library", "wilson_loop_library"), 0
 )
 
 _lib = None

@@ -6,7 +6,10 @@ Hermitian partner at (j_h, i_h), for a whole (B, dim_k) k-batch.  On a
 CUDA tensor this launches kernel 1 (``csrc/assemble.cu``), which walks
 the gather index of :class:`pythtb_tpu_torch.core.BlochData`; on a CPU
 tensor it runs the plain scatter version below, the scatter path of the
-JAX package.  :func:`assemble_one_sided` is kernel 1's one-sided mode:
+JAX package.  :func:`assemble_members` is kernel 1's flux-batch mode:
+one hopping graph, P members of it with their own amplitudes and on-site
+matrices, at shared k-points, in one launch (``magnetic.hofstadter_fn``).
+:func:`assemble_one_sided` is kernel 1's one-sided mode:
 the direct terms only, no partner and no diagonal (the inter-layer block
 of ``pythtb_tpu.surface._one_sided``).  :func:`assemble_dk` and
 :func:`assemble_d2k` are kernel 15, the analytic k-derivatives.
@@ -22,7 +25,7 @@ from .. import config
 from ..core import BlochData
 from . import _kernels
 
-__all__ = ["assemble", "assemble_one_sided", "assemble_dk", "assemble_d2k"]
+__all__ = ["assemble", "assemble_members", "assemble_one_sided", "assemble_dk", "assemble_d2k"]
 
 
 def _phases(data: BlochData, kpts):
@@ -31,27 +34,47 @@ def _phases(data: BlochData, kpts):
     return torch.polar(torch.ones_like(ang), ang)
 
 
-def _assemble_plain(data: BlochData, kpts):
-    """Plain PyTorch assembly by scatter-add (``index_put_`` with
-    ``accumulate=True``): the oracle of kernel 1."""
-    B = kpts.shape[0]
+def _scatter_plain(data: BlochData, vals, diag):
+    """Scatter-add the direct terms ``vals`` (B, nhop[, 2, 2]) and their
+    Hermitian partners into (B, nsta, nsta), plus ``diag`` (B or 1, nsta,
+    nsta)."""
+    B = vals.shape[0]
     n = data.norb
-    ph = _phases(data, kpts)
-    rows = torch.arange(B, device=kpts.device)[:, None]
+    rows = torch.arange(B, device=vals.device)[:, None]
     ii, jj = data.ii[None, :], data.jj[None, :]
     if data.nspin == 1:
-        vals = ph * data.amps[None, :]  # (B, nhop)
-        H = torch.zeros((B, n, n), dtype=config.COMPLEX, device=kpts.device)
+        H = torch.zeros((B, n, n), dtype=config.COMPLEX, device=vals.device)
         H.index_put_((rows, ii, jj), vals, accumulate=True)
         H.index_put_((rows, jj, ii), torch.conj_physical(vals), accumulate=True)
-        return H + data.diag[None]
-    vals = ph[:, :, None, None] * data.amps[None]  # (B, nhop, 2, 2)
-    Hblk = torch.zeros((B, n, n, 2, 2), dtype=config.COMPLEX, device=kpts.device)
+        return H + diag
+    Hblk = torch.zeros((B, n, n, 2, 2), dtype=config.COMPLEX, device=vals.device)
     Hblk.index_put_((rows, ii, jj), vals, accumulate=True)
     Hblk.index_put_((rows, jj, ii), torch.conj_physical(vals.transpose(-1, -2)), accumulate=True)
     # (B, i, j, s, t) -> (B, i, s, j, t) -> (B, 2n, 2n)
     H = Hblk.permute(0, 1, 3, 2, 4).reshape(B, data.nsta, data.nsta)
-    return H + data.diag[None]
+    return H + diag
+
+
+def _direct_terms(ph, amps):
+    """amp_h e^{2 pi i k.rv_h}: phases (B, nhop) times amps (nhop[, 2, 2])."""
+    return ph * amps[None] if amps.dim() == 1 else ph[:, :, None, None] * amps[None]
+
+
+def _assemble_plain(data: BlochData, kpts):
+    """Plain PyTorch assembly by scatter-add (``index_put_`` with
+    ``accumulate=True``): the oracle of kernel 1."""
+    return _scatter_plain(data, _direct_terms(_phases(data, kpts), data.amps), data.diag[None])
+
+
+def _assemble_members_plain(data: BlochData, amps, diag, kpts):
+    """Plain PyTorch flux-batch assembly: the scatter of
+    :func:`_assemble_plain` with member p's amplitudes ``amps[p]`` and
+    on-site matrix ``diag[p]`` at every k-point.  The oracle of kernel 1's
+    flux-batch mode."""
+    P, NK = amps.shape[0], kpts.shape[0]
+    ph = _phases(data, kpts)
+    vals = torch.cat([_direct_terms(ph, a) for a in amps]) if P else ph.new_zeros((0,) + tuple(amps.shape[1:]))
+    return _scatter_plain(data, vals, diag.repeat_interleave(NK, dim=0))
 
 
 def _one_sided_plain(data: BlochData, kpts):
@@ -105,6 +128,32 @@ def assemble(data: BlochData, kpts):
     if kpts.device.type == "cpu":
         return _assemble_plain(data, kpts)
     return _launch(data, kpts, False)
+
+
+def assemble_members(data: BlochData, amps, diag, kpts):
+    """H(k) of P members of one hopping graph at shared k-points: member
+    p has amplitudes ``amps[p]`` (P, nhop) complex128 ((P, nhop, 2, 2) at
+    nspin 2, in ``data``'s hopping order) and on-site matrix ``diag[p]``
+    (P, nsta, nsta); ``data`` gives the graph (rv and the gather index).
+    Returns (P * NK, nsta, nsta), member-major: row p * NK + i is member
+    p at k-point i.  One launch of kernel 1's flux-batch mode on the
+    card."""
+    P, NK = amps.shape[0], kpts.shape[0]
+    if data.nhop == 0:
+        return diag.repeat_interleave(NK, dim=0)
+    if kpts.device.type == "cpu":
+        return _assemble_members_plain(data, amps, diag, kpts)
+    dev = data.device
+    _kernels.require(kpts, "kpts", config.FLOAT, (NK, data.dim_k), dev)
+    _kernels.require(data.rv, "rv", config.FLOAT, (data.nhop, data.dim_k), dev)
+    _kernels.require(amps, "amps", config.COMPLEX, (P, data.nhop) + (2, 2)[: 2 * (data.nspin - 1)], dev)
+    _kernels.require(diag, "diag", config.COMPLEX, (P, data.nsta, data.nsta), dev)
+    _kernels.require(data.ptr, "ptr", torch.int32, (data.norb**2 + 1,), dev)
+    _kernels.require(data.ent, "ent", torch.int32, (2 * data.nhop,), dev)
+    H = torch.empty((P * NK, data.nsta, data.nsta), dtype=config.COMPLEX, device=dev)
+    _kernels.launch("assemble_members", dev, kpts, data.rv, amps, diag, data.ptr, data.ent, H,
+                    P, NK, data.dim_k, data.norb, data.nspin, data.nhop)
+    return H
 
 
 def assemble_one_sided(data: BlochData, kpts):

@@ -59,3 +59,47 @@ GREEN_CASES = {
 def test_port_refuses_green_function_misuse_like_jax(name):
     fn = GREEN_CASES[name]
     assert _outcome(pythtb_tpu_torch, fn) == _outcome(pythtb_tpu, fn) == "raise"
+
+
+def _finite(M):
+    return M.models.chain().cut_piece(4, 0)
+
+
+# misuse of the seventh slice's calls (flows, magnetic, family): each must
+# raise in both packages
+SLICE7_CASES = {
+    "dos_finite": lambda M: M.flows.density_of_states(_finite(M), (4,)),
+    "dos_mesh_length": lambda M: M.flows.density_of_states(M.models.haldane(), (4,)),
+    "pdos_mesh_length": lambda M: M.flows.projected_dos(M.models.haldane(), (4, 4, 4)),
+    "velocities_finite": lambda M: M.flows.band_velocities(_finite(M), [[0.0]]),
+    "spin_texture_spinless": lambda M: M.flows.spin_texture(M.models.haldane(), [0], [[0.0, 0.0]]),
+    "spin_texture_k_shape": lambda M: M.flows.spin_texture(M.models.kane_mele(), [0], [[0.0, 0.0, 0.0]]),
+    "quadrupole_3d": lambda M: M.flows.quadrupole(M.models.fu_kane_mele()),
+    "quadrupole_occ_range": lambda M: M.flows.quadrupole(M.models.bbh(), occ=(0, 9), nk=(5, 5)),
+    "sector_not_hermitian": lambda M: M.flows.sector_chern(M.models.bhz(), (0, 1), np.eye(4, k=1)),
+    "sector_split": lambda M: M.flows.sector_chern(M.models.bhz(), (0, 1), [1.0, -1.0, 1.0, -1.0], split=3),
+    "spin_chern_spinless": lambda M: M.flows.spin_chern(M.models.haldane()),
+    "spin_chern_odd_occ": lambda M: M.flows.spin_chern(M.models.kane_mele(), (0,)),
+    "valley_points_shape": lambda M: M.flows.valley_chern(M.models.bn(), [0], [[0.5]], nk=(5, 5)),
+    "valley_occ_range": lambda M: M.flows.valley_chern(M.models.bn(), [5], [[0.3, 0.6]], nk=(5, 5)),
+    "parity_z2_spinless": lambda M: M.flows.parity_z2(M.models.haldane(), (0,)),
+    "parity_polarization_2d": lambda M: M.flows.parity_polarization(M.models.haldane(), [0]),
+    "find_nodes_band": lambda M: M.flows.find_nodes(M.models.haldane(), band=5),
+    "find_nodes_finite": lambda M: M.flows.find_nodes(_finite(M)),
+    "node_chirality_2d": lambda M: M.flows.node_chirality(M.models.haldane(), [0.3, 0.6]),
+    "second_chern_slices": lambda M: M.flows.second_chern([M.models.fu_kane_mele()] * 3, (0, 1)),
+    "second_chern_2d": lambda M: M.flows.second_chern([M.models.haldane()] * 5, (0,), nk=(3, 3, 3)),
+    "axion_theta_slices": lambda M: M.flows.axion_theta([M.models.fu_kane_mele()] * 4, (0, 1)),
+    "hofstadter_finite_dir": lambda M: M.magnetic.hofstadter_fn(M.models.haldane().cut_piece(3, 0), 3),
+    "hofstadter_q_zero": lambda M: M.magnetic.hofstadter_fn(M.models.haldane(), 0),
+    "streda_irrational": lambda M: M.magnetic.streda_labels(M.models.haldane(), 0.5, 3, nk=5),
+    "family_empty": lambda M: M.family([]),
+    "family_mixed_dims": lambda M: M.family([M.models.haldane(), M.models.chain()]),
+    "family_nocc": lambda M: M.family([M.models.haldane()]).chern(nocc=[3], nk=(5, 5)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE7_CASES))
+def test_port_refuses_slice_seven_misuse_like_jax(name):
+    fn = SLICE7_CASES[name]
+    assert _outcome(pythtb_tpu_torch, fn) == _outcome(pythtb_tpu, fn) == "raise"

@@ -714,3 +714,139 @@ def test_green_function_slice_goes_through_kernels(dev):
         config.set_device(prev)
     for got, want in zip(card, cpu):
         assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+def _hermitian_batch(seed, B, m, dev, degenerate=False):
+    rng = np.random.default_rng(seed)
+    if degenerate:  # exact multiplicities: unitary conjugates of repeated levels
+        out = []
+        for _ in range(B):
+            Q, _r = np.linalg.qr(rng.normal(size=(m, m)) + 1j * rng.normal(size=(m, m)))
+            d = np.sort(np.repeat(rng.normal(size=m), 4)[:m])
+            out.append((Q * d) @ Q.conj().T)
+        H = np.array(out)
+    else:
+        X = rng.normal(size=(B, m, m)) + 1j * rng.normal(size=(B, m, m))
+        H = 0.5 * (X + np.conj(np.swapaxes(X, -1, -2)))
+    return torch.as_tensor(np.ascontiguousarray(H)).to(dev)
+
+
+def _projector_diff(w, v, v_ref, gap=1e-8):
+    """Largest difference of the projectors onto groups of eigenvalues
+    split by more than ``gap`` (v, v_ref row eigenvectors)."""
+    worst = 0.0
+    for b in range(w.shape[0]):
+        wb = w[b].cpu().numpy()
+        cuts = np.nonzero(np.diff(wb) > gap)[0] + 1
+        for g in np.split(np.arange(len(wb)), cuts):
+            g = torch.as_tensor(g, device=v.device)
+            P = v[b, g].T @ v[b, g].conj()
+            Q = v_ref[b, g].T @ v_ref[b, g].conj()
+            worst = max(worst, float((P - Q).abs().max()))
+    return worst
+
+
+@pytest.mark.parametrize("m,degenerate", [(1, False), (3, False), (17, False), (33, False), (39, False),
+                                          (40, False), (48, False), (63, False), (64, False), (40, True)])
+def test_eigh_jacobi_kernel(dev, m, degenerate):
+    """Kernel 7 against its plain version and torch.linalg.eigh: scaled
+    eigenvalues within 1e-12, projectors of split groups within 1e-10, the
+    residual and orthonormality within 1e-12; eigenvalues-only mode gives
+    the same eigenvalues."""
+    H = _hermitian_batch(190 + m, 9, m, dev, degenerate)
+    scale = max(1.0, float(torch.linalg.matrix_norm(H).max()))
+    before = _kernels.LAUNCHES["eigh_jacobi"]
+    w, v = eigh.eigh_jacobi(H)
+    assert _kernels.LAUNCHES["eigh_jacobi"] == before + 1
+    wp, vp = eigh._eigh_jacobi_plain(H)
+    wl, vl = torch.linalg.eigh(H)
+    assert _max_diff(w, wp) < 1e-12 * scale and _max_diff(w, wl) < 1e-12 * scale
+    assert _projector_diff(wp, v, vp) < 1e-10
+    assert _projector_diff(wl, v, vl.transpose(-1, -2)) < 1e-10
+    resid = H @ v.transpose(-1, -2) - v.transpose(-1, -2) * w[:, None, :]
+    assert float(resid.abs().max()) < 1e-12 * scale
+    eye = torch.eye(m, dtype=torch.complex128, device=dev)
+    assert float((v @ v.conj().transpose(-1, -2) - eye).abs().max()) < 1e-12
+    assert _max_diff(eigh.eigh_jacobi(H, vectors=False), w) < 1e-12 * scale
+
+
+def test_eigh_batched_routes_33_to_64_through_kernel_7(dev):
+    """m 33-64 on the card never reaches torch.linalg.eigh: both entry
+    points launch kernel 7; m 32 and 65 do not."""
+    for m, launched in ((32, 0), (33, 1), (64, 1), (65, 0)):
+        H = _hermitian_batch(200 + m, 4, m, dev)
+        before = _kernels.LAUNCHES["eigh_jacobi"]
+        w, v = eigh.eigh_batched(H)
+        w2 = eigh.eigvalsh_batched(H)
+        assert _kernels.LAUNCHES["eigh_jacobi"] == before + 2 * launched
+        assert _max_diff(w, w2) < 1e-12 * max(1.0, float(w.abs().max()))
+        assert w.shape == (4, m) and v.shape == (4, m, m)
+
+
+def test_eigh_jacobi_kernel_raises_unconverged_and_refuses_m_above_64(dev, monkeypatch):
+    H = _hermitian_batch(210, 3, 40, dev)
+    monkeypatch.setattr(eigh, "JACOBI_SWEEPS", 1)
+    with pytest.raises(RuntimeError, match="not converged in 1 sweeps"):
+        eigh.eigh_jacobi(H)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="up to 64"):
+        eigh.eigh_jacobi(_hermitian_batch(211, 2, 65, dev))
+
+
+@pytest.mark.parametrize("dim_k,nspin", [(1, 1), (2, 1), (3, 1), (2, 2)])
+def test_assemble_members_kernel(dev, dim_k, nspin):
+    """Kernel 1's flux-batch mode against its plain version (1e-14)."""
+    data, k = _random_data(220 + dim_k + nspin, dim_k, nspin, dev)
+    rng = np.random.default_rng(230 + dim_k + nspin)
+    P = 5
+    shape = (P,) + tuple(data.amps.shape)
+    amps = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape)).to(dev)
+    diag = torch.as_tensor(rng.normal(size=(P, data.nsta, data.nsta)) + 0j).to(dev)
+    before = _kernels.LAUNCHES["assemble_members"]
+    got = hamiltonian.assemble_members(data, amps, diag, k)
+    assert _kernels.LAUNCHES["assemble_members"] == before + 1
+    want = hamiltonian._assemble_members_plain(data, amps, diag, k)
+    assert got.shape == (P * k.shape[0], data.nsta, data.nsta)
+    assert _max_diff(got, want) < 1e-14 * max(1.0, float(want.abs().max()))
+
+
+def test_slice_seven_goes_through_kernels(dev):
+    """The Hofstadter butterfly (flux batch + kernel 7), Streda labels,
+    the slab solve (kernel 7), the quadrupole, sector Chern, nodes, DOS
+    and a family on the card launch their kernels and agree with the CPU
+    run of the same calls."""
+    import pythtb_tpu_torch as pt
+
+    def run():
+        sq = pt.tb_model(2, 2, np.eye(2), [[0.0, 0.0]])
+        sq.set_hop(-1.0, 0, 0, [1, 0])
+        sq.set_hop(-1.0, 0, 0, [0, 1])
+        _, ev = pt.magnetic.hofstadter_butterfly(sq, 40, nk=2, p_values=[0, 1, 7])
+        lab = pt.magnetic.streda_labels(sq, 1, 5, nk=11)["labels"]
+        q = pt.flows.quadrupole(pt.models.bbh(0.5, 1.0), nk=(9, 9))
+        s = pt.flows.spin_chern(pt.models.kane_mele(), nk=(9, 9))
+        k, _ = pt.flows.find_nodes(pt.models.weyl(), band=0, nk=8, gap_tol=1e-4)
+        _, dos = pt.flows.density_of_states(pt.models.haldane(), (8, 8), n_energies=31)
+        fam = pt.family([pt.models.haldane(), pt.models.haldane().make_supercell([[2, 0], [0, 1]])])
+        return [ev, np.array(lab, float), np.array([q["qxy"], s["spin_chern"]]), dos, fam.chern(nocc=[1, 2], nk=(9, 9)),
+                k[np.argsort(k[:, 2])]]
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card = run()
+        for name in ("assemble", "assemble_members", "eigh_jacobi", "eig2", "link_dets", "plaquette_flux",
+                     "wilson_loop", "assemble_dk", "spectral_sum"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu = run()
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card[:-1], cpu[:-1]):
+        assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+    # the refined nodes agree to the descent's resolution (tests/test_torch_nodes.py),
+    # as points of the torus (a node at k_x = 0 may come back as 1 - 1e-9)
+    assert card[-1].shape == cpu[-1].shape
+    d = card[-1] - cpu[-1]
+    assert np.abs(d - np.round(d)).max() <= 5e-6
