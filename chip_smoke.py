@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: needs torch.cuda.is_available(); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compiles the seventeen CUDA kernels with nvcc (sm_90a, one nvcc
+2. build: compiles the nineteen CUDA kernels with nvcc (sm_90a, one nvcc
    per source, all started together) into build/pythtb_tpu_torch/ and
    prints the build seconds and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -38,7 +38,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    torch.linalg.eigh at m 33-64, the slab's and the Hofstadter row's
    matrices (eigenvalues 1e-12 of max(1, ||H||_F), projectors 1e-10),
    timed against torch.linalg.eigh there and at m 8, 16, 32, and kernel
-   1's flux-batch mode at the Hofstadter row (1e-14);
+   1's flux-batch mode at the Hofstadter row (1e-14); the eighth slice's
+   kernel 14 (parallel transport: chain, rotate closed and open, follow)
+   at the pump's 41 x 31 grid along both axes and a 41 x 41 Kane-Mele
+   grid (nspin 2, nocc 2) at 1e-12, and kernel 19 (one Marzari-Vanderbilt
+   step) on the silicon row's coarse 8^3 overlaps, single steps at 1e-12
+   and the whole 400-step run against the plain run (Omega_I 1e-10,
+   Omega 1e-9, history and centres 1e-7, relative: PERF.md section 2);
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -79,8 +85,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the Fu-Kane-Mele second Chern number, against the CPU run at 1e-10
    relative (the nodes at 5e-6, the second Chern number at 8^3 there);
    kernel 7 must carry the slab's solve and the Hofstadter call, and the
-   flux-batch mode the latter; then the steady wall time of the main
-   calls;
+   flux-batch mode the latter; and the eighth slice's rows with their
+   pins: the silicon valence MLWF (coarse 8^3, 400 MV steps through
+   kernel 19, 16^3 refinement), the 5 x 5 graphene unfolding (50 bands,
+   121 k), the Haldane entanglement flow (L 20, 61 k), examples/
+   pump_tools.py at 41 x 31 (family fill, adiabatic following, smooth
+   gauge: kernels 1, 14) and examples/symmetry_indicators.py's Chern
+   indicators, against the CPU run (1e-10; the MLWF's bands and spreads,
+   which end a whole MV run, at the tolerances of PERF.md section 2);
+   then the steady wall time of the main calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -614,6 +627,7 @@ def phase_kernels(torch, pt, device):
     slice5_kernels(torch, pt, device, record, held)
     slice6_kernels(torch, pt, device, record, held)
     slice7_kernels(torch, pt, device, record, held)
+    slice8_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -2061,6 +2075,309 @@ def compare_slice7(out, ref):
         check(err <= tol, "%s differs from the CPU path by %.3e (relative, limit %.0e)" % (key, err, tol))
 
 
+PUMP_NL, PUMP_NK = 41, 31  # examples/pump_tools.py
+S8 = {"si_nk": 16, "si_coarse": 8, "si_steps": 400, "unfold_k": 121, "ent_L": 20, "ent_nk": 61, "km_grid": 41}
+SI_PATH = [[0.5, 0.5, 0.5], [0, 0, 0], [0.5, -0.5, 0.0]]  # si_valence_mlwf_multigrid_16: 51 points
+SYM_HALDANE = ((0.2, 0.5), (0.2, -0.5), (1.5, 0.5), (0.5, 0.25), (0.9, -0.75))  # examples/symmetry_indicators.py
+SYM_QWZ = (-1.0, 1.0, 2.5)
+# whole MV runs, card against the CPU or the plain run (PERF.md section 2): the
+# gauge-invariant Omega_I, the final Omega, and the history, centres, bands and
+# projection sv (observed: 6e-14 / 5e-12, 9.2e-11, and at most 2.2e-9)
+MV_TOL = {"omega_i": 1e-10, "omega": 1e-9, "history": 1e-7, "bands": 1e-7}
+
+
+def cost_transport_chain(outer, L, inner, S, F):
+    """Kernel 14's chain: the S selected rows of every point read once, the
+    prefixes written; S^2 F complex multiply-adds a link, O(S^3) for the
+    polar factor and the product."""
+    pts = outer * L * inner
+    nbytes = pts * S * F * C128 + pts * S * S * C128 + outer * inner * F64
+    return bound(nbytes, outer * inner * (L - 1) * (8.0 * S * S * F + 80.0 * S**3))
+
+
+def cost_transport_rotate(outer, L, inner, S, NS, F):
+    """Kernel 14's rotate: the grid read once and written once, the prefixes
+    and the holonomy eigenpairs read; S^2 F multiply-adds a point."""
+    pts = outer * L * inner
+    nbytes = 2 * pts * NS * F * C128 + pts * S * S * C128 + outer * inner * (S * S * C128 + S * F64)
+    return bound(nbytes, pts * (8.0 * S * S * F + 16.0 * S**3))
+
+
+def cost_transport_follow(outer, L, inner, NS, nocc, F):
+    """Kernel 14's follow: every state read once, the followed rows, the
+    indices and the fidelities written; nocc NS F multiply-adds a step."""
+    pts = outer * L * inner
+    nbytes = pts * NS * F * C128 + pts * nocc * (F * C128 + I64) + outer * (L - 1) * inner * F64
+    return bound(nbytes, pts * (8.0 * nocc * NS * F + 8.0 * nocc * nocc * F + 80.0 * nocc**3))
+
+
+def cost_mv_step(B, nb, n, steps=1):
+    """Kernel 19 per step: M0 read, M written, U and dW read and written
+    (the per-k partial sums are small); 2 n^3 complex products a (k, b) and
+    the gradient and exp(dW) per k."""
+    nbytes = 2 * B * nb * n * n * C128 + 4 * B * n * n * C128
+    return bound(steps * nbytes, steps * (B * nb * (16.0 * n**3 + 60.0 * n * n) + B * 400.0 * n**3))
+
+
+def silicon_model(pt):
+    """The silicon MLWF row's model: Wannier90 silicon, hops below 0.01 eV dropped."""
+    return pt.w90(str(ROOT / "tests" / "data" / "w90_silicon"), "silicon").model(min_hopping_norm=0.01)
+
+
+def pump_grid(pt):
+    """examples/pump_tools.py's family fill: the 3-site pump on 41 lambda x 31 k."""
+    wf = pt.wf_array(pt.models.three_site_chain(0.0), [PUMP_NL, PUMP_NK])
+    gaps = wf.solve_on_grid_models([pt.models.three_site_chain(lam) for lam in np.linspace(0.0, 1.0, PUMP_NL)],
+                                   param_dir=0)
+    wf.impose_loop(0)
+    return wf, gaps
+
+
+def silicon_overlaps(torch, pt, nk):
+    """The silicon MLWF row's coarse-grid overlaps M0 (projected gauge) and
+    shells, built by the port's own helpers on the current device."""
+    from pythtb_tpu_torch import wannier
+
+    si = silicon_model(pt)
+    data = si._get_finalized()
+    t = torch.as_tensor(wannier.WannierInterpolator._t_orb(si)).to(data.device)
+    _, _, u = wannier._grid_solve(data, nk, t)
+    u = u[:, :4]
+    V0, _ = wannier._project_gauge(u, torch.eye(8, dtype=torch.complex128, device=data.device)[:4], False)
+    nbr, w_b, b_cart = wannier._shells_on(si, nk, data.device)
+    return wannier._rotated_overlaps(u, V0, nbr), nbr, w_b, b_cart
+
+
+def slice8_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernels 14 and 19.  Kernel 14's chain, rotate (closed
+    and open) and follow modes against their plain versions at 1e-12: the
+    pump's 41 x 31 grid (nocc 1 of 3 states, F 3) along k (smoothing) and
+    lambda (following), and a 41 x 41 Kane-Mele grid (nspin 2, nocc 2 of 4,
+    F 4) along both axes.  Kernel 19: single MV steps on the silicon row's
+    coarse 8^3 overlaps (from the start and from the state after 40 steps)
+    at 1e-12, and the whole 400-step run against the plain run on
+    Omega_I, Omega and the history (PERF.md section 2)."""
+    from pythtb_tpu_torch import wannier
+    from pythtb_tpu_torch.ops import berry, transport
+
+    wp, _ = pump_grid(pt)
+    kmw = pt.wf_array(pt.models.kane_mele(), [S8["km_grid"]] * 2)
+    kmw.solve_on_grid([0.0, 0.0])
+    cases = [("pump 41x31 along k, nocc 1 of 3", wp, 1, [0], True),
+             ("pump 41x31 along lambda, nocc 1 of 3", wp, 0, [0], False),
+             ("kane_mele 41x41 nspin 2 along k1, nocc 2 of 4", kmw, 1, [0, 1], False),
+             ("kane_mele 41x41 nspin 2 along k0, nocc 2 of 4", kmw, 0, [0, 1], False)]
+    for key, wf, axis, occ, main in cases:
+        w5, _ = transport._strings(wf._device_states(), wf._nspin, 2, axis)
+        w5 = w5.contiguous()
+        outer, L, inner, NS, F = w5.shape
+        occ_t = torch.as_tensor(occ, dtype=torch.int64, device=device)
+        S = len(occ)
+        C, smin = transport._chain(w5, occ_t)
+        Cp, sp = transport._chain_plain(w5, occ_t)
+        ws = w5[:, :, :, occ_t]
+        ovr = berry._overlap(ws[:, :-1], ws[:, 1:]).contiguous()
+
+        def polar_links():
+            U, _, Vh = torch.linalg.svd(ovr, full_matrices=False)
+            return U @ Vh
+
+        record("transport_chain", key, max(max_diff(torch, C, Cp), max_diff(torch, smin, sp)),
+               lambda: transport._chain(w5, occ_t), lambda: transport._chain_plain(w5, occ_t),
+               cost_transport_chain(outer, L, inner, S, F), main, cuda_ms(torch, polar_links), reps=REPS if main else 5)
+        theta, P = (t.contiguous() for t in berry.unitary_eig(Cp[:, -1].contiguous()))
+        for closed in (True, False):
+            err = max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, closed),
+                           transport._rotate_plain(w5, occ_t, Cp, theta, P, closed))
+            record("transport_rotate", "%s, %s" % (key, "closed" if closed else "open"), err,
+                   lambda: transport._rotate(w5, occ_t, Cp, theta, P, closed),
+                   lambda: transport._rotate_plain(w5, occ_t, Cp, theta, P, closed),
+                   cost_transport_rotate(outer, L, inner, S, NS, F), main and closed,
+                   cuda_ms(torch, lambda: torch.matmul(Cp.conj(), ws)), reps=REPS if main else 5)
+        idx, fid, st = transport._follow(w5, occ_t)
+        idx_p, fid_p, st_p = transport._follow_plain(w5, occ_t)
+        check(torch.equal(idx, idx_p), "transport_follow %s: the followed indices differ from the plain version" % key)
+        record("transport_follow", key, max(max_diff(torch, fid, fid_p), max_diff(torch, st, st_p)),
+               lambda: transport._follow(w5, occ_t), lambda: transport._follow_plain(w5, occ_t),
+               cost_transport_follow(outer, L, inner, NS, S, F), key.startswith("pump") and axis == 0,
+               reps=REPS if NS == 3 else 5)
+
+    M0, nbr, w_b, b_cart = silicon_overlaps(torch, pt, (S8["si_coarse"],) * 3)
+    B, nb, n, _ = M0.shape
+    print("  silicon coarse %d^3: %d k-points, %d b-vectors (_bshells), nw %d" % (S8["si_coarse"], B, nb, n))
+    eps0 = 0.5 / (4.0 * float(w_b.sum()))
+    U40, _, _ = wannier._mv_run_plain(M0, nbr, w_b, b_cart, 40, eps0)
+    rng = np.random.default_rng(8)
+    X = torch.as_tensor(rng.normal(size=(B, n, n)) + 1j * rng.normal(size=(B, n, n))).to(device)
+    dW40 = (1e-3 * (X - X.conj().transpose(-1, -2))).contiguous()
+    eye = torch.eye(n, dtype=torch.complex128, device=device).expand(B, n, n).contiguous()
+    for key, U, dW, eps, om_prev, main in (("silicon 8^3 first step", eye, torch.zeros_like(eye), eps0, math.inf, True),
+                                           ("silicon 8^3 after 40 steps, overshoot", U40.contiguous(), dW40,
+                                            3.0 * eps0, -1.0, False)):
+        got = wannier.mv_step(M0, nbr, w_b, b_cart, U, dW, eps, om_prev, eps0)
+        want = wannier._mv_step_plain(M0, nbr, w_b, b_cart, U, dW, torch.tensor(eps, dtype=torch.float64, device=device),
+                                      torch.tensor(om_prev, dtype=torch.float64, device=device), 20.0 * eps0)
+        err = max(max_diff(torch, a, b) / max(1.0, float(b.abs().max())) for a, b in zip(got, want))
+        record("mv_step", key, err, lambda: wannier.mv_step(M0, nbr, w_b, b_cart, U, dW, eps, om_prev, eps0),
+               lambda: wannier._mv_step_plain(M0, nbr, w_b, b_cart, U, dW, torch.tensor(eps, dtype=torch.float64, device=device),
+                                              torch.tensor(om_prev, dtype=torch.float64, device=device), 20.0 * eps0),
+               cost_mv_step(B, nb, n), main, reps=REPS if main else 5)
+    steps = S8["si_steps"]
+    U, hist, (rbar, oi, ot) = wannier.mv_localize(M0, nbr, w_b, b_cart, steps, 0.5)
+    Up, hp, (rp, oip, otp) = wannier._mv_run_plain(M0, nbr, w_b, b_cart, steps, eps0)
+    e_oi = abs(float(oi) - float(oip)) / abs(float(oip))
+    e_om = abs(float(oi + ot) - float(oip + otp)) / abs(float(oip + otp))
+    e_h = max_diff(torch, hist, hp) / float(hp.abs().max())
+    e_r = max_diff(torch, rbar, rp) / max(1.0, float(rp.abs().max()))
+    print("  mv_step         silicon 8^3 %d-step run vs plain run: Omega_I %.3e, Omega %.3e, history %.3e, "
+          "centres %.3e (relative; limits %.0e, %.0e, %.0e, %.0e); Omega %.10f -> %.10f, Omega_I %.10f"
+          % (steps, e_oi, e_om, e_h, e_r, MV_TOL["omega_i"], MV_TOL["omega"], MV_TOL["history"],
+             MV_TOL["history"], float(hist[0]), float(hist[-1]), float(oi)))
+    check(e_oi <= MV_TOL["omega_i"] and e_om <= MV_TOL["omega"] and e_h <= MV_TOL["history"]
+          and e_r <= MV_TOL["history"], "kernel 19's whole run departs from the plain run")
+    record("mv_step", "silicon 8^3 whole %d-step run" % steps, 0.0,
+           lambda: wannier.mv_localize(M0, nbr, w_b, b_cart, steps, 0.5),
+           lambda: wannier._mv_run_plain(M0, nbr, w_b, b_cart, steps, eps0), cost_mv_step(B, nb, n, steps),
+           reps=3, profile=True, prof_reps=1, prof_plain=False)
+
+
+def _cluster_sums(evals, w, tol=1e-8):
+    """Unfolding weights summed over clusters of degenerate energies (a
+    weight inside a degenerate eigenspace is basis dependent), in
+    ascending energy order."""
+    out = []
+    for e, x in zip(evals, w):
+        order = np.argsort(e, kind="stable")
+        e, x = e[order], x[order]
+        cut = np.concatenate([[0], np.nonzero(np.diff(e) > tol)[0] + 1, [len(e)]])
+        out.append([x[a:b].sum() for a, b in zip(cut[:-1], cut[1:])])
+    return out
+
+
+def slice8_path(pt, where, reference):
+    """The eighth slice's rows of tools/bench_suite.py with their pins:
+    si_valence_mlwf_multigrid_16 (:277; coarse 8^3 MLWF, 400 MV steps,
+    16^3 refinement, polish 0: band error < 2e-2 eV on the 51-point path,
+    projection sv > 0.9), unfold_50band_121k (:377; weights sum to 2 within
+    1e-3), entanglement_flow_L20_61k (:388; min |xi - 1/2| < 0.02);
+    examples/pump_tools.py at its published 41 x 31 (|C| and the winding
+    within 1e-3 and 1e-2 of 1, min fidelity > 0.97, link-phase spread
+    < 1e-8 after smooth_gauge); and examples/symmetry_indicators.py's
+    chern_indicator calls against chern_number 41 x 41.  The same at full
+    width on the CPU for the comparison."""
+    import warnings
+
+    from pythtb_tpu_torch.ops import _kernels
+
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    # si_valence_mlwf_multigrid_16
+    si = silicon_model(pt)
+    before = dict(_kernels.LAUNCHES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        itp, sec = timed(pt.wannier.interpolator, si, [0, 1, 2, 3], nk=S8["si_nk"], trial=np.eye(8)[:4],
+                         localize=S8["si_steps"], coarse_nk=S8["si_coarse"], polish=0)
+    out["si_launches"] = {k: _kernels.LAUNCHES[k] - before[k] for k in ("mv_step", "mv_final")}
+    kp = si.k_path(SI_PATH, 51, report=False)[0]
+    out["si_mlwf_bands"] = itp.bands(kp)
+    dev = float(np.abs(out["si_mlwf_bands"] - si.solve_all(kp)[:4]).max())
+    out["si_mlwf_omega"] = np.array([itp.omega_i, itp.omega_i + itp.omega_tilde, itp.min_projection_sv])
+    print("  %s wannier.interpolator silicon valence, coarse 8^3 x 400 MV steps -> 16^3: band error %.3e eV, "
+          "projection sv %.4f, Omega_I %.8f, Omega %.8f  [%.2f s]"
+          % (where, dev, itp.min_projection_sv, itp.omega_i, itp.omega_i + itp.omega_tilde, sec))
+    check(dev < 2e-2 and itp.min_projection_sv > 0.9, "silicon MLWF: error %.3e, sv %.4f" % (dev, itp.min_projection_sv))
+
+    # unfold_50band_121k
+    gm = pt.models.graphene()
+    M5 = np.diag([5, 5])
+    sc5 = gm.make_supercell(M5)
+    kl = np.linspace(0.0, 0.5, S8["unfold_k"])[:, None] * np.array([[1.0, 2.0]])
+    (ue, uw), sec = timed(pt.unfold.unfold_bands, sc5, M5, kl)
+    out["unfold_e"], out["unfold_w"] = ue, uw
+    err = float(np.abs(uw.sum(axis=1) - 2.0).max())
+    print("  %s unfold_bands graphene 5x5 (50 bands) onto 121 k: sum-rule error %.3e  [%.2f s]" % (where, err, sec))
+    check(ue.shape == (121, 50) and err < 1e-3, "unfold sum rule off by %.3e" % err)
+
+    # entanglement_flow_L20_61k
+    (kpar, xi), sec = timed(pt.entanglement.entanglement_flow, pt.models.haldane(), [0], 0, L=S8["ent_L"],
+                            nk=S8["ent_nk"])
+    out["ent_xi"] = xi
+    mid = float(np.abs(xi - 0.5).min())
+    print("  %s entanglement_flow haldane L 20, 61 k: min |xi - 1/2| %.3e  [%.2f s]" % (where, mid, sec))
+    check(xi.shape == (61, 20) and mid < 0.02, "entanglement flow mid-gap %.3e" % mid)
+
+    # examples/pump_tools.py at its published widths
+    (wf, gaps), sec = timed(pump_grid, pt)
+    chern = wf.berry_flux([0], dirs=[0, 1]) / (2.0 * np.pi)
+    idx, fid = wf.adiabatic_evolve([0], dir=0)
+    flow = wf.berry_phase([0], dir=1, contin=True)
+    winding = (flow[-1] - flow[0]) / (2.0 * np.pi)
+    wf.smooth_gauge([0], dir=1, closed=True)
+    w = np.asarray(wf._wfs)[0, :, 0, :]
+    ang = np.angle(np.einsum("kf,kf->k", w[:-1].conj(), w[1:]))
+    spread = float(ang.max() - ang.min())
+    out["pump"] = np.array([chern, winding, fid.min()])
+    out["pump_idx"], out["pump_fid"], out["pump_links"] = idx.astype(float), fid, ang
+    print("  %s pump_tools 41 x 31: Chern %.8f, winding %.8f, band %d -> %d, min fidelity %.6f, link-phase spread "
+          "%.2e  [%.2f s]" % (where, chern, winding, idx[0, 0, 0], idx[-1, 0, 0], fid.min(), spread, sec))
+    check(abs(abs(chern) - 1.0) < 1e-3 and abs(abs(winding) - 1.0) < 1e-2, "pump Chern %.6f, winding %.6f"
+          % (chern, winding))
+    check(fid.min() > 0.97 and spread < 1e-8, "pump fidelity %.4f, spread %.2e" % (fid.min(), spread))
+
+    # examples/symmetry_indicators.py's chern_indicator calls
+    sym = []
+    t0 = time.perf_counter()
+    for delta, phi in SYM_HALDANE:
+        m = pt.models.haldane(delta=delta, t2=0.15 * np.exp(1j * np.pi * phi))
+        res = pt.symmetry.chern_indicator(m, occ=[0])
+        C = int(round(pt.flows.chern_number(m, [0], nk=(41, 41))))
+        check(res["c_mod_n"] == C % res["n"], "haldane (%g, %g): indicator %s vs C %d" % (delta, phi, res, C))
+        sym.append([C, res["c_mod_n"], res["n"]])
+    for u in SYM_QWZ:
+        res = pt.symmetry.chern_indicator(pt.models.qwz(u), occ=[0], l=[0, 1])
+        C = int(round(pt.flows.chern_number(pt.models.qwz(u), [0], nk=(41, 41))))
+        check(res["c_mod_n"] == C % res["n"], "qwz %g: indicator %s vs C %d" % (u, res, C))
+        sym.append([C, res["c_mod_n"], res["n"]])
+    out["sym"] = np.array(sym, float)
+    print("  %s symmetry.chern_indicator, 5 Haldane + 3 QWZ models vs chern_number 41x41: (C, C mod n, n) %s  "
+          "[%.2f s]" % (where, sym, time.perf_counter() - t0))
+    return out
+
+
+def compare_slice8(out, ref):
+    """The eighth slice on the card against the CPU run: entanglement
+    spectra, unfolding energies and the weights summed over degenerate
+    clusters, the pump's invariants, fidelities, indices and smoothed link
+    phases, and the indicators within 1e-10 (relative to the largest
+    entry); the silicon MLWF bands, spreads and fine-grid projection sv,
+    which end a whole MV run, at MV_TOL (Omega_I 1e-10, Omega 1e-8, bands
+    1e-6 relative, the sv 1e-6)."""
+    for key, tol in (("ent_xi", 1e-10), ("unfold_e", 1e-10), ("pump", 1e-10), ("pump_idx", 0.0),
+                     ("pump_fid", 1e-10), ("pump_links", 1e-10), ("sym", 0.0), ("si_mlwf_bands", MV_TOL["bands"])):
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        check(got.shape == want.shape, "%s: shape differs from the CPU run" % key)
+        err = float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+        print("  %s vs CPU: max|diff| %.3e (relative)" % (key, err))
+        check(err <= tol, "%s differs from the CPU path by %.3e (relative, limit %.0e)" % (key, err, tol))
+    got = _cluster_sums(out["unfold_e"], out["unfold_w"])
+    want = _cluster_sums(ref["unfold_e"], ref["unfold_w"])
+    check([len(g) for g in got] == [len(w) for w in want], "unfold: degenerate clusters differ from the CPU run")
+    err = max(float(np.abs(np.array(g) - np.array(w)).max()) for g, w in zip(got, want))
+    print("  unfold weights summed over degenerate clusters vs CPU: max|diff| %.3e" % err)
+    check(err <= 1e-10, "unfold cluster weights differ from the CPU path by %.3e" % err)
+    (oi, om, sv), (roi, rom, rsv) = out["si_mlwf_omega"], ref["si_mlwf_omega"]
+    e_oi, e_om, e_sv = abs(oi - roi) / abs(roi), abs(om - rom) / abs(rom), abs(sv - rsv)
+    print("  silicon MLWF vs CPU: Omega_I %.3e, Omega %.3e (relative), projection sv %.3e" % (e_oi, e_om, e_sv))
+    check(e_oi <= MV_TOL["omega_i"] and e_om <= MV_TOL["omega"] and e_sv <= MV_TOL["history"],
+          "silicon MLWF spreads differ from the CPU run")
+
+
 def phase_main_path(torch, pt, where, reference=False):
     """Phase 4: the port's main path through the entry points a user calls.
     The CPU reference (``reference``) evolves the 90k flake 4 steps of the
@@ -2129,6 +2446,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out.update(slice5_path(pt, where, reference))
     out.update(slice6_path(pt, where, reference))
     out.update(slice7_path(pt, where, reference))
+    out.update(slice8_path(pt, where, reference))
     return out
 
 
@@ -2383,6 +2701,37 @@ def phase_walls(torch, pt, card):
         "family.chern haldane supercells (40 states) 16x16": (
             lambda: fam.chern(nocc=[1, 4, 20], nk=(S7["family"],) * 2), 5, 3),
     })
+    import warnings
+
+    si = silicon_model(pt)
+    sc5, M5 = pt.models.graphene().make_supercell(np.diag([5, 5])), np.diag([5, 5])
+    kl = np.linspace(0.0, 0.5, S8["unfold_k"])[:, None] * np.array([[1.0, 2.0]])
+
+    def silicon_mlwf():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return pt.wannier.interpolator(si, [0, 1, 2, 3], nk=S8["si_nk"], trial=np.eye(8)[:4],
+                                           localize=S8["si_steps"], coarse_nk=S8["si_coarse"], polish=0)
+
+    def pump():
+        wf, _ = pump_grid(pt)
+        wf.adiabatic_evolve([0], dir=0)
+        wf.smooth_gauge([0], dir=1, closed=True)
+        return wf
+
+    def indicators():
+        return ([pt.symmetry.chern_indicator(pt.models.haldane(delta=d, t2=0.15 * np.exp(1j * np.pi * p)), occ=[0])
+                 for d, p in SYM_HALDANE]
+                + [pt.symmetry.chern_indicator(pt.models.qwz(u), occ=[0], l=[0, 1]) for u in SYM_QWZ])
+
+    calls.update({
+        "wannier.interpolator silicon 8^3 x 400 MV steps -> 16^3": (silicon_mlwf, 3, 1),
+        "unfold.unfold_bands graphene 5x5 50 bands 121 k": (lambda: pt.unfold.unfold_bands(sc5, M5, kl), 5, 3),
+        "entanglement.entanglement_flow haldane L20 61 k": (
+            lambda: pt.entanglement.entanglement_flow(hal, [0], 0, L=S8["ent_L"], nk=S8["ent_nk"]), 5, 3),
+        "pump_tools 41x31: solve_on_grid_models + adiabatic_evolve + smooth_gauge": (pump, 5, 3),
+        "symmetry.chern_indicator 5 haldane + 3 qwz": (indicators, 3, 1),
+    })
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
         ms = wall_ms(torch, fn, reps)
@@ -2398,7 +2747,9 @@ def phase_walls(torch, pt, card):
                  "negf.landauer_transmission kane_mele ribbon 6 disordered 121 E",
                  "slab 41x41 wf_array.solve_on_grid (nsta 39, kernel 7)",
                  "magnetic.hofstadter_fn square q40, 41 fluxes x 16 k",
-                 "flows.find_nodes + node_chirality weyl 40^3"):
+                 "flows.find_nodes + node_chirality weyl 40^3",
+                 "wannier.interpolator silicon 8^3 x 400 MV steps -> 16^3",
+                 "pump_tools 41x31: solve_on_grid_models + adiabatic_evolve + smooth_gauge"):
         top, total = device_top(torch, calls[name][0])
         print("  device time of %s: %.1f us per call; largest: %s" % (name, total, "; ".join(
             "%s %.1f us" % (k[:70], us) for k, us in top)))
@@ -2469,11 +2820,16 @@ def main():
     compare_slice5(out, ref)
     compare_slice6(out, ref)
     compare_slice7(out, ref)
+    compare_slice8(out, ref)
     check_lowest_bound(torch, pt, out["lowest"], device)
     print("[4 main] kernel 7 launches in the slab's solve_on_grid: %d; in hofstadter_fn: %s"
           % (out["slab_jacobi_launches"], out["hof_launches"]))
     check(out["slab_jacobi_launches"] > 0, "the slab's 39-state solve did not go through kernel 7")
     check(min(out["hof_launches"].values()) > 0, "the Hofstadter call did not launch kernel 7 and the flux-batch mode")
+    print("[4 main] kernel 19 in the silicon MLWF build: %s (400 steps on the coarse grid, closing spreads on both)"
+          % out["si_launches"])
+    check(out["si_launches"]["mv_step"] == S8["si_steps"] and out["si_launches"]["mv_final"] == 2,
+          "the silicon MLWF build did not run its 400 steps through kernel 19")
 
     # steady wall times of the main calls, after the counted window
     t0 = time.perf_counter()
@@ -2486,7 +2842,7 @@ def main():
     kernels = ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
                "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
                "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov", "eigh_jacobi",
-               "assemble_members")
+               "assemble_members", "transport_chain", "transport_rotate", "transport_follow", "mv_step")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -2512,6 +2868,10 @@ def main():
         "lyapunov": ("lyapunov.cu", "pythtb_tpu/localization.py:73"),
         "eigh_jacobi": ("eigh_jacobi.cu", "pythtb_tpu/ops/eigh.py:69"),
         "assemble_members": ("assemble.cu", "pythtb_tpu/magnetic.py:241"),
+        "transport_chain": ("transport.cu", "pythtb_tpu/ops/transport.py:56"),
+        "transport_rotate": ("transport.cu", "pythtb_tpu/ops/transport.py:56"),
+        "transport_follow": ("transport.cu", "pythtb_tpu/ops/transport.py:103"),
+        "mv_step": ("mv_step.cu", "pythtb_tpu/wannier.py:214"),
     }
     rows = []
     for name in kernels:

@@ -35,19 +35,29 @@ numbers, parity indicators, Weyl nodes and their charges, the second
 Chern number and the axion angle (:mod:`flows`), with densities of
 states, band velocities and spin textures; the Hofstadter butterfly and
 its Streda labels (:mod:`magnetic`); and padded families of models with
-different graphs solved together (:func:`family`).
+different graphs solved together (:func:`family`).  Gauges and Wannier
+functions: parameter families on one grid (``solve_on_grid_models``),
+the smooth parallel-transport gauge and adiabatic following
+(``smooth_gauge``, ``adiabatic_evolve``), Wannier interpolation with
+maximal localization and disentanglement (:mod:`wannier`), band
+unfolding (:mod:`unfold`), entanglement spectra (:mod:`entanglement`)
+and point-group tools with the Chern indicator (:mod:`symmetry`); and
+PythTB's host API: ``display``, ``hamiltonian_string``, ``visualize``,
+and ``save``/``load`` of models and wf_arrays in the JAX package's
+``.npz`` layout.
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through seventeen hand-written
-CUDA kernels, with kernel 1's one-sided and flux-batch modes and kernel
-12's Green's-function mode (``csrc/``, built with nvcc at first use); on the CPU the same
+an NVIDIA Hopper card the hot paths run through nineteen hand-written
+CUDA kernels, with kernel 1's one-sided and flux-batch modes, kernel
+12's Green's-function mode and kernel 14's three modes (``csrc/``, built
+with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
-from . import (boltzmann, config, disorder, dynamics, flows, geometry, impurity, localization, magnetic, models,
-               negf, optical, realspace, surface)
+from . import (boltzmann, config, disorder, dynamics, entanglement, flows, geometry, impurity, localization,
+               magnetic, models, negf, optical, realspace, surface, symmetry, unfold, wannier)
 from .family import ModelFamily, family
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
@@ -59,5 +69,6 @@ __version__ = "0.2.0"
 __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
     "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
-    "impurity", "disorder", "family", "ModelFamily", "__version__",
+    "impurity", "disorder", "family", "ModelFamily", "wannier", "unfold", "entanglement", "symmetry",
+    "__version__",
 ]

@@ -10,18 +10,23 @@ package it converts from:
   :class:`~pythtb_tpu_torch.core.BlochData`;
 * :func:`wf_array_from_numpy` fills a :class:`wf_array` with the states
   of another package's wf_array (eigenvector gauges of separate solves
-  differ, so gauge-dependent comparisons need the same states).
+  differ, so gauge-dependent comparisons need the same states);
+* :func:`wannier_inputs_from_numpy` turns coarse-grid states and raw
+  neighbour overlaps into the tensors of the port's Wannier code
+  (:func:`wannier.mv_localize` and the build helpers), for the same
+  reason.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from . import core
+from . import config, core
 from .model import tb_model
 from .wf_array import wf_array
 
-__all__ = ["tb_model_from_state", "bloch_from_numpy", "wf_array_from_numpy"]
+__all__ = ["tb_model_from_state", "bloch_from_numpy", "wf_array_from_numpy", "wannier_inputs_from_numpy"]
 
 
 def tb_model_from_state(state) -> tb_model:
@@ -97,3 +102,24 @@ def wf_array_from_numpy(model, wfs, energies=None) -> wf_array:
     if energies is not None:
         wf.energies = energies
     return wf
+
+
+def wannier_inputs_from_numpy(M0, nbr, w_b, b_cart, u=None, device=None):
+    """Tensors for the port's Marzari-Vanderbilt code from NumPy arrays.
+
+    :param M0: (B, nb, n, n) complex raw (or gauge-rotated) overlaps
+      M0(k, b) = <u(k)|u(k+b)>
+    :param nbr: (B, nb) flat index of grid point k + b
+    :param w_b: (nb,) shell weights; ``b_cart``: (nb, dim_r) b-vectors
+    :param u: optional (B, n, nsta) complex coarse-grid states (rows)
+    :param device: target device (default ``config.device()``)
+    :returns: ``(M0, nbr, w_b, b_cart)``, plus ``u`` when given, as
+      contiguous complex128 / int64 / float64 tensors
+    """
+    dev = config.checked_device(device)
+
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype).to(dev)
+
+    out = (put(M0, config.COMPLEX), put(nbr, torch.int64), put(w_b, config.FLOAT), put(b_cart, config.FLOAT))
+    return out if u is None else out + (put(u, config.COMPLEX),)

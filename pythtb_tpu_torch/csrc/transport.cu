@@ -1,0 +1,320 @@
+// Kernel 14: parallel transport, the twisted smooth gauge and adiabatic
+// state following.
+//
+// Replaces pythtb_tpu/ops/transport.py:_smooth_gauge_jit and
+// _follow_states_jit, which XLA fused into two programs.  States arrive as
+// the full stored grid viewed as (outer, L, inner, NS, F) -- any grid axis
+// is the L of such a view, with no copy -- and a list of S selected rows
+// (occ).  Three modes:
+//
+//   chain   each string (o, i) walks its L - 1 links: M_l = <w_l | w_{l+1}>
+//           over the occ rows, W_l = polar(M_l), C_{l+1} = C_l W_l with
+//           C_0 = I.  Writes every prefix C_m to C (outer, L, inner, S, S)
+//           and the smallest link singular value of the string.
+//   rotate  each grid point m of a string: B_m = C_m Lambda^{-t_m}, with
+//           t_m = m / (L - 1) and Lambda^{-t} = P diag(e^{-i theta t}) P^H
+//           formed in registers from the string's holonomy eigenpairs
+//           (theta, P) (closed), or B_m = C_m (open); the new occ rows are
+//           conj(B_m) w_m, written into a copy of the full state grid.
+//   follow  one thread per string walks the L - 1 steps of the adiabatic
+//           scan: the overlaps of the NOCC transported states with all NS
+//           states of the next point, the squared-overlap weights, the
+//           NOCC largest (ties to the lower index, as jax.lax.top_k) with
+//           their indices sorted ascending, the polar factor of the selected
+//           NOCC x NOCC block and the new transported states conj(U) w_sel.
+//           Per step it writes the indices, the captured fraction and the
+//           states; the next step reads the states back from the output.
+//
+// What bounds it on the H100: bytes.  Chain and rotate read the selected
+// rows once per string (rotate reads them once more and writes them), follow
+// reads every state once and writes NOCC rows a point; the link algebra is
+// O(S^3) a link, far below the fp64 peak at S <= 8.  Design: one thread per
+// string (chain, follow) or per grid point (rotate); the TPU's log-depth
+// associative_scan of the chain becomes the string's loop, so the prefixes
+// agree with the JAX program to about L eps, not bit for bit.  The matrices
+// stay in registers (S and NOCC are template parameters).  Larger S takes
+// the library path of the Python wrapper (a shape rule with its own
+// counter).
+#include "polar.cuh"
+
+constexpr int kMaxStates = 8;
+
+template <int S>
+__global__ void transport_chain_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
+                                       cplx* __restrict__ C, double* __restrict__ smin_out,
+                                       int64_t outer, int64_t L, int64_t inner, int NS, int F) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= outer * inner) return;
+    const int64_t i = t % inner;
+    const int64_t o = t / inner;
+    const int64_t row = (int64_t)NS * F;  // one grid point of w
+    const cplx* base = w + (o * L * inner + i) * row;
+    cplx* cbase = C + (o * L * inner + i) * S * S;
+    int rows[S];
+#pragma unroll
+    for (int n = 0; n < S; ++n) rows[n] = (int)occ[n];
+
+    cplx P[S][S];
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+        for (int c = 0; c < S; ++c) {
+            P[r][c] = make_cuDoubleComplex(r == c ? 1.0 : 0.0, 0.0);
+            cbase[r * S + c] = P[r][c];
+        }
+    double smin = 1.0e300;
+    for (int64_t l = 0; l + 1 < L; ++l) {
+        const cplx* wa = base + l * inner * row;
+        const cplx* wb = wa + inner * row;
+        cplx M[S][S];
+#pragma unroll
+        for (int n = 0; n < S; ++n) {
+#pragma unroll
+            for (int m = 0; m < S; ++m) {
+                double re = 0.0, im = 0.0;
+                const cplx* a = wa + (int64_t)rows[n] * F;
+                const cplx* b = wb + (int64_t)rows[m] * F;
+                for (int f = 0; f < F; ++f) {
+                    const cplx z = cmul_conj(a[f], b[f]);
+                    re += z.x;
+                    im += z.y;
+                }
+                M[n][m] = make_cuDoubleComplex(re, im);
+            }
+        }
+        smin = fmin(smin, polar_factor<S>(M));
+        cplx* out = cbase + (l + 1) * inner * S * S;
+#pragma unroll
+        for (int r = 0; r < S; ++r) {
+            cplx nrow[S];
+#pragma unroll
+            for (int c = 0; c < S; ++c) {
+                cplx acc = make_cuDoubleComplex(0.0, 0.0);
+#pragma unroll
+                for (int k = 0; k < S; ++k) acc = cuCadd(acc, cuCmul(P[r][k], M[k][c]));
+                nrow[c] = acc;
+            }
+#pragma unroll
+            for (int c = 0; c < S; ++c) {
+                P[r][c] = nrow[c];
+                out[r * S + c] = nrow[c];
+            }
+        }
+    }
+    smin_out[t] = smin;
+}
+
+template <int S>
+__global__ void transport_rotate_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
+                                        const cplx* __restrict__ C, const double* __restrict__ theta,
+                                        const cplx* __restrict__ Pm, cplx* __restrict__ out,
+                                        int64_t outer, int64_t L, int64_t inner, int NS, int F,
+                                        int closed) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= outer * L * inner) return;
+    const int64_t i = t % inner;
+    const int64_t l = (t / inner) % L;
+    const int64_t o = t / (inner * L);
+    const int64_t str = o * inner + i;  // the string of this point
+    const cplx* c = C + t * S * S;
+    cplx B[S][S];
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+#pragma unroll
+        for (int k = 0; k < S; ++k) B[r][k] = c[r * S + k];
+    if (closed) {
+        // Lambda^{-t} = P diag(e^{-i theta t}) P^H, then B <- C_m Lambda^{-t}
+        const double tm = (double)l / (double)(L - 1);
+        const cplx* p = Pm + str * S * S;
+        cplx ph[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            double sn, cs;
+            sincos(-theta[str * S + j] * tm, &sn, &cs);
+            ph[j] = make_cuDoubleComplex(cs, sn);
+        }
+        cplx lam[S][S];
+#pragma unroll
+        for (int r = 0; r < S; ++r)
+#pragma unroll
+            for (int k = 0; k < S; ++k) {
+                cplx acc = make_cuDoubleComplex(0.0, 0.0);
+#pragma unroll
+                for (int j = 0; j < S; ++j)
+                    acc = cuCadd(acc, cuCmul(cuCmul(p[r * S + j], ph[j]), cconj(p[k * S + j])));
+                lam[r][k] = acc;
+            }
+#pragma unroll
+        for (int r = 0; r < S; ++r) {
+            cplx nrow[S];
+#pragma unroll
+            for (int k = 0; k < S; ++k) {
+                cplx acc = make_cuDoubleComplex(0.0, 0.0);
+#pragma unroll
+                for (int j = 0; j < S; ++j) acc = cuCadd(acc, cuCmul(B[r][j], lam[j][k]));
+                nrow[k] = acc;
+            }
+#pragma unroll
+            for (int k = 0; k < S; ++k) B[r][k] = nrow[k];
+        }
+    }
+    const int64_t row = (int64_t)NS * F;
+    const cplx* src = w + t * row;
+    cplx* dst = out + t * row;
+    int rows[S];
+#pragma unroll
+    for (int n = 0; n < S; ++n) rows[n] = (int)occ[n];
+    for (int f = 0; f < F; ++f) {
+        cplx x[S];
+#pragma unroll
+        for (int j = 0; j < S; ++j) x[j] = src[(int64_t)rows[j] * F + f];
+#pragma unroll
+        for (int n = 0; n < S; ++n) {
+            cplx acc = make_cuDoubleComplex(0.0, 0.0);
+#pragma unroll
+            for (int j = 0; j < S; ++j) acc = cuCadd(acc, cuCmul(cconj(B[n][j]), x[j]));
+            dst[(int64_t)rows[n] * F + f] = acc;
+        }
+    }
+}
+
+template <int NOCC>
+__global__ void transport_follow_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
+                                        int64_t* __restrict__ idx, double* __restrict__ fid,
+                                        cplx* __restrict__ states, int64_t outer, int64_t L,
+                                        int64_t inner, int NS, int F) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int64_t nstr = outer * inner;
+    if (t >= nstr) return;
+    const int64_t i = t % inner;
+    const int64_t o = t / inner;
+    const int64_t row = (int64_t)NS * F;
+    const cplx* wbase = w + (o * L * inner + i) * row;
+    cplx* sbase = states + (o * L * inner + i) * NOCC * F;
+    const int64_t sstep = inner * NOCC * F;  // one step of a string in states
+
+    // step 0: the chosen states themselves
+    for (int n = 0; n < NOCC; ++n) {
+        idx[t * NOCC + n] = occ[n];
+        const cplx* src = wbase + occ[n] * F;
+        for (int f = 0; f < F; ++f) sbase[n * F + f] = src[f];
+    }
+    for (int64_t l = 1; l < L; ++l) {
+        const cplx* f0 = sbase + (l - 1) * sstep;  // transported states (NOCC, F)
+        const cplx* wl = wbase + l * inner * row;  // all NS states of point l
+        cplx ovr[NOCC][kMaxStates];
+        double wt[kMaxStates];
+        for (int s = 0; s < NS; ++s) {
+            double acc = 0.0;
+#pragma unroll
+            for (int n = 0; n < NOCC; ++n) {
+                double re = 0.0, im = 0.0;
+                for (int f = 0; f < F; ++f) {
+                    const cplx z = cmul_conj(f0[n * F + f], wl[(int64_t)s * F + f]);
+                    re += z.x;
+                    im += z.y;
+                }
+                ovr[n][s] = make_cuDoubleComplex(re, im);
+                acc += re * re + im * im;
+            }
+            wt[s] = acc;
+        }
+        // the NOCC largest weights, ties to the lower index; then ascending
+        int sel[NOCC];
+        unsigned taken = 0u;
+        double topw = 0.0;
+#pragma unroll
+        for (int r = 0; r < NOCC; ++r) {
+            int best = -1;
+            for (int s = 0; s < NS; ++s)
+                if (!(taken & (1u << s)) && (best < 0 || wt[s] > wt[best])) best = s;
+            taken |= 1u << best;
+            sel[r] = best;
+            topw += wt[best];
+        }
+        {
+            int r = 0;
+            for (int s = 0; s < NS; ++s)
+                if (taken & (1u << s)) sel[r++] = s;
+        }
+        cplx M[NOCC][NOCC];
+#pragma unroll
+        for (int n = 0; n < NOCC; ++n)
+#pragma unroll
+            for (int m = 0; m < NOCC; ++m) M[n][m] = ovr[n][sel[m]];
+        polar_factor<NOCC>(M);
+        cplx* dst = sbase + l * sstep;
+        for (int f = 0; f < F; ++f) {
+            cplx x[NOCC];
+#pragma unroll
+            for (int m = 0; m < NOCC; ++m) x[m] = wl[(int64_t)sel[m] * F + f];
+#pragma unroll
+            for (int n = 0; n < NOCC; ++n) {
+                cplx acc = make_cuDoubleComplex(0.0, 0.0);
+#pragma unroll
+                for (int m = 0; m < NOCC; ++m) acc = cuCadd(acc, cuCmul(cconj(M[n][m]), x[m]));
+                dst[n * F + f] = acc;
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < NOCC; ++n) idx[(l * nstr + t) * NOCC + n] = sel[n];
+        fid[(l - 1) * nstr + t] = topw / NOCC;
+    }
+}
+
+#define PYTHTB_DISPATCH_S(S, CALL)               \
+    switch (S) {                                 \
+        case 1: CALL(1); break;                  \
+        case 2: CALL(2); break;                  \
+        case 3: CALL(3); break;                  \
+        case 4: CALL(4); break;                  \
+        case 5: CALL(5); break;                  \
+        case 6: CALL(6); break;                  \
+        case 7: CALL(7); break;                  \
+        case 8: CALL(8); break;                  \
+        default: return (int)cudaErrorInvalidValue; \
+    }
+
+extern "C" int pythtb_transport_chain(const void* w, const void* occ, void* C, void* smin,
+                                      int64_t outer, int64_t L, int64_t inner, int64_t S,
+                                      int64_t NS, int64_t F, void* stream) {
+    if (outer * inner <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+#define CHAIN(K)                                                                              \
+    transport_chain_kernel<K><<<blocks_for(outer * inner), kThreads, 0, st>>>(                \
+        (const cplx*)w, (const int64_t*)occ, (cplx*)C, (double*)smin, outer, L, inner, (int)NS, \
+        (int)F)
+    PYTHTB_DISPATCH_S(S, CHAIN)
+#undef CHAIN
+    return (int)cudaGetLastError();
+}
+
+extern "C" int pythtb_transport_rotate(const void* w, const void* occ, const void* C,
+                                       const void* theta, const void* P, void* out, int64_t outer,
+                                       int64_t L, int64_t inner, int64_t S, int64_t NS, int64_t F,
+                                       int64_t closed, void* stream) {
+    if (outer * L * inner <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+#define ROTATE(K)                                                                               \
+    transport_rotate_kernel<K><<<blocks_for(outer * L * inner), kThreads, 0, st>>>(             \
+        (const cplx*)w, (const int64_t*)occ, (const cplx*)C, (const double*)theta,              \
+        (const cplx*)P, (cplx*)out, outer, L, inner, (int)NS, (int)F, (int)closed)
+    PYTHTB_DISPATCH_S(S, ROTATE)
+#undef ROTATE
+    return (int)cudaGetLastError();
+}
+
+extern "C" int pythtb_transport_follow(const void* w, const void* occ, void* idx, void* fid,
+                                       void* states, int64_t outer, int64_t L, int64_t inner,
+                                       int64_t nocc, int64_t NS, int64_t F, void* stream) {
+    if (outer * inner <= 0) return (int)cudaGetLastError();
+    if (NS > kMaxStates || nocc > NS) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+#define FOLLOW(K)                                                                                \
+    transport_follow_kernel<K><<<blocks_for(outer * inner), kThreads, 0, st>>>(                  \
+        (const cplx*)w, (const int64_t*)occ, (int64_t*)idx, (double*)fid, (cplx*)states, outer, L, \
+        inner, (int)NS, (int)F)
+    PYTHTB_DISPATCH_S(nocc, FOLLOW)
+#undef FOLLOW
+    return (int)cudaGetLastError();
+}

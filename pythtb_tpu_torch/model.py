@@ -13,7 +13,10 @@ Model surgery (``cut_piece``, ``reduce_dim``, ``make_supercell``,
 ``remove_orb``, ``change_nonperiodic_vector``) is host NumPy, as in
 pythtb_tpu; the position operators run through
 :mod:`pythtb_tpu_torch.ops.position` (kernel 6) on the device.
-``visualize``/``display`` and ``save``/``load`` are not ported yet.
+``display``, ``hamiltonian_string`` and ``visualize`` are host text and
+matplotlib (:mod:`pythtb_tpu_torch.viz`); ``save``/``load`` write and
+read the JAX package's ``.npz`` layout
+(:mod:`pythtb_tpu_torch.utils.serialization`).
 """
 
 from __future__ import annotations
@@ -432,6 +435,44 @@ class tb_model(object):
         w = np.ascontiguousarray(w.T)
         v = np.ascontiguousarray(np.moveaxis(v, 0, 1))
         return w, v
+
+    # -- reports, pictures and files --------------------------------------
+
+    def display(self):
+        """Print a text report of the model (PythTB's ``display``)."""
+        from .viz import display as _display
+
+        _display(self)
+
+    def hamiltonian_string(self, precision=4):
+        """Closed-form text of the Bloch Hamiltonian H(k): diagonal entries
+        as ``2|t|cos(2*pi*k.rv + arg)`` terms, off-diagonal ones as complex
+        exponentials (upper triangle; k reduced)."""
+        from .viz import hamiltonian_string as _hs
+
+        return _hs(self, precision=precision)
+
+    def visualize(self, dir_first, dir_second=None, eig_dr=None, draw_hoppings=True, ph_color="black", annotate_hoppings=False):
+        """Matplotlib sketch of the model geometry or of an eigenstate
+        (PythTB's ``visualize``); ``annotate_hoppings=True`` labels each
+        bond with its amplitude.  Returns (fig, ax)."""
+        from .viz import visualize as _visualize
+
+        return _visualize(self, dir_first, dir_second, eig_dr, draw_hoppings, ph_color, annotate_hoppings)
+
+    def save(self, path):
+        """Serialize this model to a compressed .npz file (no pickle), in
+        the JAX package's layout."""
+        from .utils.serialization import save_model
+
+        save_model(self, path)
+
+    @staticmethod
+    def load(path):
+        """Load a model written with :meth:`save` (by either package)."""
+        from .utils.serialization import load_model
+
+        return load_model(path)
 
     def solve_one(self, k_point=None, eig_vectors=False):
         """Like solve_all for a single k-point."""

@@ -58,6 +58,12 @@ _SIGNATURES = {
     "pythtb_lyapunov": [_P] * 6 + [_I] * 5 + [_P],
     "pythtb_eigh_jacobi": [_P] * 4 + [_I] * 3 + [_D, _I, _P],
     "pythtb_assemble_members": [_P] * 7 + [_I] * 6 + [_P],
+    "pythtb_transport_chain": [_P] * 4 + [_I] * 6 + [_P],
+    "pythtb_transport_rotate": [_P] * 6 + [_I] * 7 + [_P],
+    "pythtb_transport_follow": [_P] * 5 + [_I] * 6 + [_P],
+    "pythtb_mv_overlaps": [_P] * 5 + [_I] * 3 + [_P],
+    "pythtb_mv_reduce": [_P] * 7 + [_I] * 4 + [_D, _D, _I, _P],
+    "pythtb_mv_update": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -69,14 +75,21 @@ _SIGNATURES = {
 # counts kernel 12's Green's-function mode (not in "decimation"); "lyapunov"
 # counts kernel 18's launches, one per chunk of steps; "eigh_jacobi" counts
 # kernel 7; "assemble_members" counts kernel 1's flux-batch mode (not in
-# "assemble").  "link_dets_library"
-# and "wilson_loop_library" count the shape rules of ops.berry (S > 8),
-# which launch no kernel of this package.
+# "assemble"); "transport_chain", "transport_rotate" and "transport_follow"
+# count kernel 14's three modes; "mv_step" counts kernel 19's
+# Marzari-Vanderbilt steps (three launches each: overlaps, reduction,
+# update), "mv_final" its closing overlaps and reduction.
+# "link_dets_library" and "wilson_loop_library" count the shape rules of
+# ops.berry (S > 8), "transport_library" that of ops.transport (S > 8)
+# and "mv_library" that of wannier (nw > 8); they launch no kernel of
+# this package.
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
      "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov",
-     "eigh_jacobi", "assemble_members", "link_dets_library", "wilson_loop_library"), 0
+     "eigh_jacobi", "assemble_members", "transport_chain", "transport_rotate",
+     "transport_follow", "mv_step", "mv_final", "link_dets_library", "wilson_loop_library",
+     "transport_library", "mv_library"), 0
 )
 
 _lib = None

@@ -7,6 +7,9 @@
   ``torch.arange``, solved, and extended by the periodic-gauge boundary
   slices on the device; its state and energy grids stay there for
   :class:`pythtb_tpu_torch.wf_array`.
+* ``solve_grid_family`` -- the same for P members of one hopping graph
+  (a parameter family): one launch of kernel 1's member mode assembles
+  every member at every grid point, one ``eigh_batched`` solves them.
 
 Host and device exchange one tensor per input or output.
 """
@@ -27,6 +30,7 @@ __all__ = [
     "device_uniform_grid",
     "extend_pbc_seq",
     "solve_grid_device",
+    "solve_grid_family",
 ]
 
 
@@ -156,3 +160,36 @@ def solve_grid_device(data: BlochData, mesh_sizes, start_k, orb, per, nspin, mes
     phases = grid_phases(orb, per, nspin, len(interior), data.device)
     min_gaps, evals, wfs = _solve_grid_core(data, interior, start, phases)
     return _to_host(min_gaps), evals, wfs
+
+
+def solve_grid_family(data: BlochData, amps, diags, mesh_sizes, start_k, orb, per, nspin):
+    """Uniform-grid solve of P members of one hopping graph, member p with
+    amplitudes ``amps[p]`` and on-site matrix ``diags[p]`` (the arguments
+    of :func:`..ops.hamiltonian.assemble_members`): one kernel-1 launch and
+    one ``eigh_batched`` for the whole family, then the periodic-gauge
+    boundary slices as in :func:`solve_grid_device`.
+
+    Returns (min_gaps (nsta-1,) float64 NumPy over the whole family, evals
+    tensor (P, *mesh_sizes, nsta), wfs tensor (P, *mesh_sizes, nsta,
+    norb[, 2])).
+    """
+    from .hamiltonian import assemble_members
+
+    interior = tuple(int(m) - 1 for m in mesh_sizes)
+    start = np.asarray(start_k, dtype=np.float64).reshape(len(interior))
+    phases = grid_phases(orb, per, nspin, len(interior), data.device)
+    P = amps.shape[0]
+    kpts = device_uniform_grid(interior, start, data.device)
+    evals, v = eigh_batched(assemble_members(data, amps, diags, kpts))
+    if data.nspin == 2:
+        v = v.reshape(v.shape[0], data.nsta, data.norb, 2)
+    w = v.reshape((P,) + interior + tuple(v.shape[1:]))
+    eg = evals.reshape((P,) + interior + (data.nsta,))
+    for d in range(len(interior)):
+        w = torch.cat([w, w.narrow(d + 1, 0, 1) * phases[d]], dim=d + 1)
+        eg = torch.cat([eg, eg.narrow(d + 1, 0, 1)], dim=d + 1)
+    if data.nsta > 1:
+        min_gaps = (evals[:, 1:] - evals[:, :-1]).amin(dim=0)
+    else:
+        min_gaps = evals.new_zeros((0,))
+    return _to_host(min_gaps), eg, w

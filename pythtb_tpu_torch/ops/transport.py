@@ -1,0 +1,224 @@
+"""Parallel transport, smooth gauges and adiabatic state following
+(counterpart of ``pythtb_tpu.ops.transport``).
+
+* :func:`smooth_gauge` -- the twisted parallel-transport gauge of
+  Marzari & Vanderbilt 1997 along one grid axis.  With ``W_m`` the polar
+  factor of the link overlap <w_m|w_{m+1}> in the original gauge and
+  ``C_m = W_0 ... W_{m-1}`` its running product, the transported states
+  are ``conj(C_m) w_m``; with ``closed`` the holonomy ``Lambda = C_{L-1}``
+  is spread evenly along the axis, ``conj(C_m Lambda^{-m/(L-1)}) w_m``.
+  On a CUDA tensor kernel 14 (``csrc/transport.cu``) runs the chain of
+  prefixes (mode ``chain``) and the rotation (mode ``rotate``), with one
+  batched :func:`..ops.berry.unitary_eig` of the holonomies between them;
+  on a CPU tensor :func:`_chain_plain` and :func:`_rotate_plain` do.
+* :func:`follow_states` -- adiabatic following of a subspace along one
+  grid axis: at each step the ``nocc`` stored states with the largest
+  squared overlap with the transported subspace are selected (ties to
+  the lower index, as ``jax.lax.top_k``; indices sorted ascending) and
+  the subspace is carried into them by a polar projection.  Kernel 14's
+  ``follow`` mode on CUDA, :func:`_follow_plain` on CPU.
+
+Both read the stored grid (grid..., NS, norb[, 2]) as (outer, L, inner,
+NS, F) strings along the axis, without a copy.  More than eight
+transported states take the plain path on the card too: a shape rule
+counted in ``LAUNCHES["transport_library"]``, never a retry after a
+failure.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import config
+from . import _kernels
+from .berry import _overlap, unitary_eig
+
+__all__ = ["smooth_gauge", "follow_states"]
+
+# most states kernel 14 takes in registers (S of chain / rotate, NS of follow)
+_MAX_KERNEL_S = 8
+
+
+def _strings(w, nspin, dim_arr, axis):
+    """View stored states (grid..., NS, norb[, 2]) as (outer, L, inner,
+    NS, F) strings along grid ``axis``: returns (view, grid)."""
+    grid = tuple(w.shape[:dim_arr])
+    if not 0 <= axis < dim_arr or grid[axis] < 2:
+        raise ValueError("axis %d needs length >= 2 in grid %s" % (axis, grid))
+    NS = w.shape[dim_arr]
+    F = math.prod(w.shape[dim_arr + 1 :])
+    outer, L, inner = math.prod(grid[:axis]), grid[axis], math.prod(grid[axis + 1 :])
+    return w.reshape(outer, L, inner, NS, F), grid
+
+
+def _polar(M):
+    """U V^H of M = U s V^H, and s (the JAX package's ``_unitarize``)."""
+    U, s, Vh = torch.linalg.svd(M, full_matrices=False)
+    return U @ Vh, s
+
+
+def _chain_plain(w5, occ):
+    """Plain PyTorch prefixes of the polar link chain (SVD polar factors,
+    one matmul a link): the oracle of kernel 14's ``chain`` mode.  Returns
+    C (outer, L, inner, S, S) with C[:, 0] = I, and the smallest link
+    singular value per string (outer * inner,)."""
+    ws = w5[:, :, :, occ]
+    W, s = _polar(_overlap(ws[:, :-1], ws[:, 1:]))  # (outer, L-1, inner, S, S)
+    C = [torch.eye(len(occ), dtype=config.COMPLEX, device=w5.device).expand(W[:, 0].shape)]
+    for l in range(W.shape[1]):
+        C.append(C[-1] @ W[:, l])
+    return torch.stack(C, dim=1), s.amin(dim=(1, 3)).reshape(-1)
+
+
+def _rotate_plain(w5, occ, C, theta, P, closed):
+    """Plain PyTorch rotation conj(C_m Lambda^{-t_m}) w_m of the ``occ``
+    rows (conj(C_m) w_m when not ``closed``), into a copy of the whole
+    grid: the oracle of kernel 14's ``rotate`` mode."""
+    L = w5.shape[1]
+    B = C
+    if closed:
+        t = (torch.arange(L, dtype=config.FLOAT, device=w5.device) / (L - 1))[None, :, None, None]
+        ph = torch.polar(torch.ones_like(theta[:, None] * t), -theta[:, None] * t)
+        lam_t = (P[:, None] * ph[..., None, :]) @ P.conj().transpose(-1, -2)[:, None]
+        B = C @ lam_t
+    out = w5.clone()
+    out[:, :, :, occ] = B.conj() @ w5[:, :, :, occ]
+    return out
+
+
+def _occ_tensor(occ, device):
+    return torch.as_tensor(np.asarray(occ, dtype=np.int64), device=device)
+
+
+def _plain(w, nstates):
+    """True where the plain version runs: a CPU tensor, or the shape rule
+    (more than ``_MAX_KERNEL_S`` states on the card, counted)."""
+    if w.device.type == "cpu":
+        return True
+    if nstates > _MAX_KERNEL_S:
+        _kernels.LAUNCHES["transport_library"] += 1
+        return True
+    return False
+
+
+def _chain(w5, occ_t):
+    outer, L, inner, NS, F = w5.shape
+    S = occ_t.shape[0]
+    _kernels.require(w5, "w", config.COMPLEX)
+    _kernels.require(occ_t, "occ", torch.int64, (S,), w5.device)
+    C = torch.empty((outer, L, inner, S, S), dtype=config.COMPLEX, device=w5.device)
+    smin = torch.empty((outer * inner,), dtype=config.FLOAT, device=w5.device)
+    _kernels.launch("transport_chain", w5.device, w5, occ_t, C, smin, outer, L, inner, S, NS, F)
+    return C, smin
+
+
+def _rotate(w5, occ_t, C, theta, P, closed):
+    outer, L, inner, NS, F = w5.shape
+    S = occ_t.shape[0]
+    dev = w5.device
+    _kernels.require(C, "C", config.COMPLEX, (outer, L, inner, S, S), dev)
+    if closed:
+        _kernels.require(theta, "theta", config.FLOAT, (outer, inner, S), dev)
+        _kernels.require(P, "P", config.COMPLEX, (outer, inner, S, S), dev)
+    else:
+        theta, P = C, C  # not read
+    out = w5.clone()
+    _kernels.launch("transport_rotate", dev, w5, occ_t, C, theta, P, out,
+                    outer, L, inner, S, NS, F, int(bool(closed)))
+    return out
+
+
+def _smooth(w5, occ_t, closed, plain):
+    """Smooth gauge of the ``occ`` rows of strings ``w5``: the new grid and
+    the smallest link singular value (a tensor)."""
+    C, smin = (_chain_plain if plain else _chain)(w5, occ_t)
+    theta = P = None
+    if closed:
+        theta, P = (t.contiguous() for t in unitary_eig(C[:, -1].contiguous()))
+    rotate = _rotate_plain if plain else _rotate
+    return rotate(w5, occ_t, C, theta, P, closed), smin.amin()
+
+
+def smooth_gauge(wfs, occ, dir, nspin, dim_arr, closed):
+    """Impose the (twisted) parallel-transport gauge on stored states
+    ``occ`` of ``wfs`` (grid..., NS, norb[, 2]) along grid axis ``dir``.
+    Returns the whole updated state grid (a new tensor on the device of
+    ``wfs``) and the smallest link singular value (a float, for the
+    singular-overlap warning)."""
+    w5, _ = _strings(wfs, nspin, dim_arr, int(dir))
+    occ_t = _occ_tensor(occ, wfs.device)
+    out, smin = _smooth(w5.contiguous(), occ_t, closed, _plain(wfs, occ_t.shape[0]))
+    return out.reshape(wfs.shape), float(smin)
+
+
+def _top_sorted(weight, nocc):
+    """Indices (sorted ascending) and values of the ``nocc`` largest
+    entries of the last axis, ties to the lower index."""
+    vals, order = torch.sort(weight, dim=-1, descending=True, stable=True)
+    topi, _ = torch.sort(order[..., :nocc], dim=-1)
+    return topi, vals[..., :nocc]
+
+
+def _follow_plain(w5, occ_t):
+    """Plain PyTorch adiabatic following (the scan of the JAX package's
+    ``_follow_states_jit``, one step at a time): the oracle of kernel 14's
+    ``follow`` mode.  Returns indices (L, outer * inner, nocc), fidelity
+    (L - 1, outer * inner) and states (outer, L, inner, nocc, F)."""
+    outer, L, inner, NS, F = w5.shape
+    nocc = occ_t.shape[0]
+    f = w5[:, 0][:, :, occ_t]  # (outer, inner, nocc, F)
+    idx = [occ_t.expand(outer, inner, nocc)]
+    fid, states = [], [f]
+    for l in range(1, L):
+        wl = w5[:, l]
+        ovr = _overlap(f, wl)  # (outer, inner, nocc, NS)
+        weight = (ovr.abs() ** 2).sum(dim=-2)
+        topi, topw = _top_sorted(weight, nocc)
+        wsel = torch.gather(wl, 2, topi[..., None].expand(outer, inner, nocc, F))
+        M = torch.gather(ovr, 3, topi[:, :, None, :].expand(outer, inner, nocc, nocc))
+        f = _polar(M)[0].conj() @ wsel
+        idx.append(topi)
+        fid.append(topw.sum(dim=-1) / nocc)
+        states.append(f)
+    idx = torch.stack(idx).reshape(L, outer * inner, nocc)
+    fid = torch.stack(fid).reshape(L - 1, outer * inner) if fid else w5.new_zeros((0, outer * inner), dtype=config.FLOAT)
+    return idx, fid, torch.stack(states, dim=1)
+
+
+def _follow(w5, occ_t):
+    outer, L, inner, NS, F = w5.shape
+    nocc = occ_t.shape[0]
+    dev = w5.device
+    _kernels.require(w5, "w", config.COMPLEX)
+    _kernels.require(occ_t, "occ", torch.int64, (nocc,), dev)
+    idx = torch.empty((L, outer * inner, nocc), dtype=torch.int64, device=dev)
+    fid = torch.empty((L - 1, outer * inner), dtype=config.FLOAT, device=dev)
+    states = torch.empty((outer, L, inner, nocc, F), dtype=config.COMPLEX, device=dev)
+    _kernels.launch("transport_follow", dev, w5, occ_t, idx, fid, states,
+                    outer, L, inner, nocc, NS, F)
+    return idx, fid, states
+
+
+def follow_states(wfs, occ, dir, nspin, dim_arr):
+    """Adiabatically follow the subspace of stored states ``occ`` of
+    ``wfs`` (grid..., NS, norb[, 2]) along grid axis ``dir``.
+
+    Returns ``(indices, fidelity, states)``: the followed state indices
+    (L, rest..., nocc) with the axis moved to the front and the
+    per-step captured fraction (L-1, rest...), both NumPy, and the
+    followed states (grid..., nocc, norb[, 2]) on the device of ``wfs``.
+    """
+    dir = int(dir)
+    w5, grid = _strings(wfs, nspin, dim_arr, dir)
+    occ_t = _occ_tensor(occ, wfs.device)
+    follow = _follow_plain if _plain(wfs, w5.shape[3]) else _follow
+    idx, fid, states = follow(w5.contiguous(), occ_t)
+    rest = grid[:dir] + grid[dir + 1 :]
+    nocc = occ_t.shape[0]
+    idx = idx.reshape((grid[dir],) + rest + (nocc,)).cpu().numpy()
+    fid = fid.reshape((grid[dir] - 1,) + rest).cpu().numpy().astype(np.float64)
+    states = states.reshape(grid + (nocc,) + tuple(wfs.shape[dim_arr + 1 :]))
+    return np.array(idx, copy=True), fid, states

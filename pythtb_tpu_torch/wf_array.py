@@ -14,8 +14,12 @@ mutation through views returned by ``wf[key]``.
 
 The position wrappers (per grid point, and batched over the whole grid
 as ``position_expectation_all``/``position_hwf_all``) run through
-:mod:`pythtb_tpu_torch.ops.position` (kernel 6).  ``solve_on_grid_models``,
-smooth gauge and checkpoints are not ported yet.
+:mod:`pythtb_tpu_torch.ops.position` (kernel 6).  ``solve_on_grid_models``
+fills a (parameter x k-grid) array from a family of models (kernel 1's
+member mode when they share one hopping graph); ``smooth_gauge`` and
+``adiabatic_evolve`` run through :mod:`pythtb_tpu_torch.ops.transport`
+(kernel 14); ``save``/``load`` checkpoint to the JAX package's ``.npz``
+layout.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from .model import PythtbError, _is_int, _offdiag_approximation_warning_and_stop
 from .ops import berry as _berry
 from .ops import position as _pos
 from .ops import solver as _solver
+from .ops import transport as _transport
 from .utils import continuity as _cont
 
 __all__ = ["wf_array"]
@@ -178,6 +183,78 @@ class wf_array(object):
         )
         self._set_device(wfs)
         self._energies_dev = evals_dev
+        self._energies_host = None
+        self._min_gaps = np.array(min_gaps) if self._nsta_arr > 1 else None
+        if self._nsta_arr <= 1:
+            return None
+        return min_gaps
+
+    def solve_on_grid_models(self, models, param_dir=0, start_k=None):
+        """Fill a (parameter x k-grid) wf_array from a family of models,
+        one per index along ``param_dir`` (pump cycles, adiabatic
+        interpolations, any lambda x BZ workflow).
+
+        When all models share one hopping graph (same hoppings, orbital
+        positions and periodic axes; a sweep over amplitudes and on-site
+        terms), the whole family is assembled in one launch of kernel 1's
+        member mode and solved in one batched eigensolve; otherwise each
+        model gets its own grid solve.  The k-axes get the periodic gauge
+        of :meth:`solve_on_grid`; close the parameter axis yourself
+        (``impose_loop(param_dir)`` / ``impose_pbc``) if it is cyclic.
+        Band energies are stored (see :attr:`energies`).
+
+        :param models: sequence of models, ``len(models) ==
+          mesh_arr[param_dir]``, each with ``dim_k == dim_arr - 1``
+        :param param_dir: which grid axis is the parameter axis
+        :param start_k: origin of the k-grid (default zeros)
+        :returns: minimum direct gap per band pair over the whole family,
+          or None for 1 stored state
+        """
+        models = list(models)
+        if param_dir < 0 or param_dir >= self._dim_arr:
+            raise PythtbError("Wrong value of param_dir.")
+        if len(models) != int(self._mesh_arr[param_dir]):
+            raise PythtbError(
+                "Expected %d models along axis %d, got %d"
+                % (int(self._mesh_arr[param_dir]), param_dir, len(models))
+            )
+        k_sizes = [int(m) for d, m in enumerate(self._mesh_arr) if d != param_dir]
+        fins = [m._get_finalized() for m in models]
+        for m in models:
+            if m._dim_k != self._dim_arr - 1:
+                raise PythtbError(
+                    "Each family model must have dim_k == dim_arr - 1 "
+                    "(the non-parameter axes are the k-grid)."
+                )
+            if m._nsta != self._nsta_arr:
+                raise PythtbError(
+                    "solve_on_grid_models requires nsta_arr to match the models."
+                )
+        if start_k is None:
+            start_k = [0.0] * (self._dim_arr - 1)
+        d0, m0 = fins[0], models[0]
+        same_graph = all(
+            d.nhop == d0.nhop and d.nspin == d0.nspin and torch.equal(d.ii, d0.ii)
+            and torch.equal(d.jj, d0.jj) and torch.equal(d.rv, d0.rv)
+            and np.array_equal(m._orb, m0._orb) and m._per == m0._per
+            for d, m in zip(fins, models)
+        )
+        if same_graph:
+            amps = torch.stack([d.amps for d in fins]).contiguous()
+            diags = torch.stack([d.diag for d in fins]).contiguous()
+            min_gaps, evals, wfs = _solver.solve_grid_family(
+                d0, amps, diags, k_sizes, start_k, m0._orb, m0._per, self._nspin
+            )
+        else:
+            rows = [
+                _solver.solve_grid_device(d, k_sizes, start_k, m._orb, m._per, self._nspin)
+                for d, m in zip(fins, models)
+            ]
+            min_gaps = np.min(np.stack([r[0] for r in rows]), axis=0)
+            evals = torch.stack([r[1] for r in rows])
+            wfs = torch.stack([r[2] for r in rows])
+        self._set_device(torch.movedim(wfs, 0, param_dir).contiguous())
+        self._energies_dev = torch.movedim(evals, 0, param_dir).contiguous()
         self._energies_host = None
         self._min_gaps = np.array(min_gaps) if self._nsta_arr > 1 else None
         if self._nsta_arr <= 1:
@@ -381,6 +458,83 @@ class wf_array(object):
                 UserWarning,
                 stacklevel=3,
             )
+
+    # -- checkpoints ----------------------------------------------------
+
+    def save(self, path):
+        """Checkpoint this wf_array (model, states and stored energies) to
+        a compressed ``.npz``, in the layout of the JAX package (a file
+        written by either package loads in the other).  No pickle."""
+        from .utils.serialization import save_wf_array
+
+        save_wf_array(self, path)
+
+    @staticmethod
+    def load(path):
+        """Load a wf_array written by :meth:`save`."""
+        from .utils.serialization import load_wf_array
+
+        return load_wf_array(path)
+
+    # -- gauge and adiabatic evolution -----------------------------------
+
+    def smooth_gauge(self, occ="All", dir=0, closed=True):
+        r"""Impose the optimally smooth parallel-transport gauge of
+        Marzari & Vanderbilt 1997 on states ``occ`` along grid axis
+        ``dir``, in place.
+
+        With ``closed=False`` this is pure parallel transport: each link
+        overlap of the smoothed states is Hermitian positive.  With
+        ``closed=True`` (default) the loop holonomy is spread evenly along
+        the axis by fractional powers, so the endpoints of both
+        :meth:`impose_loop` and :meth:`impose_pbc` are kept.  The subspace
+        at each grid point is unchanged; only the basis within it rotates,
+        so gauge-invariant quantities (Berry phases and fluxes, Wilson
+        eigenphases) are untouched.  Runs through kernel 14 on the card
+        (:mod:`pythtb_tpu_torch.ops.transport`).
+
+        :param occ: stored-state indices to smooth (default all)
+        :param dir: grid axis along which to smooth
+        :param closed: spread the loop holonomy (see above)
+        """
+        occ = self._occ_index(occ)
+        if dir < 0 or dir >= self._dim_arr:
+            raise PythtbError("Wrong value of dir.")
+        wfs, min_s = _transport.smooth_gauge(
+            self._device_states(), occ, dir, self._nspin, self._dim_arr, closed
+        )
+        self._warn_singular(min_s, "smooth_gauge:singular value")
+        self._set_device(wfs)
+
+    def adiabatic_evolve(self, occ, dir=0, return_states=False):
+        r"""Adiabatically follow the subspace of stored states ``occ``
+        along grid axis ``dir``: at each step the ``len(occ)`` stored
+        states with the largest squared overlap with the transported
+        subspace are selected and the subspace is carried into them, so
+        states are followed through crossings by continuity rather than
+        by energy order.
+
+        :param occ: stored-state indices of the initial subspace
+        :param dir: grid axis to evolve along
+        :param return_states: also return the followed states
+        :returns: ``(indices, fidelity)``: indices (L, ..., nocc) with the
+          evolved axis first, the stored states occupied at each step;
+          fidelity (L-1, ...), the fraction of the subspace captured at
+          each step (1 = adiabatic).  With ``return_states=True`` a third
+          element, a new :class:`wf_array` with ``nsta_arr = len(occ)``
+          holding the followed states in a smooth gauge.
+        """
+        occ = self._occ_index(occ)
+        if dir < 0 or dir >= self._dim_arr:
+            raise PythtbError("Wrong value of dir.")
+        idx, fid, states = _transport.follow_states(
+            self._device_states(), occ, dir, self._nspin, self._dim_arr
+        )
+        if not return_states:
+            return idx, fid
+        wf_new = self.empty_like(nsta_arr=len(occ))
+        wf_new._set_device(states)
+        return idx, fid, wf_new
 
     # -- internal helpers -----------------------------------------------
 

@@ -103,3 +103,50 @@ SLICE7_CASES = {
 def test_port_refuses_slice_seven_misuse_like_jax(name):
     fn = SLICE7_CASES[name]
     assert _outcome(pythtb_tpu_torch, fn) == _outcome(pythtb_tpu, fn) == "raise"
+
+
+def _loop(M, nk=5):
+    wf = M.wf_array(M.models.haldane(), [nk, nk])
+    wf.solve_on_grid([0.0, 0.0])
+    return wf
+
+
+# misuse of the eighth slice's calls (transport, Wannier functions,
+# unfolding, entanglement, symmetry, checkpoints): each must raise in both
+# packages
+SLICE8_CASES = {
+    "smooth_gauge_dir": lambda M: _loop(M).smooth_gauge([0], dir=2),
+    "smooth_gauge_occ_range": lambda M: _loop(M).smooth_gauge([5], dir=0),
+    "adiabatic_dir": lambda M: _loop(M).adiabatic_evolve([0], dir=-1),
+    "adiabatic_occ_2d": lambda M: _loop(M).adiabatic_evolve([[0]], dir=0),
+    "family_count": lambda M: M.wf_array(M.models.three_site_chain(0.0), [3, 4]).solve_on_grid_models(
+        [M.models.three_site_chain(0.0)] * 2),
+    "family_param_dir": lambda M: M.wf_array(M.models.three_site_chain(0.0), [3, 4]).solve_on_grid_models(
+        [M.models.three_site_chain(0.0)] * 3, param_dir=2),
+    "family_dim": lambda M: M.wf_array(M.models.haldane(), [3, 4]).solve_on_grid_models([M.models.haldane()] * 3),
+    "wannier_finite": lambda M: M.wannier.interpolator(M.models.molecule_nh3(), [0], nk=4),
+    "wannier_occ_range": lambda M: M.wannier.interpolator(M.models.bn(), [7], nk=4),
+    "wannier_nk_dim": lambda M: M.wannier.interpolator(M.models.bn(), [0], nk=(4, 4, 4)),
+    "wannier_no_bands": lambda M: M.wannier.interpolator(M.models.bn(), [], nk=4),
+    "wannier_bands_dim": lambda M: M.wannier.interpolator(M.models.bn(), [0], nk=4).bands([[0.1, 0.2, 0.3]]),
+    "disentangle_nw": lambda M: M.wannier.disentangled_interpolator(M.models.bn(), 5, 4, (-9, 9)),
+    "disentangle_frozen_outside": lambda M: M.wannier.disentangled_interpolator(M.models.bn(), 1, 4, (-1, 1),
+                                                                                frozen=(-2, 0)),
+    "disentangle_window_empty": lambda M: M.wannier.disentangled_interpolator(M.models.bn(), 1, 4, (10, 11)),
+    "unfold_singular": lambda M: M.unfold.unfold_bands(M.models.graphene(), np.zeros((2, 2)), [[0.0, 0.0]]),
+    "unfold_k_dim": lambda M: M.unfold.unfold_bands(M.models.graphene().make_supercell(np.diag([2, 2])),
+                                                    np.diag([2, 2]), [[0.0, 0.0, 0.0]]),
+    "corr_periodic": lambda M: M.entanglement.correlation_spectrum(M.models.haldane(), 1, [0]),
+    "corr_sites": lambda M: M.entanglement.correlation_spectrum(M.models.molecule_nh3(), 1, [0, 0]),
+    "ent_flow_1d": lambda M: M.entanglement.entanglement_flow(M.models.chain(), [0], 0),
+    "ent_flow_la": lambda M: M.entanglement.entanglement_flow(M.models.haldane(), [0], 0, L=4, LA=0),
+    "sym_finite": lambda M: M.symmetry.find_symmetries(M.models.molecule_nh3()),
+    "sym_indicator_spinful": lambda M: M.symmetry.chern_indicator(M.models.kane_mele(), occ=[0, 1]),
+    "wf_load_missing": lambda M: M.wf_array.load("no-such-checkpoint.npz"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE8_CASES))
+def test_port_refuses_slice_eight_misuse_like_jax(name):
+    fn = SLICE8_CASES[name]
+    assert _outcome(pythtb_tpu_torch, fn) == _outcome(pythtb_tpu, fn) == "raise"

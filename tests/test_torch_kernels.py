@@ -850,3 +850,197 @@ def test_slice_seven_goes_through_kernels(dev):
     assert card[-1].shape == cpu[-1].shape
     d = card[-1] - cpu[-1]
     assert np.abs(d - np.round(d)).max() <= 5e-6
+
+
+def _random_frames(seed, grid, NS, F, dev):
+    """Orthonormal rows at every grid point (random complex QR)."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=tuple(grid) + (F, NS)) + 1j * rng.normal(size=tuple(grid) + (F, NS))
+    q = np.linalg.qr(z)[0]  # (..., F, NS) orthonormal columns
+    return torch.as_tensor(np.ascontiguousarray(np.swapaxes(q, -1, -2))).to(dev)
+
+
+@pytest.mark.parametrize("grid,axis,occ,F", [((41, 31), 1, [0], 3), ((41, 31), 0, [0], 3),
+                                             ((41, 41), 0, [0, 1], 4), ((9, 7), 1, [1, 2, 3], 6),
+                                             ((6, 5, 4), 1, list(range(8)), 10)])
+def test_transport_chain_and_rotate_kernels(dev, grid, axis, occ, F):
+    """Kernel 14's chain and rotate modes against their plain versions
+    (1e-12), closed and open."""
+    from pythtb_tpu_torch.ops import transport
+
+    w = _random_frames(240 + len(grid) + len(occ), grid, max(occ) + 2 if max(occ) + 2 <= F else F, F, dev)
+    w5, _ = transport._strings(w, 1, len(grid), axis)
+    w5 = w5.contiguous()
+    occ_t = torch.as_tensor(occ, dtype=torch.int64, device=dev)
+    before = dict(_kernels.LAUNCHES)
+    C, smin = transport._chain(w5, occ_t)
+    Cp, sp = transport._chain_plain(w5, occ_t)
+    assert _max_diff(C, Cp) < TOL and _max_diff(smin, sp) < TOL
+    theta, P = (t.contiguous() for t in berry.unitary_eig(Cp[:, -1].contiguous()))
+    for closed in (True, False):
+        got = transport._rotate(w5, occ_t, Cp, theta, P, closed)
+        want = transport._rotate_plain(w5, occ_t, Cp, theta, P, closed)
+        assert _max_diff(got, want) < TOL
+    assert _kernels.LAUNCHES["transport_chain"] == before["transport_chain"] + 1
+    assert _kernels.LAUNCHES["transport_rotate"] == before["transport_rotate"] + 2
+
+
+@pytest.mark.parametrize("grid,axis,NS,nocc,F", [((41, 31), 0, 3, 1, 3), ((13, 5), 0, 4, 2, 4),
+                                                 ((7, 6), 1, 8, 3, 8), ((9,), 0, 2, 2, 2)])
+def test_transport_follow_kernel(dev, grid, axis, NS, nocc, F):
+    """Kernel 14's follow mode against its plain version: identical
+    indices, fidelity and states within 1e-12."""
+    from pythtb_tpu_torch.ops import transport
+
+    w5, _ = transport._strings(_random_frames(250 + NS, grid, NS, F, dev), 1, len(grid), axis)
+    w5 = w5.contiguous()
+    occ_t = torch.arange(nocc, dtype=torch.int64, device=dev)
+    idx, fid, st = transport._follow(w5, occ_t)
+    idx_p, fid_p, st_p = transport._follow_plain(w5, occ_t)
+    assert torch.equal(idx.cpu(), idx_p.cpu())
+    assert _max_diff(fid, fid_p) < TOL and _max_diff(st, st_p) < TOL
+
+
+def test_transport_follow_kernel_breaks_ties_to_the_lower_index(dev):
+    """Exactly degenerate weights: kernel and plain version both take the
+    lower index (the rule of jax.lax.top_k)."""
+    from pythtb_tpu_torch.ops import transport
+
+    e = np.eye(4, dtype=complex)
+    w = np.stack([e, e[[0, 1, 2, 3]]])  # step 1 sees the start state ...
+    w[1, 0] = (e[0] + e[1]) / np.sqrt(2)  # ... split evenly over rows 0 and 1
+    w[1, 1] = (e[0] - e[1]) / np.sqrt(2)
+    w5 = torch.as_tensor(w[None, :, None]).to(dev).contiguous()
+    occ_t = torch.tensor([0], dtype=torch.int64, device=dev)
+    idx, _, _ = transport._follow(w5, occ_t)
+    idx_p, _, _ = transport._follow_plain(w5, occ_t)
+    assert idx[1, 0, 0].item() == idx_p[1, 0, 0].item() == 0
+
+
+def test_transport_kernels_on_the_wf_array_path(dev):
+    """smooth_gauge and adiabatic_evolve on the card launch kernel 14 and
+    agree with the CPU run of the same calls (nspin 1 and 2)."""
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch import convert
+
+    def run():
+        out = []
+        for m, occ in ((pt.models.haldane(), [0]), (pt.models.kane_mele(), [0, 1])):
+            wf = pt.wf_array(m, [9, 7])
+            wf.solve_on_grid([0.0, 0.0])
+            wf.impose_pbc(0, 0)
+            st = np.array(wf._wfs)
+            for closed in (True, False):
+                w2 = convert.wf_array_from_numpy(wf._model, st)
+                w2.smooth_gauge(occ, dir=0, closed=closed)
+                out.append(np.array(w2._wfs))
+            w2 = convert.wf_array_from_numpy(wf._model, st)
+            idx, fid, fol = w2.adiabatic_evolve(occ, dir=0, return_states=True)
+            out += [idx.astype(float), fid, np.array(fol._wfs)]
+        return out, st
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card, _ = run()
+        for name in ("transport_chain", "transport_rotate", "transport_follow"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu, _ = run()
+    finally:
+        config.set_device(prev)
+    # the grid solves differ in gauge between card and CPU: compare what the
+    # gauge cannot change (projectors onto the stored states, indices,
+    # fidelity)
+    for got, want in zip(card, cpu):
+        if got.dtype.kind == "c":
+            got, want = got.reshape(got.shape[:3] + (-1,)), want.reshape(want.shape[:3] + (-1,))
+            pg = np.einsum("...nf,...ng->...fg", got.conj(), got)
+            pw = np.einsum("...nf,...ng->...fg", want.conj(), want)
+            assert np.abs(pg - pw).max() < 1e-10
+        else:
+            assert np.abs(got - want).max() < 1e-10
+
+
+def _mv_inputs(seed, B, nb, n, dev, dc=3):
+    """Near-identity overlaps (|M_nn| ~ 1: the MV gradient divides by M_nn
+    and takes its phase, so small diagonals amplify rounding)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(B, nb, n, n)) + 1j * rng.normal(size=(B, nb, n, n))
+    u, _, vh = np.linalg.svd(np.eye(n) + 0.05 * X)
+    M0 = (u @ vh) * 0.98  # a polar factor near the identity
+    nbr = rng.integers(0, B, (B, nb))
+    w_b = rng.uniform(0.5, 2.0, nb)
+    b_cart = rng.normal(size=(nb, dc)) * 0.3
+    t = lambda x, dt: torch.as_tensor(np.ascontiguousarray(x), dtype=dt).to(dev)
+    return t(M0, torch.complex128), t(nbr, torch.int64), t(w_b, torch.float64), t(b_cart, torch.float64)
+
+
+def _near_identity(rng, B, n, scale):
+    """Unitaries exp(scale * A) with A random anti-Hermitian, and scale * A."""
+    from pythtb_tpu_torch import wannier
+
+    H = rng.normal(size=(B, n, n)) + 1j * rng.normal(size=(B, n, n))
+    A = torch.as_tensor(scale * (H - np.conj(np.swapaxes(H, -1, -2))))
+    return wannier._expm_antiherm(A), A
+
+
+@pytest.mark.parametrize("B,nb,n,dc", [(512, 8, 4, 3), (36, 6, 1, 2), (27, 6, 3, 3), (64, 12, 8, 3)])
+def test_mv_step_kernel(dev, B, nb, n, dc):
+    """Kernel 19: single steps (from the start, and from a state after an
+    overshoot) against the plain step at 1e-12."""
+    from pythtb_tpu_torch import wannier
+
+    M0, nbr, w_b, b_cart = _mv_inputs(260 + n, B, nb, n, dev, dc)
+    U, A = _near_identity(np.random.default_rng(270 + n), B, n, 0.02)
+    U, dW = U.to(dev).contiguous(), (0.01 * A).to(dev).contiguous()
+    eps0 = 0.5 / (4.0 * float(w_b.sum()))
+    for om_prev in (math.inf, -1.0):
+        before = _kernels.LAUNCHES["mv_step"]
+        got = wannier.mv_step(M0, nbr, w_b, b_cart, U, dW, 1.3 * eps0, om_prev, eps0)
+        assert _kernels.LAUNCHES["mv_step"] == before + 1
+        want = wannier._mv_step_plain(M0, nbr, w_b, b_cart, U, dW,
+                                      torch.tensor(1.3 * eps0, dtype=torch.float64, device=dev),
+                                      torch.tensor(om_prev, dtype=torch.float64, device=dev), 20.0 * eps0)
+        for what, a, b in zip(("U", "dW", "eps", "Omega"), got, want):
+            err = _max_diff(a, b)
+            assert err < TOL * max(1.0, float(b.abs().max())), (what, om_prev, err)
+
+
+def _silicon_overlaps(nk, dev):
+    """The silicon MLWF row's coarse-grid overlaps in the projected gauge,
+    built on ``dev`` by the port's helpers."""
+    import pathlib
+
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch import wannier
+
+    d = str(pathlib.Path(__file__).resolve().parent / "data" / "w90_silicon")
+    si = pt.w90(d, "silicon").model(min_hopping_norm=0.01)
+    data = si._get_finalized()
+    t = torch.as_tensor(wannier.WannierInterpolator._t_orb(si)).to(dev)
+    _, _, u = wannier._grid_solve(data, nk, t)
+    u = u[:, :4]
+    V0, _ = wannier._project_gauge(u, torch.eye(8, dtype=torch.complex128, device=dev)[:4], False)
+    nbr, w_b, b_cart = wannier._shells_on(si, nk, dev)
+    return wannier._rotated_overlaps(u, V0, nbr), nbr, w_b, b_cart
+
+
+def test_mv_localize_kernel_whole_run(dev):
+    """Kernel 19 over the silicon row's 4^3 overlaps, 100 steps, against
+    the plain run: Omega_I and Omega at 1e-10, the history at 1e-8
+    (relative: PERF.md section 2)."""
+    from pythtb_tpu_torch import wannier
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        M0, nbr, w_b, b_cart = _silicon_overlaps((4, 4, 4), dev)
+    finally:
+        config.set_device(prev)
+    U, hist, (rbar, oi, ot) = wannier.mv_localize(M0, nbr, w_b, b_cart, 100, 0.5)
+    Up, hp, (rp, oip, otp) = wannier._mv_run_plain(M0, nbr, w_b, b_cart, 100, 0.5 / (4.0 * float(w_b.sum())))
+    assert abs(float(oi) - float(oip)) <= 1e-10 * abs(float(oip))
+    assert abs(float(oi + ot) - float(oip + otp)) <= 1e-10 * abs(float(oip + otp))
+    assert _max_diff(hist, hp) <= 1e-8 * float(hp.abs().max())

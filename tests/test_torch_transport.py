@@ -1,0 +1,280 @@
+"""The port's smooth gauge, adiabatic following and family fill
+(``wf_array.smooth_gauge``, ``adiabatic_evolve``, ``solve_on_grid_models``)
+against pythtb_tpu's, on the CPU in float64, where kernel 14 runs its
+plain versions.
+
+Both packages get the same states (``convert.wf_array_from_numpy``): the
+algorithms are gauge dependent.  Tolerances: smoothed states, followed
+states, fidelities and family energies within 1e-12 of pythtb_tpu's,
+followed indices identical.  The oracles of tests/test_transport.py (the
+mathematical definitions) run on the port at small grids.
+"""
+
+import numpy as np
+import pytest
+
+from pythtb_tpu import wf_array as jwf_array
+from pythtb_tpu.models import library as jzoo
+from pythtb_tpu_torch import convert, models, tb_model, wf_array
+from pythtb_tpu_torch.ops import transport
+
+from .test_torch_ops import carry, on_cpu  # noqa: F401  (autouse: the port on the CPU)
+
+TOL = 1e-12
+
+
+def _solved(jmodel, mesh, pbc=True):
+    """A pythtb_tpu grid solve and its states (periodic gauge on axis 0)."""
+    jw = jwf_array(jmodel, mesh)
+    jw.solve_on_grid([0.0] * len(mesh))
+    if pbc:
+        jw.impose_pbc(0, 0)
+    return np.array(jw._wfs)
+
+
+def _pair(jmodel, states):
+    a = jwf_array(jmodel, list(states.shape[: jmodel._dim_k]))
+    a._wfs = states.copy()
+    return a, convert.wf_array_from_numpy(carry(jmodel), states)
+
+
+@pytest.mark.parametrize("closed", [True, False])
+@pytest.mark.parametrize("name,occ", [("haldane", [0]), ("kane_mele", [0, 1]), ("kane_mele_all", "All")])
+def test_smooth_gauge_matches_jax(name, occ, closed):
+    """Smoothed states along both axes within 1e-12 of pythtb_tpu's,
+    nspin 1 and 2, open and closed."""
+    jm = jzoo.haldane() if name == "haldane" else jzoo.kane_mele()
+    st = _solved(jm, [9, 7])
+    for d in (0, 1):
+        a, b = _pair(jm, st)
+        a.smooth_gauge(occ, dir=d, closed=closed)
+        b.smooth_gauge(occ, dir=d, closed=closed)
+        assert np.abs(np.asarray(a._wfs) - b._wfs).max() <= TOL
+
+
+@pytest.mark.parametrize("name,occ,d", [("haldane", [0], 0), ("kane_mele", [0, 1], 0),
+                                        ("kane_mele", [1, 2], 1)])
+def test_follow_states_matches_jax(name, occ, d):
+    """Followed indices identical, fidelity and followed states within
+    1e-12 of pythtb_tpu's (nspin 1 and 2)."""
+    jm = jzoo.haldane() if name == "haldane" else jzoo.kane_mele()
+    a, b = _pair(jm, _solved(jm, [9, 7]))
+    ia, fa, wa = a.adiabatic_evolve(occ, dir=d, return_states=True)
+    ib, fb, wb = b.adiabatic_evolve(occ, dir=d, return_states=True)
+    assert ia.shape == ib.shape and np.array_equal(ia, ib)
+    assert np.abs(fa - fb).max() <= TOL
+    assert np.abs(np.asarray(wa._wfs) - wb._wfs).max() <= TOL
+
+
+def test_follow_ties_go_to_the_lower_index():
+    """Exactly degenerate weights: the port takes the lower index, as
+    jax.lax.top_k does in pythtb_tpu."""
+    m = tb_model(0, 1, lat=[[1.0]], orb=[[0.0], [0.0], [0.0], [0.0]])
+    e = np.eye(4, dtype=complex)
+    st = np.stack([e, e])
+    st[1, 0] = (e[0] + e[1]) / np.sqrt(2)  # the start state splits evenly
+    st[1, 1] = (e[0] - e[1]) / np.sqrt(2)  # over rows 0 and 1
+    jm = jzoo.molecule_nh3()
+    jw = jwf_array(jm, [2])  # 4 orbitals as well
+    jw._wfs = st.copy()
+    wf = convert.wf_array_from_numpy(m, st)
+    ia, _ = jw.adiabatic_evolve([0], dir=0)
+    ib, fb = wf.adiabatic_evolve([0], dir=0)
+    assert ib[1, 0] == ia[1, 0] == 0
+    np.testing.assert_allclose(fb, 0.5, atol=1e-15)
+
+
+@pytest.mark.parametrize("same_graph", [True, False])
+def test_solve_on_grid_models_matches_jax(same_graph):
+    """Family fill (one graph: kernel 1's member mode; mixed graphs: one
+    solve per model) within 1e-12 of pythtb_tpu's energies and gaps, and
+    its states' projectors."""
+    lams = np.linspace(0.0, 1.0, 7)
+    fam = [jzoo.three_site_chain(lam) for lam in lams]
+    if not same_graph:
+        fam[3].set_hop(0.05, 0, 2, [0], mode="add")  # a new bond
+    jw = jwf_array(fam[0], [7, 6])
+    g1 = jw.solve_on_grid_models(fam, param_dir=0)
+    tw = wf_array(carry(fam[0]), [7, 6])
+    g2 = tw.solve_on_grid_models([carry(m) for m in fam], param_dir=0)
+    assert np.abs(g1 - g2).max() <= TOL
+    assert np.abs(jw.energies - tw.energies).max() <= TOL
+    pa = np.einsum("...nf,...ng->...nfg", np.asarray(jw._wfs).conj(), np.asarray(jw._wfs))
+    pb = np.einsum("...nf,...ng->...nfg", tw._wfs.conj(), tw._wfs)
+    assert np.abs(pa - pb).max() <= 1e-10
+    # the parameter axis may come second
+    tw2 = wf_array(carry(fam[0]), [6, 7])
+    tw2.solve_on_grid_models([carry(m) for m in fam], param_dir=1)
+    assert np.abs(np.swapaxes(tw2.energies, 0, 1) - tw.energies).max() <= TOL
+
+
+def _haldane_loop(nk=13):
+    wf = wf_array(models.haldane(), [nk, nk])
+    wf.solve_on_grid([-0.5, -0.5])
+    return wf
+
+
+def test_parallel_transport_links_hermitian_positive():
+    wf = _haldane_loop()
+    wf.smooth_gauge([0], dir=0, closed=False)
+    w = np.asarray(wf._wfs)[:, :, 0, :]
+    ovr = np.einsum("kjf,kjf->kj", w[:-1].conj(), w[1:])
+    assert np.all(ovr.real > 0)
+    np.testing.assert_allclose(ovr.imag, 0.0, atol=1e-12)
+
+
+def test_twisted_links_share_the_loop_phase():
+    wf = _haldane_loop()
+    wf.impose_pbc(0, 0)
+    wf.impose_pbc(1, 1)
+    before = wf.berry_phase([0], dir=0, contin=False)
+    wf.smooth_gauge([0], dir=0, closed=True)
+    w = np.asarray(wf._wfs)[:, :, 0, :]
+    ang = np.angle(np.einsum("kjf,kjf->kj", w[:-1].conj(), w[1:]))
+    assert np.abs(ang - ang[0][None, :]).max() < 1e-10
+    total = -np.angle(np.exp(1j * (w.shape[0] - 1) * ang[0]))
+    np.testing.assert_allclose(np.angle(np.exp(1j * (total - before))), 0.0, atol=1e-8)
+
+
+def test_gauge_invariants_unchanged_and_endpoints_kept():
+    wf = _haldane_loop()
+    wf.impose_pbc(0, 0)
+    wf.impose_pbc(1, 1)
+    flux = wf.berry_flux([0])
+    w0 = np.array(wf._wfs)
+    wf.smooth_gauge([0], dir=1, closed=True)
+    w1 = np.asarray(wf._wfs)
+    np.testing.assert_allclose(wf.berry_flux([0]), flux, atol=1e-10)
+    p = lambda w: np.einsum("kjf,kjg->kjfg", w[:, :, 0].conj(), w[:, :, 0])
+    np.testing.assert_allclose(p(w1), p(w0), atol=1e-10)
+    np.testing.assert_allclose(w1[:, 0], w0[:, 0], atol=1e-12)
+    np.testing.assert_allclose(w1[:, -1], w0[:, -1], atol=1e-10)
+
+
+def test_multiband_spinful_partial_products_grow_linearly():
+    km = models.kane_mele()
+    wf = wf_array(km, [9, 9])
+    wf.solve_on_grid([0.0, 0.0])
+    wf.impose_pbc(0, 0)
+    before = wf.berry_phase([0, 1], dir=0, contin=False, berry_evals=True)
+    wf.smooth_gauge([0, 1], dir=0, closed=True)
+    np.testing.assert_allclose(wf.berry_phase([0, 1], dir=0, contin=False, berry_evals=True), before, atol=1e-9)
+    w = wf._wfs[:, :, :2].reshape(9, 9, 2, -1)
+    U, _, Vh = np.linalg.svd(np.einsum("kjnf,kjmf->kjnm", w[:-1].conj(), w[1:]))
+    prod = np.broadcast_to(np.eye(2), (9, 2, 2)).copy()
+    partial = []
+    for m in range(8):
+        prod = prod @ (U @ Vh)[m]
+        partial.append(np.sort(np.angle(np.linalg.eigvals(prod)), axis=-1))
+    for m in range(8):
+        np.testing.assert_allclose(partial[m], np.sort((m + 1) / 8.0 * partial[-1], axis=-1), atol=1e-8)
+
+
+def test_holonomy_at_the_branch_cut_keeps_endpoints():
+    """A holonomy eigenphase at pi (a band with Berry phase pi: the SSH
+    chain's topological phase): the fractional powers pick one side of
+    the cut, yet the closed gauge keeps both endpoints of impose_pbc."""
+    ssh = tb_model(1, 1, [[1.0]], [[0.0], [0.0]])
+    ssh.set_hop(0.4, 0, 1, [0])
+    ssh.set_hop(1.0, 1, 0, [1])
+    wf = wf_array(ssh, [21])
+    wf.solve_on_grid([0.0])
+    np.testing.assert_allclose(abs(wf.berry_phase([0])), np.pi, atol=1e-9)
+    w0 = np.array(wf._wfs)
+    wf.smooth_gauge([0], dir=0, closed=True)
+    w1 = np.asarray(wf._wfs)
+    np.testing.assert_allclose(w1[0], w0[0], atol=1e-12)
+    np.testing.assert_allclose(w1[-1], w0[-1], atol=1e-10)
+    np.testing.assert_allclose(abs(wf.berry_phase([0])), np.pi, atol=1e-9)
+
+
+def _crossing_array(eps, nl=21):
+    wf = None
+    for i, lam in enumerate(np.linspace(0.0, 1.0, nl)):
+        m = tb_model(0, 1, lat=[[1.0]], orb=[[0.0], [0.0]])
+        m.set_onsite([lam - 0.5, 0.5 - lam])
+        if eps != 0.0:
+            m.set_hop(eps, 0, 1, mode="set", allow_conjugate_pair=True)
+        if wf is None:
+            wf = wf_array(m, [nl])
+        wf[i] = m.solve_all(eig_vectors=True)[1]
+    return wf
+
+
+def test_adiabatic_crossings():
+    idx, fid = _crossing_array(0.0).adiabatic_evolve([0], dir=0)
+    assert idx.shape == (21, 1) and idx[0, 0] == 0 and idx[-1, 0] == 1
+    np.testing.assert_allclose(fid, 1.0, atol=1e-12)
+    idx, fid = _crossing_array(0.4).adiabatic_evolve([0], dir=0)
+    assert np.all(idx[:, 0] == 0) and fid.min() > 0.99
+    _, fid = _crossing_array(1e-3, nl=5).adiabatic_evolve([0], dir=0)
+    assert fid.min() < 0.9
+
+
+def test_charge_pump_returns_home_and_two_band_following():
+    nl = 31
+    lams = np.linspace(0.0, 1.0, nl)
+    wf = wf_array(models.three_site_chain(0.0), [nl, 9])
+    wf.solve_on_grid_models([models.three_site_chain(lam) for lam in lams], param_dir=0)
+    wf.impose_loop(0)
+    idx, fid, followed = wf.adiabatic_evolve([0], dir=0, return_states=True)
+    assert np.all(idx[0] == idx[-1]) and fid.min() > 0.95
+    w = followed._wfs
+    p = lambda v: np.einsum("jf,jg->fg", v.reshape(1, -1).conj(), v.reshape(1, -1))
+    np.testing.assert_allclose(p(w[0, 0]), p(w[-1, 0]), atol=1e-9)
+    km = wf_array(models.kane_mele(), [13, 5])
+    km.solve_on_grid([0.0, 0.0])
+    idx, fid = km.adiabatic_evolve([0, 1], dir=0)
+    assert idx.shape == (13, 5, 2) and fid.min() > 0.85
+    assert np.all(np.sort(idx, axis=-1) == idx)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fuzz_smooth_gauge_random_frames(seed):
+    """Random orthonormal frames: subspaces, orthonormality and the Berry
+    phase kept, endpoints fixed, unchosen states untouched, open links
+    Hermitian positive."""
+    rng = np.random.RandomState(40 + seed)
+    norb = rng.randint(2, 5)
+    nocc = rng.randint(1, norb + 1)
+    L = rng.randint(4, 9)
+    m = tb_model(1, 1, lat=[[1.0]], orb=[[i / norb] for i in range(norb)])
+    states = rng.randn(L, norb, norb) + 1j * rng.randn(L, norb, norb)
+    st = np.stack([np.linalg.qr(s.T)[0].T for s in states])
+    st[-1] = st[0]
+    wf = convert.wf_array_from_numpy(m, st)
+    occ = list(range(nocc))
+    ph = wf.berry_phase(occ, dir=0, contin=False)
+    wf.smooth_gauge(occ, dir=0, closed=True)
+    after = np.asarray(wf._wfs)
+    np.testing.assert_allclose(after[0], st[0], atol=1e-12)
+    np.testing.assert_allclose(after[-1], st[-1], atol=1e-10)
+    np.testing.assert_allclose(after[:, nocc:], st[:, nocc:], atol=0)
+    pp = lambda w: np.einsum("lnf,lng->lfg", w[:, :nocc].conj(), w[:, :nocc])
+    np.testing.assert_allclose(pp(after), pp(st), atol=1e-10)
+    assert abs(np.angle(np.exp(1j * (wf.berry_phase(occ, dir=0, contin=False) - ph)))) < 1e-8
+    wf2 = convert.wf_array_from_numpy(m, st)
+    wf2.smooth_gauge(occ, dir=0, closed=False)
+    w2 = np.asarray(wf2._wfs)[:, :nocc]
+    ovr = np.einsum("lnf,lmf->lnm", w2[:-1].conj(), w2[1:])
+    assert np.abs(ovr - np.swapaxes(ovr.conj(), -1, -2)).max() < 1e-10
+    assert np.linalg.eigvalsh((ovr + np.swapaxes(ovr.conj(), -1, -2)) / 2).min() > 0.0
+
+
+def test_plain_versions_shapes_and_shape_rule_counter():
+    """The plain chain starts at the identity and ends at the Wilson loop;
+    the shape rule counts nothing on CPU tensors."""
+    from pythtb_tpu_torch.ops import _kernels, berry
+
+    wf = _haldane_loop(7)
+    w = wf._device_states()
+    w5, grid = transport._strings(w, 1, 2, 1)
+    occ = transport._occ_tensor([0], w.device)
+    C, smin = transport._chain_plain(w5, occ)
+    assert C.shape == (7, 7, 1, 1, 1) and smin.shape == (7,)
+    np.testing.assert_allclose(C[:, 0].numpy(), 1.0)
+    prod, _ = berry.wilson_loop(berry.prep_states(w, [0], 1, 2), 1)
+    np.testing.assert_allclose(C[:, -1, 0].numpy(), prod.numpy(), atol=1e-12)
+    before = _kernels.LAUNCHES["transport_library"]
+    transport.smooth_gauge(w, list(range(2)), 0, 1, 2, True)
+    assert _kernels.LAUNCHES["transport_library"] == before
