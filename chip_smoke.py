@@ -7,9 +7,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: needs torch.cuda.is_available(); prints the card's name
    and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compiles the nineteen CUDA kernels with nvcc (sm_90a, one nvcc
-   per source, all started together) into build/pythtb_tpu_torch/ and
-   prints the build seconds and ptxas usage;
+2. build: compiles the 21 CUDA kernels with nvcc (sm_90a, one nvcc per
+   source, all started together) into build/pythtb_tpu_torch/ and prints
+   the build seconds and ptxas usage;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes: max |diff| (tolerance 1e-12, float64), the median
    time of each over 25 runs (CUDA events), the time of the one PyTorch
@@ -45,6 +45,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    step) on the silicon row's coarse 8^3 overlaps, single steps at 1e-12
    and the whole 400-step run against the plain run (Omega_I 1e-10,
    Omega 1e-9, history and centres 1e-7, relative: PERF.md section 2);
+   the ninth slice's kernel 11b (the ED sector solver's dense Chebyshev
+   filter) at the 4,900-dim Hubbard sector, one step at 1e-12 of each
+   column's largest entry and the whole p = 30 filter at 1e-10, the
+   6-ring's D 400 and a spinful-layout D 924 sector, and kernel 20 (the
+   DMFT Schur pole sums) in its k-mean, pole, map and resolved modes at
+   the DMFT rows' shapes at 1e-12;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -93,6 +99,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    gauge: kernels 1, 14) and examples/symmetry_indicators.py's Chern
    indicators, against the CPU run (1e-10; the MLWF's bands and spreads,
    which end a whole MV run, at the tolerances of PERF.md section 2);
+   and the ninth slice's rows with their pins: the 8-site Hubbard ring's
+   4,900-dim sector by the filtered solver (kernel 11b; also against the
+   card's dense eigh of the same H at 1e-10), the interacting Haldane 2x2
+   many-body Chern number (kernels 3-4), the Bethe-lattice DMFT at U 3
+   and the 8-orbital ARPES map at 1001 k x 2001 w (kernel 20), with
+   examples/hubbard_ed.py (HF >= ED, spectral functions), the BCS panel of
+   examples/mean_field.py and examples/majorana.py's Majorana numbers,
+   against the CPU run at 1e-10 (the ED filter on the 6-ring there; the
+   ARPES map on the card's converged state carried to the CPU at 101 k x
+   201 w; the DMFT fixed points, which pass through L-BFGS-B bath fits,
+   at the rows' pins);
    then the steady wall time of the main calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
@@ -216,10 +233,11 @@ def wall_ms(torch, fn, reps):
     return 1e3 * float(np.median(times))
 
 
-def device_us(torch, fn, reps=10):
-    """Device time (us) and device activities (kernels, copies) per call
-    of ``fn``, from torch.profiler's CUDA events over ``reps`` calls;
-    (None, None) where the profiler records no device activity."""
+def profiled(torch, fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn``: the device events, the
+    kernel-launch calls and the kernels recorded for them (the profiler
+    loses some windows' kernels, fewer or more from one window to the
+    next)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -230,7 +248,21 @@ def device_us(torch, fn, reps=10):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
+    calls = sum("LaunchKernel" in e.name for e in prof.events() if e.device_type == DeviceType.CPU)
+    kernels = sum(not e.name.startswith(("Memcpy", "Memset")) for e in events)
+    return events, calls, kernels
+
+
+def device_us(torch, fn, reps=10):
+    """Device time (us) and device activities (kernels, copies) per call
+    of ``fn``, from torch.profiler's CUDA events over ``reps`` calls;
+    (None, None) where the profiler records no device activity or fewer
+    kernels than the window's kernel-launch calls (it lost events)."""
+    events, calls, kernels = profiled(torch, fn, reps)
+    if kernels < calls:
+        print("    (profiler: %d kernels for %d launch calls, events lost: device time not measured)"
+              % (kernels, calls))
+    if not events or kernels < calls:
         return None, None
     return sum(e.time_range.elapsed_us() for e in events) / reps, len(events) / reps
 
@@ -238,19 +270,12 @@ def device_us(torch, fn, reps=10):
 def device_top(torch, fn, n=4, reps=2):
     """The ``n`` device activities that take most of ``fn``'s device time
     per call (profiler, summed by name), and the total."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    events, calls, kernels = profiled(torch, fn, reps)
+    if kernels < calls:
+        print("    (profiler: %d kernels for %d launch calls, events lost)" % (kernels, calls))
     per = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    for e in events:
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
     return sorted(per.items(), key=lambda kv: -kv[1])[:n], sum(per.values())
 
 
@@ -498,6 +523,11 @@ def phase_kernels(torch, pt, device):
             t0 = time.perf_counter()
             (dev_us, n) = device_us(torch, kernel, prof_reps)
             (plain_us, plain_n) = device_us(torch, plain, prof_reps) if prof_plain else (None, None)
+            # a device time below the bound is a window that lost events
+            if dev_us is not None and dev_us < 1e3 * cost[0]:
+                dev_us = None
+            if plain_us is not None and plain_us < 1e3 * cost[0]:
+                plain_us = None
             print("  %-15s %-34s device per call: kernel %s us (%s launches), plain %s us (%s launches)  [%.1f s]"
                   % (name, key, fmt(dev_us), fmt(n), fmt(plain_us), fmt(plain_n), time.perf_counter() - t0))
         if main:
@@ -628,6 +658,7 @@ def phase_kernels(torch, pt, device):
     slice6_kernels(torch, pt, device, record, held)
     slice7_kernels(torch, pt, device, record, held)
     slice8_kernels(torch, pt, device, record, held)
+    slice9_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -1922,7 +1953,7 @@ def slice7_kernels(torch, pt, device, record, held):
             return
         record("eigh_jacobi", key, err_w, lambda: eigh.eigh_jacobi(H), lambda: eigh._eigh_jacobi_plain(H), cost,
                main, cuda_ms(torch, lambda: torch.linalg.eigh(H), 3), reps=5, scale=scale, prof_reps=3,
-               prof_plain=False, profile=True)
+               prof_plain=main, profile=True)
 
     for m in JACOBI_M:
         hold("random B=64 m=%d" % m, hermitian(64, m))
@@ -2378,6 +2409,440 @@ def compare_slice8(out, ref):
           "silicon MLWF spreads differ from the CPU run")
 
 
+# -- the ninth slice: interacting clusters and DMFT -----------------------------
+
+S9 = {"ed_L": 8, "ed_cpu_L": 6, "arpes_k": 1001, "arpes_w": 2001, "arpes_cpu_k": 101, "arpes_cpu_w": 201,
+      "bcs_nk": 36, "hf_L": 6}
+ARPES_PATH = [[0, 0], [0.5, 0], [0.5, 0.5], [0, 0]]
+HUBBARD_ED_U = np.linspace(0.0, 10.0, 11)  # examples/hubbard_ed.py
+HUBBARD_ED_W = np.linspace(-6.0, 10.0, 601)
+BCS_G = np.linspace(1.0, 3.0, 7)  # examples/mean_field.py's BCS panel
+MAJORANA_MU = np.linspace(-3.0, 3.0, 25)  # examples/majorana.py
+HALDANE_NN_V = [(0.5, 0, 1, (0, 0)), (0.5, 1, 0, (1, 0)), (0.5, 1, 0, (0, 1))]  # many_body_chern_2x2_interacting
+
+
+def ring(pt, L):
+    """The L-site nearest-neighbour Hubbard ring of the ED rows."""
+    return pt.models.chain().cut_piece(L, 0, glue_edgs=True)
+
+
+def hubbard_sector(pt, L, U):
+    """The half-filled (L/2, L/2) sector matrix that ed.hubbard builds for
+    an L-ring (D = C(L, L/2)^2), on the host."""
+    ed = pt.ed
+    h = ed.dense_h(ring(pt, L))
+    bu = ed.sector_basis(L, L // 2)
+    T = ed.build_sector(h, bu)
+    D1 = len(bu)
+    H = np.kron(T, np.eye(D1)) + np.kron(np.eye(D1), T)
+    occ = ed._occupations(bu, L)
+    H[np.diag_indices(D1 * D1)] += U * np.einsum("ui,di->ud", occ, occ).reshape(-1)
+    return H
+
+
+def spinful_sector(pt, L, U):
+    """The general-layout (spinful) half-filled sector of an L-ring with
+    Hubbard U: D = C(2L, L)."""
+    ed = pt.ed
+    hm, vmat, nmodes, _ = ed._general_setup(ring(pt, L), U, None, True)
+    return ed.build_sector(hm, ed.sector_basis(nmodes, L), vmat)
+
+
+def arpes_model(pt):
+    """dmft_arpes_resolved_1001k_2001w's model: one correlated square-lattice
+    orbital and seven spectators."""
+    mb = pt.tb_model(2, 2, [[1.0, 0.0], [0.0, 1.0]], [[0.0, 0.0]] * 8)
+    mb.set_onsite([0.0, -3.0, -2.0, -1.0, 1.5, 2.5, 3.5, 4.5])
+    for o in range(8):
+        mb.set_hop(-1.0 if o == 0 else -0.4, o, o, [1, 0])
+        mb.set_hop(-1.0 if o == 0 else -0.4, o, o, [0, 1])
+    for o in range(1, 8):
+        mb.set_hop(0.25, 0, o, [0, 0])
+    return mb
+
+
+def gershgorin_filter_args(H):
+    """(c, hw) of the ED solver's first filter round: the window above
+    lo + 10% of the Gershgorin range mapped onto [-1, 1]."""
+    radii = np.sum(np.abs(H), axis=1) - np.abs(np.diag(H))
+    hi, lo = float(np.max(np.diag(H).real + radii)), float(np.min(np.diag(H).real - radii))
+    cut = lo + 0.1 * (hi - lo)
+    return 0.5 * (cut + hi), 0.5 * (hi - cut)
+
+
+def cost_dense_filter(D, nb, steps):
+    """Kernel 11b: H read once a step where it is larger than the H100's
+    50 MB L2 (a step needs the whole previous block), else once; X read
+    once, F written once; per step the complex (D x D) x (D x nb) product
+    (8 D^2 nb) and the epilogue (~12 per element)."""
+    h_reads = steps if D * D * C128 > 50e6 else 1
+    return bound(h_reads * D * D * C128 + 2 * D * nb * C128, steps * (8 * D * D * nb + 12 * D * nb))
+
+
+def cost_pole(mode, Nk, nv, nw):
+    """Kernel 20: inputs read once, outputs written once; per (k, w) the
+    nv reciprocals R_m (~8 ops each) and their weighted sum (4), the Schur
+    reciprocal (~10); the resolved mode adds per spectator j the c, d and
+    |W|^2 sums (20 nv) and c G d (8).  The pole mode counts (t, w) pairs
+    (~10 ops each)."""
+    if mode == "pole":
+        return bound(2 * Nk * F64 + 3 * nw * C128, Nk * nw * 10)
+    per = 12 * nv + 10
+    nbytes = Nk * F64 * (1 + 2 * nv) + 2 * nw * C128
+    if mode == "kmean":
+        return bound(nbytes + nw * C128, Nk * nw * (per + 2))
+    if mode == "map":
+        return bound(nbytes + Nk * nw * F64, Nk * nw * per)
+    nbytes = Nk * (F64 * (1 + nv) + C128 * (nv * nv + nv)) + 2 * nw * C128 + Nk * nw * (1 + nv) * F64
+    return bound(nbytes, Nk * nw * (per + nv * (20 * nv + 8)))
+
+
+def col_rel(torch, a, b):
+    """max over columns of max|a - b| / max|b| (column by column)."""
+    torch.cuda.synchronize()
+    check(a.shape == b.shape and bool(torch.isfinite(a).all()), "kernel 11b: bad output")
+    return float(((a - b).abs().amax(dim=0) / b.abs().amax(dim=0)).max())
+
+
+def slice9_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernels 11b and 20.  Kernel 11b at the ed_hubbard row's
+    4,900-dim sector (nb 10, the solver's first window): one step at 1e-12
+    of each column's largest entry, the whole p = 30 filter at 1e-10; the
+    6-ring's D 400 and the spinful-layout D 924 sector filtered whole.
+    Kernel 20's four modes at the DMFT rows' shapes at 1e-12 (relative):
+    the k-mean at the ARPES row's lattice (Nk 256, nv 7, 96 Matsubara
+    points), the pole mode at the Bethe quadrature (512 nodes x 128) and
+    an AIM's Lehmann poles, the map and resolved modes at 1001 k x 2001 w."""
+    from pythtb_tpu_torch import dmft
+    from pythtb_tpu_torch.ops import chebyshev, eigh, pole_sum
+
+    rng = np.random.default_rng(9)
+    t0 = time.perf_counter()
+    H = hubbard_sector(pt, S9["ed_L"], 4.0)
+    c, hw = gershgorin_filter_args(H)
+    Hd = torch.as_tensor(H).to(device)
+    del H
+    D, nb = Hd.shape[0], 10
+    X = torch.as_tensor(rng.normal(size=(D, nb)) + 1j * rng.normal(size=(D, nb))).to(device)
+    print("  hubbard 8-site sector D %d built and uploaded in %.1f s" % (D, time.perf_counter() - t0))
+    for p in (1, 2):
+        err = col_rel(torch, chebyshev.dense_filter(Hd, X, p, c, hw), chebyshev._dense_filter_plain(Hd, X, p, c, hw))
+        held("dense_filter", "hubbard D 4900 nb 10, %d step%s" % (p, "s" if p > 1 else ""), err)
+
+    def library():
+        # the same recurrence as torch.matmul steps, without the rescale
+        a, b = X, (Hd @ X - c * X) / hw
+        for _ in range(29):
+            a, b = b, 2.0 * ((Hd @ b - c * b) / hw) - a
+        return b
+
+    err = col_rel(torch, chebyshev.dense_filter(Hd, X, 30, c, hw), chebyshev._dense_filter_plain(Hd, X, 30, c, hw))
+    record("dense_filter", "hubbard D 4900 nb 10, p 30", err, lambda: chebyshev.dense_filter(Hd, X, 30, c, hw),
+           lambda: chebyshev._dense_filter_plain(Hd, X, 30, c, hw), cost_dense_filter(D, nb, 30), True,
+           cuda_ms(torch, library, 5), reps=5, tol=1e-10, prof_reps=2)
+    del Hd
+    for key, Hs in (("6-ring D 400, p 30", hubbard_sector(pt, 6, 4.0)),
+                    ("spinful layout 6-ring D 924, p 30", spinful_sector(pt, 6, 4.0))):
+        c6, hw6 = gershgorin_filter_args(Hs)
+        H6 = torch.as_tensor(Hs).to(device)
+        X6 = torch.as_tensor(rng.normal(size=(Hs.shape[0], nb)) + 1j * rng.normal(size=(Hs.shape[0], nb))).to(device)
+        held("dense_filter", key, col_rel(torch, chebyshev.dense_filter(H6, X6, 30, c6, hw6),
+                                          chebyshev._dense_filter_plain(H6, X6, 30, c6, hw6)), tol=1e-10)
+        # the full path's one sector eigh (ed._eigh_dev): the library at D > 64
+        m = Hs.shape[0]
+        ms = cuda_ms(torch, lambda: eigh.eigh_batched(H6[None]), 5)
+        print("  %-15s %-34s eigh_batched (torch.linalg.eigh) %.4f ms  bound %.5f ms (%s)"
+              % ("sector eigh", "D %d" % m, ms, *cost_eigh(1, m)))
+    # the twist grid's rows (ed._twist_chern_dev): 6 matrices of 70 x 70 a row
+    At = rng.normal(size=(6, 70, 70)) + 1j * rng.normal(size=(6, 70, 70))
+    Ht = torch.as_tensor(At + np.conj(np.swapaxes(At, -1, -2))).to(device)
+    ms = cuda_ms(torch, lambda: eigh.eigh_batched(Ht), 5)
+    print("  %-15s %-34s eigh_batched (torch.linalg.eigh) %.4f ms  bound %.5f ms (%s)"
+          % ("twist row eigh", "B 6, D 70", ms, *cost_eigh(6, 70)))
+    # kernel 16's Lorentzian mode at ed.spectral_function's shape: the
+    # 6-ring's N+1 sector (792 poles) at examples/hubbard_ed.py's 601 w
+    from pythtb_tpu_torch.optical import _spectral_sum_plain, spectral_sum
+
+    Wl = torch.as_tensor(rng.random((1, 792)) + 0j).to(device)
+    dl = torch.as_tensor(rng.uniform(-6.0, 10.0, 792)).to(device)
+    oml = torch.as_tensor(HUBBARD_ED_W).to(device)
+    want = _spectral_sum_plain(Wl, dl, oml, 0.15, "lorentz")
+    record("spectral_sum", "ED Lehmann T 792 P 1 nw 601",
+           max_diff(torch, spectral_sum(Wl, dl, oml, 0.15, "lorentz"), want),
+           lambda: spectral_sum(Wl, dl, oml, 0.15, "lorentz"),
+           lambda: _spectral_sum_plain(Wl, dl, oml, 0.15, "lorentz"),
+           cost_spectral_sum(792, 1, 601, True), tol=1e-10, scale=float(want.abs().max()))
+
+    def rel(a, b):
+        torch.cuda.synchronize()
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()), "kernel 20: bad output")
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    # k-mean: the ARPES row's lattice sum on the Matsubara axis
+    prev = pt.config.device()
+    pt.config.set_device(device)
+    try:
+        epso, amps, lams, _ = dmft._lattice_pole_data(arpes_model(pt), 0, 16)
+    finally:
+        pt.config.set_device(prev)
+    wn = dmft.matsubara(15.0, 96)
+    zm = torch.complex(torch.full((96,), 0.5, dtype=torch.float64), torch.as_tensor(wn)).to(device)
+    sig = torch.as_tensor(1.0 - 0.5j * np.exp(-wn)).to(device)
+    args = (epso, amps, lams, zm, sig)
+    record("pole_sum", "k-mean Nk 256 nv 7 nw 96",
+           rel(pole_sum.lattice_gloc(*args), pole_sum._lattice_gloc_plain(*args)),
+           lambda: pole_sum.lattice_gloc(*args), lambda: pole_sum._lattice_gloc_plain(*args),
+           cost_pole("kmean", 256, 7, 96))
+    # pole mode: the Bethe quadrature (512 nodes x 128 w) and Lehmann poles
+    j = np.arange(1, 513, dtype=np.float64)
+    th = j * np.pi / 513
+    nodes = torch.as_tensor(2.0 * np.cos(th)).to(device)
+    weights = torch.as_tensor(np.sin(th) ** 2 / np.sum(np.sin(th) ** 2)).to(device)
+    wb = dmft.matsubara(20.0, 128)
+    zb = (torch.complex(torch.full((128,), 1.5, dtype=torch.float64), torch.as_tensor(wb))
+          - torch.as_tensor(0.8 - 0.3j * np.exp(-wb))).to(device)
+    record("pole_sum", "pole: Bethe 512 nodes x 128 w", rel(pole_sum.pole_sum(weights, nodes, zb),
+                                                             pole_sum._pole_sum_plain(weights, nodes, zb)),
+           lambda: pole_sum.pole_sum(weights, nodes, zb), lambda: pole_sum._pole_sum_plain(weights, nodes, zb),
+           cost_pole("pole", 512, 1, 128))
+    _, info = dmft._aim_solve(-1.5, 3.0, np.array([-1.2, -0.4, 0.4, 1.2]), np.array([0.5, 0.4, 0.4, 0.5]), 20.0, wb)
+    a_t, p_t = torch.as_tensor(info["amps"]).to(device), torch.as_tensor(info["poles"]).to(device)
+    zl = torch.complex(torch.zeros(128, dtype=torch.float64), torch.as_tensor(wb)).to(device)
+    held("pole_sum", "pole: AIM Lehmann %d poles x 128 iw" % len(info["poles"]),
+         rel(pole_sum.pole_sum(a_t, p_t, zl), pole_sum._pole_sum_plain(a_t, p_t, zl)))
+    # map and resolved modes at the ARPES row
+    mb = arpes_model(pt)
+    kp = mb.k_path(ARPES_PATH, S9["arpes_k"], report=False)[0]
+    prev = pt.config.device()
+    pt.config.set_device(device)
+    try:
+        epso_k, lam_k, W_k, b_k = dmft._spectator_eigh(dmft._hk(mb, kp), 0)
+    finally:
+        pt.config.set_device(prev)
+    om = np.linspace(-8.0, 8.0, S9["arpes_w"])
+    zr = torch.as_tensor((om + 0.5) + 0.15j).to(device)
+    sr = torch.as_tensor(1.0 - 0.4j / (1.0 + om ** 2)).to(device)
+    amp_k = (b_k.abs() ** 2).contiguous()
+    margs = (epso_k, amp_k, lam_k, zr, sr)
+    Nk, nw = S9["arpes_k"], S9["arpes_w"]
+    record("pole_sum", "map 1001 k x 2001 w nv 7",
+           rel(pole_sum.spectral_map(*margs), pole_sum._spectral_map_plain(*margs)),
+           lambda: pole_sum.spectral_map(*margs), lambda: pole_sum._spectral_map_plain(*margs),
+           cost_pole("map", Nk, 7, nw), reps=5)
+    rargs = (epso_k, lam_k, W_k, b_k, zr, sr)
+    got, want = pole_sum.spectral_resolved(*rargs), pole_sum._spectral_resolved_plain(*rargs)
+    record("pole_sum", "resolved 1001 k x 2001 w nv 7", max(rel(got[0], want[0]), rel(got[1], want[1])),
+           lambda: pole_sum.spectral_resolved(*rargs), lambda: pole_sum._spectral_resolved_plain(*rargs),
+           cost_pole("resolved", Nk, 7, nw), True, reps=5, prof_reps=3)
+
+
+def slice9_path(pt, where, reference):
+    """The ninth slice's rows of tools/bench_suite.py with their pins:
+    ed_hubbard_8site_4900dim (:539; 8-site ring, U 4, the 4,900-dim
+    sector, lowest 4: E0 -4.603526 within 1e-3, docc 0.094926 within 2e-4;
+    on the card the four values against the card's dense eigh of the same
+    H at 1e-10), many_body_chern_2x2_interacting (:797; C -1 within
+    5e-3), dmft_bethe_u3 (:702; converged, Z 0.484227 within 5e-3, docc
+    0.123281 within 2e-3) and dmft_arpes_resolved_1001k_2001w (:725; mean
+    orbital weight within 5e-2 of 1, A > -1e-6); examples/hubbard_ed.py
+    (the HF >= ED bound at L 6 over 11 U, spectral functions at 601 w,
+    <S^z_0 S^z_r>), examples/mean_field.py's BCS panel (nk 36, 7 g,
+    against its independent gap equation) and examples/majorana.py's
+    Majorana numbers and open-chain splittings.  The CPU reference runs
+    the ED filter on the 6-ring (D 400) instead of the 8-ring, and the rest
+    at full width."""
+    import warnings
+
+    from pythtb_tpu_torch.ops import _kernels
+
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    # ed_hubbard_8site_4900dim (the CPU: the 6-ring)
+    if not reference:
+        before = _kernels.LAUNCHES["dense_filter"]
+        r, sec = timed(pt.ed.hubbard, ring(pt, S9["ed_L"]), 4.0, 4, 4, lowest=4)
+        out["ed_filter_steps"] = _kernels.LAUNCHES["dense_filter"] - before
+        docc = float(r.double_occupancy().mean())
+        print("  %s ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4: E0 %.8f docc %.8f, gap %.8f, %d filter steps "
+              "[%.2f s]" % (where, r.energy, docc, r.gap, out["ed_filter_steps"], sec))
+        check(abs(r.energy + 4.603526) < 1e-3 and abs(docc - 0.094926) < 2e-4,
+              "ed_hubbard_8site_4900dim: E0 %.6f, docc %.6f" % (r.energy, docc))
+        out["ed8_evals"] = r.evals
+    r6, sec = timed(pt.ed.hubbard, ring(pt, S9["ed_cpu_L"]), 4.0, 3, 3, lowest=4)
+    out["ed6_evals"], out["ed6_docc"] = r6.evals, r6.double_occupancy()
+    print("  %s ed.hubbard 6-ring U 4, 400-dim sector, lowest 4: E0 %.12f  [%.2f s]" % (where, r6.energy, sec))
+
+    # many_body_chern_2x2_interacting
+    c, sec = timed(pt.ed.many_body_chern, pt.models.haldane(), (2, 2), nelec=4, interactions=HALDANE_NN_V, grid=6)
+    out["mbc"] = np.array([c])
+    print("  %s ed.many_body_chern haldane 2x2, 70-dim sector, 6x6 twists: C %.12f  [%.2f s]" % (where, c, sec))
+    check(abs(c + 1.0) < 5e-3, "many_body_chern_2x2_interacting: C %.6f" % c)
+
+    # dmft_bethe_u3
+    rb, sec = timed(pt.dmft.bethe, 3.0, D=2.0, beta=20.0, n_matsubara=128, n_bath=4, max_iter=40)
+    out["bethe"] = np.array([rb.Z, rb.docc, rb.iterations])
+    print("  %s dmft.bethe U 3, 128 w, 4 bath sites: converged %s in %d iterations, Z %.8f docc %.8f  [%.2f s]"
+          % (where, rb.converged, rb.iterations, rb.Z, rb.docc, sec))
+    check(rb.converged and abs(rb.Z - 0.484227) < 5e-3 and abs(rb.docc - 0.123281) < 2e-3,
+          "dmft_bethe_u3: converged %s, Z %.6f, docc %.6f" % (rb.converged, rb.Z, rb.docc))
+
+    # dmft_arpes_resolved_1001k_2001w
+    mb = arpes_model(pt)
+    r42, sec = timed(pt.dmft.solve, mb, U=2.0, orb=0, beta=15.0, nk=16, n_matsubara=96, n_bath=3, max_iter=30)
+    out["arpes_fixed_point"] = np.array([r42.Z, r42.docc, r42.mu])
+    nk_map, nw_map = (S9["arpes_cpu_k"], S9["arpes_cpu_w"]) if reference else (S9["arpes_k"], S9["arpes_w"])
+    kp = mb.k_path(ARPES_PATH, nk_map, report=False)[0]
+    om = np.linspace(-8.0, 8.0, nw_map)
+    before = _kernels.LAUNCHES["pole_sum"]
+    a42, sec2 = timed(pt.dmft.band_spectral, r42, kp, om, eta=0.15, resolved=True)
+    wsum = float(np.trapezoid(a42, om, axis=1).mean())
+    print("  %s dmft.solve 8 orbitals nk 16, 96 w, 3 bath sites: Z %.8f in %d iterations [%.2f s]; band_spectral "
+          "resolved %d k x %d w x 8: mean orbital weight %.6f, min A %.3e  [%.2f s]"
+          % (where, r42.Z, r42.iterations, sec, nk_map, nw_map, wsum, float(a42.min()), sec2))
+    check(abs(wsum - 1.0) < 5e-2 and bool(np.all(a42 > -1e-6)),
+          "dmft_arpes_resolved: weight %.4f, min A %.3e" % (wsum, float(a42.min())))
+    if not reference:
+        out["arpes_launches"] = _kernels.LAUNCHES["pole_sum"] - before
+        # the card's converged state and its map at the CPU's size, for the comparison
+        out["arpes_state"] = {key: getattr(r42, key) for key in ("wn", "sigma", "g_loc", "g_imp", "g0_inv", "mu",
+                                                                  "eps_d", "bath")}
+        out["arpes_state"].update(amps=r42._amps, poles=r42._poles, orb=0, real_axis=(
+            "pole", tuple(t.cpu().numpy() for t in r42._real_axis[1])))
+        kps = mb.k_path(ARPES_PATH, S9["arpes_cpu_k"], report=False)[0]
+        out["arpes_small"] = pt.dmft.band_spectral(r42, kps, np.linspace(-8.0, 8.0, S9["arpes_cpu_w"]), eta=0.15,
+                                                   resolved=True)
+        out["arpes_local"] = r42.local_spectral(om[::10], eta=0.15)
+
+    # examples/hubbard_ed.py
+    L = S9["hf_L"]
+    t0 = time.perf_counter()
+    rg = ring(pt, L)
+    docc, e_ed, e_hf, hf_iters = [], [], [], []
+    for U in HUBBARD_ED_U:
+        r = pt.ed.hubbard(rg, U, L // 2, L // 2)
+        docc.append(r.double_occupancy().mean())
+        e_ed.append(r.energy)
+        rh = pt.meanfield.hartree_fock(rg, U, float(L), temperature=2e-3, stagger=0.4, seed=1, max_iters=4000)
+        e_hf.append(rh["energy"])
+        hf_iters.append(rh["iters"])
+    spec = np.stack([pt.ed.spectral_function(rg, L, HUBBARD_ED_W, U=U, eta=0.15, modes=[0, 1])[0].sum(axis=0)
+                     for U in (0.0, 4.0, 8.0)])
+    szsz = np.stack([pt.ed.hubbard(rg, U, L // 2, L // 2).szsz()[0] for U in (0.0, 4.0, 10.0)])
+    out["hubbard_ed"] = np.array([docc, e_ed, e_hf, hf_iters])
+    out["hubbard_ed_spec"], out["hubbard_ed_szsz"] = spec, szsz
+    bound_ok = all(h >= e - 1e-8 for h, e in zip(e_hf, e_ed))
+    print("  %s examples/hubbard_ed.py L 6: HF >= ED at all 11 U: %s (min HF - ED %.3e, HF iterations %d-%d); "
+          "A(w) 3 x 601 w, finite %s  [%.2f s]" % (where, bound_ok, min(h - e for h, e in zip(e_hf, e_ed)),
+                                                   min(hf_iters), max(hf_iters), bool(np.isfinite(spec).all()),
+                                                   time.perf_counter() - t0))
+    check(bound_ok and bool(np.isfinite(spec).all()), "hubbard_ed: the HF variational bound or A(w) fails")
+
+    # examples/mean_field.py's BCS panel
+    t0 = time.perf_counter()
+    sq = pt.models.square(t=-1.0)
+    mu, kt, nk = -0.4, 0.01, S9["bcs_nk"]
+    bcs = [pt.meanfield.bcs_gap(sq, float(g), mu, nk=(nk, nk), temperature=kt, max_iters=4000) for g in BCS_G]
+    ks = np.arange(nk) / nk
+    KX, KY = np.meshgrid(ks, ks, indexing="ij")
+    eps = np.asarray(sq.solve_all(np.stack([KX.ravel(), KY.ravel()], -1)))[0]
+
+    def gap_eq(gc):
+        lo, hi = 1e-9, 10.0
+        for _ in range(80):
+            mid = 0.5 * (lo + hi)
+            E = np.sqrt((eps - mu) ** 2 + mid ** 2)
+            if np.mean(np.tanh(E / (2 * kt)) / (2 * E)) > 1.0 / gc:
+                lo = mid
+            else:
+                hi = mid
+        return 0.5 * (lo + hi)
+
+    deltas = np.array([b["delta"][0] for b in bcs])
+    dev = float(np.abs(deltas - np.array([gap_eq(g) for g in BCS_G])).max())
+    out["bcs"] = np.array([deltas, [b["iters"] for b in bcs]])
+    print("  %s examples/mean_field.py BCS nk %d, 7 g: max |BdG - gap equation| %.3e, iterations %s  [%.2f s]"
+          % (where, nk, dev, [b["iters"] for b in bcs], time.perf_counter() - t0))
+    check(dev < 1e-6 and all(b["converged"] for b in bcs), "BCS panel: max |BdG - gap equation| %.3e" % dev)
+
+    # examples/majorana.py's Majorana numbers and open-chain splittings
+    t0 = time.perf_counter()
+    M = np.array([pt.bdg.majorana_number(pt.bdg.kitaev_chain(1.0, 0.4, mu)) if abs(abs(mu) - 2.0) > 1e-6 else np.nan
+                  for mu in MAJORANA_MU])
+    split = np.array([[np.abs(np.asarray(pt.bdg.kitaev_chain(1.0, 0.4, mu).cut_piece(Lc, 0).solve_all())).min()
+                       for mu in MAJORANA_MU] for Lc in (12, 24, 36)])
+    out["majorana"], out["majorana_split"] = M, split
+    want = np.where(np.abs(np.abs(MAJORANA_MU) - 2.0) <= 1e-6, np.nan, np.where(np.abs(MAJORANA_MU) < 2.0, -1.0, 1.0))
+    print("  %s examples/majorana.py: Majorana numbers at 25 mu match |mu| < 2: %s; L 36 splitting at mu 0 %.3e  "
+          "[%.2f s]" % (where, bool(np.array_equal(M, want, equal_nan=True)), split[2, 12], time.perf_counter() - t0))
+    check(np.array_equal(M, want, equal_nan=True), "Majorana numbers %s" % M)
+    return out
+
+
+def compare_slice9(torch, pt, out, ref, device):
+    """The ninth slice on the card against the CPU run: the 6-ring's four
+    filtered eigenvalues and docc, the many-body Chern number, the
+    hubbard_ed, BCS and Majorana numbers at 1e-10 (relative to the largest
+    entry); the ARPES map on the card's converged state carried to the
+    CPU (convert.dmft_result_from_numpy) at 101 k x 201 w at 1e-10; the
+    two DMFT fixed points, which pass through L-BFGS-B bath fits, at the
+    rows' pins (Z 5e-3, docc 2e-3).  On the card, the 8-ring's four values
+    against the card's dense torch.linalg.eigh of the same H at 1e-10."""
+    for key in ("ed6_evals", "ed6_docc", "mbc", "hubbard_ed", "hubbard_ed_spec", "hubbard_ed_szsz", "bcs",
+                "majorana", "majorana_split"):
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        check(got.shape == want.shape and np.array_equal(np.isnan(got), np.isnan(want)),
+              "%s: shape or NaN pattern differs from the CPU run" % key)
+        ok = ~np.isnan(want)
+        err = float(np.abs(got - want)[ok].max() / max(1.0, np.abs(want[ok]).max()))
+        print("  %s vs CPU: max|diff| %.3e (relative)" % (key, err))
+        check(err <= 1e-10, "%s differs from the CPU path by %.3e (relative)" % (key, err))
+    for key, what in (("bethe", "dmft_bethe_u3"), ("arpes_fixed_point", "ARPES lattice")):
+        d = np.abs(np.asarray(out[key]) - np.asarray(ref[key]))
+        print("  %s fixed point vs CPU: |dZ| %.3e, |ddocc| %.3e" % (what, d[0], d[1]))
+        check(d[0] < 5e-3 and d[1] < 2e-3, "%s fixed point departs from the CPU run" % what)
+    from pythtb_tpu_torch import convert
+
+    prev = pt.config.device()
+    pt.config.set_device("cpu")
+    try:
+        r = convert.dmft_result_from_numpy(out["arpes_state"], _state_of(arpes_model(pt)), device="cpu")
+        mb = arpes_model(pt)
+        kps = mb.k_path(ARPES_PATH, S9["arpes_cpu_k"], report=False)[0]
+        want = pt.dmft.band_spectral(r, kps, np.linspace(-8.0, 8.0, S9["arpes_cpu_w"]), eta=0.15, resolved=True)
+        want_local = r.local_spectral(np.linspace(-8.0, 8.0, S9["arpes_w"])[::10], eta=0.15)
+    finally:
+        pt.config.set_device(prev)
+    for key, w in (("arpes_small", want), ("arpes_local", want_local)):
+        err = float(np.abs(out[key] - w).max() / max(1.0, np.abs(w).max()))
+        print("  %s (card's state carried to the CPU) vs CPU: max|diff| %.3e (relative)" % (key, err))
+        check(err <= 1e-10, "%s differs from the CPU path by %.3e" % (key, err))
+    Hd = torch.as_tensor(hubbard_sector(pt, S9["ed_L"], 4.0)).to(device)
+    t0 = time.perf_counter()
+    w = torch.linalg.eigvalsh(Hd)[:4].cpu().numpy()
+    err = float(np.abs(out["ed8_evals"] - w).max())
+    print("  ed 4,900-dim lowest 4 vs the card's dense torch.linalg.eigvalsh: max|diff| %.3e  [%.2f s]"
+          % (err, time.perf_counter() - t0))
+    check(err <= 1e-10, "the filtered 4,900-dim eigenvalues depart from the dense eigh by %.3e" % err)
+
+
+def _state_of(m):
+    """Host state of a model, for convert.tb_model_from_state."""
+    hops = m._hoppings
+    return {
+        "dim_k": m._dim_k, "dim_r": m._dim_r, "lat": m._lat, "orb": m._orb, "per": m._per, "nspin": m._nspin,
+        "site_energies": m._site_energies, "amps": np.array([h[0] for h in hops], dtype=complex),
+        "i": np.array([h[1] for h in hops], dtype=int), "j": np.array([h[2] for h in hops], dtype=int),
+        "R": np.array([h[3] for h in hops]).reshape(len(hops), m._dim_r),
+    }
+
+
 def phase_main_path(torch, pt, where, reference=False):
     """Phase 4: the port's main path through the entry points a user calls.
     The CPU reference (``reference``) evolves the 90k flake 4 steps of the
@@ -2447,6 +2912,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out.update(slice6_path(pt, where, reference))
     out.update(slice7_path(pt, where, reference))
     out.update(slice8_path(pt, where, reference))
+    out.update(slice9_path(pt, where, reference))
     return out
 
 
@@ -2585,6 +3051,32 @@ def compare_main_path(out, ref, gold_km, gold_si):
             err /= float(np.abs(want).max())
         print("  %s vs CPU: max|diff| %.3e (%s)" % (key, err, what))
         check(got.shape == want.shape and err < tol, "%s differs from the CPU path by %.3e" % (key, err))
+
+
+def bisect_mu_plain(torch, pt, w, kt, n_target, norm):
+    """The JAX package's mu bisection as written there: 80 sequential
+    halvings, all on the device with no host read.  The yardstick for the
+    port's rounds of dyadic points (``meanfield._bisect_mu``)."""
+    w = w.reshape(-1)
+    lo = torch.min(w) - 30.0 * kt
+    hi = torch.max(w) + 30.0 * kt
+    for _ in range(80):
+        mid = 0.5 * (lo + hi)
+        few = torch.sum(pt.meanfield._fermi((w - mid) / kt)) / norm < n_target
+        lo, hi = torch.where(few, mid, lo), torch.where(few, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def with_plain_bisection(torch, pt, fn):
+    """``fn`` run with :func:`bisect_mu_plain` in place of the port's."""
+    def run():
+        saved = pt.meanfield._bisect_mu
+        pt.meanfield._bisect_mu = lambda *a: bisect_mu_plain(torch, pt, *a)
+        try:
+            return fn()
+        finally:
+            pt.meanfield._bisect_mu = saved
+    return run
 
 
 def phase_walls(torch, pt, card):
@@ -2732,6 +3224,42 @@ def phase_walls(torch, pt, card):
         "pump_tools 41x31: solve_on_grid_models + adiabatic_evolve + smooth_gauge": (pump, 5, 3),
         "symmetry.chern_indicator 5 haldane + 3 qwz": (indicators, 3, 1),
     })
+    mb9 = arpes_model(pt)
+    r42 = quiet_warnings(pt.dmft.solve, mb9, U=2.0, orb=0, beta=15.0, nk=16, n_matsubara=96, n_bath=3, max_iter=30)
+    kp9 = mb9.k_path(ARPES_PATH, S9["arpes_k"], report=False)[0]
+    om9 = np.linspace(-8.0, 8.0, S9["arpes_w"])
+    ring8, ring6, sq9 = ring(pt, S9["ed_L"]), ring(pt, S9["hf_L"]), pt.models.square(t=-1.0)
+    calls.update({
+        "ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4": (
+            lambda: pt.ed.hubbard(ring8, 4.0, 4, 4, lowest=4), 3, 1),
+        "ed.many_body_chern haldane 2x2, 70-dim sector, 6x6 twists": (
+            lambda: pt.ed.many_body_chern(hal, (2, 2), nelec=4, interactions=HALDANE_NN_V, grid=6), 3, 2),
+        "ed.spectral_function 6-ring U 4, 601 w (examples/hubbard_ed.py)": (
+            lambda: pt.ed.spectral_function(ring6, 6, HUBBARD_ED_W, U=4.0, eta=0.15, modes=[0, 1]), 3, 2),
+        "dmft.bethe U 3, 128 w, 4 bath sites": (
+            lambda: quiet_warnings(pt.dmft.bethe, 3.0, D=2.0, beta=20.0, n_matsubara=128, n_bath=4, max_iter=40),
+            2, 1),
+        "dmft.solve 8 orbitals nk 16, 96 w, 3 bath sites": (
+            lambda: quiet_warnings(pt.dmft.solve, mb9, U=2.0, orb=0, beta=15.0, nk=16, n_matsubara=96, n_bath=3,
+                                   max_iter=30), 2, 1),
+        "dmft.band_spectral 1001 k x 2001 w x 8 resolved (host array)": (
+            lambda: pt.dmft.band_spectral(r42, kp9, om9, eta=0.15, resolved=True), 3, 2),
+        "dmft.band_spectral 1001 k x 2001 w x 8 resolved, device=True": (
+            lambda: pt.dmft.band_spectral(r42, kp9, om9, eta=0.15, resolved=True, device=True), 5, 3),
+        "meanfield.hartree_fock 6-ring U 4 (examples/hubbard_ed.py)": (
+            lambda: pt.meanfield.hartree_fock(ring6, 4.0, 6.0, temperature=2e-3, stagger=0.4, seed=1,
+                                              max_iters=4000), 3, 1),
+        "meanfield.bcs_gap square 36x36 g 2 (examples/mean_field.py)": (
+            lambda: pt.meanfield.bcs_gap(sq9, 2.0, -0.4, nk=(36, 36), temperature=0.01, max_iters=4000), 3, 1),
+    })
+    hf = calls["meanfield.hartree_fock 6-ring U 4 (examples/hubbard_ed.py)"][0]
+    calls["meanfield.hartree_fock 6-ring U 4, the reference's 80-step mu bisection"] = (
+        with_plain_bisection(torch, pt, hf), 3, 0)
+    a, b = hf(), with_plain_bisection(torch, pt, hf)()
+    print("  hartree_fock 6-ring U 4: %d iterations with the port's mu bisection, %d with the reference's; "
+          "max |density diff| %.3e, |mu diff| %.3e" % (
+              a["iters"], b["iters"], max(np.abs(a["n_up"] - b["n_up"]).max(), np.abs(a["n_dn"] - b["n_dn"]).max()),
+              abs(a["mu"] - b["mu"])))
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
         ms = wall_ms(torch, fn, reps)
@@ -2749,7 +3277,10 @@ def phase_walls(torch, pt, card):
                  "magnetic.hofstadter_fn square q40, 41 fluxes x 16 k",
                  "flows.find_nodes + node_chirality weyl 40^3",
                  "wannier.interpolator silicon 8^3 x 400 MV steps -> 16^3",
-                 "pump_tools 41x31: solve_on_grid_models + adiabatic_evolve + smooth_gauge"):
+                 "pump_tools 41x31: solve_on_grid_models + adiabatic_evolve + smooth_gauge",
+                 "ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4",
+                 "dmft.band_spectral 1001 k x 2001 w x 8 resolved, device=True",
+                 "meanfield.bcs_gap square 36x36 g 2 (examples/mean_field.py)"):
         top, total = device_top(torch, calls[name][0])
         print("  device time of %s: %.1f us per call; largest: %s" % (name, total, "; ".join(
             "%s %.1f us" % (k[:70], us) for k, us in top)))
@@ -2809,7 +3340,7 @@ def main():
     print("[4 main] Haldane bands and Chern, Kane-Mele flows and Z2, slab HWF, flake, w90 silicon, "
           "KPM DOS/LDOS/Kubo, Chebyshev evolution, quench echo, interior and lowest states, markers, surfaces, "
           "Hall sweeps, orbital magnetization, optics, shift current, QGT, Boltzmann, Edelstein, Hall bar, Lyapunov "
-          "spectra, CPA, ribbons, impurity T-matrix:")
+          "spectra, CPA, ribbons, impurity T-matrix, ED sectors and twists, DMFT, mean fields, BdG:")
     t0 = time.perf_counter()
     _kernels.reset_launches()
     out = phase_main_path(torch, pt, "[gpu]")
@@ -2821,6 +3352,7 @@ def main():
     compare_slice6(out, ref)
     compare_slice7(out, ref)
     compare_slice8(out, ref)
+    compare_slice9(torch, pt, out, ref, device)
     check_lowest_bound(torch, pt, out["lowest"], device)
     print("[4 main] kernel 7 launches in the slab's solve_on_grid: %d; in hofstadter_fn: %s"
           % (out["slab_jacobi_launches"], out["hof_launches"]))
@@ -2830,6 +3362,10 @@ def main():
           % out["si_launches"])
     check(out["si_launches"]["mv_step"] == S8["si_steps"] and out["si_launches"]["mv_final"] == 2,
           "the silicon MLWF build did not run its 400 steps through kernel 19")
+    print("[4 main] kernel 11b filter steps in the 4,900-dim ED solve: %d; kernel 20 calls in the ARPES map: %d"
+          % (out["ed_filter_steps"], out["arpes_launches"]))
+    check(out["ed_filter_steps"] > 0, "the 4,900-dim ED solve did not go through kernel 11b")
+    check(out["arpes_launches"] > 0, "the ARPES map did not go through kernel 20")
 
     # steady wall times of the main calls, after the counted window
     t0 = time.perf_counter()
@@ -2842,7 +3378,8 @@ def main():
     kernels = ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
                "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
                "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov", "eigh_jacobi",
-               "assemble_members", "transport_chain", "transport_rotate", "transport_follow", "mv_step")
+               "assemble_members", "transport_chain", "transport_rotate", "transport_follow", "mv_step",
+               "dense_filter", "pole_sum")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -2872,6 +3409,8 @@ def main():
         "transport_rotate": ("transport.cu", "pythtb_tpu/ops/transport.py:56"),
         "transport_follow": ("transport.cu", "pythtb_tpu/ops/transport.py:103"),
         "mv_step": ("mv_step.cu", "pythtb_tpu/wannier.py:214"),
+        "dense_filter": ("dense_filter.cu", "pythtb_tpu/ed.py:238"),
+        "pole_sum": ("pole_sum.cu", "pythtb_tpu/dmft.py:215"),
     }
     rows = []
     for name in kernels:

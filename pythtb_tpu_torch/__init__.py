@@ -41,23 +41,28 @@ the smooth parallel-transport gauge and adiabatic following
 (``smooth_gauge``, ``adiabatic_evolve``), Wannier interpolation with
 maximal localization and disentanglement (:mod:`wannier`), band
 unfolding (:mod:`unfold`), entanglement spectra (:mod:`entanglement`)
-and point-group tools with the Chern indicator (:mod:`symmetry`); and
+and point-group tools with the Chern indicator (:mod:`symmetry`);
 PythTB's host API: ``display``, ``hamiltonian_string``, ``visualize``,
 and ``save``/``load`` of models and wf_arrays in the JAX package's
-``.npz`` layout.
+``.npz`` layout; and the interacting stack: exact diagonalization of
+clusters with many-body topology (:mod:`ed`), single-site DMFT with an ED
+impurity solver (:mod:`dmft`), Hartree-Fock and BCS mean fields
+(:mod:`meanfield`), BdG models and Majorana numbers (:mod:`bdg`), and
+Pade continuation (:mod:`continuation`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through nineteen hand-written
-CUDA kernels, with kernel 1's one-sided and flux-batch modes, kernel
-12's Green's-function mode and kernel 14's three modes (``csrc/``, built
-with nvcc at first use); on the CPU the same
+an NVIDIA Hopper card the hot paths run through 21 hand-written CUDA
+kernels, with kernel 1's one-sided and flux-batch modes, kernel 12's
+Green's-function mode, kernel 14's three modes and kernel 20's four
+(``csrc/``, built with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
-from . import (boltzmann, config, disorder, dynamics, entanglement, flows, geometry, impurity, localization,
-               magnetic, models, negf, optical, realspace, surface, symmetry, unfold, wannier)
+from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, flows, geometry,
+               impurity, localization, magnetic, meanfield, models, negf, optical, realspace, surface, symmetry,
+               unfold, wannier)
 from .family import ModelFamily, family
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
@@ -70,5 +75,5 @@ __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
     "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
     "impurity", "disorder", "family", "ModelFamily", "wannier", "unfold", "entanglement", "symmetry",
-    "__version__",
+    "ed", "dmft", "meanfield", "bdg", "continuation", "__version__",
 ]

@@ -14,7 +14,11 @@ package it converts from:
 * :func:`wannier_inputs_from_numpy` turns coarse-grid states and raw
   neighbour overlaps into the tensors of the port's Wannier code
   (:func:`wannier.mv_localize` and the build helpers), for the same
-  reason.
+  reason;
+* :func:`dmft_result_from_numpy` rebuilds a converged DMFT state from
+  another package's result arrays (two correct runs of the L-BFGS-B bath
+  fit can take different iterates from 1e-15 differences, so the real-
+  axis observables are compared on the identical state).
 """
 
 from __future__ import annotations
@@ -26,7 +30,10 @@ from . import config, core
 from .model import tb_model
 from .wf_array import wf_array
 
-__all__ = ["tb_model_from_state", "bloch_from_numpy", "wf_array_from_numpy", "wannier_inputs_from_numpy"]
+__all__ = [
+    "tb_model_from_state", "bloch_from_numpy", "wf_array_from_numpy", "wannier_inputs_from_numpy",
+    "dmft_result_from_numpy",
+]
 
 
 def tb_model_from_state(state) -> tb_model:
@@ -123,3 +130,54 @@ def wannier_inputs_from_numpy(M0, nbr, w_b, b_cart, u=None, device=None):
 
     out = (put(M0, config.COMPLEX), put(nbr, torch.int64), put(w_b, config.FLOAT), put(b_cart, config.FLOAT))
     return out if u is None else out + (put(u, config.COMPLEX),)
+
+
+def dmft_result_from_numpy(state, model_state=None, device=None):
+    """A :class:`pythtb_tpu_torch.dmft.DMFTResult` holding another
+    package's converged DMFT state.
+
+    :param state: mapping of NumPy arrays and scalars: ``wn``, ``sigma``,
+      ``g_loc``, ``g_imp``, ``g0_inv`` (n_w,), ``mu``, ``eps_d``, ``bath``
+      ``(eps_bath, V_bath)``, ``amps`` and ``poles`` (the Lehmann weights
+      and poles of the solved impurity), ``orb`` (None for the Bethe
+      lattice), ``real_axis`` -- ``("pole", (epso, amps, lams))`` with the
+      (Nk,), (Nk, nv), (Nk, nv) Schur data of the lattice sum, or
+      ``("bethe", (nodes, weights))`` -- and optionally ``beta``, ``U``,
+      ``n_imp``, ``docc``, ``iterations``, ``converged``,
+      ``sc_residual``, ``fit_err``, ``history``
+    :param model_state: the lattice model's host state (see
+      :func:`tb_model_from_state`); required for lattice results
+    :param device: target device of the Schur data (default
+      ``config.device()``)
+    """
+    from .dmft import DMFTResult
+
+    dev = config.checked_device(device)
+    kind, arrays = state["real_axis"]
+    if kind == "pole":
+        dat = tuple(torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64)).to(dev) for a in arrays)
+    elif kind == "bethe":
+        dat = tuple(np.array(a, dtype=np.float64) for a in arrays)
+    else:
+        raise ValueError("real_axis kind must be 'pole' or 'bethe', got %r" % (kind,))
+    eps_b, v_b = state["bath"]
+    res = DMFTResult(
+        wn=np.array(state["wn"], dtype=np.float64),
+        **{key: np.array(state[key], dtype=complex) for key in ("sigma", "g_loc", "g_imp", "g0_inv")},
+        mu=float(state["mu"]), eps_d=float(state["eps_d"]),
+        bath=(np.array(eps_b, dtype=np.float64), np.array(v_b, dtype=np.float64)),
+        **{key: state.get(key) for key in ("beta", "U", "n_imp", "docc", "iterations", "converged",
+                                           "sc_residual", "fit_err", "history")},
+        _amps=np.array(state["amps"], dtype=np.float64), _poles=np.array(state["poles"], dtype=np.float64),
+    )
+    res.Z = res.quasiparticle_weight()
+    res._real_axis = (kind, dat)
+    if kind == "pole":
+        if model_state is None:
+            raise ValueError("a lattice DMFT result needs its model_state")
+        res._model = tb_model_from_state(model_state)
+        res._orb = int(state["orb"])
+    else:
+        res._model = None
+        res._orb = None
+    return res

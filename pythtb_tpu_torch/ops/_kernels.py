@@ -64,6 +64,10 @@ _SIGNATURES = {
     "pythtb_mv_overlaps": [_P] * 5 + [_I] * 3 + [_P],
     "pythtb_mv_reduce": [_P] * 7 + [_I] * 4 + [_D, _D, _I, _P],
     "pythtb_mv_update": [_P] * 7 + [_I] * 4 + [_P],
+    "pythtb_dense_filter": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
+    "pythtb_pole_sum": [_P] * 7 + [_I] * 5 + [_D, _P],
+    "pythtb_pole_map": [_P] * 6 + [_I] * 3 + [_P],
+    "pythtb_pole_resolved": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -78,18 +82,22 @@ _SIGNATURES = {
 # "assemble"); "transport_chain", "transport_rotate" and "transport_follow"
 # count kernel 14's three modes; "mv_step" counts kernel 19's
 # Marzari-Vanderbilt steps (three launches each: overlaps, reduction,
-# update), "mv_final" its closing overlaps and reduction.
+# update), "mv_final" its closing overlaps and reduction; "dense_filter"
+# counts kernel 11b's filter steps (a step is four launches: the product,
+# the epilogue, the scale reduction, the rescale; the first step two); "pole_sum"
+# counts kernel 20's calls in all four modes (k-mean and pole: a partial
+# pass and a reduction each; map and resolved: one launch).
 # "link_dets_library" and "wilson_loop_library" count the shape rules of
 # ops.berry (S > 8), "transport_library" that of ops.transport (S > 8)
-# and "mv_library" that of wannier (nw > 8); they launch no kernel of
-# this package.
+# and "mv_library" that of wannier (nw > 8); they launch no kernel of this
+# package.
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
      "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov",
      "eigh_jacobi", "assemble_members", "transport_chain", "transport_rotate",
-     "transport_follow", "mv_step", "mv_final", "link_dets_library", "wilson_loop_library",
-     "transport_library", "mv_library"), 0
+     "transport_follow", "mv_step", "mv_final", "dense_filter", "pole_sum", "link_dets_library",
+     "wilson_loop_library", "transport_library", "mv_library"), 0
 )
 
 _lib = None

@@ -1,6 +1,6 @@
-"""Chebyshev recursions on the ELL Hamiltonian: kernels 9 and 10.
+"""Chebyshev recursions: kernels 9, 10, 11 and 11b.
 
-Both run T_{m+1} = 2 Ht T_m - T_{m-1} with Ht = (H - b) / a, the JAX
+Kernels 9-11 run T_{m+1} = 2 Ht T_m - T_{m-1} with Ht = (H - b) / a, the JAX
 programs' ``(matvec(h, v) - ab[1] * v) / ab[0]``; ``ab`` is a (2,)
 float64 tensor (a, b) on ``h``'s device.  Blocks of vectors are
 (nsta, B), flat state index spin-fastest, as in :mod:`.matvec`.
@@ -16,6 +16,9 @@ float64 tensor (a, b) on ``h``'s device.  Blocks of vectors are
   time steps of ``dynamics._cheb_evolve_jit``, the state after each step.
 * :func:`filter` -- kernel 11 (``csrc/cheb_filter.cu``): the real-
   coefficient Chebyshev filter of ``flows._window_round_jit``.
+* :func:`dense_filter` -- kernel 11b (``csrc/dense_filter.cu``): the
+  rescaled T_p filter of a dense sector Hamiltonian, ``ed._chebfilter_dev``
+  (not on the ELL tables: the ED sector solver holds H dense).
 
 Each C entry point runs the whole recursion, issuing one launch per step
 (or term) on the current stream, so a call costs one ctypes call; the
@@ -35,9 +38,12 @@ from .. import config
 from . import _kernels
 from .matvec import SparseH, _check_tables, _matvec_plain
 
-__all__ = ["phase_vectors", "moments", "recursion", "evolve", "filter"]
+__all__ = ["phase_vectors", "moments", "recursion", "evolve", "filter", "dense_filter"]
 
 _MAX_ROW_BLOCKS = 1024  # kMaxRowBlocks of cheb_moments.cu: rows of the partial sums
+# dense_filter.cu: rows of H a product block (kBR), H columns a staged tile
+# (kTJ), rows an epilogue block (kEThreads); product blocks aimed at an SM
+_DENSE_BR, _DENSE_TJ, _DENSE_EPI, _DENSE_BLOCKS_PER_SM = 128, 8, 256, 4
 
 
 def phase_vectors(nsta: int, R: int, seed: int, device):
@@ -228,3 +234,64 @@ def filter(h: SparseH, ab, coef, X):  # noqa: A001  (the JAX program's name)
     _kernels.launch("cheb_filter", h.device, h.cols, h.vals, ab, coef, X, work, Y,
                     h.norb, D, h.nspin, B, M, count=M - 1)
     return Y
+
+
+# -- kernel 11b ------------------------------------------------------------
+
+
+def _dense_filter_plain(H, X, p, c, hw):
+    """The JAX filter scan of ``ed._chebfilter_dev`` in torch: T_1 X =
+    (H X - c X) / hw, then p - 1 steps of n = 2 (H b - c b) / hw - a with
+    both carries divided by s = max(max_rows |n|, 1) per column; the last
+    b (T_1 X for p <= 1).  The oracle of kernel 11b."""
+
+    def hx(v):
+        return (H @ v - c * v) / hw
+
+    a, b = X, hx(X)
+    for _ in range(max(int(p) - 1, 0)):
+        n = 2.0 * hx(b) - a
+        s = torch.clamp(n.abs().amax(dim=0), min=1.0)
+        a = torch.view_as_complex(torch.view_as_real(b) / s[:, None])
+        b = torch.view_as_complex(torch.view_as_real(n) / s[:, None])
+    return b
+
+
+def dense_filter(H, X, p: int, c: float, hw: float):
+    """Chebyshev filter ``T_p((H - c) / hw) X`` of a dense Hermitian ``H``
+    with the JAX program's joint per-column rescaling each step (a common
+    scalar per column: the spanned subspace is unchanged).
+
+    :param H: (D, D) complex128
+    :param X: (D, nb) complex128 block, not written
+    :param p: degree (p <= 1 gives T_1 X, as the JAX scan of length
+      max(p - 1, 0) does)
+    :returns: (D, nb) complex128
+    """
+    if X.device.type == "cpu":
+        return _dense_filter_plain(H, X, p, float(c), float(hw))
+    D, nb = X.shape
+    dev = X.device
+    _kernels.require(H, "H", config.COMPLEX, (D, D), dev)
+    _kernels.require(X, "X", config.COMPLEX, (D, nb), dev)
+    S, jlen = _dense_slices(D, nb, torch.cuda.get_device_properties(dev).multi_processor_count)
+    A = torch.empty((D, nb), dtype=config.COMPLEX, device=dev)
+    B = torch.empty((D, nb), dtype=config.COMPLEX, device=dev)
+    part = torch.empty((S, D, nb), dtype=config.COMPLEX, device=dev)
+    partial = torch.empty((max(-(-D // _DENSE_EPI), 1), nb), dtype=config.FLOAT, device=dev)
+    scale = torch.empty((nb,), dtype=config.FLOAT, device=dev)
+    steps = max(int(p), 1)
+    _kernels.launch("dense_filter", dev, H, X, A, B, part, partial, scale, D, nb, steps, S, jlen, float(c),
+                    float(hw), count=steps)
+    return B
+
+
+def _dense_slices(D: int, nb: int, sms: int):
+    """(S, jlen): kernel 11b's product splits the H columns into S slices of
+    jlen (a multiple of the staged tile) so that some four blocks an SM are
+    in flight; the epilogue adds the S partial products in order."""
+    nc = 4 if nb <= 4 else 8 if nb <= 8 else 12 if nb <= 12 else 16
+    blocks = -(-D // _DENSE_BR) * -(-nb // nc)
+    S = max(1, min(-(-_DENSE_BLOCKS_PER_SM * sms // blocks), -(-D // _DENSE_TJ)))
+    jlen = -(-(-(-D // S)) // _DENSE_TJ) * _DENSE_TJ
+    return -(-D // jlen), jlen

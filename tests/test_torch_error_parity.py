@@ -2,10 +2,13 @@
 tests/test_error_parity.py must be refused (or accepted) by
 pythtb_tpu_torch exactly as pythtb_tpu refuses (or accepts) it."""
 
+import warnings
+
 import numpy as np
 import pytest
 
 import pythtb_tpu
+import pythtb_tpu.continuation  # noqa: F401  (not imported by the package itself)
 import pythtb_tpu_torch
 
 from .test_error_parity import CASES, _outcome
@@ -150,3 +153,85 @@ SLICE8_CASES = {
 def test_port_refuses_slice_eight_misuse_like_jax(name):
     fn = SLICE8_CASES[name]
     assert _outcome(pythtb_tpu_torch, fn) == _outcome(pythtb_tpu, fn) == "raise"
+
+
+def _ring(M, L=4):
+    return M.models.chain().cut_piece(L, 0, glue_edgs=True)
+
+
+# misuse of the ninth slice's calls (ed, dmft, meanfield, bdg,
+# continuation): each must raise in both packages
+SLICE9_CASES = {
+    "ed_basis_nelec": lambda M: M.ed.sector_basis(3, 4),
+    "ed_basis_modes": lambda M: M.ed.sector_basis(64, 1),
+    "ed_build_not_hermitian": lambda M: M.ed.build_sector(np.triu(np.ones((3, 3))), M.ed.sector_basis(3, 1)),
+    "ed_build_vmat_diag": lambda M: M.ed.build_sector(np.eye(3), M.ed.sector_basis(3, 1), np.eye(3)),
+    "ed_dense_h_periodic": lambda M: M.ed.dense_h(M.models.chain()),
+    "ed_hubbard_spinful": lambda M: M.ed.hubbard(M.models.kane_mele().cut_piece(1, 0).cut_piece(1, 1), 1.0, 1, 1),
+    "ed_hubbard_u_shape": lambda M: M.ed.hubbard(_ring(M), [1.0, 2.0], 1, 1),
+    "ed_lowest_zero": lambda M: M.ed.hubbard(_ring(M), 1.0, 2, 2, lowest=0),
+    "ed_lowest_too_large": lambda M: M.ed.hubbard(_ring(M), 1.0, 2, 2, lowest=30),
+    "ed_solve_onsite_interaction": lambda M: M.ed.solve(_ring(M), 2, interactions=[(1.0, 2, 2)]),
+    "ed_ground_state_interactions": lambda M: M.ed.ground_state(_ring(M), 2, interactions=[(1.0, 0, 1)]),
+    "ed_chern_1d": lambda M: M.ed.many_body_chern(M.models.ssh(), (2,), 2),
+    "ed_chern_supercell": lambda M: M.ed.many_body_chern(M.models.haldane(), (2, 0), 2),
+    "ed_twist_finite": lambda M: M.ed.twist_berry_phase(_ring(M), (2,), 2),
+    "ed_resta_u_spinless": lambda M: M.ed.resta_polarization(M.models.ssh(), (2,), 2, u=1.0, spinful=False,
+                                                             interactions=[(1.0, 0, 0, (0,))]),
+    "dmft_beta": lambda M: M.dmft.matsubara(0.0, 4),
+    "dmft_spinful": lambda M: M.dmft.solve(M.models.kane_mele(), 1.0, nk=[4, 4]),
+    "dmft_finite": lambda M: M.dmft.solve(_ring(M), 1.0),
+    "dmft_orb": lambda M: M.dmft.solve(M.models.square(), 1.0, orb=3, nk=[4, 4]),
+    "dmft_nk": lambda M: M.dmft.solve(M.models.square(), 1.0, nk=[4, 4, 4]),
+    "dmft_band_spectral_bethe": lambda M: M.dmft.band_spectral(
+        M.dmft.bethe(1.0, n_matsubara=8, n_bath=1, max_iter=1), [[0.0]], [0.0]),
+    "mf_hf_n_elec": lambda M: M.meanfield.hartree_fock(M.models.square(), 1.0, 3.0, nk=(4, 4)),
+    "mf_hf_nk_missing": lambda M: M.meanfield.hartree_fock(M.models.square(), 1.0, 1.0),
+    "mf_hf_init_shape": lambda M: M.meanfield.hartree_fock(M.models.square(), 1.0, 1.0, nk=(4, 4), init=[0.5]),
+    "mf_bcs_repulsive": lambda M: M.meanfield.bcs_gap(M.models.square(), 0.0, 0.0, nk=(4, 4)),
+    "mf_bcs_spinful": lambda M: M.meanfield.bcs_gap(M.models.kane_mele(), 1.0, 0.0, nk=(4, 4)),
+    "bdg_spinful": lambda M: M.bdg.bdg_model(M.models.kane_mele()),
+    "bdg_pairing": lambda M: M.bdg.bdg_model(M.models.square(), pairing="p"),
+    "bdg_onsite_triplet": lambda M: M.bdg.bdg_model(M.models.square(), delta=[(0.3, 0, 0, [0, 0])]),
+    "bdg_majorana_2d": lambda M: M.bdg.majorana_number(M.bdg.bdg_model(M.models.square())),
+    "bdg_pfaffian_odd": lambda M: M.bdg.pfaffian(np.zeros((3, 3))),
+    "pade_one_point": lambda M: M.continuation.pade([1.0], [1.0], [0.0]),
+    "pade_negative_wn": lambda M: M.continuation.pade([-1.0, 1.0], [1.0, 1.0], [0.0]),
+    "pade_n_points": lambda M: M.continuation.pade([1.0, 2.0], [1.0, 1.0], [0.0], n_points=5),
+    "ed_chern_multiplet_zero": lambda M: M.ed.many_body_chern(M.models.haldane(), (1, 1), 1, multiplet=0),
+    "ed_chern_multiplet_exceeds_sector": lambda M: M.ed.many_body_chern(M.models.haldane(), (1, 1), 1, u=1.0,
+                                                                       multiplet=4),
+    "ed_twist_sector_dim": lambda M: M.ed.twist_berry_phase(M.models.ssh(), (1,), 2),
+    "ed_resta_self_interaction": lambda M: M.ed.resta_polarization(M.models.ssh(), (2,), 2,
+                                                                   interactions=[(1.0, 0, 0, (0,))]),
+    "dmft_filling_bracket": lambda M: M.dmft.solve(M.models.square(), 1.0, nk=[4, 4], n_matsubara=8, n_bath=1,
+                                                   filling=3.0),
+    "dmft_sigma0_shape": lambda M: M.dmft.solve(M.models.square(), 1.0, nk=[4, 4], n_matsubara=8,
+                                                sigma0=np.zeros(3)),
+    "mf_hf_nk_small": lambda M: M.meanfield.hartree_fock(M.models.square(), 1.0, 1.0, nk=(1, 4)),
+    "mf_hf_temperature": lambda M: M.meanfield.hartree_fock(M.models.square(), 1.0, 1.0, nk=(4, 4),
+                                                            temperature=-1.0),
+    "mf_hf_matrix_init_shape": lambda M: M.meanfield.hartree_fock(M.models.kane_mele(), 1.0, 2.0, nk=(4, 4),
+                                                                  init=np.ones((3, 2, 2))),
+    "mf_hf_matrix_init_hermitian": lambda M: M.meanfield.hartree_fock(M.models.kane_mele(), 1.0, 2.0, nk=(4, 4),
+                                                                      init=np.triu(np.ones((2, 2, 2)))),
+    "bdg_mu_shape": lambda M: M.bdg.bdg_model(M.models.square(), mu=[0.0, 1.0]),
+    "bdg_pfaffian_symmetric": lambda M: M.bdg.pfaffian(np.eye(4)),
+}
+
+
+def _refusal(module, fn):
+    with pytest.raises(Exception) as info:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            fn(module)
+    return type(info.value).__name__, str(info.value)
+
+
+@pytest.mark.parametrize("name", sorted(SLICE9_CASES))
+def test_port_refuses_slice_nine_misuse_like_jax(name):
+    """The same exception class and message in both packages."""
+    fn = SLICE9_CASES[name]
+    want = _refusal(pythtb_tpu, fn)
+    assert want[0] == "PythtbError"
+    assert _refusal(pythtb_tpu_torch, fn) == want

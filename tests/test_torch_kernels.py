@@ -1044,3 +1044,148 @@ def test_mv_localize_kernel_whole_run(dev):
     assert abs(float(oi) - float(oip)) <= 1e-10 * abs(float(oip))
     assert abs(float(oi + ot) - float(oip + otp)) <= 1e-10 * abs(float(oip + otp))
     assert _max_diff(hist, hp) <= 1e-8 * float(hp.abs().max())
+
+
+# -- kernel 11b (dense Chebyshev filter) and kernel 20 (Schur pole sums) ------
+
+
+def _dense_case(seed, D, nb, dev):
+    """A random Hermitian H with its Gershgorin window and the cut of the ED
+    solver's first round, and a random block X."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(D, D)) + 1j * rng.normal(size=(D, D))
+    H = (A + A.conj().T) / np.sqrt(D)
+    radii = np.sum(np.abs(H), axis=1) - np.abs(np.diag(H))
+    hi, lo = float(np.max(np.diag(H).real + radii)), float(np.min(np.diag(H).real - radii))
+    cut = lo + 0.1 * (hi - lo)
+    X = rng.normal(size=(D, nb)) + 1j * rng.normal(size=(D, nb))
+    return torch.as_tensor(H).to(dev), torch.as_tensor(X).to(dev), 0.5 * (cut + hi), 0.5 * (hi - cut)
+
+
+@pytest.mark.parametrize("D,nb,p", [(37, 3, 0), (37, 3, 1), (200, 10, 2), (333, 10, 30), (130, 20, 5), (70, 17, 2)])
+def test_dense_filter_kernel(dev, D, nb, p):
+    """Kernel 11b against its plain version: one or two steps at 1e-12 of
+    each column's largest entry, whole filters at 1e-10 (sums in another
+    order); both column-group widths (nb <= 8 and above, several groups)."""
+    from pythtb_tpu_torch.ops import chebyshev
+
+    H, X, c, hw = _dense_case(D + nb + p, D, nb, dev)
+    before = _kernels.LAUNCHES["dense_filter"]
+    got = chebyshev.dense_filter(H, X, p, c, hw)
+    assert _kernels.LAUNCHES["dense_filter"] == before + max(p, 1)
+    want = chebyshev._dense_filter_plain(H, X, p, c, hw)
+    torch.cuda.synchronize()
+    tol = TOL if p <= 2 else 1e-10
+    err = (got - want).abs().amax(dim=0)
+    assert bool((err <= tol * want.abs().amax(dim=0)).all()), float((err / want.abs().amax(dim=0)).max())
+
+
+def _pole_inputs(seed, Nk, nv, nw, dev):
+    rng = np.random.default_rng(seed)
+    W, _ = np.linalg.qr(rng.normal(size=(Nk, nv, nv)) + 1j * rng.normal(size=(Nk, nv, nv)))
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+    z = (rng.uniform(-4.0, 4.0, nw) + 0.3) + 1j * rng.uniform(0.02, 2.0, nw)
+    return dict(epso=t(rng.normal(size=Nk)), lams=t(2.0 * rng.normal(size=(Nk, nv))), W=t(W),
+                b=t(0.5 * (rng.normal(size=(Nk, nv)) + 1j * rng.normal(size=(Nk, nv)))),
+                z=t(z), sigma=t(0.3 * rng.normal(size=nw) - 0.2j * np.abs(rng.normal(size=nw))))
+
+
+def _rel_err(a, b):
+    torch.cuda.synchronize()
+    assert a.shape == b.shape
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("Nk,nv,nw", [(1, 1, 5), (64, 3, 130), (300, 7, 257), (40, 8, 64), (2000, 2, 33),
+                                     (70000, 2, 3), (16, 9, 20), (30, 12, 70), (7, 16, 129)])
+def test_pole_sum_kernel_modes(dev, Nk, nv, nw):
+    """Kernel 20's k-mean, pole, map and resolved modes against their plain
+    versions at 1e-12 (relative to the largest entry); 70,000 k-points go
+    past the 65,535 blocks a grid's y dimension takes, and nv 9-16 past the
+    8 states whose R_m the resolved mode keeps in registers."""
+    from pythtb_tpu_torch.ops import pole_sum
+
+    d = _pole_inputs(Nk + nv + nw, Nk, nv, nw, dev)
+    amps = (d["b"].abs() ** 2).contiguous()
+    before = _kernels.LAUNCHES["pole_sum"]
+    args = (d["epso"], amps, d["lams"], d["z"], d["sigma"])
+    assert _rel_err(pole_sum.lattice_gloc(*args), pole_sum._lattice_gloc_plain(*args)) <= TOL
+    assert _rel_err(pole_sum.spectral_map(*args), pole_sum._spectral_map_plain(*args)) <= TOL
+    a, p = amps.reshape(-1).contiguous(), d["lams"].reshape(-1).contiguous()
+    assert _rel_err(pole_sum.pole_sum(a, p, d["z"]), pole_sum._pole_sum_plain(a, p, d["z"])) <= TOL
+    args = (d["epso"], d["lams"], d["W"], d["b"], d["z"], d["sigma"])
+    for got, want in zip(pole_sum.spectral_resolved(*args), pole_sum._spectral_resolved_plain(*args)):
+        assert _rel_err(got, want) <= TOL
+    assert _kernels.LAUNCHES["pole_sum"] == before + 4
+
+
+def test_interacting_slice_goes_through_kernels(dev):
+    """ED (full and filtered sector solves, spectral function, twist Chern
+    number), DMFT (Bethe and lattice, the ARPES map resolved) and the mean
+    fields on the card launch kernels 11b, 20, 16, 3-4, 1 and 2, and agree
+    with the CPU run of the same calls at 1e-10 (relative).  The DMFT
+    fixed points pass through L-BFGS-B bath fits, whose iterates part at
+    the fit's resolution between any two runs, so they are held at the
+    bench pins' tolerance (Z 5e-3), and their real-axis maps on the card's
+    state carried to the CPU at 1e-10."""
+    import warnings
+
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch import convert
+
+    om = np.linspace(-4, 4, 51)
+    kp = np.random.default_rng(0).random((9, 2))
+    sq = pt.tb_model(2, 2, np.eye(2), [[0.0, 0.0], [0.0, 0.0]])
+    sq.set_onsite([0.0, 1.5])
+    sq.set_hop(-1.0, 0, 0, [1, 0])
+    sq.set_hop(-1.0, 0, 0, [0, 1])
+    sq.set_hop(0.3, 0, 1, [0, 0])
+
+    def run():
+        ring = pt.models.chain().cut_piece(6, 0, glue_edgs=True)
+        r = pt.ed.hubbard(ring, 4.0, 3, 3, lowest=4)
+        rf = pt.ed.hubbard(ring, 4.0, 3, 3)
+        A, _ = pt.ed.spectral_function(pt.models.chain().cut_piece(4, 0, glue_edgs=True), 4,
+                                       np.linspace(-5, 7, 41), U=2.0, eta=0.15, modes=[0])
+        c = pt.ed.many_body_chern(pt.models.haldane(), (1, 1), nelec=1, spinful=True, multiplet=2, grid=6)
+        hf = pt.meanfield.hartree_fock(pt.models.graphene(), 3.0, 2.0, nk=(4, 4), seed=3)
+        bcs = pt.meanfield.bcs_gap(pt.models.square(t=-1.0), 2.0, -0.4, nk=(6, 6), temperature=0.01)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rb = pt.dmft.bethe(2.0, n_matsubara=32, n_bath=2, max_iter=3)
+            rl = pt.dmft.solve(sq, 2.0, nk=[4, 4], n_matsubara=32, n_bath=2, max_iter=3)
+        exact = [r.evals, rf.evals[:4], A, np.array([c, hf["energy"], bcs["delta"][0], bcs["iters"]])]
+        return exact, rb, rl
+
+    def maps(rb, rl):
+        return [rb.local_spectral(om), rl.local_spectral(om), pt.dmft.band_spectral(rl, kp, om, resolved=True)]
+
+    def carried(r, model):
+        state = {key: getattr(r, key) for key in ("wn", "sigma", "g_loc", "g_imp", "g0_inv", "mu", "eps_d", "bath")}
+        kind, dat = r._real_axis
+        state.update(amps=r._amps, poles=r._poles, orb=r._orb,
+                     real_axis=(kind, tuple(np.asarray(d.cpu() if torch.is_tensor(d) else d) for d in dat)))
+        ms = None if model is None else {
+            "dim_k": model._dim_k, "dim_r": model._dim_r, "lat": model._lat, "orb": model._orb, "per": model._per,
+            "nspin": model._nspin, "site_energies": model._site_energies,
+            "amps": np.array([h[0] for h in model._hoppings], dtype=complex),
+            "i": [h[1] for h in model._hoppings], "j": [h[2] for h in model._hoppings],
+            "R": np.array([h[3] for h in model._hoppings])}
+        return convert.dmft_result_from_numpy(state, ms, device="cpu")
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card, rb, rl = run()
+        card_maps = maps(rb, rl)
+        for name in ("dense_filter", "pole_sum", "spectral_sum", "link_dets", "plaquette_flux", "assemble", "eig2"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu, cb, cl = run()
+        cpu_maps = maps(carried(rb, None), carried(rl, sq))
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card + card_maps, cpu + cpu_maps):
+        assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+    assert abs(rb.Z - cb.Z) < 5e-3 and abs(rl.Z - cl.Z) < 5e-3
