@@ -220,6 +220,27 @@ def cuda_ms(torch, fn, reps=REPS):
     return float(np.median(times))
 
 
+def event_us(torch, fn, reps=10):
+    """Median device microseconds of ``fn`` between two CUDA events that
+    are queued behind a ~1 ms spin kernel, so the host's enqueue time
+    (the wrapper's Python and ctypes) is hidden: the time the device takes
+    from the first to the last of ``fn``'s launches.  ``fn`` must not
+    wait on the device."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(1e3 * start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def wall_ms(torch, fn, reps):
     """Median host-clock milliseconds of ``fn`` (which ends on the host)."""
     fn()
@@ -510,8 +531,10 @@ def phase_kernels(torch, pt, device):
         ``profile`` profiles a row that is not the main shape."""
         t0 = time.perf_counter()
         ms, plain_ms = cuda_ms(torch, kernel, reps), cuda_ms(torch, plain, reps)
-        print("  %-15s %-34s max|diff| %.3e%s  kernel %.4f ms  plain %.4f ms%s  bound %.5f ms (%s)  [%.1f s]"
-              % (name, key, err, "" if scale == 1.0 else " (relative %.3e)" % (err / scale), ms, plain_ms,
+        ev = event_us(torch, kernel, min(reps, 10))
+        print("  %-15s %-34s max|diff| %.3e%s  kernel %.4f ms (device %.1f us, CUDA events)  plain %.4f ms%s  "
+              "bound %.5f ms (%s)  [%.1f s]"
+              % (name, key, err, "" if scale == 1.0 else " (relative %.3e)" % (err / scale), ms, ev, plain_ms,
                  "" if library_ms is None else "  library %.4f ms" % library_ms, *cost,
                  time.perf_counter() - t0))
         if not err <= tol * scale:
@@ -533,7 +556,7 @@ def phase_kernels(torch, pt, device):
         if main:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=cost[0],
                      bound_by=cost[1], shape=key, device_us=dev_us, plain_device_us=plain_us,
-                     plain_launches_per_call=plain_n)
+                     plain_launches_per_call=plain_n, event_us=ev)
 
     # kernel 1: assemble, at every shape of the main path
     hal = haldane(pt)._get_finalized()
@@ -659,6 +682,7 @@ def phase_kernels(torch, pt, device):
     slice7_kernels(torch, pt, device, record, held)
     slice8_kernels(torch, pt, device, record, held)
     slice9_kernels(torch, pt, device, record, held)
+    slice10_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -1173,6 +1197,75 @@ def composite_bounds(torch, pt, card):
         out[key] = bound(nbytes, ops)
         print("  bound of realspace.%s: %.4f ms (%s): dense eigh 36 n^3, three kernel-6 products a marker, "
               "K = C - A B and its trace (%s)" % (key, out[key][0], out[key][1], card))
+    return out
+
+
+def more_bounds(torch, pt, card):
+    """Bounds of torch compositions of earlier slices that PERF.md section 6
+    lists without one, by this file's convention (cost_* helpers, the
+    shapes of this run's calls):
+
+    * ``meanfield.hartree_fock`` 6-ring U 4: per iteration two 6 x 6
+      eigh with vectors (cost_eigh) and the densities (12 x 6 x 8);
+      ``bcs_gap`` square 36^2: per iteration one 2 x 2 BdG eigh a k-point
+      (cost_eig2) and the gap sum (10 a k-point); times this run's
+      iteration counts;
+    * the silicon MLWF's refinement (``wannier._build*``): kernel 1 and an
+      8-state eigh at 4,096 k-points, the 8 x 4 projections (8 x 8 x 4
+      x 8), their 4 x 4 polar factors (36 x 4^3) and B(k) (4 x 4 x 8 x 8)
+      a k-point, and the H(R) transform (4,096 R x 4,096 k x 16 x 8);
+    * ``unfold.unfold_bands`` graphene 5 x 5 (kernel 1, a 50-state eigh at
+      121 k-points, the orbital-group sums 50 x 50 x 8 a k-point) and
+      ``entanglement.entanglement_flow`` Haldane L 20 (kernel 1, a
+      40-state eigh at 61 k-points, the 20 x 20 correlation eigvalsh);
+    * one SMV iteration of ``wannier._smv_disentangle`` at the silicon
+      coarse grid's shape (512 k, 8 b, 8 window states, 4 functions): an
+      8-state eigh and four (8 x 8 x 4) einsums a (k, b), 8 each;
+    * ``dmft._assemble_ri_jit``: kernel 1 at the ARPES row, B 1,001, 8 x 8
+      (cost_assemble);
+    * ``fermisurface._grid_evals`` at the square lattice's 301^2 grid
+      (kernel 1 and a one-state eigh a k-point) and
+      ``geometry._kp_tensors`` at one k of graphene (kernel 1, a 2-state
+      eigh, kernel 15's dH and d2H and their band-basis einsums).
+
+    A composition's bound is the sum of its parts' bounds ("parts"), each
+    the larger of its bytes and its operations."""
+    import warnings
+
+    out = {}
+    ring6 = ring(pt, S9["hf_L"])
+    hf = pt.meanfield.hartree_fock(ring6, 4.0, 6.0, temperature=2e-3, stagger=0.4, seed=1, max_iters=4000)
+    b_eigh = cost_eigh(2, 6)[0] + bound(0, 12 * 6 * 8)[0]
+    out["meanfield.hartree_fock 6-ring U 4"] = (hf["iters"] * b_eigh, "parts")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        bcs = pt.meanfield.bcs_gap(pt.models.square(t=-1.0), 2.0, -0.4, nk=(36, 36), temperature=0.01,
+                                   max_iters=4000)
+    t_bcs = cost_eig2(36 * 36)[0] + bound(0, 36 * 36 * 10)[0]
+    out["meanfield.bcs_gap square 36^2 g 2"] = (bcs["iters"] * t_bcs, "parts")
+    si = silicon_model(pt)._get_finalized()
+    B, NR = 16**3, 16**3
+    t_si = (cost_assemble(si, B)[0] + cost_eigh(B, 8)[0]
+            + bound(0, B * (8 * 8 * 4 * 8 + 36 * 4**3 + 4 * 4 * 8 * 8) + NR * B * 16 * 8)[0])
+    out["wannier._build* silicon 16^3 refinement"] = (t_si, "parts")
+    g5 = pt.models.graphene().make_supercell(np.diag([5, 5]))._get_finalized()
+    out["unfold.unfold_bands graphene 5x5 121 k"] = (
+        cost_assemble(g5, 121)[0] + cost_eigh(121, 50)[0] + bound(0, 121 * 50 * 50 * 8)[0], "parts")
+    hs = pt.models.haldane().cut_piece(S8["ent_L"], 1)._get_finalized()
+    out["entanglement.entanglement_flow haldane L 20 61 k"] = (
+        cost_assemble(hs, 61)[0] + cost_eigh(61, 40)[0] + cost_eigh(61, 20, vectors=False)[0], "parts")
+    out["wannier._smv_disentangle one iteration, 512 k x 8 b, 8 states, nw 4"] = (
+        cost_eigh(512, 8)[0] + bound(0, 512 * 8 * 4 * 8 * 8 * 4 * 8)[0], "parts")
+    out["dmft._assemble_ri_jit ARPES B 1001 8x8"] = cost_assemble(arpes_model(pt)._get_finalized(), 1001)
+    sq = pt.models.square(t=-1.0)._get_finalized()
+    out["fermisurface._grid_evals square 301^2"] = (
+        cost_assemble(sq, S10["fs_nk"] ** 2)[0] + cost_eigh(S10["fs_nk"] ** 2, 1, vectors=False)[0], "parts")
+    gr = pt.models.graphene()._get_finalized()
+    out["geometry._kp_tensors graphene K, one k"] = (
+        cost_assemble(gr, 1)[0] + cost_eigh(1, 2)[0] + cost_assemble_deriv(gr, 1, 1)[0]
+        + cost_assemble_deriv(gr, 1, 2)[0] + bound(0, (2 + 4) * 2 * 2 * 2 * 8)[0], "parts")
+    for key, (t, by) in out.items():
+        print("  bound of %s: %.4e ms (%s) (%s)" % (key, t, by, card))
     return out
 
 
@@ -2604,7 +2697,8 @@ def slice9_kernels(torch, pt, device, record, held):
     record("pole_sum", "pole: Bethe 512 nodes x 128 w", rel(pole_sum.pole_sum(weights, nodes, zb),
                                                              pole_sum._pole_sum_plain(weights, nodes, zb)),
            lambda: pole_sum.pole_sum(weights, nodes, zb), lambda: pole_sum._pole_sum_plain(weights, nodes, zb),
-           cost_pole("pole", 512, 1, 128))
+           cost_pole("pole", 512, 1, 128),
+           library_ms=cuda_ms(torch, lambda: (1.0 / (zb[:, None] - nodes[None, :])) @ weights.to(zb.dtype), 5))
     _, info = dmft._aim_solve(-1.5, 3.0, np.array([-1.2, -0.4, 0.4, 1.2]), np.array([0.5, 0.4, 0.4, 0.5]), 20.0, wb)
     a_t, p_t = torch.as_tensor(info["amps"]).to(device), torch.as_tensor(info["poles"]).to(device)
     zl = torch.complex(torch.zeros(128, dtype=torch.float64), torch.as_tensor(wb)).to(device)
@@ -2628,7 +2722,9 @@ def slice9_kernels(torch, pt, device, record, held):
     record("pole_sum", "map 1001 k x 2001 w nv 7",
            rel(pole_sum.spectral_map(*margs), pole_sum._spectral_map_plain(*margs)),
            lambda: pole_sum.spectral_map(*margs), lambda: pole_sum._spectral_map_plain(*margs),
-           cost_pole("map", Nk, 7, nw), reps=5)
+           cost_pole("map", Nk, 7, nw), reps=5,
+           library_ms=cuda_ms(torch, lambda: torch.einsum("km,kmw->kw", amp_k.to(zr.dtype),
+                                                          1.0 / (zr[None, None, :] - lam_k[:, :, None])), 3))
     rargs = (epso_k, lam_k, W_k, b_k, zr, sr)
     got, want = pole_sum.spectral_resolved(*rargs), pole_sum._spectral_resolved_plain(*rargs)
     record("pole_sum", "resolved 1001 k x 2001 w nv 7", max(rel(got[0], want[0]), rel(got[1], want[1])),
@@ -2832,6 +2928,405 @@ def compare_slice9(torch, pt, out, ref, device):
     check(err <= 1e-10, "the filtered 4,900-dim eigenvalues depart from the dense eigh by %.3e" % err)
 
 
+# -- the tenth slice: Fermi surfaces, tetrahedron DOS, Lindhard / RPA, k.p --------
+
+S10 = {"tetra_nk": 48, "tetra_cpu_nk": 16, "lind_nk": 24, "lind_cpu_q": 8, "fs_nk": 301, "gdos_nk": 256,
+       "gdos_cpu_nk": 64, "stoner_nk": 25, "mt_nk": 301, "mt_bt_nk": 901, "ext_slices": 48, "ext_nk": 151,
+       "ext_cpu_slices": 12, "ext_cpu_nk": 51, "mlwf_nk": 12, "mlwf_coarse": 6, "mlwf_steps": 100, "slab_occ": 20,
+       "smooth_occ": 20}
+TETRA_E = np.linspace(-6.5, 6.5, 1601)  # tetrahedron_dos_3d_48cube
+LIND_Q = np.array([[i / 8, j / 8] for i in range(8) for j in range(8)])  # lindhard_qsweep_64q
+LIND_W = np.linspace(0.0, 6.0, 16)
+LIND_PIN = 0.189441 + 0.001618j  # chi[18, 1][0, 0], q (1/4, 1/4), omega 0.4
+GDOS_E = np.linspace(-3.3, 3.3, 1200)  # examples/fermi_surface_tools.py
+FS_EFS = (-3.0, -1.5, 0.0, 1.5, 3.0)
+ORBIT_EFS = np.linspace(-3.9, -2.6, 14)
+_STONER_PATH = np.array([[0.0, 0.0], [0.5, 0.0], [1 / 3, 2 / 3], [0.0, 0.0]])  # examples/rpa_stoner.py
+STONER_Q = np.concatenate([_STONER_PATH[i] + (_STONER_PATH[i + 1] - _STONER_PATH[i]) * np.linspace(0, 1, 12, False)[:, None]
+                           for i in range(3)] + [_STONER_PATH[-1:]], axis=0)
+MT_BS = np.array([0.02, 0.1, 0.3, 1.0]) / 7.0  # tests/test_magnetotransport.py's Drude collapse, tau 7
+LARGE_S = (9, 12, 16, 32, 64)  # kernels 3, 5 and 14 past their register paths
+LARGE_NW = (9, 12, 16, 32)  # kernel 19 past its register path
+# (simplex, energy) pairs: operations where E lies in the simplex's range
+TETRA_OPS = {1: 4, 2: 14, 3: 25}
+
+
+def cubic_model(pt, tz=-1.0):
+    """The simple-cubic band of tetrahedron_dos_3d_48cube and tests/test_extremal_orbits.py."""
+    m = pt.tb_model(3, 3, np.eye(3), [[0.0, 0.0, 0.0]])
+    m.set_hop(-1.0, 0, 0, [1, 0, 0])
+    m.set_hop(-1.0, 0, 0, [0, 1, 0])
+    m.set_hop(tz, 0, 0, [0, 0, 1])
+    return m
+
+
+def bn_supercell(pt):
+    """A 3 x 3 supercell of gapped honeycomb (delta 1): 18 orbitals, the 9
+    valence bands isolated, for a 9-function MLWF run (kernel 19's block path)."""
+    return pt.models.bn(delta=1.0).make_supercell(np.diag([3, 3]))
+
+
+def cost_tetra(torch, tetra, ev, nk, d, E):
+    """Kernel 21: the grid eigenvalues and energies read once, the DOS
+    written once; per (simplex, energy) two comparisons, and the branch's
+    arithmetic (TETRA_OPS) where E falls inside the simplex's range --
+    counted from this run's corners."""
+    cs = tetra.simplex_corners(ev, nk, d)
+    inside = float((torch.searchsorted(E, cs[:, -1].contiguous()) - torch.searchsorted(E, cs[:, 0].contiguous())).sum())
+    return bound(ev.numel() * F64 + 2 * E.shape[0] * F64, 2.0 * cs.shape[0] * E.shape[0] + TETRA_OPS[d] * inside)
+
+
+def cost_spectral_sum_qbatch(Q, P, T, nw):
+    """Kernel 16's q-batch mode: W, de and the frequencies read once, the
+    (Q, P, nw) sums written once; per (q, transition, frequency) the
+    Lorentzian (6 ops) and P complex multiply-adds (8 each)."""
+    return bound(Q * T * (F64 + P * C128) + nw * F64 + Q * P * nw * C128, Q * T * nw * (6 + 8 * P))
+
+
+def slice10_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernel 21 and kernel 16's q-batch mode, and the block
+    paths of kernels 3, 5, 14 and 19.  Kernel 21 at the tetrahedron row
+    (cubic 48^3, 663,552 tetrahedra x 1,601 E) and graphene 256^2 x 1,200 E
+    at 1e-10 relative; kernel 16's q-batch mode at the Lindhard row (64 q,
+    4 operator pairs, 2,304 transitions, 16 w) and the Stoner row at 1e-10
+    relative; kernels 3 and 5 at the slab's 20 occupied states (41 x 41)
+    and random states at S 9, 12, 16, 32, 64, kernel 14 at the slab's 20
+    states and random frames at S 9-64, kernel 19's single steps at nw 9,
+    12, 16, 32, all at 1e-12 as their register paths."""
+    from pythtb_tpu_torch import fermisurface, optical, response, wannier
+    from pythtb_tpu_torch.ops import berry, solver, tetra, transport
+
+    rng = np.random.default_rng(10)
+    # kernel 21
+    for key, model, nk, E, main in (("cubic 48^3 S 1, 1601 E", cubic_model(pt), S10["tetra_nk"], TETRA_E, True),
+                                    ("graphene 256^2 S 2, 1200 E", pt.models.graphene(t=-1.0), S10["gdos_nk"], GDOS_E,
+                                     False)):
+        d = model._dim_k
+        ev = fermisurface._grid_evals_dev(model._get_finalized(), nk)
+        Et = torch.as_tensor(E).to(device)
+        want = tetra._tetra_dos_plain(ev, nk, d, Et)
+        record("tetra_dos", key, max_diff(torch, tetra.tetra_dos(ev, nk, d, Et), want),
+               lambda: tetra.tetra_dos(ev, nk, d, Et), lambda: tetra._tetra_dos_plain(ev, nk, d, Et),
+               cost_tetra(torch, tetra, ev, nk, d, Et), main, reps=REPS if main else 5, tol=1e-10,
+               scale=float(want.abs().max()), prof_reps=3, prof_plain=False)
+    # kernel 16's q-batch mode: the Lindhard and Stoner rows' weights
+    g = pt.models.graphene()
+    gd = g._get_finalized()
+    for key, nk, q, w, kt, eta, main in (("lindhard 64 q x 576 k x 16 w", S10["lind_nk"], LIND_Q, LIND_W, 2e-3, 0.05, True),
+                                         ("stoner 37 q x 625 k x 1 w", S10["stoner_nk"], STONER_Q, np.zeros(1), 2e-3,
+                                          1e-4, False)):
+        _, kpts = response._setup(g, nk)
+        W, de = response._lindhard_weights(gd, kpts, q, None, 0.0, kt, response._default_ops(g))
+        om = torch.as_tensor(w).to(device)
+        Q, P, T = W.shape
+        want = optical._spectral_sum_qbatch_plain(W, de, om, eta)
+        lib = cuda_ms(torch, lambda: torch.matmul(W, 1.0 / (om[None, None, :] - de[:, :, None] + 1j * eta)), 5)
+        record("spectral_sum_qbatch", "%s (Q %d P %d T %d)" % (key, Q, P, T),
+               max_diff(torch, optical.spectral_sum_qbatch(W, de, om, eta), want),
+               lambda: optical.spectral_sum_qbatch(W, de, om, eta),
+               lambda: optical._spectral_sum_qbatch_plain(W, de, om, eta), cost_spectral_sum_qbatch(Q, P, T, len(w)),
+               main, library_ms=lib, tol=1e-10, scale=float(want.abs().max()), reps=REPS if main else 5)
+    # kernels 3 and 5 past S 8: the slab's 20 occupied states, then random states
+    slab = cubic_slab(pt)
+    sd = slab._get_finalized()
+    _, _, ws = solver.solve_grid_device(sd, (41, 41), (0.0, 0.0), slab._orb, slab._per, 1)
+    cases = [("slab 41x41 S=20 F=39", berry.prep_states(ws, list(range(S10["slab_occ"])), 1, 2), 5)]
+    cases += [("33x17 S=%d F=%d random" % (S, S + 8), unit_states(torch, rng, (33, 17, S, S + 8), device), 3)
+              for S in LARGE_S]
+    for key, st, reps in cases:
+        S, F = st.shape[-2], st.shape[-1]
+        err = max(max_diff(torch, berry.link_dets(st, ax), berry._link_dets_plain(st, ax)) for ax in (0, 1))
+        record("link_dets", key, err, lambda: berry.link_dets(st, 0), lambda: berry._link_dets_plain(st, 0),
+               cost_link_dets(tuple(st.shape[:-2]), S, F, 0), reps=reps,
+               library_ms=cuda_ms(torch, lambda: torch.linalg.det(berry._overlap(st[:-1], st[1:])), 3))
+        err = 0.0
+        for ax in (0, 1):
+            prod, smin = berry.wilson_loop(st, ax)
+            want, want_min = berry._wilson_loop_plain(st, ax)
+            err = max(err, max_diff(torch, prod, want), max_diff(torch, smin, want_min))
+        ov = berry._overlap(st[:-1], st[1:]).contiguous()
+        record("wilson_loop", key, err, lambda: berry.wilson_loop(st, 0), lambda: berry._wilson_loop_plain(st, 0),
+               cost_wilson(tuple(st.shape[:-2]), S, F, 0), reps=reps,
+               library_ms=cuda_ms(torch, lambda: torch.linalg.svd(ov, full_matrices=False), 3))
+    # kernel 14 past 8 states: the slab's smooth gauge and following of its
+    # 20 occupied states (of 39), then random frames
+    w5s, _ = transport._strings(ws, 1, 2, 0)
+    frames = [("slab 41x41 along k0, %d of 39" % S10["smooth_occ"], w5s.contiguous(), list(range(S10["smooth_occ"])), 5)]
+    for S in LARGE_S:
+        NS = min(S + 2, 64)  # kernel 14 takes up to 64 states
+        z = rng.normal(size=(9, 7, NS + 4, NS)) + 1j * rng.normal(size=(9, 7, NS + 4, NS))
+        fr = torch.as_tensor(np.ascontiguousarray(np.swapaxes(np.linalg.qr(z)[0], -1, -2))).to(device)
+        frames.append(("random 9x7 frames, %d of %d" % (S, NS), transport._strings(fr, 1, 2, 0)[0].contiguous(),
+                       list(range(S)), 3))
+    for key, w5, occ, reps in frames:
+        outer, L, inner, NS, F = w5.shape
+        occ_t = torch.as_tensor(occ, dtype=torch.int64, device=device)
+        S = len(occ)
+        C, smin = transport._chain(w5, occ_t)
+        Cp, sp = transport._chain_plain(w5, occ_t)
+        record("transport_chain", key, max(max_diff(torch, C, Cp), max_diff(torch, smin, sp)),
+               lambda: transport._chain(w5, occ_t), lambda: transport._chain_plain(w5, occ_t),
+               cost_transport_chain(outer, L, inner, S, F), reps=reps)
+        theta, P = (t.contiguous() for t in berry.unitary_eig(Cp[:, -1].contiguous()))
+        record("transport_rotate", key + ", closed",
+               max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, True),
+                        transport._rotate_plain(w5, occ_t, Cp, theta, P, True)),
+               lambda: transport._rotate(w5, occ_t, Cp, theta, P, True),
+               lambda: transport._rotate_plain(w5, occ_t, Cp, theta, P, True),
+               cost_transport_rotate(outer, L, inner, S, NS, F), reps=reps)
+        held("transport_rotate", key + ", open", max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, False),
+                                                           transport._rotate_plain(w5, occ_t, Cp, theta, P, False)))
+        nocc = S
+        occ_f = occ_t
+        idx, fid, stt = transport._follow(w5, occ_f)
+        idx_p, fid_p, st_p = transport._follow_plain(w5, occ_f)
+        check(torch.equal(idx, idx_p), "transport_follow %s: the followed indices differ from the plain version" % key)
+        record("transport_follow", "%s, follow %d of %d" % (key, nocc, NS),
+               max(max_diff(torch, fid, fid_p), max_diff(torch, stt, st_p)),
+               lambda: transport._follow(w5, occ_f), lambda: transport._follow_plain(w5, occ_f),
+               cost_transport_follow(outer, L, inner, NS, nocc, F), reps=reps)
+    # kernel 19 past 8 Wannier functions: single steps on near-identity overlaps
+    for n in LARGE_NW:
+        B, nb = 64, 8
+        X = rng.normal(size=(B, nb, n, n)) + 1j * rng.normal(size=(B, nb, n, n))
+        u, _, vh = np.linalg.svd(np.eye(n) + 0.05 * X)
+        M0 = torch.as_tensor(np.ascontiguousarray(0.98 * (u @ vh))).to(device)
+        nbr = torch.as_tensor(rng.integers(0, B, (B, nb))).to(device)
+        w_b = torch.as_tensor(rng.uniform(0.5, 2.0, nb)).to(device)
+        b_cart = torch.as_tensor(rng.normal(size=(nb, 3)) * 0.3).to(device)
+        H = rng.normal(size=(B, n, n)) + 1j * rng.normal(size=(B, n, n))
+        A = torch.as_tensor(0.02 * (H - np.conj(np.swapaxes(H, -1, -2))))
+        U = wannier._expm_antiherm(A).to(device).contiguous()
+        dW = (0.01 * A).to(device).contiguous()
+        eps0 = 0.5 / (4.0 * float(w_b.sum()))
+        for om_prev in (math.inf, -1.0):
+            got = wannier.mv_step(M0, nbr, w_b, b_cart, U, dW, 1.3 * eps0, om_prev, eps0)
+            want = wannier._mv_step_plain(M0, nbr, w_b, b_cart, U, dW, torch.tensor(1.3 * eps0, dtype=torch.float64,
+                                                                                      device=device),
+                                          torch.tensor(om_prev, dtype=torch.float64, device=device), 20.0 * eps0)
+            err = max(max_diff(torch, a, b) / max(1.0, float(b.abs().max())) for a, b in zip(got, want))
+            if om_prev < 0:
+                held("mv_step", "random B 64 nb 8 nw %d, overshoot" % n, err)
+        record("mv_step", "random B 64 nb 8 nw %d" % n, err,
+               lambda: wannier.mv_step(M0, nbr, w_b, b_cart, U, dW, 1.3 * eps0, math.inf, eps0),
+               lambda: wannier._mv_step_plain(M0, nbr, w_b, b_cart, U, dW,
+                                              torch.tensor(1.3 * eps0, dtype=torch.float64, device=device),
+                                              torch.tensor(math.inf, dtype=torch.float64, device=device), 20.0 * eps0),
+               cost_mv_step(B, nb, n), reps=5)
+
+
+def _link_traces(wf, occ, axis):
+    """Traces of the link overlaps <w_m|w_m+1> of states ``occ`` along grid
+    ``axis`` (invariant under the one unitary by which two open smooth
+    gauges of the same projectors differ on a string)."""
+    w = np.asarray(wf._wfs)[:, :, occ]
+    w = np.moveaxis(w, axis, 0)
+    w = w.reshape(w.shape[:3] + (-1,))
+    return np.einsum("lsnf,lsnf->ls", w[:-1].conj(), w[1:])
+
+
+def slice10_path(pt, where, reference):
+    """The tenth slice's rows of tools/bench_suite.py with their pins:
+    tetrahedron_dos_3d_48cube (:850; 663,552 tetrahedra x 1,601 E, the
+    state count within 1e-2 of 1) and lindhard_qsweep_64q (:556; graphene,
+    64 q x 576 k x 16 w, chi[18, 1][0, 0] within 3e-3 of 0.189441 +
+    0.001618i); examples/fermi_surface_tools.py (the square lattice's
+    contours at nk 301 for five levels, graphene's dos_linear at nk 256 x
+    1,200 E, 14 orbit areas and the cyclotron mass at nk 301 against the
+    parabolic pi k_F^2 and m* 1/2); examples/rpa_stoner.py's
+    stoner_analysis at nk 25 (37 q, U_c within 2.1-2.5);
+    tests/test_magnetotransport.py's Drude collapse at nk 301 (2e-2);
+    extremal_orbits on the cubic pocket (48 slices x 151^2, one solve of
+    1.09 M k-points; the belly area pi (E_F + 6) within 3e-2); kp_model at
+    graphene's K (v_F sqrt(3)/2 within 1e-3); and the block paths on real
+    calls: the 20-layer slab's Berry phases and Wilson loops of its 20
+    occupied states (kernels 3, 5), their smooth gauge and adiabatic
+    following (kernel 14), and a 9-function MLWF of a 3 x 3
+    BN supercell (kernel 19).  The CPU reference runs the DOS at 16^3 and
+    64^2, 8 of the 64 q, the extremal orbits at 12 x 51^2 and leaves out
+    the 901^2 zero-field Drude reference; the card runs those sizes too,
+    for the comparison."""
+    import warnings
+
+    from pythtb_tpu_torch.ops import _kernels
+
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    cub = cubic_model(pt)
+    # tetrahedron_dos_3d_48cube
+    if not reference:
+        d46, sec = timed(pt.fermisurface.dos_linear, cub, TETRA_E, nk=S10["tetra_nk"])
+        tot = float(np.trapezoid(d46, TETRA_E))
+        print("  %s fermisurface.dos_linear cubic 48^3 (663,552 tetrahedra) x 1601 E: state count %.6f  [%.2f s]"
+              % (where, tot, sec))
+        check(abs(tot - 1.0) < 1e-2 and bool(np.isfinite(d46).all()), "tetrahedron_dos_3d_48cube: count %.6f" % tot)
+    out["tetra_small"], sec = timed(pt.fermisurface.dos_linear, cub, TETRA_E, nk=S10["tetra_cpu_nk"])
+    print("  %s fermisurface.dos_linear cubic 16^3 x 1601 E: state count %.6f  [%.2f s]"
+          % (where, float(np.trapezoid(out["tetra_small"], TETRA_E)), sec))
+
+    # lindhard_qsweep_64q (the CPU: the first 8 q)
+    g = pt.models.graphene()
+    q = LIND_Q[: S10["lind_cpu_q"]] if reference else LIND_Q
+    before = _kernels.LAUNCHES["spectral_sum_qbatch"]
+    chi, sec = timed(pt.response.lindhard, g, q, LIND_W, nk=S10["lind_nk"], mu=0.0, temperature=2e-3, eta=0.05)
+    out["lindhard"] = chi[: S10["lind_cpu_q"]]
+    if not reference:
+        out["lindhard_launches"] = _kernels.LAUNCHES["spectral_sum_qbatch"] - before
+        dev = abs(chi[18, 1][0, 0] - LIND_PIN)
+        print("  %s response.lindhard graphene 64 q x 576 k x 16 w: pin deviation %.3e, %d q-batch launch  [%.2f s]"
+              % (where, dev, out["lindhard_launches"], sec))
+        check(dev < 3e-3 and bool(np.isfinite(chi).all()), "lindhard_qsweep_64q: pin deviation %.3e" % dev)
+
+    # examples/fermi_surface_tools.py
+    t0 = time.perf_counter()
+    sq = pt.models.square(t=-1.0)
+    conts = {ef: pt.fermisurface.fermi_surface(sq, ef, nk=S10["fs_nk"])[0] for ef in FS_EFS}
+    out["fs_contours"] = np.concatenate([np.concatenate([p for p, _ in conts[ef]]) for ef in FS_EFS])
+    out["fs_closed"] = np.array([[c for _, c in conts[ef]].count(True) for ef in FS_EFS], float)
+    ev = np.asarray(sq.solve_all(out["fs_contours"][::37] % 1.0))[0]
+    on = float(np.abs(ev - np.repeat(FS_EFS, [sum(len(p) for p, _ in conts[ef]) for ef in FS_EFS])[::37]).max())
+    gdos_nk = S10["gdos_cpu_nk"] if reference else S10["gdos_nk"]
+    gdos = pt.fermisurface.dos_linear(pt.models.graphene(t=-1.0), GDOS_E, nk=gdos_nk)
+    areas = np.array([pt.fermisurface.orbit_areas(sq, e, 0, nk=S10["fs_nk"])[0] for e in ORBIT_EFS])
+    mstar = pt.fermisurface.cyclotron_mass(sq, -3.8, 0, nk=S10["fs_nk"])
+    out["fs_areas"] = np.concatenate([areas, [mstar]])
+    if not reference:
+        out["gdos_small"] = pt.fermisurface.dos_linear(pt.models.graphene(t=-1.0), GDOS_E, nk=S10["gdos_cpu_nk"])
+    else:
+        out["gdos_small"] = gdos
+    par = float(np.abs(areas[:3] / (np.pi * (ORBIT_EFS[:3] + 4.0)) - 1.0).max())
+    count = float(np.trapezoid(gdos, GDOS_E))
+    print("  %s examples/fermi_surface_tools.py: contours at 5 levels (%s closed), max |E(k) - E_F| %.2e; graphene "
+          "DOS %d^2 x 1200 E, state count %.5f; 14 orbit areas (parabolic limit %.2e), m*(-3.8) %.6f  [%.2f s]"
+          % (where, out["fs_closed"].astype(int).tolist(), on, gdos_nk, count, par, mstar, time.perf_counter() - t0))
+    check(on < 2e-3 and abs(count - 2.0) < 2e-2 and par < 3e-2 and abs(mstar - 0.5) < 3e-2,
+          "fermi_surface_tools: contour %.2e, count %.5f, areas %.2e, m* %.5f" % (on, count, par, mstar))
+
+    # examples/rpa_stoner.py
+    st, sec = timed(pt.response.stoner_analysis, g, STONER_Q, nk=S10["stoner_nk"], mu=0.0, temperature=2e-3)
+    out["stoner"] = np.concatenate([st["lambda"], [st["U_c_min"]]])
+    print("  %s response.stoner_analysis graphene nk 25, 37 q: U_c %.8f at q %s  [%.2f s]"
+          % (where, st["U_c_min"], st["q_best"], sec))
+    check(2.1 < st["U_c_min"] < 2.5, "rpa_stoner: U_c %.6f" % st["U_c_min"])
+
+    # tests/test_magnetotransport.py's Drude collapse
+    t0 = time.perf_counter()
+    mt_m = pt.fermisurface.cyclotron_mass(sq, -3.6, 0, nk=S10["mt_nk"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mt = pt.boltzmann.magnetotransport(sq, -3.6, MT_BS, tau=7.0, nk=S10["mt_nk"])
+    out["mt"] = np.concatenate([mt["sigma"].ravel(), [mt_m]])
+    if not reference:
+        tc = pt.boltzmann.transport_coefficients(sq, [-3.6], 0.03, S10["mt_bt_nk"], tau=7.0)
+        s0 = tc["sigma"][0, 0, 0]
+        wct = MT_BS / mt_m * 7.0
+        sig = mt["sigma"]
+        dev = max(float(np.abs(sig[:, 0, 0] / (s0 / (1 + wct**2)) - 1).max()),
+                  float(np.abs(sig[:, 1, 1] / (s0 / (1 + wct**2)) - 1).max()),
+                  float(np.abs(np.abs(sig[:, 0, 1]) / sig[:, 0, 0] / wct - 1).max()))
+        print("  %s boltzmann.magnetotransport square 301^2, 4 B (Drude collapse vs 901^2 sigma_0): max relative "
+              "deviation %.3e, orbits %s  [%.2f s]" % (where, dev, mt["orbits"], time.perf_counter() - t0))
+        check(dev < 2e-2 and float(np.abs(sig[:, 0, 1] + sig[:, 1, 0]).max()) <= 1e-10 * float(np.abs(sig).max()),
+              "magnetotransport Drude collapse: deviation %.3e" % dev)
+
+    # extremal_orbits: the cubic pocket (the CPU: 12 x 51^2)
+    sizes = [(S10["ext_cpu_slices"], S10["ext_cpu_nk"])] + ([] if reference else [(S10["ext_slices"], S10["ext_nk"])])
+    for ns, nk in sizes:
+        ex, sec = timed(pt.fermisurface.extremal_orbits, cub, -5.7, 0, n_slices=ns, nk=nk)
+        if ns == S10["ext_cpu_slices"]:
+            out["extremal"] = np.array([[e["k_slice"], e["area"], e["kind"] == "max"] for e in ex], float)
+        print("  %s fermisurface.extremal_orbits cubic %d x %d^2: %s  [%.2f s]"
+              % (where, ns, nk, [(e["kind"], round(e["area"], 6)) for e in ex], sec))
+        if ns == S10["ext_slices"]:
+            check(len(ex) == 1 and ex[0]["kind"] == "max" and abs(ex[0]["area"] / (np.pi * 0.3) - 1) < 3e-2,
+                  "extremal_orbits: %s" % ex)
+
+    # kp_model at graphene's K
+    kp, sec = timed(pt.geometry.kp_model, pt.models.graphene(t=-1.0), [1 / 3, 2 / 3], [0, 1])
+    th = np.array([0.0, 0.7, 1.9, 3.0])
+    e = kp(1e-4 * np.stack([np.cos(th), np.sin(th)], axis=1))
+    vs = (e[:, 1] - e[:, 0]) / 2e-4
+    em = pt.geometry.effective_mass(pt.models.haldane(), [0.11, 0.27], 0)
+    out["kp"] = np.concatenate([vs, em["hessian"].ravel()])
+    print("  %s geometry.kp_model graphene K: v_F %s (sqrt(3)/2 = %.6f)  [%.2f s]"
+          % (where, np.round(vs, 6).tolist(), np.sqrt(3) / 2, sec))
+    check(float(np.abs(vs - np.sqrt(3.0) / 2.0).max()) < 1e-3, "kp_model Dirac velocity %s" % vs)
+
+    # the block paths of kernels 3, 5, 14 and 19 on real calls
+    slab = cubic_slab(pt)
+    ws = pt.wf_array(slab, [41, 41])
+    ws.solve_on_grid([0.0, 0.0])
+    occ = list(range(S10["slab_occ"]))
+    before = dict(_kernels.LAUNCHES)
+    out["slab_berry"] = np.concatenate([ws.berry_phase(occ, dir=0, contin=False).ravel(),
+                                        ws.berry_phase(occ, dir=0, contin=False, berry_evals=True).ravel()])
+    occ_s = list(range(S10["smooth_occ"]))
+    idx, fid = ws.adiabatic_evolve(occ_s, dir=1)
+    # the open gauge: the twisted one takes a fractional power of the
+    # holonomy, whose eigenphases near pi can fall on either side of the
+    # branch cut on the card and the CPU (on an H100 the closed gauge's traces came
+    # out 1.8e-3 apart), so only the open gauge is compared
+    ws.smooth_gauge(occ_s, dir=0, closed=False)
+    tr = _link_traces(ws, occ_s, 0)
+    out["slab_transport"] = np.concatenate([idx.astype(float).ravel(), fid.ravel()])
+    out["slab_traces"] = np.concatenate([tr.real.ravel(), tr.imag.ravel()])
+    sc = bn_supercell(pt)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        itp = pt.wannier.interpolator(sc, list(range(9)), nk=S10["mlwf_nk"], trial=np.eye(18)[0::2],
+                                      localize=S10["mlwf_steps"], coarse_nk=S10["mlwf_coarse"], polish=0)
+    kpb = sc.k_path([[0, 0], [0.5, 0], [1 / 3, 1 / 3], [0, 0]], 31, report=False)[0]
+    out["bn_mlwf_bands"] = itp.bands(kpb)
+    out["bn_mlwf_omega"] = np.array([itp.omega_i, itp.omega_i + itp.omega_tilde, itp.min_projection_sv])
+    band_dev = float(np.abs(out["bn_mlwf_bands"] - sc.solve_all(kpb)[:9]).max())
+    print("  %s block paths: slab Berry phases, following and smooth gauge of 20 states; BN 3x3 MLWF nw 9 "
+          "(%d MV steps, coarse 6^2 -> 12^2): band error %.3e, Omega_I %.8f, Omega %.8f"
+          % (where, S10["mlwf_steps"], band_dev, itp.omega_i, itp.omega_i + itp.omega_tilde))
+    check(band_dev < 5e-2, "BN supercell MLWF band error %.3e" % band_dev)
+    if not reference:
+        out["block_launches"] = {k: _kernels.LAUNCHES[k] - before[k] for k in (
+            "link_dets", "wilson_loop", "transport_chain", "transport_rotate", "transport_follow", "mv_step")}
+        print("  %s launches of the block-path calls: %s" % (where, out["block_launches"]))
+    return out
+
+
+def compare_slice10(out, ref):
+    """The tenth slice on the card against the CPU run: the DOS at 16^3 and
+    64^2, chi0 at the first 8 q, the contours, areas and mass, the Stoner
+    eigenvalues, sigma(B), the extremal orbits at 12 x 51^2, the k.p
+    velocities and mass tensor, the slab's Berry phases (mod 2 pi),
+    following and smoothed link traces, all at 1e-10 relative to the
+    largest entry; the BN MLWF, which ends a whole MV run, at MV_TOL."""
+    for key in ("tetra_small", "lindhard", "fs_contours", "fs_closed", "gdos_small", "fs_areas", "stoner", "mt",
+                "extremal", "kp", "slab_transport", "slab_traces"):
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        check(got.shape == want.shape, "%s: shape %s differs from the CPU run's %s" % (key, got.shape, want.shape))
+        err = float(np.abs(got - want).max() / max(1.0, np.abs(want).max())) if want.size else 0.0
+        print("  %s vs CPU: max|diff| %.3e (relative)" % (key, err))
+        check(err <= 1e-10, "%s differs from the CPU path by %.3e (relative)" % (key, err))
+    d = np.asarray(out["slab_berry"]) - np.asarray(ref["slab_berry"])
+    err = float(np.abs(np.angle(np.exp(1j * d))).max())
+    print("  slab Berry phases and Wilson-loop phases of 20 states vs CPU: max|diff| %.3e (mod 2 pi)" % err)
+    check(err <= 1e-10, "slab Berry phases differ from the CPU path by %.3e" % err)
+    err = float(np.abs(out["bn_mlwf_bands"] - ref["bn_mlwf_bands"]).max() / np.abs(ref["bn_mlwf_bands"]).max())
+    (oi, om, sv), (roi, rom, rsv) = out["bn_mlwf_omega"], ref["bn_mlwf_omega"]
+    print("  BN 3x3 MLWF nw 9 vs CPU: bands %.3e, Omega_I %.3e, Omega %.3e (relative), projection sv %.3e"
+          % (err, abs(oi - roi) / abs(roi), abs(om - rom) / abs(rom), abs(sv - rsv)))
+    check(err <= MV_TOL["bands"] and abs(oi - roi) <= MV_TOL["omega_i"] * abs(roi)
+          and abs(om - rom) <= MV_TOL["omega"] * abs(rom) and abs(sv - rsv) <= MV_TOL["history"],
+          "the BN MLWF differs from the CPU run")
+    bl = out["block_launches"]
+    check(all(v > 0 for v in bl.values()), "a block-path call did not launch its kernel: %s" % bl)
+    check(out["lindhard_launches"] == 1, "the 64-q Lindhard call did not make one q-batch launch")
+
+
 def _state_of(m):
     """Host state of a model, for convert.tb_model_from_state."""
     hops = m._hoppings
@@ -2913,6 +3408,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out.update(slice7_path(pt, where, reference))
     out.update(slice8_path(pt, where, reference))
     out.update(slice9_path(pt, where, reference))
+    out.update(slice10_path(pt, where, reference))
     return out
 
 
@@ -3252,6 +3748,46 @@ def phase_walls(torch, pt, card):
         "meanfield.bcs_gap square 36x36 g 2 (examples/mean_field.py)": (
             lambda: pt.meanfield.bcs_gap(sq9, 2.0, -0.4, nk=(36, 36), temperature=0.01, max_iters=4000), 3, 1),
     })
+    cub10, g10, sq10 = cubic_model(pt), pt.models.graphene(), pt.models.square(t=-1.0)
+    slab10 = pt.wf_array(slab, [41, 41])
+    slab10.solve_on_grid([0.0, 0.0])
+    occ10 = list(range(S10["slab_occ"]))
+    sc10 = bn_supercell(pt)
+
+    def bn_mlwf():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return pt.wannier.interpolator(sc10, list(range(9)), nk=S10["mlwf_nk"], trial=np.eye(18)[0::2],
+                                           localize=S10["mlwf_steps"], coarse_nk=S10["mlwf_coarse"], polish=0)
+
+    calls.update({
+        "fermisurface.dos_linear cubic 48^3 x 1601 E (kernel 21)": (
+            lambda: pt.fermisurface.dos_linear(cub10, TETRA_E, nk=S10["tetra_nk"]), 5, 3),
+        "response.lindhard graphene 64 q x 576 k x 16 w": (
+            lambda: pt.response.lindhard(g10, LIND_Q, LIND_W, nk=S10["lind_nk"], mu=0.0, temperature=2e-3, eta=0.05),
+            5, 3),
+        "fermisurface.dos_linear graphene 256^2 x 1200 E": (
+            lambda: pt.fermisurface.dos_linear(pt.models.graphene(t=-1.0), GDOS_E, nk=S10["gdos_nk"]), 5, 3),
+        "fermisurface.fermi_surface square 301^2 at E_F -1.5": (
+            lambda: pt.fermisurface.fermi_surface(sq10, -1.5, nk=S10["fs_nk"]), 2, 0),
+        "fermisurface.cyclotron_mass square 301^2": (
+            lambda: pt.fermisurface.cyclotron_mass(sq10, -3.8, 0, nk=S10["fs_nk"]), 2, 0),
+        "response.stoner_analysis graphene nk 25, 37 q": (
+            lambda: pt.response.stoner_analysis(g10, STONER_Q, nk=S10["stoner_nk"], mu=0.0, temperature=2e-3), 5, 3),
+        "boltzmann.magnetotransport square 301^2, 4 B": (
+            lambda: quiet_warnings(pt.boltzmann.magnetotransport, sq10, -3.6, MT_BS, tau=7.0, nk=S10["mt_nk"]), 3, 1),
+        "fermisurface.extremal_orbits cubic 48 x 151^2": (
+            lambda: pt.fermisurface.extremal_orbits(cub10, -5.7, 0, n_slices=S10["ext_slices"], nk=S10["ext_nk"]),
+            1, 0),
+        "geometry.kp_model graphene K": (lambda: pt.geometry.kp_model(g10, [1 / 3, 2 / 3], [0, 1]), 10, 5),
+        "wf_array.berry_phase slab 41x41, 20 states, Wilson loops (kernel 5 S 20)": (
+            lambda: slab10.berry_phase(occ10, dir=0, contin=False, berry_evals=True), 5, 3),
+        "wf_array.berry_phase slab 41x41, 20 states, traced (kernel 3 S 20)": (
+            lambda: slab10.berry_phase(occ10, dir=0, contin=False), 5, 3),
+        "wf_array.smooth_gauge slab 41x41, 20 states (kernel 14 S 20)": (
+            lambda: slab10.smooth_gauge(occ10, dir=0, closed=True), 5, 3),
+        "wannier.interpolator BN 3x3 nw 9, 6^2 x 100 MV steps -> 12^2": (bn_mlwf, 3, 1),
+    })
     hf = calls["meanfield.hartree_fock 6-ring U 4 (examples/hubbard_ed.py)"][0]
     calls["meanfield.hartree_fock 6-ring U 4, the reference's 80-step mu bisection"] = (
         with_plain_bisection(torch, pt, hf), 3, 0)
@@ -3280,7 +3816,10 @@ def phase_walls(torch, pt, card):
                  "pump_tools 41x31: solve_on_grid_models + adiabatic_evolve + smooth_gauge",
                  "ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4",
                  "dmft.band_spectral 1001 k x 2001 w x 8 resolved, device=True",
-                 "meanfield.bcs_gap square 36x36 g 2 (examples/mean_field.py)"):
+                 "meanfield.bcs_gap square 36x36 g 2 (examples/mean_field.py)",
+                 "fermisurface.dos_linear cubic 48^3 x 1601 E (kernel 21)",
+                 "response.lindhard graphene 64 q x 576 k x 16 w",
+                 "wf_array.berry_phase slab 41x41, 20 states, Wilson loops (kernel 5 S 20)"):
         top, total = device_top(torch, calls[name][0])
         print("  device time of %s: %.1f us per call; largest: %s" % (name, total, "; ".join(
             "%s %.1f us" % (k[:70], us) for k, us in top)))
@@ -3353,6 +3892,7 @@ def main():
     compare_slice7(out, ref)
     compare_slice8(out, ref)
     compare_slice9(torch, pt, out, ref, device)
+    compare_slice10(out, ref)
     check_lowest_bound(torch, pt, out["lowest"], device)
     print("[4 main] kernel 7 launches in the slab's solve_on_grid: %d; in hofstadter_fn: %s"
           % (out["slab_jacobi_launches"], out["hof_launches"]))
@@ -3364,6 +3904,8 @@ def main():
           "the silicon MLWF build did not run its 400 steps through kernel 19")
     print("[4 main] kernel 11b filter steps in the 4,900-dim ED solve: %d; kernel 20 calls in the ARPES map: %d"
           % (out["ed_filter_steps"], out["arpes_launches"]))
+    print("[4 main] kernels 3, 5, 14 and 19 past 8 states (slab 20 states, BN MLWF nw 9): %s; kernel 16 q-batch "
+          "launches in the 64-q Lindhard call: %d" % (out["block_launches"], out["lindhard_launches"]))
     check(out["ed_filter_steps"] > 0, "the 4,900-dim ED solve did not go through kernel 11b")
     check(out["arpes_launches"] > 0, "the ARPES map did not go through kernel 20")
 
@@ -3371,6 +3913,7 @@ def main():
     t0 = time.perf_counter()
     walls = phase_walls(torch, pt, card)
     walls["bounds"] = composite_bounds(torch, pt, card)
+    walls["bounds"].update(more_bounds(torch, pt, card))
     print("[4 main] steady walls in %.1f s" % (time.perf_counter() - t0))
 
     # -- phase 5: launches -----------------------------------------------
@@ -3379,7 +3922,7 @@ def main():
                "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
                "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov", "eigh_jacobi",
                "assemble_members", "transport_chain", "transport_rotate", "transport_follow", "mv_step",
-               "dense_filter", "pole_sum")
+               "dense_filter", "pole_sum", "tetra_dos", "spectral_sum_qbatch")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -3411,6 +3954,8 @@ def main():
         "mv_step": ("mv_step.cu", "pythtb_tpu/wannier.py:214"),
         "dense_filter": ("dense_filter.cu", "pythtb_tpu/ed.py:238"),
         "pole_sum": ("pole_sum.cu", "pythtb_tpu/dmft.py:215"),
+        "tetra_dos": ("tetra_dos.cu", "pythtb_tpu/fermisurface.py:239"),
+        "spectral_sum_qbatch": ("spectral_sum.cu", "pythtb_tpu/response.py:64"),
     }
     rows = []
     for name in kernels:
@@ -3421,7 +3966,8 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], "device_us": r["device_us"], "plain_device_us": r["plain_device_us"],
+            "shape": r["shape"], "device_us": r["device_us"], "event_us": r["event_us"],
+            "plain_device_us": r["plain_device_us"],
             "plain_launches_per_call": r["plain_launches_per_call"],
         })
     print(json.dumps({"kernels": rows, "wall_ms": walls, "card": card}))

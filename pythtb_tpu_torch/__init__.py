@@ -24,8 +24,11 @@ the anomalous Hall, Nernst and thermal Hall sweeps, the Berry dipole,
 spin Hall conductivity and orbital magnetization (:mod:`flows`), the
 Kubo optical tensor, shift and injection currents and the joint DOS
 (:mod:`optical`), Boltzmann transport and the Edelstein tensor
-(:mod:`boltzmann`), and the quantum geometric tensor family with the
-Drude weight (:mod:`geometry`).  Green's functions and disorder: NEGF
+(:mod:`boltzmann`, with the Chambers magnetotransport), the quantum
+geometric tensor family with the Drude weight, effective masses and k.p
+models (:mod:`geometry`), Fermi surfaces, the linear-tetrahedron DOS and
+dHvA orbits (:mod:`fermisurface`), and the Lindhard / RPA susceptibility
+with the Stoner analysis (:mod:`response`).  Green's functions and disorder: NEGF
 transport through two- and multi-terminal devices (:mod:`negf`),
 Lyapunov spectra and localization measures (:mod:`localization`),
 impurity T-matrices and bound states (:mod:`impurity`), and the
@@ -52,17 +55,18 @@ Pade continuation (:mod:`continuation`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through 21 hand-written CUDA
+an NVIDIA Hopper card the hot paths run through 22 hand-written CUDA
 kernels, with kernel 1's one-sided and flux-batch modes, kernel 12's
-Green's-function mode, kernel 14's three modes and kernel 20's four
+Green's-function mode, kernel 14's three modes, kernel 16's q-batch
+mode and kernel 20's four
 (``csrc/``, built with nvcc at first use); on the CPU the same
 functions run their plain PyTorch versions.  This package never imports
 JAX.
 """
 
-from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, flows, geometry,
-               impurity, localization, magnetic, meanfield, models, negf, optical, realspace, surface, symmetry,
-               unfold, wannier)
+from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, fermisurface, flows,
+               geometry, impurity, localization, magnetic, meanfield, models, negf, optical, realspace, response,
+               surface, symmetry, unfold, wannier)
 from .family import ModelFamily, family
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
@@ -75,5 +79,5 @@ __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
     "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
     "impurity", "disorder", "family", "ModelFamily", "wannier", "unfold", "entanglement", "symmetry",
-    "ed", "dmft", "meanfield", "bdg", "continuation", "__version__",
+    "ed", "dmft", "meanfield", "bdg", "continuation", "fermisurface", "response", "__version__",
 ]

@@ -11,7 +11,12 @@ chemical-potential (or energy) sweep is one launch of kernel 17
 products v_a v_b, v_a eps v_e Minv and <s_a> v_c are its columns, and the
 (M, B, S) arrays of the JAX programs are never formed.  Formalism, units
 and the insulator guard are those of the JAX package (hbar = 1, q = -1).
-``magnetotransport`` is not ported yet.
+``magnetotransport`` walks the Fermi-surface orbits of
+:func:`pythtb_tpu_torch.fermisurface.fermi_surface` on the host, as the JAX
+package does, with the velocities of every orbit of a band from one
+``fermi_velocity`` call (kernel 15), and repairs the reference's
+exponential integrator where a segment is short beside tau (see
+:func:`_chambers_orbit`).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from .ops.fermi_sweep import fermi_sweep
 from .ops.solver import device_uniform_grid
 from .optical import _inverse_mass, _velocity_tensors
 
-__all__ = ["transport_coefficients", "transport_distribution", "edelstein"]
+__all__ = ["transport_coefficients", "transport_distribution", "edelstein", "magnetotransport"]
 
 
 def _band_v_minv(data, kpts, lat, need_minv=True):
@@ -233,3 +238,181 @@ def edelstein(model, mus, temperature, nk, tau=1.0):
     K = fermi_sweep(E, G, torch.as_tensor(mus).to(data.device), kt, "dfde")
     q = -1.0
     return q * float(tau) * K.reshape(-1, 3, data.dim_k).cpu().numpy() / abs(np.linalg.det(lat))
+
+
+# below this x = dt / tau the segment weights come from their series
+_SERIES_X = 0.5
+# terms of the series f(x) = (1 - (1 - e^-x) / x) = x/2 - x^2/6 + x^3/24 - ...
+_SERIES_TERMS = 18
+
+
+def _one_minus_mean_decay(x):
+    """f(x) = 1 - (1 - e^{-x}) / x, accurate to a few eps at every x > 0:
+    its alternating series below ``_SERIES_X`` (where the closed form loses
+    eps / x to cancellation), the closed form above."""
+    x = np.asarray(x, dtype=np.float64)
+    small = x < _SERIES_X
+    xs = np.where(small, x, 0.0)
+    # Horner on sum_{n >= 1} (-1)^(n+1) x^n / (n + 1)!
+    acc = np.zeros_like(xs)
+    for n in range(_SERIES_TERMS, 0, -1):
+        acc = xs * (1.0 / math.factorial(n + 1) - acc)
+    xl = np.where(small, 1.0, x)
+    return np.where(small, acc, 1.0 + np.expm1(-xl) / xl)
+
+
+def _chambers_orbit(v, dt, tau):
+    """One periodic orbit's contribution ``oint dt v_a(t) J_b(t)`` to the
+    Chambers tensor, ``J(t) = integral_0^inf e^{-s/tau} v(t - s) ds``, by
+    the exact exponential integrator of the JAX package on the native orbit
+    time grid: v linear on each segment, so ``J_{i+1} = E_i J_i + A_i v_i +
+    C_i v_{i+1}`` with E = e^{-x}, x = dt/tau, and the periodic fixed point
+    J_0 = b / (1 - P) of one pass.
+
+    Repaired against the reference (``boltzmann.py:390``): there C = tau -
+    tau^2 (1 - e^{-x}) / dt loses eps / x of its relative accuracy as
+    x -> 0, and 1 - P, P the running product of the E_i, loses eps / sum(x).
+    Here C = tau f(x) with f from :func:`_one_minus_mean_decay` (its series
+    at small x) and 1 - P = -expm1(-sum x).
+
+    v: (m, 2) velocities at the orbit nodes in traversal order;
+    dt: (m,) time from node i to node i+1 (wrapping at m-1).
+    """
+    m = v.shape[0]
+    x = dt / tau
+    one_m_E = -np.expm1(-x)
+    E = 1.0 - one_m_E
+    C = tau * _one_minus_mean_decay(x)
+    A = tau * one_m_E - C
+    b = np.zeros(2)
+    vn = np.roll(v, -1, axis=0)
+    for i in range(m):
+        b = E[i] * b + A[i] * v[i] + C[i] * vn[i]
+    J0 = b / max(-np.expm1(-np.sum(x)), 1e-300)
+    out = np.zeros((2, 2))
+    J = J0
+    for i in range(m):
+        Jn = E[i] * J + A[i] * v[i] + C[i] * vn[i]
+        out += 0.5 * dt[i] * (np.outer(v[i], J) + np.outer(vn[i], Jn))
+        J = Jn
+    return out
+
+
+def magnetotransport(model, ef, bfields, tau=1.0, nk=301, bands=None):
+    """Finite-field RTA conductivity tensor ``sigma_ab(B)`` of a 2-D metal
+    by the Chambers path-integral solution of the Boltzmann equation (T = 0,
+    B along z, hbar = 1, q = -1; counterpart of
+    ``pythtb_tpu.boltzmann.magnetotransport``):
+
+    ``sigma_ab(B) = spin q^2 / (2 pi)^2 sum_orbits oint (dl/|v|) v_a(k)
+    integral_0^inf ds e^{-s/tau} v_b(k(-s))``
+
+    over the closed and open (zone-traversing) orbits of
+    :func:`pythtb_tpu_torch.fermisurface.fermi_surface`.  The velocities
+    of every orbit of a band come from one ``fermi_velocity`` call (the
+    same numbers as one call per orbit); the memory integral is the exact
+    exponential integrator of :func:`_chambers_orbit`, repaired for
+    segments short beside tau.
+
+    :param model: fully periodic 2-D :class:`tb_model`
+    :param ef: Fermi energy (T = 0 contour level)
+    :param bfields: magnetic fields B_z (scalar or 1-D array; sign
+        respected)
+    :param tau: relaxation time
+    :param nk: marching-squares grid resolution
+    :param bands: band indices to include (default: all bands crossing
+        ``ef``)
+    :returns: dict with ``Bs`` (nB,), ``sigma`` (nB, 2, 2) in the units of
+        :func:`transport_coefficients`, ``tau`` and ``orbits`` (count of
+        (closed, open) contours used)
+    """
+    from .fermisurface import fermi_surface, fermi_velocity
+
+    data, lat, _ = _prep(model, "magnetotransport")
+    if data.dim_k != 2:
+        raise PythtbError("magnetotransport: dim_k == 2 required")
+    tau = float(tau)
+    if tau <= 0:
+        raise PythtbError("tau must be positive")
+    Bs = np.atleast_1d(np.asarray(bfields, dtype=float))
+    if np.any(Bs == 0.0):
+        raise PythtbError(
+            "magnetotransport: B = 0 is singular in the orbit "
+            "parametrization; use transport_coefficients for the "
+            "zero-field tensor (the B -> 0 limit is smooth)")
+    G = 2.0 * np.pi * np.linalg.inv(np.asarray(lat, dtype=float)).T
+
+    conts = fermi_surface(model, ef, nk=nk, bands=bands)
+    spin = 2.0 if data.nspin == 1 else 1.0
+    sigma = np.zeros((Bs.shape[0], 2, 2))
+    n_closed = n_open = 0
+    for b, lines in conts.items():
+        orbits = []  # (pts, closed, W) of the band, before its velocities
+        for pts, closed in lines:
+            if pts.shape[0] < 8:
+                continue  # marching artifact: too short to integrate
+            W = None
+            if closed:
+                n_closed += 1
+            else:
+                # genuinely open orbits end one winding away from the
+                # start; anything else is a truncated chain
+                W = np.round(pts[-1] - pts[0])
+                if not np.all(np.abs(pts[-1] - pts[0] - W) < 0.25) or np.all(W == 0):
+                    warnings.warn(
+                        "magnetotransport: skipping a non-periodic "
+                        "open chain on band %d (raise nk)" % b, stacklevel=2)
+                    continue
+                n_open += 1
+                pts = pts[:-1] if np.all(np.abs(pts[-1] - W - pts[0]) < 1e-9) else pts
+            # drop zero-length segments (duplicate nodes at cell corners)
+            step = np.linalg.norm(np.diff(pts, axis=0), axis=1)
+            pts = pts[np.concatenate([[True], step > 1e-10])]
+            if closed and np.linalg.norm(pts[-1] - pts[0]) < 1e-10:
+                pts = pts[:-1]  # explicit closing node: wrap handles it
+            if pts.shape[0] < 8:
+                continue
+            orbits.append((pts, closed, W))
+        if not orbits:
+            continue
+        # one device call for the velocities of every orbit of the band
+        vall = fermi_velocity(model, np.concatenate([o[0] for o in orbits]) % 1.0, bands=[b])[:, :, 0]
+        splits = np.cumsum([o[0].shape[0] for o in orbits])[:-1]
+        for (pts, closed, W), v in zip(orbits, np.split(vall, splits)):
+            kc = pts @ G  # Cartesian contour points
+            speed = np.linalg.norm(v, axis=1)
+            if np.any(speed < 1e-12):
+                warnings.warn(
+                    "magnetotransport: orbit touches a van Hove "
+                    "point (|v| = 0); its contribution is skipped", stacklevel=2)
+                continue
+            # segment from point i to i+1 (wrap: closed -> start; open ->
+            # start shifted by the winding vector)
+            nxt = np.roll(kc, -1, axis=0)
+            if not closed:
+                nxt[-1] = kc[0] + W @ G
+            dl = np.linalg.norm(nxt - kc, axis=1)
+            # traversal orientation for B > 0: dk/dt = (-v_y, v_x) B
+            tang = nxt - kc
+            kdot = np.stack([-v[:, 1], v[:, 0]], axis=1)
+            if np.sum(np.einsum("ia,ia->i", tang, kdot)) < 0.0:
+                # reversed point order: segment j runs q_j -> q_{j+1} =
+                # old segment m-2-j, and the wrap segment is shared
+                v = v[::-1]
+                speed = speed[::-1]
+                dl = np.roll(dl[::-1], -1)
+            dt1 = dl / speed  # time along the orbit at |B| = 1
+            for iB, Bz in enumerate(Bs):
+                if Bz < 0.0:
+                    # field reversal runs the same contour backwards
+                    v_s = v[::-1]
+                    dt_s = np.roll(dt1[::-1], -1) / abs(Bz)
+                else:
+                    v_s = v
+                    dt_s = dt1 / abs(Bz)
+                sigma[iB] += spin * abs(Bz) * _chambers_orbit(v_s, dt_s, tau) / (2.0 * np.pi) ** 2
+    if n_closed + n_open == 0:
+        warnings.warn("magnetotransport: no Fermi-surface orbit at "
+                      "ef = %g (insulator or ef outside bands); sigma "
+                      "is zero" % ef, stacklevel=2)
+    return {"Bs": Bs, "sigma": sigma, "tau": tau, "orbits": (n_closed, n_open)}

@@ -27,3 +27,14 @@ __device__ __forceinline__ cplx cmul_conj(cplx a, cplx b) {
 }
 
 __device__ __forceinline__ cplx csub(cplx a, cplx b) { return make_cuDoubleComplex(a.x - b.x, a.y - b.y); }
+
+// Pair k of round `round` of the circle ordering of Se (even) players:
+// over Se - 1 rounds every pair p < q appears once, disjoint within a
+// round (the parallel Jacobi sweeps of polar.cuh and mv_step.cu).
+__device__ __forceinline__ void circle_pair(int Se, int round, int k, int& p, int& q) {
+    const int m = Se - 1;
+    const int a = k == 0 ? 0 : 1 + (round + k - 1) % m;
+    const int b = 1 + (round + m - 1 - k) % m;
+    p = min(a, b);
+    q = max(a, b);
+}

@@ -33,7 +33,13 @@
 // at 3.35 TB/s -- far below the ~3 x 2-4 us of three launches, so the step
 // is launch-bound; the one-block reduction and the serial Jacobi are the
 // rest.  nw is a template parameter (1..8), so the small matrices stay in
-// registers; larger nw takes the library route in the Python wrapper.
+// registers.  From 9 to 32 Wannier functions the same three launches run
+// block kernels: overlaps a block per (k, b) and update a block per k,
+// the nw x nw matrices in shared memory (48 kB for the update at 32) and
+// their entries spread over 256 threads, the per-k exp(dW) by a parallel
+// (Brent-Luk) Jacobi -- the same rotations as the register path, the
+// disjoint pairs of a round applied at once -- and the reduction with its
+// sums taken one quantity at a time.  Larger nw is refused.
 #include "common.cuh"
 
 constexpr int kMVMaxDC = 3;
@@ -322,6 +328,314 @@ __global__ void mv_update_kernel(const cplx* __restrict__ M, const double* __res
     }
 }
 
+// -- block paths, 9 <= nw <= 32 ----------------------------------------------
+
+constexpr int kMVBlockMaxN = 32;
+constexpr int kMVBlockThreads = 256;
+constexpr int kMVBlockEntries = kMVBlockMaxN * kMVBlockMaxN / kMVBlockThreads;  // 4
+
+__global__ void __launch_bounds__(kMVBlockThreads)
+mv_overlaps_block_kernel(const cplx* __restrict__ M0, const int64_t* __restrict__ nbr, const cplx* __restrict__ U,
+                         cplx* __restrict__ Mout, double* __restrict__ part, int64_t nb, int n) {
+    extern __shared__ double smem[];
+    cplx* T = (cplx*)smem;
+    __shared__ double red[32];
+    const int tid = threadIdx.x;
+    const int64_t r = blockIdx.x;  // the (k, b) row
+    const int64_t k = r / nb;
+    const cplx* u = U + k * n * n;
+    const cplx* v = U + nbr[r] * n * n;
+    const cplx* m0 = M0 + r * n * n;
+    for (int e = tid; e < n * n; e += kMVBlockThreads) {
+        const int i = e / n, j = e % n;
+        cplx acc = make_cuDoubleComplex(0.0, 0.0);
+        for (int l = 0; l < n; ++l) acc = cuCadd(acc, cuCmul(m0[i * n + l], v[l * n + j]));
+        T[e] = acc;
+    }
+    __syncthreads();
+    double* p = part + r * (n + 2);
+    cplx* mo = Mout + r * n * n;
+    double sall = 0.0, sdiag = 0.0;
+    for (int e = tid; e < n * n; e += kMVBlockThreads) {
+        const int i = e / n, j = e % n;
+        cplx acc = make_cuDoubleComplex(0.0, 0.0);
+        for (int l = 0; l < n; ++l) acc = cuCadd(acc, cmul_conj(u[l * n + i], T[l * n + j]));
+        mo[e] = acc;
+        const double a2 = acc.x * acc.x + acc.y * acc.y;
+        sall += a2;
+        if (i == j) {
+            sdiag += a2;
+            p[i] = atan2(acc.y, acc.x);
+        }
+    }
+    sall = mv_block_sum(sall, red);
+    sdiag = mv_block_sum(sdiag, red);
+    if (tid == 0) {
+        p[n] = sall;
+        p[n + 1] = sdiag;
+    }
+}
+
+// the reduction of mv_reduce_kernel with n a runtime size: each of the
+// dc * n + 2 sums in its own pass over the rows (the same strided order)
+__global__ void mv_reduce_block_kernel(const double* __restrict__ part, const double* __restrict__ w_b,
+                                       const double* __restrict__ b_cart, double* __restrict__ scal,
+                                       double* __restrict__ rbar_out, double* __restrict__ hist,
+                                       double* __restrict__ fin, int64_t rows, int64_t nb, int n, int dc,
+                                       int64_t nk, double mu, double eps_cap, int64_t step) {
+    __shared__ double red[32];
+    __shared__ double rbar[kMVMaxDC * kMVBlockMaxN];
+    const int tid = threadIdx.x;
+    const double inv_n = 1.0 / (double)nk;
+    for (int qi = 0; qi < dc * n; ++qi) {
+        const int d = qi / n, nn = qi % n;
+        double acc = 0.0;
+        for (int64_t r = tid; r < rows; r += blockDim.x) {
+            const int64_t b = r % nb;
+            acc += w_b[b] * b_cart[b * dc + d] * part[r * (n + 2) + nn];
+        }
+        const double s = mv_block_sum(acc, red);
+        if (tid == 0) rbar[qi] = -s * inv_n;
+    }
+    double ai = 0.0, ad = 0.0;
+    for (int64_t r = tid; r < rows; r += blockDim.x) {
+        const int64_t b = r % nb;
+        const double* p = part + r * (n + 2);
+        ai += w_b[b] * ((double)n - p[n]);
+        ad += w_b[b] * (p[n] - p[n + 1]);
+    }
+    const double oi = mv_block_sum(ai, red) * inv_n;
+    const double od = mv_block_sum(ad, red) * inv_n;
+    __syncthreads();  // rbar visible to every thread
+    double q2 = 0.0;
+    for (int64_t r = tid; r < rows; r += blockDim.x) {
+        const int64_t b = r % nb;
+        const double* p = part + r * (n + 2);
+        double s = 0.0;
+        for (int nn = 0; nn < n; ++nn) {
+            double q = p[nn];
+            for (int d = 0; d < dc; ++d) q += b_cart[b * dc + d] * rbar[d * n + nn];
+            s += q * q;
+        }
+        q2 += w_b[b] * s;
+    }
+    const double odiag = mv_block_sum(q2, red) * inv_n;
+    if (tid == 0) {
+        const double ot = od + odiag;
+        const double om = oi + ot;
+        for (int i = 0; i < dc * n; ++i) rbar_out[i] = rbar[i];
+        fin[0] = oi;
+        fin[1] = ot;
+        if (step >= 0) {
+            const bool up = om > scal[1];
+            const double eps = fmin(up ? scal[0] * 0.5 : scal[0] * 1.1, eps_cap);
+            scal[0] = eps;
+            scal[1] = om;
+            scal[2] = up ? 0.0 : mu;
+            hist[step] = om;
+        }
+    }
+}
+
+// exp(X) of the anti-Hermitian n x n X in shared memory (in place), through
+// the eigenpairs of i X by a parallel cyclic Jacobi: each round's disjoint
+// pairs (the circle ordering) get their rotations from the round's start,
+// then all row rotations, all column rotations, the 2 x 2 fix-ups.  A and
+// V are n x n shared scratch; prm holds 8 doubles a pair.
+__device__ void expm_antiherm_block(cplx* X, cplx* A, cplx* V, double* prm, int* act, double* red, int n) {
+    const int tid = threadIdx.x;
+    double fro = 0.0;
+    for (int e = tid; e < n * n; e += kMVBlockThreads) {
+        const int r = e / n, c = e % n;
+        const cplx h = make_cuDoubleComplex(-X[r * n + c].y, X[r * n + c].x);  // (i X)_rc
+        const cplx g = make_cuDoubleComplex(-X[c * n + r].y, X[c * n + r].x);
+        A[e] = make_cuDoubleComplex(0.5 * (h.x + g.x), r == c ? 0.0 : 0.5 * (h.y - g.y));
+        V[e] = make_cuDoubleComplex(r == c ? 1.0 : 0.0, 0.0);
+        fro += A[e].x * A[e].x + A[e].y * A[e].y;
+    }
+    const double limit = 1.0e-30 * mv_block_sum(fro, red);
+    const int Se = n + (n & 1), npair = Se / 2;
+    for (int sweep = 0; sweep < kMVJacobiSweeps; ++sweep) {
+        double off = 0.0;
+        for (int e = tid; e < n * n; e += kMVBlockThreads) {
+            const int p = e / n, q = e % n;
+            if (q > p) off += A[e].x * A[e].x + A[e].y * A[e].y;
+        }
+        if (!(mv_block_sum(off, red) > limit)) break;  // the same total in every thread
+        for (int round = 0; round < Se - 1; ++round) {
+            // the rotation of each pair: act 0 skip, 1 zero the pair, 2 rotate
+            for (int k = tid; k < npair; k += kMVBlockThreads) {
+                int p, q;
+                circle_pair(Se, round, k, p, q);
+                act[k] = 0;
+                if (q >= n) continue;
+                const cplx b = A[p * n + q];
+                const double absb = hypot(b.x, b.y);
+                if (!(absb > 0.0)) continue;
+                const double app = A[p * n + p].x, aqq = A[q * n + q].x;
+                const double nb100 = __dmul_rn(100.0, absb);
+                if (__dadd_rn(nb100, fabs(app)) == fabs(app) && __dadd_rn(nb100, fabs(aqq)) == fabs(aqq)) {
+                    act[k] = 1;
+                    continue;
+                }
+                const double tau = (aqq - app) / (2.0 * absb);
+                const double t = (tau >= 0.0 ? 1.0 : -1.0) / (fabs(tau) + hypot(1.0, tau));
+                const double c = 1.0 / sqrt(1.0 + t * t);
+                double* pr = prm + 8 * k;
+                pr[0] = c;
+                pr[1] = t * c;
+                pr[2] = b.x / absb;
+                pr[3] = b.y / absb;
+                pr[4] = app - t * absb;
+                pr[5] = aqq + t * absb;
+                act[k] = 2;
+            }
+            __syncthreads();
+            // rows p, q of A
+            for (int e = tid; e < npair * n; e += kMVBlockThreads) {
+                const int k = e / n, j = e % n;
+                if (act[k] != 2) continue;
+                int p, q;
+                circle_pair(Se, round, k, p, q);
+                const double* pr = prm + 8 * k;
+                const double c = pr[0], s = pr[1], er = pr[2], ei = pr[3];
+                const cplx ap = A[p * n + j], aq = A[q * n + j];
+                const double eq_x = er * aq.x - ei * aq.y, eq_y = er * aq.y + ei * aq.x;  // e aq
+                A[p * n + j] = make_cuDoubleComplex(c * ap.x - s * eq_x, c * ap.y - s * eq_y);
+                A[q * n + j] = make_cuDoubleComplex(s * ap.x + c * eq_x, s * ap.y + c * eq_y);
+            }
+            __syncthreads();
+            // columns p, q of A and V
+            for (int e = tid; e < npair * n; e += kMVBlockThreads) {
+                const int k = e / n, i = e % n;
+                if (act[k] != 2) continue;
+                int p, q;
+                circle_pair(Se, round, k, p, q);
+                const double* pr = prm + 8 * k;
+                const double c = pr[0], s = pr[1], er = pr[2], ei = pr[3];
+                const cplx ap = A[i * n + p], aq = A[i * n + q];
+                const double cq_x = er * aq.x + ei * aq.y, cq_y = er * aq.y - ei * aq.x;  // conj(e) aq
+                A[i * n + p] = make_cuDoubleComplex(c * ap.x - s * cq_x, c * ap.y - s * cq_y);
+                A[i * n + q] = make_cuDoubleComplex(s * ap.x + c * cq_x, s * ap.y + c * cq_y);
+                const cplx vp = V[i * n + p], vq = V[i * n + q];
+                const double vq_x = er * vq.x + ei * vq.y, vq_y = er * vq.y - ei * vq.x;
+                V[i * n + p] = make_cuDoubleComplex(c * vp.x - s * vq_x, c * vp.y - s * vq_y);
+                V[i * n + q] = make_cuDoubleComplex(s * vp.x + c * vq_x, s * vp.y + c * vq_y);
+            }
+            __syncthreads();
+            for (int k = tid; k < npair; k += kMVBlockThreads) {
+                if (act[k] == 0) continue;
+                int p, q;
+                circle_pair(Se, round, k, p, q);
+                if (act[k] == 2) {
+                    A[p * n + p] = make_cuDoubleComplex(prm[8 * k + 4], 0.0);
+                    A[q * n + q] = make_cuDoubleComplex(prm[8 * k + 5], 0.0);
+                }
+                A[p * n + q] = make_cuDoubleComplex(0.0, 0.0);
+                A[q * n + p] = make_cuDoubleComplex(0.0, 0.0);
+            }
+            __syncthreads();
+        }
+    }
+    // exp(X) = V diag(e^{-i lambda}) V^H
+    for (int e = tid; e < n * n; e += kMVBlockThreads) {
+        const int r = e / n, c = e % n;
+        cplx acc = make_cuDoubleComplex(0.0, 0.0);
+        for (int j = 0; j < n; ++j) {
+            double sn, cs;
+            sincos(-A[j * n + j].x, &sn, &cs);
+            acc = cuCadd(acc, cuCmul(cuCmul(V[r * n + j], make_cuDoubleComplex(cs, sn)), cconj(V[c * n + j])));
+        }
+        X[e] = acc;
+    }
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(kMVBlockThreads)
+mv_update_block_kernel(const cplx* __restrict__ M, const double* __restrict__ w_b, const double* __restrict__ b_cart,
+                       const double* __restrict__ rbar, const double* __restrict__ scal, cplx* __restrict__ U,
+                       cplx* __restrict__ dW, int64_t nb, int n, int dc) {
+    extern __shared__ double smem[];
+    cplx* X = (cplx*)smem;
+    cplx* A = X + n * n;
+    cplx* V = A + n * n;
+    cplx* dn = V + n * n;     // conj(M_nn)
+    cplx* tfac = dn + n;      // q_n / M_nn
+    double* prm = (double*)(tfac + n);  // 8 a pair
+    int* act = (int*)(prm + 8 * (kMVBlockMaxN / 2));
+    __shared__ double red[32];
+    const int tid = threadIdx.x;
+    const int64_t k = blockIdx.x;
+    cplx G[kMVBlockEntries];
+#pragma unroll
+    for (int i = 0; i < kMVBlockEntries; ++i) G[i] = make_cuDoubleComplex(0.0, 0.0);
+    for (int64_t b = 0; b < nb; ++b) {
+        const cplx* m = M + (k * nb + b) * n * n;
+        const double w = w_b[b];
+        for (int nn = tid; nn < n; nn += kMVBlockThreads) {
+            const cplx mnn = m[nn * n + nn];
+            double q = atan2(mnn.y, mnn.x);
+            for (int d = 0; d < dc; ++d) q += b_cart[b * dc + d] * rbar[d * n + nn];
+            dn[nn] = cconj(mnn);
+            const cplx den = hypot(mnn.x, mnn.y) < 1e-12 ? make_cuDoubleComplex(1.0, 0.0) : mnn;
+            tfac[nn] = cuCdiv(make_cuDoubleComplex(q, 0.0), den);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int ii = 0; ii < kMVBlockEntries; ++ii) {
+            const int e = tid + ii * kMVBlockThreads;
+            if (e < n * n) {
+                const int i = e / n, j = e % n;
+                const cplx mij = m[i * n + j], mji = m[j * n + i];
+                const cplx rij = cuCmul(mij, dn[j]), rji = cuCmul(mji, dn[i]);
+                const cplx tij = cuCmul(mij, tfac[j]), tji = cuCmul(mji, tfac[i]);
+                const double ax = 0.5 * (rij.x - rji.x), ay = 0.5 * (rij.y + rji.y);
+                const double sx = 0.5 * (tij.y - tji.y), sy = -0.5 * (tij.x + tji.x);
+                G[ii].x += w * (ax - sx);
+                G[ii].y += w * (ay - sy);
+            }
+        }
+        __syncthreads();
+    }
+    const double eps = scal[0], fac = scal[2];
+    cplx* dw = dW + k * n * n;
+#pragma unroll
+    for (int ii = 0; ii < kMVBlockEntries; ++ii) {
+        const int e = tid + ii * kMVBlockThreads;
+        if (e < n * n) {
+            const cplx d = dw[e];
+            X[e] = make_cuDoubleComplex(fac * d.x + eps * 4.0 * G[ii].x, fac * d.y + eps * 4.0 * G[ii].y);
+            dw[e] = X[e];
+        }
+    }
+    __syncthreads();
+    expm_antiherm_block(X, A, V, prm, act, red, n);
+    // U <- U exp(dW), formed in registers then stored
+    cplx* u = U + k * n * n;
+    cplx acc[kMVBlockEntries];
+#pragma unroll
+    for (int ii = 0; ii < kMVBlockEntries; ++ii) {
+        const int e = tid + ii * kMVBlockThreads;
+        if (e < n * n) {
+            const int i = e / n, j = e % n;
+            cplx a = make_cuDoubleComplex(0.0, 0.0);
+            for (int l = 0; l < n; ++l) a = cuCadd(a, cuCmul(u[i * n + l], X[l * n + j]));
+            acc[ii] = a;
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ii = 0; ii < kMVBlockEntries; ++ii) {
+        const int e = tid + ii * kMVBlockThreads;
+        if (e < n * n) u[e] = acc[ii];
+    }
+}
+
+static size_t mv_update_smem(int n) {
+    return (size_t)(3 * n * n + 2 * n) * sizeof(cplx) + 8 * (kMVBlockMaxN / 2) * sizeof(double) +
+           (kMVBlockMaxN / 2) * sizeof(int);
+}
+
 #define PYTHTB_MV_DISPATCH(N, CALL)              \
     switch (N) {                                 \
         case 1: CALL(1); break;                  \
@@ -340,6 +654,12 @@ extern "C" int pythtb_mv_overlaps(const void* M0, const void* nbr, const void* U
     const int64_t rows = nk * nb;
     if (rows <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
+    if (n > 8) {
+        if (n > kMVBlockMaxN) return (int)cudaErrorInvalidValue;
+        mv_overlaps_block_kernel<<<(unsigned int)rows, kMVBlockThreads, n * n * sizeof(cplx), st>>>(
+            (const cplx*)M0, (const int64_t*)nbr, (const cplx*)U, (cplx*)M, (double*)part, nb, (int)n);
+        return (int)cudaGetLastError();
+    }
 #define OVERLAPS(K)                                                                          \
     mv_overlaps_kernel<K><<<blocks_for(rows), kThreads, 0, st>>>(                            \
         (const cplx*)M0, (const int64_t*)nbr, (const cplx*)U, (cplx*)M, (double*)part, rows, nb)
@@ -353,6 +673,13 @@ extern "C" int pythtb_mv_reduce(const void* part, const void* w_b, const void* b
                                 int64_t dc, double mu, double eps_cap, int64_t step, void* stream) {
     if (dc < 1 || dc > kMVMaxDC) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
+    if (n > 8) {
+        if (n > kMVBlockMaxN) return (int)cudaErrorInvalidValue;
+        mv_reduce_block_kernel<<<1, kMVReduceThreads, 0, st>>>(
+            (const double*)part, (const double*)w_b, (const double*)b_cart, (double*)scal, (double*)rbar,
+            (double*)hist, (double*)fin, nk * nb, nb, (int)n, (int)dc, nk, mu, eps_cap, step);
+        return (int)cudaGetLastError();
+    }
 #define REDUCE(K)                                                                                \
     mv_reduce_kernel<K><<<1, kMVReduceThreads, 0, st>>>(                                         \
         (const double*)part, (const double*)w_b, (const double*)b_cart, (double*)scal,           \
@@ -367,6 +694,15 @@ extern "C" int pythtb_mv_update(const void* M, const void* w_b, const void* b_ca
                                 int64_t n, int64_t dc, void* stream) {
     if (nk <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
+    if (n > 8) {
+        if (n > kMVBlockMaxN) return (int)cudaErrorInvalidValue;
+        const size_t smem = mv_update_smem((int)n);
+        cudaFuncSetAttribute(mv_update_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mv_update_block_kernel<<<(unsigned int)nk, kMVBlockThreads, smem, st>>>(
+            (const cplx*)M, (const double*)w_b, (const double*)b_cart, (const double*)rbar, (const double*)scal,
+            (cplx*)U, (cplx*)dW, nb, (int)n, (int)dc);
+        return (int)cudaGetLastError();
+    }
 #define UPDATE(K)                                                                                \
     mv_update_kernel<K><<<blocks_for(nk), kThreads, 0, st>>>(                                    \
         (const cplx*)M, (const double*)w_b, (const double*)b_cart, (const double*)rbar,          \

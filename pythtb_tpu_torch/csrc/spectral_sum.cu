@@ -25,6 +25,13 @@
 // transitions) so that some 500 blocks are in flight where T allows (the
 // 2,001 transitions of a 1-D chain still give 63).  T is taken exactly:
 // no padding.
+//
+// The q-batch Lorentzian mode (pythtb_spectral_sum_qbatch) replaces the
+// frequency contraction of pythtb_tpu/response.py:_lindhard_jit (:64-115,
+// vmapped over q there): W (Q, P, T) c128 and de (Q, T) f64 against one
+// omega grid give acc (Q, P, nw) in one launch of each pass, the q axis
+// beside the column groups in the grid's z dimension and the same
+// fixed-order second pass over the chunks of each q.
 #include "common.cuh"
 
 constexpr int kOmegaTile = 128;  // frequencies (threads) per block
@@ -34,11 +41,16 @@ template <bool LORENTZ>
 __global__ void spectral_partial_kernel(const double* __restrict__ de, const double* __restrict__ W,
                                         const double* __restrict__ omegas, double* __restrict__ buf,
                                         int64_t T, int64_t chunk_len, int P, int nw, double width,
-                                        double gnorm) {
+                                        double gnorm, int groups) {
     const int iw = blockIdx.y * blockDim.x + threadIdx.x;
     if (iw >= nw) return;
     const int64_t chunk = blockIdx.x;
-    const int p0 = blockIdx.z * kGroup;
+    // blockIdx.z = q * groups + column group; one q (groups == gridDim.z) in the plain mode
+    const int64_t q = blockIdx.z / groups;
+    de += q * T;
+    W += q * (int64_t)P * T * (LORENTZ ? 2 : 1);
+    buf += q * (int64_t)gridDim.x * P * nw * (LORENTZ ? 2 : 1);
+    const int p0 = (blockIdx.z % groups) * kGroup;
     const int np = min(kGroup, P - p0);
     const double om = omegas[iw];
     const int64_t t0 = chunk * chunk_len;
@@ -82,13 +94,16 @@ __global__ void spectral_partial_kernel(const double* __restrict__ de, const dou
     }
 }
 
-// out[i] = sum over chunks c, in order, of buf[c, i] (n doubles a chunk)
+// out[q, i] = sum over chunks c, in order, of buf[q, c, i] (n doubles a
+// chunk, Q blocks of chunks; Q = 1 in the plain mode)
 __global__ void spectral_reduce_kernel(const double* __restrict__ buf, double* __restrict__ out, int64_t nch,
-                                       int64_t n) {
+                                       int64_t n, int64_t Q) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+    if (i >= n * Q) return;
+    const int64_t q = i / n, j = i % n;
+    const double* b = buf + q * nch * n;
     double s = 0.0;
-    for (int64_t c = 0; c < nch; ++c) s += buf[c * n + i];
+    for (int64_t c = 0; c < nch; ++c) s += b[c * n + j];
     out[i] = s;
 }
 
@@ -107,16 +122,36 @@ extern "C" int pythtb_spectral_sum(const void* de, const void* W, const void* om
         if (lorentz) {
             spectral_partial_kernel<true><<<grid, kOmegaTile, 0, st>>>(
                 (const double*)de, (const double*)W, (const double*)omegas, (double*)buf, T, chunk, (int)P,
-                (int)nw, width, gnorm);
+                (int)nw, width, gnorm, (int)grid.z);
         } else {
             spectral_partial_kernel<false><<<grid, kOmegaTile, 0, st>>>(
                 (const double*)de, (const double*)W, (const double*)omegas, (double*)buf, T, chunk, (int)P,
-                (int)nw, width, gnorm);
+                (int)nw, width, gnorm, (int)grid.z);
         }
     }
     const int64_t n = P * nw * (lorentz ? 2 : 1);
     if (n > 0) {
-        spectral_reduce_kernel<<<blocks_for(n), kThreads, 0, st>>>((const double*)buf, (double*)out, nch, n);
+        spectral_reduce_kernel<<<blocks_for(n), kThreads, 0, st>>>((const double*)buf, (double*)out, nch, n, 1);
     }
+    return (int)cudaGetLastError();
+}
+
+// Kernel 16's q-batch Lorentzian mode.  de (Q, T) f64; W (Q, P, T) c128;
+// omegas (nw,) f64; buf (Q, ceil(T / chunk), P, nw) c128 scratch; out
+// (Q, P, nw) c128; width is eta.
+extern "C" int pythtb_spectral_sum_qbatch(const void* de, const void* W, const void* omegas, void* buf, void* out,
+                                          int64_t Q, int64_t T, int64_t P, int64_t nw, int64_t chunk, double width,
+                                          void* stream) {
+    const int64_t nch = (T + chunk - 1) / chunk;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (Q <= 0 || nch <= 0 || P <= 0 || nw <= 0) return (int)cudaGetLastError();
+    const int64_t groups = (P + kGroup - 1) / kGroup;
+    if (Q * groups > 65535) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned int)nch, (unsigned int)((nw + kOmegaTile - 1) / kOmegaTile), (unsigned int)(Q * groups));
+    spectral_partial_kernel<true><<<grid, kOmegaTile, 0, st>>>(
+        (const double*)de, (const double*)W, (const double*)omegas, (double*)buf, T, chunk, (int)P, (int)nw, width,
+        0.0, (int)groups);
+    const int64_t n = P * nw * 2;
+    spectral_reduce_kernel<<<blocks_for(n * Q), kThreads, 0, st>>>((const double*)buf, (double*)out, nch, n, Q);
     return (int)cudaGetLastError();
 }

@@ -32,9 +32,13 @@
 // string (chain, follow) or per grid point (rotate); the TPU's log-depth
 // associative_scan of the chain becomes the string's loop, so the prefixes
 // agree with the JAX program to about L eps, not bit for bit.  The matrices
-// stay in registers (S and NOCC are template parameters).  Larger S takes
-// the library path of the Python wrapper (a shape rule with its own
-// counter).
+// stay in registers (S and NOCC are template parameters) up to 8 states
+// (S of chain and rotate, NS of follow).  From 9 to 64 states a block of
+// 256 threads takes a string (chain, follow) or a grid point (rotate), its
+// S x S matrices in dynamic shared memory (at most 192 kB at 64), their
+// entries spread over the threads, the polar factors by polar_factor_block
+// (polar.cuh); follow ranks the NS weights in parallel (rank = the count
+// of larger weights, ties to the lower index).  Larger S is refused.
 #include "polar.cuh"
 
 constexpr int kMaxStates = 8;
@@ -262,6 +266,180 @@ __global__ void transport_follow_kernel(const cplx* __restrict__ w, const int64_
     }
 }
 
+// -- block paths, 9 <= states <= 64 ---------------------------------------
+
+__global__ void __launch_bounds__(kBlockThreads)
+transport_chain_block_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ, cplx* __restrict__ C,
+                             double* __restrict__ smin_out, int64_t L, int64_t inner, int S, int NS, int F) {
+    extern __shared__ double smem[];
+    cplx* P = (cplx*)smem;
+    cplx* M = P + S * S;
+    cplx* V = M + S * S;
+    double* red = (double*)(V + S * S);
+    const int64_t t = blockIdx.x;  // the string
+    const int64_t i = t % inner;
+    const int64_t o = t / inner;
+    const int64_t row = (int64_t)NS * F;
+    const cplx* base = w + (o * L * inner + i) * row;
+    cplx* cbase = C + (o * L * inner + i) * S * S;
+    for (int e = threadIdx.x; e < S * S; e += kBlockThreads) {
+        P[e] = make_cuDoubleComplex(e / S == e % S ? 1.0 : 0.0, 0.0);
+        cbase[e] = P[e];
+    }
+    double smin = 1.0e300;
+    for (int64_t l = 0; l + 1 < L; ++l) {
+        const cplx* wa = base + l * inner * row;
+        const cplx* wb = wa + inner * row;
+        for (int e = threadIdx.x; e < S * S; e += kBlockThreads) {
+            const cplx* a = wa + occ[e / S] * F;
+            const cplx* b = wb + occ[e % S] * F;
+            double re = 0.0, im = 0.0;
+            for (int f = 0; f < F; ++f) {
+                const cplx z = cmul_conj(a[f], b[f]);
+                re += z.x;
+                im += z.y;
+            }
+            M[e] = make_cuDoubleComplex(re, im);
+        }
+        __syncthreads();
+        smin = fmin(smin, polar_factor_block(M, V, S, red));
+        block_mul_left(P, M, S);
+        cplx* out = cbase + (l + 1) * inner * S * S;
+        for (int e = threadIdx.x; e < S * S; e += kBlockThreads) out[e] = P[e];
+    }
+    if (threadIdx.x == 0) smin_out[t] = smin;
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+transport_rotate_block_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
+                              const cplx* __restrict__ C, const double* __restrict__ theta,
+                              const cplx* __restrict__ Pm, cplx* __restrict__ out, int64_t L, int64_t inner,
+                              int S, int NS, int F, int closed) {
+    extern __shared__ double smem[];
+    cplx* B = (cplx*)smem;
+    cplx* lam = B + S * S;
+    cplx* ph = lam + S * S;
+    const int64_t t = blockIdx.x;  // the grid point
+    const int64_t i = t % inner;
+    const int64_t l = (t / inner) % L;
+    const int64_t o = t / (inner * L);
+    const int64_t str = o * inner + i;
+    const cplx* c = C + t * S * S;
+    for (int e = threadIdx.x; e < S * S; e += kBlockThreads) B[e] = c[e];
+    if (closed) {
+        // Lambda^{-t} = P diag(e^{-i theta t}) P^H, then B <- C_m Lambda^{-t}
+        const double tm = (double)l / (double)(L - 1);
+        const cplx* p = Pm + str * S * S;
+        for (int j = threadIdx.x; j < S; j += kBlockThreads) {
+            double sn, cs;
+            sincos(-theta[str * S + j] * tm, &sn, &cs);
+            ph[j] = make_cuDoubleComplex(cs, sn);
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < S * S; e += kBlockThreads) {
+            const int r = e / S, k = e % S;
+            cplx acc = make_cuDoubleComplex(0.0, 0.0);
+            for (int j = 0; j < S; ++j) acc = cuCadd(acc, cuCmul(cuCmul(p[r * S + j], ph[j]), cconj(p[k * S + j])));
+            lam[e] = acc;
+        }
+        __syncthreads();
+        block_mul_left(B, lam, S);
+    } else {
+        __syncthreads();
+    }
+    const int64_t row = (int64_t)NS * F;
+    const cplx* src = w + t * row;
+    cplx* dst = out + t * row;
+    for (int e = threadIdx.x; e < S * F; e += kBlockThreads) {
+        const int n = e / F, f = e % F;
+        cplx acc = make_cuDoubleComplex(0.0, 0.0);
+        for (int j = 0; j < S; ++j) acc = cuCadd(acc, cuCmul(cconj(B[n * S + j]), src[occ[j] * F + f]));
+        dst[occ[n] * F + f] = acc;
+    }
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+transport_follow_block_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
+                              int64_t* __restrict__ idx, double* __restrict__ fid, cplx* __restrict__ states,
+                              int64_t L, int64_t inner, int nocc, int NS, int F) {
+    extern __shared__ double smem[];
+    cplx* M = (cplx*)smem;              // nocc x nocc
+    cplx* V = M + nocc * nocc;          // nocc x nocc
+    cplx* ovr = V + nocc * nocc;        // nocc x NS
+    double* red = (double*)(ovr + nocc * NS);
+    double* wt = red + kPolarRed;       // NS
+    int* rank = (int*)(wt + NS);        // NS
+    int* sel = rank + NS;               // nocc, ascending
+    int* byrank = sel + nocc;           // nocc, by descending weight
+    const int tid = threadIdx.x;
+    const int64_t t = blockIdx.x;  // the string
+    const int64_t nstr = gridDim.x;
+    const int64_t i = t % inner;
+    const int64_t o = t / inner;
+    const int64_t row = (int64_t)NS * F;
+    const cplx* wbase = w + (o * L * inner + i) * row;
+    cplx* sbase = states + (o * L * inner + i) * nocc * F;
+    const int64_t sstep = inner * nocc * F;
+
+    for (int n = tid; n < nocc; n += kBlockThreads) idx[t * nocc + n] = occ[n];
+    for (int e = tid; e < nocc * F; e += kBlockThreads) sbase[e] = wbase[occ[e / F] * F + e % F];
+    __syncthreads();
+    for (int64_t l = 1; l < L; ++l) {
+        const cplx* f0 = sbase + (l - 1) * sstep;
+        const cplx* wl = wbase + l * inner * row;
+        for (int e = tid; e < nocc * NS; e += kBlockThreads) {
+            const int n = e / NS, s = e % NS;
+            double re = 0.0, im = 0.0;
+            for (int f = 0; f < F; ++f) {
+                const cplx z = cmul_conj(f0[n * F + f], wl[(int64_t)s * F + f]);
+                re += z.x;
+                im += z.y;
+            }
+            ovr[e] = make_cuDoubleComplex(re, im);
+        }
+        __syncthreads();
+        for (int s = tid; s < NS; s += kBlockThreads) {
+            double acc = 0.0;
+            for (int n = 0; n < nocc; ++n) acc += ovr[n * NS + s].x * ovr[n * NS + s].x + ovr[n * NS + s].y * ovr[n * NS + s].y;
+            wt[s] = acc;
+        }
+        __syncthreads();
+        // rank: larger weights first, ties to the lower index (jax.lax.top_k)
+        for (int s = tid; s < NS; s += kBlockThreads) {
+            int r = 0;
+            for (int s2 = 0; s2 < NS; ++s2) r += (wt[s2] > wt[s] || (wt[s2] == wt[s] && s2 < s)) ? 1 : 0;
+            rank[s] = r;
+        }
+        __syncthreads();
+        for (int s = tid; s < NS; s += kBlockThreads) {
+            if (rank[s] < nocc) {
+                int pos = 0;
+                for (int s2 = 0; s2 < s; ++s2) pos += rank[s2] < nocc ? 1 : 0;
+                sel[pos] = s;
+                byrank[rank[s]] = s;
+            }
+        }
+        __syncthreads();
+        for (int e = tid; e < nocc * nocc; e += kBlockThreads) M[e] = ovr[(e / nocc) * NS + sel[e % nocc]];
+        __syncthreads();
+        polar_factor_block(M, V, nocc, red);
+        cplx* dst = sbase + l * sstep;
+        for (int e = tid; e < nocc * F; e += kBlockThreads) {
+            const int n = e / F, f = e % F;
+            cplx acc = make_cuDoubleComplex(0.0, 0.0);
+            for (int m = 0; m < nocc; ++m) acc = cuCadd(acc, cuCmul(cconj(M[n * nocc + m]), wl[(int64_t)sel[m] * F + f]));
+            dst[e] = acc;
+        }
+        for (int n = tid; n < nocc; n += kBlockThreads) idx[(l * nstr + t) * nocc + n] = sel[n];
+        if (tid == 0) {
+            double topw = 0.0;
+            for (int r = 0; r < nocc; ++r) topw += wt[byrank[r]];
+            fid[(l - 1) * nstr + t] = topw / nocc;
+        }
+        __syncthreads();  // the states of step l visible before step l + 1 reads them
+    }
+}
+
 #define PYTHTB_DISPATCH_S(S, CALL)               \
     switch (S) {                                 \
         case 1: CALL(1); break;                  \
@@ -275,11 +453,20 @@ __global__ void transport_follow_kernel(const cplx* __restrict__ w, const int64_
         default: return (int)cudaErrorInvalidValue; \
     }
 
+static int refuse(int64_t S) { return S > kPolarBlockMaxS ? (int)cudaErrorInvalidValue : 0; }
+
 extern "C" int pythtb_transport_chain(const void* w, const void* occ, void* C, void* smin,
                                       int64_t outer, int64_t L, int64_t inner, int64_t S,
                                       int64_t NS, int64_t F, void* stream) {
     if (outer * inner <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
+    if (S > kMaxStates) {
+        if (refuse(S)) return refuse(S);
+        const size_t smem = block_smem(transport_chain_block_kernel, (int)S, 3);
+        transport_chain_block_kernel<<<(unsigned int)(outer * inner), kBlockThreads, smem, st>>>(
+            (const cplx*)w, (const int64_t*)occ, (cplx*)C, (double*)smin, L, inner, (int)S, (int)NS, (int)F);
+        return (int)cudaGetLastError();
+    }
 #define CHAIN(K)                                                                              \
     transport_chain_kernel<K><<<blocks_for(outer * inner), kThreads, 0, st>>>(                \
         (const cplx*)w, (const int64_t*)occ, (cplx*)C, (double*)smin, outer, L, inner, (int)NS, \
@@ -295,6 +482,14 @@ extern "C" int pythtb_transport_rotate(const void* w, const void* occ, const voi
                                        int64_t closed, void* stream) {
     if (outer * L * inner <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
+    if (S > kMaxStates) {
+        if (refuse(S)) return refuse(S);
+        const size_t smem = block_smem(transport_rotate_block_kernel, (int)S, 2, S * sizeof(cplx));
+        transport_rotate_block_kernel<<<(unsigned int)(outer * L * inner), kBlockThreads, smem, st>>>(
+            (const cplx*)w, (const int64_t*)occ, (const cplx*)C, (const double*)theta, (const cplx*)P,
+            (cplx*)out, L, inner, (int)S, (int)NS, (int)F, (int)closed);
+        return (int)cudaGetLastError();
+    }
 #define ROTATE(K)                                                                               \
     transport_rotate_kernel<K><<<blocks_for(outer * L * inner), kThreads, 0, st>>>(             \
         (const cplx*)w, (const int64_t*)occ, (const cplx*)C, (const double*)theta,              \
@@ -308,8 +503,16 @@ extern "C" int pythtb_transport_follow(const void* w, const void* occ, void* idx
                                        void* states, int64_t outer, int64_t L, int64_t inner,
                                        int64_t nocc, int64_t NS, int64_t F, void* stream) {
     if (outer * inner <= 0) return (int)cudaGetLastError();
-    if (NS > kMaxStates || nocc > NS) return (int)cudaErrorInvalidValue;
+    if (nocc > NS || refuse(NS)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
+    if (NS > kMaxStates) {
+        const size_t extra = (size_t)nocc * NS * sizeof(cplx) + NS * sizeof(double) + (NS + 2 * nocc) * sizeof(int);
+        const size_t smem = block_smem(transport_follow_block_kernel, (int)nocc, 2, extra);
+        transport_follow_block_kernel<<<(unsigned int)(outer * inner), kBlockThreads, smem, st>>>(
+            (const cplx*)w, (const int64_t*)occ, (int64_t*)idx, (double*)fid, (cplx*)states, L, inner,
+            (int)nocc, (int)NS, (int)F);
+        return (int)cudaGetLastError();
+    }
 #define FOLLOW(K)                                                                                \
     transport_follow_kernel<K><<<blocks_for(outer * inner), kThreads, 0, st>>>(                  \
         (const cplx*)w, (const int64_t*)occ, (int64_t*)idx, (double*)fid, (cplx*)states, outer, L, \

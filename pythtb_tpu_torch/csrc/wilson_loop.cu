@@ -25,7 +25,11 @@
 //          Jacobi eigensolve of M^H M carried out on M itself, so the
 //          condition number is not squared -- giving M V = U S, and
 //          polar(M) = (M V) S^-1 V^H.
-// Larger S goes to the library path in the Python wrapper.  Most of the
+// 9 <= S <= 64: one block per string (wilson_loop_block_kernel), the
+// overlap, the running product and the polar scratch in dynamic shared
+// memory (three S x S complex matrices, 192 kB at S 64), the overlap
+// entries spread over the block's threads and the polar factor by
+// polar_factor_block (polar.cuh).  Larger S is refused.  Most of the
 // card idles at the main path's few strings (Kane-Mele 41 x 41: 40).
 #include "polar.cuh"
 
@@ -87,6 +91,49 @@ __global__ void wilson_loop_kernel(const cplx* __restrict__ w, cplx* __restrict_
     smin_out[t] = smin;
 }
 
+// Overlap M[n][m] = <wa_n | wb_m> of S rows of F components, into shared M.
+__device__ __forceinline__ void block_overlap(const cplx* __restrict__ wa, const cplx* __restrict__ wb,
+                                              cplx* M, int S, int F) {
+    for (int e = threadIdx.x; e < S * S; e += kBlockThreads) {
+        const int n = e / S, m = e % S;
+        double re = 0.0, im = 0.0;
+        for (int f = 0; f < F; ++f) {
+            const cplx z = cmul_conj(wa[n * F + f], wb[m * F + f]);
+            re += z.x;
+            im += z.y;
+        }
+        M[e] = make_cuDoubleComplex(re, im);
+    }
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+wilson_loop_block_kernel(const cplx* __restrict__ w, cplx* __restrict__ prod, double* __restrict__ smin_out,
+                         int64_t L, int64_t inner, int S, int F) {
+    extern __shared__ double smem[];
+    cplx* P = (cplx*)smem;
+    cplx* M = P + S * S;
+    cplx* V = M + S * S;
+    double* red = (double*)(V + S * S);
+    const int64_t t = blockIdx.x;  // the string
+    const int64_t i = t % inner;
+    const int64_t o = t / inner;
+    const int64_t SF = (int64_t)S * F;
+    const cplx* base = w + (o * L * inner + i) * SF;
+    for (int e = threadIdx.x; e < S * S; e += kBlockThreads)
+        P[e] = make_cuDoubleComplex(e / S == e % S ? 1.0 : 0.0, 0.0);
+    double smin = 1.0e300;
+    for (int64_t l = 0; l + 1 < L; ++l) {
+        const cplx* wa = base + l * inner * SF;
+        block_overlap(wa, wa + inner * SF, M, S, F);
+        smin = fmin(smin, polar_factor_block(M, V, S, red));
+        block_mul_left(P, M, S);  // P <- P W_l
+    }
+    cplx* out = prod + t * S * S;
+    for (int e = threadIdx.x; e < S * S; e += kBlockThreads) out[e] = P[e];
+    if (threadIdx.x == 0) smin_out[t] = smin;
+}
+
 template <int S>
 static void launch(const void* w, void* prod, void* smin, int64_t outer, int64_t L, int64_t inner,
                    int64_t F, cudaStream_t stream) {
@@ -107,7 +154,12 @@ extern "C" int pythtb_wilson_loop(const void* w, void* prod, void* smin, int64_t
         case 6: launch<6>(w, prod, smin, outer, L, inner, F, st); break;
         case 7: launch<7>(w, prod, smin, outer, L, inner, F, st); break;
         case 8: launch<8>(w, prod, smin, outer, L, inner, F, st); break;
-        default: return (int)cudaErrorInvalidValue;
+        default: {
+            if (S > kPolarBlockMaxS) return (int)cudaErrorInvalidValue;
+            const size_t smem = block_smem(wilson_loop_block_kernel, (int)S, 3);
+            wilson_loop_block_kernel<<<(unsigned int)(outer * inner), kBlockThreads, smem, st>>>(
+                (const cplx*)w, (cplx*)prod, (double*)smin, L, inner, (int)S, (int)F);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -141,7 +141,7 @@ class ModelFamily:
         """Chern number of the lowest ``nocc[p]`` bands of every member over
         its own BZ on an ``nk`` grid: one assembly launch per member, one
         eigensolve over the stacked grids, then link determinants (kernel
-        3, or the library above 8 bands) and plaquette sums (kernel 4) for
+        3, up to 64 bands on the card) and plaquette sums (kernel 4) for
         each group of members with the same ``nocc``.
 
         :param nocc: per-member occupied-band counts, length P

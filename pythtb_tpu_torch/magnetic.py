@@ -233,8 +233,8 @@ def streda_labels(model, p, q, nk=31, dirs=(0, 1), gap_tol=None):
     ``flows.chern_number(nk=(nk, nk))`` ((nk - 1)^2 points from (-1/2,
     -1/2), closed with the periodic gauge).  For every OPEN gap r of the
     scan, the Chern number of the bands below it is the plaquette flux of
-    those same Chern-grid states (link determinants, kernel 3, or the
-    library above 8 bands; plaquette sums, kernel 4): no per-gap re-solve,
+    those same Chern-grid states (link determinants, kernel 3, up to 64
+    bands on the card; plaquette sums, kernel 4): no per-gap re-solve,
     where the JAX package solves the Chern grid again for each gap.
 
     :param p, q: integer flux ``p/q`` per ``dirs`` plaquette

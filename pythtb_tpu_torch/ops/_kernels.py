@@ -68,6 +68,8 @@ _SIGNATURES = {
     "pythtb_pole_sum": [_P] * 7 + [_I] * 5 + [_D, _P],
     "pythtb_pole_map": [_P] * 6 + [_I] * 3 + [_P],
     "pythtb_pole_resolved": [_P] * 8 + [_I] * 3 + [_P],
+    "pythtb_tetra_dos": [_P] * 5 + [_I] * 4 + [_D, _P],
+    "pythtb_spectral_sum_qbatch": [_P] * 5 + [_I] * 5 + [_D, _P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -86,18 +88,17 @@ _SIGNATURES = {
 # counts kernel 11b's filter steps (a step is four launches: the product,
 # the epilogue, the scale reduction, the rescale; the first step two); "pole_sum"
 # counts kernel 20's calls in all four modes (k-mean and pole: a partial
-# pass and a reduction each; map and resolved: one launch).
-# "link_dets_library" and "wilson_loop_library" count the shape rules of
-# ops.berry (S > 8), "transport_library" that of ops.transport (S > 8)
-# and "mv_library" that of wannier (nw > 8); they launch no kernel of this
-# package.
+# pass and a reduction each; map and resolved: one launch); "tetra_dos"
+# counts kernel 21's calls (corners, partial sums and reduction each);
+# "spectral_sum_qbatch" counts kernel 16's q-batch calls (a partial pass
+# and a reduction each, not in "spectral_sum").
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
      "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov",
      "eigh_jacobi", "assemble_members", "transport_chain", "transport_rotate",
-     "transport_follow", "mv_step", "mv_final", "dense_filter", "pole_sum", "link_dets_library",
-     "wilson_loop_library", "transport_library", "mv_library"), 0
+     "transport_follow", "mv_step", "mv_final", "dense_filter", "pole_sum", "tetra_dos",
+     "spectral_sum_qbatch"), 0
 )
 
 _lib = None

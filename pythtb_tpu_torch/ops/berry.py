@@ -3,7 +3,8 @@
 
 * Link determinants det<u_k|u_{k+e_d}> along one grid axis: kernel 3
   (``csrc/link_dets.cu``) on a CUDA tensor, :func:`_link_dets_plain` on
-  a CPU tensor.  Each link det is computed once and shared by its two
+  a CPU tensor.  Kernels 3 and 5 take up to 64 bands on the card and
+  raise above.  Each link det is computed once and shared by its two
   plaquettes (det(M1 M2 M3 M4) = det(M1) det(M2) det(M3) det(M4)).
 * Plaquette phases -arg(D_r D_u D_r* D_u*), their per-plane sums and the
   smallest |det|: kernel 4 (``csrc/plaquette_flux.cu``) on CUDA,
@@ -47,9 +48,9 @@ __all__ = [
     "wilson_eigenphases",
 ]
 
-# largest band count S that kernels 3 and 5 take in registers (kernel 5
-# is slower than the library SVD at S = 8 on an H100: see PERF.md)
-_MAX_KERNEL_S = 8
+# most bands S that kernels 3 and 5 take (registers up to 8, a block's
+# shared memory from 9 to 64)
+_KERNEL_MAX_S = 64
 # most planes kernel 4 takes in one launch (CUDA's grid y-dimension limit)
 _MAX_PLANES = 65535
 
@@ -89,8 +90,12 @@ def _strings(w, axis):
     if not 0 <= axis < len(grid) or grid[axis] < 2:
         raise ValueError("axis %d needs length >= 2 in grid %s" % (axis, grid))
     _kernels.require(w, "w", config.COMPLEX)
-    return (grid, w.shape[-2], w.shape[-1], math.prod(grid[:axis]), grid[axis],
-            math.prod(grid[axis + 1 :]))
+    S = w.shape[-2]
+    if S > _KERNEL_MAX_S:
+        raise ValueError(
+            "kernels 3 and 5 take at most %d bands on a CUDA tensor, got %d; run the call on the CPU "
+            '(config.set_device("cpu")) for more' % (_KERNEL_MAX_S, S))
+    return (grid, S, w.shape[-1], math.prod(grid[:axis]), grid[axis], math.prod(grid[axis + 1 :]))
 
 
 def link_dets(w, axis):
@@ -100,11 +105,6 @@ def link_dets(w, axis):
     if w.device.type == "cpu":
         return _link_dets_plain(w, axis)
     grid, S, F, outer, L, inner = _strings(w, axis)
-    if S > _MAX_KERNEL_S:
-        # shape rule: the det of a large overlap goes to the library, as
-        # the JAX package's jnp.linalg.det does
-        _kernels.LAUNCHES["link_dets_library"] += 1
-        return _link_dets_plain(w, axis)
     out_shape = grid[:axis] + (L - 1,) + grid[axis + 1 :]
     out = torch.empty(out_shape, dtype=config.COMPLEX, device=w.device)
     _kernels.launch("link_dets", w.device, w, out, outer, L, inner, S, F)
@@ -281,11 +281,6 @@ def wilson_loop(w, axis):
     if w.device.type == "cpu":
         return _wilson_loop_plain(w, axis)
     grid, S, F, outer, L, inner = _strings(w, axis)
-    if S > _MAX_KERNEL_S:
-        # shape rule: large polar factors go to the library SVD, as the
-        # JAX package's jnp.linalg.svd does
-        _kernels.LAUNCHES["wilson_loop_library"] += 1
-        return _wilson_loop_plain(w, axis)
     rest = grid[:axis] + grid[axis + 1 :]
     prod = torch.empty(rest + (S, S), dtype=config.COMPLEX, device=w.device)
     smin = torch.empty(rest, dtype=config.FLOAT, device=w.device)

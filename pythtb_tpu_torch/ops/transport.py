@@ -19,10 +19,8 @@
   ``follow`` mode on CUDA, :func:`_follow_plain` on CPU.
 
 Both read the stored grid (grid..., NS, norb[, 2]) as (outer, L, inner,
-NS, F) strings along the axis, without a copy.  More than eight
-transported states take the plain path on the card too: a shape rule
-counted in ``LAUNCHES["transport_library"]``, never a retry after a
-failure.
+NS, F) strings along the axis, without a copy.  Kernel 14 takes up to 64
+states (S of chain and rotate, NS of follow) on the card and raises above.
 """
 
 from __future__ import annotations
@@ -38,8 +36,9 @@ from .berry import _overlap, unitary_eig
 
 __all__ = ["smooth_gauge", "follow_states"]
 
-# most states kernel 14 takes in registers (S of chain / rotate, NS of follow)
-_MAX_KERNEL_S = 8
+# most states kernel 14 takes (registers up to 8, a block's shared memory
+# from 9 to 64): S of chain / rotate, NS of follow
+_KERNEL_MAX_STATES = 64
 
 
 def _strings(w, nspin, dim_arr, axis):
@@ -94,13 +93,14 @@ def _occ_tensor(occ, device):
 
 
 def _plain(w, nstates):
-    """True where the plain version runs: a CPU tensor, or the shape rule
-    (more than ``_MAX_KERNEL_S`` states on the card, counted)."""
+    """True where the plain version runs: a CPU tensor.  On the card more
+    than ``_KERNEL_MAX_STATES`` states raise."""
     if w.device.type == "cpu":
         return True
-    if nstates > _MAX_KERNEL_S:
-        _kernels.LAUNCHES["transport_library"] += 1
-        return True
+    if nstates > _KERNEL_MAX_STATES:
+        raise ValueError(
+            "kernel 14 takes at most %d states on a CUDA tensor, got %d; run the call on the CPU "
+            '(config.set_device("cpu")) for more' % (_KERNEL_MAX_STATES, nstates))
     return False
 
 

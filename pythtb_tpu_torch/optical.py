@@ -38,7 +38,8 @@ from .ops.eigh import eigh_batched, eigvalsh_batched
 from .ops.hamiltonian import assemble, assemble_d2k, assemble_dk
 from .ops.solver import device_uniform_grid
 
-__all__ = ["optical_conductivity", "joint_dos", "shift_current", "injection_current", "spectral_sum"]
+__all__ = ["optical_conductivity", "joint_dos", "shift_current", "injection_current", "spectral_sum",
+           "spectral_sum_qbatch"]
 
 # transitions per chunk of the plain contraction (the JAX package's _CHUNK)
 _CHUNK = 4096
@@ -98,6 +99,42 @@ def spectral_sum(W, de, omegas, width, mode):
     out = torch.empty((P, nw), dtype=dtype, device=dev)
     _kernels.launch("spectral_sum", dev, de, W, omegas, buf, out, T, P, nw, chunk, int(mode == "lorentz"),
                     float(width))
+    return out
+
+
+def _spectral_sum_qbatch_plain(W, de, omegas, width):
+    """Plain PyTorch q-batch Lorentzian sum: :func:`_spectral_sum_plain`
+    for each q.  The oracle of kernel 16's q-batch mode."""
+    return torch.stack([_spectral_sum_plain(W[q], de[q], omegas, width, "lorentz") for q in range(W.shape[0])])
+
+
+def spectral_sum_qbatch(W, de, omegas, width):
+    """acc (Q, P, nw) = sum_t W[q, p, t] / (omegas[w] - de[q, t] + i width):
+    the Lorentzian :func:`spectral_sum` of Q independent transition sets
+    against one frequency grid, one launch of kernel 16's q-batch mode on
+    a CUDA tensor.
+
+    :param W: (Q, P, T) complex128 weights
+    :param de: (Q, T) float64 transition energies
+    :param omegas: (nw,) float64 frequencies
+    """
+    if W.device.type == "cpu":
+        return _spectral_sum_qbatch_plain(W, de, omegas, width)
+    Q, P, T = W.shape
+    nw = omegas.shape[0]
+    dev = W.device
+    _kernels.require(W, "W", config.COMPLEX, (Q, P, T), dev)
+    _kernels.require(de, "de", config.FLOAT, (Q, T), dev)
+    _kernels.require(omegas, "omegas", config.FLOAT, (nw,), dev)
+    if not float(width) > 0.0:
+        raise ValueError("width must be positive, got %g" % float(width))
+    if Q * -(-P // 8) > 65535:
+        raise ValueError("kernel 16's q-batch mode takes at most 65,535 (q, column group) pairs, got %d"
+                         % (Q * -(-P // 8)))
+    chunk = _kernel_chunk(T)
+    buf = torch.empty((Q, max(-(-T // chunk), 1), P, nw), dtype=config.COMPLEX, device=dev)
+    out = torch.empty((Q, P, nw), dtype=config.COMPLEX, device=dev)
+    _kernels.launch("spectral_sum_qbatch", dev, de, W, omegas, buf, out, Q, T, P, nw, chunk, float(width))
     return out
 
 

@@ -19,9 +19,9 @@ centred R grid, and ``E(k') = eigvalsh(sum_R exp(2j*pi*k'.R) H(R))``.
 Device work: the coarse solve is kernel 1 and ``eigh_batched`` (kernels
 2 or 7, or ``torch.linalg.eigh``, by band count); each Marzari-Vanderbilt
 step is kernel 19 (``csrc/mv_step.cu``: three launches a step and no host
-read; :func:`_mv_step_plain`, the JAX arithmetic in torch, on CPU
-tensors, and on the card for more than eight Wannier functions, a shape
-rule counted in ``LAUNCHES["mv_library"]``); the SMV subspace iteration,
+read, up to 32 Wannier functions, raising above on the card;
+:func:`_mv_step_plain`, the JAX arithmetic in torch, on CPU tensors);
+the SMV subspace iteration,
 the projections and the R-grid transforms are library calls
 (``torch.linalg.eigh``/``svd``, ``torch.einsum``, ``torch.matmul``).
 The b-shells, neighbour tables, R grids and the greedy anchor trials are
@@ -44,8 +44,9 @@ from .ops.solver import device_uniform_grid
 
 __all__ = ["WannierInterpolator", "interpolator", "disentangled_interpolator"]
 
-# most Wannier functions kernel 19 takes in registers
-_MAX_KERNEL_NW = 8
+# most Wannier functions kernel 19 takes (registers up to 8, a block's
+# shared memory from 9 to 32)
+_KERNEL_MAX_NW = 32
 # heavy-ball momentum of the MV descent
 _MU = 0.9
 
@@ -268,6 +269,10 @@ class _MVState:
         _kernels.require(b_cart, "b_cart", config.FLOAT, (nb, dc), dev)
         if not 1 <= dc <= 3:
             raise ValueError("kernel 19 takes 1 to 3 Cartesian components, got %d" % dc)
+        if n > _KERNEL_MAX_NW:
+            raise ValueError(
+                "kernel 19 takes at most %d Wannier functions on a CUDA tensor, got %d; run the call on the "
+                'CPU (config.set_device("cpu")) for more' % (_KERNEL_MAX_NW, n))
         self.args = (M0, nbr, w_b, b_cart)
         self.shape = (B, nb, n, dc)
         self.U = torch.eye(n, dtype=config.COMPLEX, device=dev).expand(B, n, n).contiguous()
@@ -330,10 +335,6 @@ def mv_localize(M0, nbr, w_b, b_cart, steps, alpha):
     B, nb, n, _ = M0.shape
     eps0 = float(alpha) / (4.0 * float(w_b.sum()))
     if M0.device.type == "cpu":
-        return _mv_run_plain(M0, nbr, w_b, b_cart, steps, eps0)
-    if n > _MAX_KERNEL_NW:
-        # shape rule: more Wannier functions than kernel 19 holds in registers
-        _kernels.LAUNCHES["mv_library"] += 1
         return _mv_run_plain(M0, nbr, w_b, b_cart, steps, eps0)
     st = _MVState(M0, nbr, w_b, b_cart, steps, eps0)
     for s in range(steps):

@@ -104,3 +104,59 @@ def test_transport_errors_match_jax():
         with pytest.raises(PythtbError) as got:
             getattr(boltzmann, name)(carry(args[0]), *args[1:], **kwargs)
         assert str(got.value) == str(want.value)
+
+
+def _square2(tx=-1.0, ty=-1.0):
+    m = pythtb_tpu.tb_model(2, 2, np.eye(2).tolist(), [[0.0, 0.0]])
+    m.set_hop(tx, 0, 0, [1, 0])
+    m.set_hop(ty, 0, 0, [0, 1])
+    return m
+
+
+def _min_segment_x(model, ef, nk, Bs, tau):
+    """The smallest x = dt / tau over the orbits that magnetotransport
+    integrates (the repaired branch is x < 1e-4)."""
+    from pythtb_tpu_torch import fermisurface
+
+    xs = []
+    for b, lines in fermisurface.fermi_surface(model, ef, nk=nk).items():
+        for pts, _ in lines:
+            v = np.linalg.norm(fermisurface.fermi_velocity(model, pts % 1.0, bands=[b])[:, :, 0], axis=1)
+            dl = np.linalg.norm(np.diff(pts @ (2 * np.pi * np.eye(2)), axis=0), axis=1)
+            dl = dl[dl > 1e-10]
+            xs.append((dl / v[: len(dl)]).min() / (np.abs(Bs).max() * tau))
+    return min(xs)
+
+
+@pytest.mark.parametrize("case", ["closed pocket", "open sheets", "hole pocket, both field signs"])
+def test_magnetotransport_matches_jax(case):
+    """sigma(B) on the models of tests/test_magnetotransport.py, at 1e-10
+    relative, where every segment has x = dt / tau > 1e-4 (away from the
+    branch the port repairs)."""
+    jm, ef, Bs, tau, nk = {
+        "closed pocket": (_square2(), -3.6, np.array([0.02, 0.1, 0.3, 1.0]) / 7.0, 7.0, 61),
+        "open sheets": (_square2(ty=-0.05), 0.0, np.array([0.01, 8.0]), 4.0, 41),
+        "hole pocket, both field signs": (_square2(), 3.3, np.array([-0.4, 0.05, 0.4]), 2.0, 51),
+    }[case]
+    m = carry(jm)
+    assert _min_segment_x(m, ef, nk, Bs, tau) > 1e-4
+    got = boltzmann.magnetotransport(m, ef, Bs, tau=tau, nk=nk)
+    want = jboltzmann.magnetotransport(jm, ef, Bs, tau=tau, nk=nk)
+    assert got["orbits"] == want["orbits"] and got["tau"] == want["tau"]
+    np.testing.assert_array_equal(got["Bs"], want["Bs"])
+    _close(got["sigma"], want["sigma"])
+
+
+def test_magnetotransport_errors_and_warnings_match_jax():
+    jm = _square2()
+    for args, kwargs in (((jm, -3.6, [0.0]), {}), ((jm, -3.6, [0.5]), dict(tau=0.0)),
+                         ((jzoo.chain(), 0.0, [0.5]), {})):
+        with pytest.raises(JPythtbError) as want:
+            jboltzmann.magnetotransport(*args, **kwargs)
+        with pytest.raises(PythtbError) as got:
+            boltzmann.magnetotransport(carry(args[0]), *args[1:], **kwargs)
+        assert str(got.value) == str(want.value)
+    got, got_w = _run(boltzmann.magnetotransport, carry(jm), -9.0, [0.5], nk=21)
+    want, want_w = _run(jboltzmann.magnetotransport, jm, -9.0, [0.5], nk=21)
+    assert got_w == want_w and got_w
+    np.testing.assert_array_equal(got["sigma"], want["sigma"])

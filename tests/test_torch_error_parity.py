@@ -235,3 +235,67 @@ def test_port_refuses_slice_nine_misuse_like_jax(name):
     want = _refusal(pythtb_tpu, fn)
     assert want[0] == "PythtbError"
     assert _refusal(pythtb_tpu_torch, fn) == want
+
+
+def _square_1d(M):
+    return M.models.chain()
+
+
+# misuse of the tenth slice's calls (fermisurface, response, the k.p
+# models and magnetotransport): each must raise in both packages
+SLICE10_CASES = {
+    "fs_surface_1d": lambda M: M.fermisurface.fermi_surface(_square_1d(M), 0.0),
+    "fs_surface_band_range": lambda M: M.fermisurface.fermi_surface(M.models.square(), 0.0, nk=11, bands=[3]),
+    "fs_dos_finite": lambda M: M.fermisurface.dos_linear(M.models.square().cut_piece(3, 0), [0.0]),
+    "fs_velocity_columns": lambda M: M.fermisurface.fermi_velocity(M.models.square(), [[0.1, 0.2, 0.3]]),
+    "fs_cyclotron_no_orbit": lambda M: M.fermisurface.cyclotron_mass(M.models.square(), -9.0, 0, nk=33),
+    "fs_extremal_2d": lambda M: M.fermisurface.extremal_orbits(M.models.square(), 0.0, 0),
+    "fs_extremal_oblique": lambda M: M.fermisurface.extremal_orbits(_oblique3(M), 0.0, 0, n_slices=4, nk=9),
+    "fs_extremal_band_range": lambda M: M.fermisurface.extremal_orbits(_cube(M), 0.0, 2, n_slices=4, nk=9),
+    "resp_no_mode": lambda M: M.response.lindhard(M.models.square(), [[0.1, 0.0]], [0.0], nk=4),
+    "resp_both_modes": lambda M: M.response.lindhard(M.models.square(), [[0.1, 0.0]], [0.0], nk=4, nocc=1, mu=0.0,
+                                                     temperature=0.1),
+    "resp_mu_no_temperature": lambda M: M.response.lindhard(M.models.square(), [[0.1, 0.0]], [0.0], nk=4, mu=0.0),
+    "resp_q_columns": lambda M: M.response.lindhard(M.models.square(), [[0.1]], [0.0], nk=4, nocc=1),
+    "resp_nk_entries": lambda M: M.response.lindhard(M.models.square(), [[0.1, 0.0]], [0.0], nk=[4], nocc=1),
+    "resp_finite": lambda M: M.response.lindhard(M.models.chain().cut_piece(3, 0), [[0.1]], [0.0], nk=4, nocc=1),
+    "resp_ops_shape": lambda M: M.response.lindhard(M.models.graphene(), [[0.1, 0.0]], [0.0], nk=4, nocc=1,
+                                                    ops=np.ones((2, 3))),
+    "resp_nocc_range": lambda M: M.response.lindhard(M.models.graphene(), [[0.1, 0.0]], [0.0], nk=4, nocc=3),
+    "resp_rpa_spinful": lambda M: M.response.rpa_susceptibility(M.models.kane_mele(), [[0.0, 0.0]], [0.0], 4, 1.0,
+                                                                nocc=2),
+    "resp_rpa_channel": lambda M: M.response.rpa_susceptibility(M.models.graphene(), [[0.0, 0.0]], [0.0], 4, 1.0,
+                                                                channel="orbital", nocc=1),
+    "kp_mass_band_range": lambda M: M.geometry.effective_mass(M.models.haldane(), [0.1, 0.1], 5),
+    "kp_mass_degenerate": lambda M: M.geometry.effective_mass(M.models.graphene(), [1 / 3, 2 / 3], 0),
+    "kp_mass_k0_length": lambda M: M.geometry.effective_mass(M.models.haldane(), [0.1], 0),
+    "kp_mass_finite": lambda M: M.geometry.effective_mass(M.models.haldane().cut_piece(3, 0), [0.1], 0),
+    "kp_model_repeated": lambda M: M.geometry.kp_model(M.models.haldane(), [0.1, 0.1], [0, 0]),
+    "kp_model_degenerate_complement": lambda M: M.geometry.kp_model(M.models.graphene(), [1 / 3, 2 / 3], [0]),
+    "mt_zero_field": lambda M: M.boltzmann.magnetotransport(M.models.square(), -3.6, [0.0], nk=21),
+    "mt_tau": lambda M: M.boltzmann.magnetotransport(M.models.square(), -3.6, [0.5], tau=-1.0, nk=21),
+    "mt_1d": lambda M: M.boltzmann.magnetotransport(M.models.chain(), 0.0, [0.5]),
+}
+
+
+def _cube(M):
+    m = M.tb_model(3, 3, np.eye(3).tolist(), [[0.0, 0.0, 0.0]])
+    for R in ([1, 0, 0], [0, 1, 0], [0, 0, 1]):
+        m.set_hop(-1.0, 0, 0, R)
+    return m
+
+
+def _oblique3(M):
+    m = M.tb_model(3, 3, [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.3, 0.0, 1.0]], [[0.0, 0.0, 0.0]])
+    for R in ([1, 0, 0], [0, 1, 0], [0, 0, 1]):
+        m.set_hop(-1.0, 0, 0, R)
+    return m
+
+
+@pytest.mark.parametrize("name", sorted(SLICE10_CASES))
+def test_port_refuses_slice_ten_misuse_like_jax(name):
+    """The same exception class and message in both packages."""
+    fn = SLICE10_CASES[name]
+    want = _refusal(pythtb_tpu, fn)
+    assert want[0] == "PythtbError"
+    assert _refusal(pythtb_tpu_torch, fn) == want

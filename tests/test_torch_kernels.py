@@ -111,18 +111,15 @@ def test_eig2_kernel(dev):
     assert _max_diff(v, vp) < TOL
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 5, 8, 9])
+@pytest.mark.parametrize("S", [1, 2, 3, 5, 8, 9, 12, 16, 32, 64])
 def test_link_dets_kernel(dev, S):
+    """Registers up to S 8, a block's shared-memory LU from 9 to 64: every
+    S launches the kernel, once per call."""
     w = _unit_states(S, (5, 4, 6), S, S + 3, dev)
     launched = _kernels.LAUNCHES["link_dets"]
-    library = _kernels.LAUNCHES["link_dets_library"]
     for axis in range(3):
         assert _max_diff(berry.link_dets(w, axis), berry._link_dets_plain(w, axis)) < TOL
-    if S > 8:  # the explicit shape rule, not a kernel launch
-        assert _kernels.LAUNCHES["link_dets_library"] == library + 3
-        assert _kernels.LAUNCHES["link_dets"] == launched
-    else:
-        assert _kernels.LAUNCHES["link_dets"] == launched + 3
+    assert _kernels.LAUNCHES["link_dets"] == launched + 3
 
 
 @pytest.mark.parametrize("grid", [(7, 9), (3, 5, 6), (2, 3, 4, 5)])
@@ -138,13 +135,14 @@ def test_plaquette_flux_kernel(dev, grid):
         assert _max_diff(gmin, wmin) < TOL
 
 
-@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 9])
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 9, 12, 16, 32, 64])
 def test_wilson_loop_kernel(dev, S):
     """Every string orientation: axis 0 (outer 1, inner 24), axis 1
-    (outer 5, inner 6), axis 2 (outer 20, inner 1)."""
+    (outer 5, inner 6), axis 2 (outer 20, inner 1); registers up to S 8, a
+    block's shared-memory Jacobi polar factor from 9 to 64, every S
+    through the kernel."""
     w = _unit_states(20 + S, (5, 4, 6), S, 2 * S, dev)
     launched = _kernels.LAUNCHES["wilson_loop"]
-    library = _kernels.LAUNCHES["wilson_loop_library"]
     for axis in range(3):
         prod, smin = berry.wilson_loop(w, axis)
         want, want_min = berry._wilson_loop_plain(w, axis)
@@ -153,11 +151,14 @@ def test_wilson_loop_kernel(dev, S):
         # products of unitaries stay unitary
         eye = torch.eye(S, dtype=prod.dtype, device=dev)
         assert _max_diff(prod @ prod.conj().transpose(-1, -2), eye.expand_as(prod)) < TOL
-    if S > 8:  # the explicit shape rule, not a kernel launch
-        assert _kernels.LAUNCHES["wilson_loop_library"] == library + 3
-        assert _kernels.LAUNCHES["wilson_loop"] == launched
-    else:
-        assert _kernels.LAUNCHES["wilson_loop"] == launched + 3
+    assert _kernels.LAUNCHES["wilson_loop"] == launched + 3
+
+
+def test_berry_kernels_refuse_more_than_64_bands(dev):
+    w = _unit_states(3, (3, 4), 65, 66, dev)
+    for fn in (berry.link_dets, berry.wilson_loop):
+        with pytest.raises(ValueError, match="at most 64 bands.*set_device"):
+            fn(w, 0)
 
 
 @pytest.mark.parametrize("S,F", [(1, 3), (2, 4), (3, 5), (8, 16), (20, 39)])
@@ -862,7 +863,10 @@ def _random_frames(seed, grid, NS, F, dev):
 
 @pytest.mark.parametrize("grid,axis,occ,F", [((41, 31), 1, [0], 3), ((41, 31), 0, [0], 3),
                                              ((41, 41), 0, [0, 1], 4), ((9, 7), 1, [1, 2, 3], 6),
-                                             ((6, 5, 4), 1, list(range(8)), 10)])
+                                             ((6, 5, 4), 1, list(range(8)), 10),
+                                             ((7, 5), 1, list(range(9)), 11), ((6, 4), 0, list(range(1, 13)), 15),
+                                             ((5, 4), 1, list(range(16)), 18), ((4, 3), 0, list(range(32)), 34),
+                                             ((3, 4), 1, list(range(64)), 66)])
 def test_transport_chain_and_rotate_kernels(dev, grid, axis, occ, F):
     """Kernel 14's chain and rotate modes against their plain versions
     (1e-12), closed and open."""
@@ -886,7 +890,10 @@ def test_transport_chain_and_rotate_kernels(dev, grid, axis, occ, F):
 
 
 @pytest.mark.parametrize("grid,axis,NS,nocc,F", [((41, 31), 0, 3, 1, 3), ((13, 5), 0, 4, 2, 4),
-                                                 ((7, 6), 1, 8, 3, 8), ((9,), 0, 2, 2, 2)])
+                                                 ((7, 6), 1, 8, 3, 8), ((9,), 0, 2, 2, 2),
+                                                 ((7, 6), 1, 9, 4, 10), ((6, 5), 0, 12, 12, 12),
+                                                 ((5, 4), 1, 16, 9, 20), ((4, 3), 0, 32, 20, 40),
+                                                 ((3, 3), 1, 64, 64, 64)])
 def test_transport_follow_kernel(dev, grid, axis, NS, nocc, F):
     """Kernel 14's follow mode against its plain version: identical
     indices, fidelity and states within 1e-12."""
@@ -986,7 +993,9 @@ def _near_identity(rng, B, n, scale):
     return wannier._expm_antiherm(A), A
 
 
-@pytest.mark.parametrize("B,nb,n,dc", [(512, 8, 4, 3), (36, 6, 1, 2), (27, 6, 3, 3), (64, 12, 8, 3)])
+@pytest.mark.parametrize("B,nb,n,dc", [(512, 8, 4, 3), (36, 6, 1, 2), (27, 6, 3, 3), (64, 12, 8, 3),
+                                        (64, 8, 9, 3), (27, 6, 12, 3), (36, 8, 16, 2), (8, 6, 32, 3),
+                                        (16, 4, 20, 1)])
 def test_mv_step_kernel(dev, B, nb, n, dc):
     """Kernel 19: single steps (from the start, and from a state after an
     overshoot) against the plain step at 1e-12."""
@@ -1189,3 +1198,94 @@ def test_interacting_slice_goes_through_kernels(dev):
     for got, want in zip(card + card_maps, cpu + cpu_maps):
         assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
     assert abs(rb.Z - cb.Z) < 5e-3 and abs(rl.Z - cl.Z) < 5e-3
+
+
+def test_transport_and_mv_kernels_refuse_above_their_limits(dev):
+    from pythtb_tpu_torch import wannier
+    from pythtb_tpu_torch.ops import transport
+
+    w = _random_frames(300, (3, 2), 65, 66, dev)
+    with pytest.raises(ValueError, match="at most 64 states.*set_device"):
+        transport.smooth_gauge(w, list(range(65)), 0, 1, 2, True)
+    with pytest.raises(ValueError, match="at most 64 states.*set_device"):
+        transport.follow_states(w, [0], 0, 1, 2)
+    M0, nbr, w_b, b_cart = _mv_inputs(301, 4, 2, 33, dev)
+    with pytest.raises(ValueError, match="at most 32 Wannier functions.*set_device"):
+        wannier.mv_localize(M0, nbr, w_b, b_cart, 1, 0.5)
+
+
+# -- kernel 21 (linear-tetrahedron DOS) and kernel 16's q-batch mode ------------
+
+
+@pytest.mark.parametrize("d,nk,S,nE", [(1, 4096, 1, 201), (1, 37, 3, 1), (2, 64, 2, 513), (2, 7, 5, 130),
+                                       (3, 24, 1, 1601), (3, 9, 4, 64)])
+def test_tetra_dos_kernel(dev, d, nk, S, nE):
+    """Kernel 21 against the plain corners and branches: 1e-10 relative
+    (sums of many simplices in another order), chunks of 512 simplices
+    and tiles of 128 energies cut off."""
+    from pythtb_tpu_torch.ops import tetra
+
+    rng = np.random.default_rng(d * 100 + nk + S)
+    ev = np.sort(rng.normal(size=(nk**d, S)), axis=-1) + np.arange(S)
+    evt = torch.as_tensor(ev).to(dev)
+    E = torch.as_tensor(np.linspace(ev.min() - 0.5, ev.max() + 0.5, nE)).to(dev)
+    before = _kernels.LAUNCHES["tetra_dos"]
+    got = tetra.tetra_dos(evt, nk, d, E)
+    assert _kernels.LAUNCHES["tetra_dos"] == before + 1
+    want = tetra._tetra_dos_plain(evt, nk, d, E)
+    assert _max_diff(got, want) <= 1e-10 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("Q,P,T,nw", [(64, 4, 2304, 16), (1, 9, 700, 130), (5, 17, 33, 3), (3, 1, 1, 1)])
+def test_spectral_sum_qbatch_kernel(dev, Q, P, T, nw):
+    """Kernel 16's q-batch Lorentzian mode against the plain sum per q at
+    1e-10 relative: the Lindhard row's shape (64 q, 4 operator pairs,
+    2,304 transitions, 16 w), column groups of 8 and T off the chunks."""
+    from pythtb_tpu_torch import optical
+
+    rng = np.random.default_rng(Q + P + T + nw)
+    W = torch.as_tensor(rng.normal(size=(Q, P, T)) + 1j * rng.normal(size=(Q, P, T))).to(dev)
+    de = torch.as_tensor(rng.uniform(-3.0, 3.0, (Q, T))).to(dev)
+    om = torch.as_tensor(np.linspace(0.0, 2.0, nw)).to(dev)
+    before = dict(_kernels.LAUNCHES)
+    got = optical.spectral_sum_qbatch(W, de, om, 0.05)
+    assert _kernels.LAUNCHES["spectral_sum_qbatch"] == before["spectral_sum_qbatch"] + 1
+    assert _kernels.LAUNCHES["spectral_sum"] == before["spectral_sum"]
+    want = optical._spectral_sum_qbatch_plain(W, de, om, 0.05)
+    assert _max_diff(got, want) <= 1e-10 * float(want.abs().max())
+
+
+def test_fermi_surface_and_response_slice_goes_through_kernels(dev):
+    """dos_linear (d 2 and 3), lindhard, the Stoner analysis, kp_model and
+    magnetotransport on the card launch kernels 21, 16's q-batch mode, 15
+    and 1, and agree with the CPU run of the same calls at 1e-10
+    (relative)."""
+    import pythtb_tpu_torch as pt
+
+    def run():
+        g = pt.models.graphene()
+        cub = pt.tb_model(3, 3, np.eye(3), [[0.0, 0.0, 0.0]])
+        for R in ([1, 0, 0], [0, 1, 0], [0, 0, 1]):
+            cub.set_hop(-1.0, 0, 0, R)
+        sq = pt.models.square(t=-1.0)
+        return [pt.fermisurface.dos_linear(g, np.linspace(-3.2, 3.2, 101), nk=32),
+                pt.fermisurface.dos_linear(cub, np.linspace(-6.5, 6.5, 101), nk=12),
+                pt.response.lindhard(g, [[i / 8, 0.0] for i in range(8)], [0.0, 0.5], nk=12, mu=0.1,
+                                     temperature=0.05, eta=0.02),
+                pt.response.stoner_analysis(g, [[0.0, 0.0]], nk=9, mu=0.0, temperature=0.02)["lambda"],
+                pt.geometry.kp_model(g, [1 / 3, 2 / 3], [0, 1])(np.array([[1e-3, 2e-3]])),
+                pt.boltzmann.magnetotransport(sq, -3.2, [0.1, 0.5], tau=2.0, nk=41)["sigma"]]
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card = run()
+        for name in ("tetra_dos", "spectral_sum_qbatch", "assemble_dk", "assemble"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu = run()
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())

@@ -10,7 +10,12 @@ check (on the CPU, float64):
 * the Edelstein sum does not depend on the basis chosen inside a Kramers
   pair: rotating the pair by a random 2 x 2 unitary leaves it unchanged to
   1e-12;
-* the assembly module's docstring no longer calls kernel 15 unported.
+* the assembly module's docstring no longer calls kernel 15 unported;
+* the Chambers integrator of ``boltzmann.magnetotransport``: its segment
+  weight C = tau (1 - (1 - e^{-x}) / x) and one orbit's tensor meet an
+  ``np.longdouble`` evaluation to 1e-14 relative for x = dt / tau in
+  1e-9 - 1 (the reference's closed form loses eps / x), and meet the
+  JAX package's integrator at 1e-10 where x > 1e-4.
 """
 
 import ast
@@ -148,3 +153,89 @@ def test_edelstein_invariant_under_kramers_pair_rotation():
         return torch.einsum("bxn,bcn->bxc", sd, torch.diagonal(VV, dim1=-2, dim2=-1).real)
 
     assert float((diag_sum(rot[:4], Vr[:4]) - diag_sum(vecs[:4], V[:4])).abs().max()) > 1e-6
+
+
+# -- the Chambers integrator's short-segment weights (boltzmann._chambers_orbit) --
+
+
+def _decay_weight_ld(x):
+    """1 - (1 - e^{-x}) / x in np.longdouble: its series below 1e-3 (where
+    the closed form would lose eps_ld / x), the closed form above."""
+    x = np.longdouble(x)
+    if x < np.longdouble("1e-3"):
+        term, acc = x / np.longdouble(2), np.longdouble(0)
+        for n in range(1, 12):
+            acc += term
+            term *= -x / np.longdouble(n + 2)
+        return acc
+    return np.longdouble(1) + np.expm1(-x) / x
+
+
+def _chambers_ld(v, dt, tau):
+    """The Chambers orbit tensor of boltzmann._chambers_orbit evaluated in
+    np.longdouble: the same exact exponential integrator, 1 - P as
+    -expm1(-sum x)."""
+    v = v.astype(np.longdouble)
+    dt = dt.astype(np.longdouble)
+    tau = np.longdouble(tau)
+    m = v.shape[0]
+    x = dt / tau
+    one_m_E = -np.expm1(-x)
+    E = np.longdouble(1) - one_m_E
+    C = tau * np.array([_decay_weight_ld(xi) for xi in x], dtype=np.longdouble)
+    A = tau * one_m_E - C
+    vn = np.roll(v, -1, axis=0)
+    b = np.zeros(2, dtype=np.longdouble)
+    for i in range(m):
+        b = E[i] * b + A[i] * v[i] + C[i] * vn[i]
+    J = b / -np.expm1(-np.sum(x))
+    out = np.zeros((2, 2), dtype=np.longdouble)
+    for i in range(m):
+        Jn = E[i] * J + A[i] * v[i] + C[i] * vn[i]
+        out += np.longdouble("0.5") * dt[i] * (np.outer(v[i], J) + np.outer(vn[i], Jn))
+        J = Jn
+    return out
+
+
+def _open_orbit(x, tau=1.7, m=16):
+    """An open orbit's velocities (non-zero mean v_x, so sigma_xx stays
+    finite as x -> 0) and segment times of about x tau."""
+    th = 2.0 * np.pi * np.arange(m) / m
+    v = np.stack([1.0 + 0.3 * np.cos(th), 0.5 * np.sin(th)], axis=1)
+    return v, x * tau * (1.0 + 0.4 * np.sin(3.0 * th)), tau
+
+
+XS = np.logspace(-9.0, 0.0, 19)
+
+
+def test_chambers_segment_weight_meets_longdouble():
+    """C = tau (1 - (1 - e^{-x}) / x), repaired: within 1e-14 relative of
+    an np.longdouble evaluation for x in 1e-9 - 1 (the reference's
+    tau - tau^2 (1 - e^{-x}) / dt loses eps / x there)."""
+    got = boltzmann._one_minus_mean_decay(XS)
+    want = np.array([_decay_weight_ld(x) for x in XS])
+    rel = np.abs((got - want) / want).astype(np.float64)
+    assert rel.max() <= 1e-14, rel
+    # the reference's form is the fault being repaired: over 1e-4 off at x = 1e-13
+    x = 1e-13
+    ref = 1.0 - (-np.expm1(-x)) / x
+    assert abs(ref - float(_decay_weight_ld(x))) > 1e-4 * float(_decay_weight_ld(x))
+
+
+@pytest.mark.parametrize("x", XS)
+def test_chambers_orbit_meets_longdouble(x):
+    """sigma of one orbit from the port's integrator within 1e-14 (relative
+    to its largest entry) of the np.longdouble evaluation."""
+    v, dt, tau = _open_orbit(x)
+    got = boltzmann._chambers_orbit(v, dt, tau)
+    want = _chambers_ld(v, dt, tau)
+    assert np.abs(got - want).max() <= 1e-14 * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("x", XS[XS > 1e-4])
+def test_chambers_orbit_matches_jax_off_the_repaired_branch(x):
+    from pythtb_tpu import boltzmann as jboltzmann
+
+    v, dt, tau = _open_orbit(x)
+    want = jboltzmann._chambers_orbit(v, dt, tau)
+    assert np.abs(boltzmann._chambers_orbit(v, dt, tau) - want).max() <= 1e-10 * np.abs(want).max()
