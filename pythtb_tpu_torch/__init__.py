@@ -65,7 +65,7 @@ JAX.
 """
 
 from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, fermisurface, flows,
-               geometry, impurity, localization, magnetic, meanfield, models, negf, optical, realspace, response,
+               floquet, geometry, impurity, localization, magnetic, meanfield, models, negf, optical, realspace, response,
                surface, symmetry, unfold, wannier)
 from .family import ModelFamily, family
 from .model import PythtbError, tb_model
@@ -74,10 +74,13 @@ from .w90 import w90
 from .wf_array import wf_array
 
 __version__ = "0.2.0"
+# feature parity target (the reference release this framework mirrors)
+PYTHTB_COMPAT_VERSION = "1.8.0"
 
 __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
     "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
     "impurity", "disorder", "family", "ModelFamily", "wannier", "unfold", "entanglement", "symmetry",
-    "ed", "dmft", "meanfield", "bdg", "continuation", "fermisurface", "response", "__version__",
+    "ed", "dmft", "meanfield", "bdg", "continuation", "fermisurface", "response", "floquet",
+    "__version__", "PYTHTB_COMPAT_VERSION",
 ]

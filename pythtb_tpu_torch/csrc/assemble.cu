@@ -40,6 +40,19 @@
 // launch.  Row b of H is member b / NK at k-point b mod NK; the walk is
 // the plain mode's.
 //
+// Floquet-block mode (pythtb_tpu/floquet.py:_spectrum_jit with
+// _assemble_hm, :218-296): the truncated extended-zone matrix K (B, NM S,
+// NM S), NM = 2 M + 1, written directly.  Block (p, q) is H_{p-q} with
+//   H_m[i, j] = sum over hoppings of amp e^{2 pi i k.rv} fac[m] (direct)
+//               + conj(amp e^{2 pi i k.rv}) conj(fac[-m]) (partner)
+//               + delta_{m0} diag + delta_{ij} ons[m]
+// (fac (4M + 1, nhop) and ons (4M + 1, nsta) complex, m = -2M..2M; the
+// partner's factor is the conjugate of the opposite harmonic's), plus
+// (p - M) omega on the diagonal of the blocks p = q.  At nspin 2 the spin
+// block shares the hop's scalar factor.  One thread per element of K walks
+// its orbital pair's gather list, as the plain mode does; bound: the store
+// of K, 16 bytes an element.
+//
 // What bounds it on the H100: the store of H, 16 bytes per element, and
 // for models with many hoppings per element the double-precision sincospi
 // per (k, hopping, element).  Design: one thread per output element walks
@@ -99,6 +112,69 @@ __global__ void assemble_kernel(const double* __restrict__ k, const double* __re
     }
     const cplx dg = diag[elem];
     H[t] = make_cuDoubleComplex(re + dg.x, im + dg.y);
+}
+
+__global__ void assemble_floquet_kernel(const double* __restrict__ k, const double* __restrict__ rv,
+                                        const cplx* __restrict__ amps, const cplx* __restrict__ diag,
+                                        const cplx* __restrict__ fac, const cplx* __restrict__ ons,
+                                        const int* __restrict__ ptr, const int* __restrict__ ent,
+                                        cplx* __restrict__ K, int64_t total, int dim_k, int norb, int nspin,
+                                        int64_t nhop, int M, double omega) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= total) return;
+    const int nsta = norb * nspin;
+    const int NM = 2 * M + 1;
+    const int64_t dimK = (int64_t)NM * nsta;
+    const int64_t per_k = dimK * dimK;
+    const int64_t b = t / per_k;
+    const int64_t e2 = t - b * per_k;
+    const int P = (int)(e2 / dimK);
+    const int Q = (int)(e2 - (int64_t)P * dimK);
+    const int pb = P / nsta, p = P - pb * nsta;
+    const int qb = Q / nsta, q = Q - qb * nsta;
+    const int mi = pb - qb + 2 * M;   // harmonic index of block (pb, qb), m = pb - qb
+    const int mp = 4 * M - mi;        // its partner's: -m
+    const int a = p / nspin, s = p - a * nspin;
+    const int c = q / nspin, u = q - c * nspin;
+    const double* kb = k + b * dim_k;
+    const int slot = a * norb + c;
+    const int direct_blk = s * nspin + u;
+    const int partner_blk = u * nspin + s;
+    double re = 0.0, im = 0.0;
+    for (int e = ptr[slot]; e < ptr[slot + 1]; ++e) {
+        const int code = ent[e];
+        const int h = code >> 1;
+        const bool partner = (code & 1) != 0;
+        double x = 0.0;
+        for (int d = 0; d < dim_k; ++d) x = fma(kb[d], rv[(int64_t)h * dim_k + d], x);
+        double sn, cs;
+        sincospi(2.0 * x, &sn, &cs);  // e^{2 pi i x}
+        const cplx A = amps[(int64_t)h * nspin * nspin + (partner ? partner_blk : direct_blk)];
+        double vr = A.x * cs - A.y * sn;
+        double vi = A.x * sn + A.y * cs;
+        cplx f;
+        if (partner) {
+            vi = -vi;  // conj(amp e^{2 pi i k.rv})
+            const cplx g = fac[(int64_t)mp * nhop + h];
+            f = make_cuDoubleComplex(g.x, -g.y);
+        } else {
+            f = fac[(int64_t)mi * nhop + h];
+        }
+        re += vr * f.x - vi * f.y;
+        im += vr * f.y + vi * f.x;
+    }
+    if (mi == 2 * M) {
+        const cplx dg = diag[p * nsta + q];
+        re += dg.x;
+        im += dg.y;
+    }
+    if (p == q) {
+        const cplx o = ons[(int64_t)mi * nsta + p];
+        re += o.x;
+        im += o.y;
+        if (pb == qb) re += (double)(pb - M) * omega;
+    }
+    K[t] = make_cuDoubleComplex(re, im);
 }
 
 template <int ORDER>
@@ -235,6 +311,23 @@ extern "C" int pythtb_assemble_members(const void* k, const void* rv, const void
             (const double*)k, (const double*)rv, (const cplx*)amps, (const cplx*)diag,
             (const int*)ptr, (const int*)ent, (cplx*)H, total, NK, (int)dim_k, (int)norb,
             (int)nspin, nhop, false);
+    }
+    return (int)cudaGetLastError();
+}
+
+// Floquet-block mode: k (B, dim_k), fac (4M + 1, nhop), ons (4M + 1,
+// nsta) -> K (B, (2M + 1) nsta, (2M + 1) nsta).
+extern "C" int pythtb_assemble_floquet(const void* k, const void* rv, const void* amps, const void* diag,
+                                       const void* fac, const void* ons, const void* ptr, const void* ent, void* K,
+                                       int64_t B, int64_t dim_k, int64_t norb, int64_t nspin, int64_t nhop,
+                                       int64_t M, double omega, void* stream) {
+    const int64_t dimK = (2 * M + 1) * norb * nspin;
+    const int64_t total = B * dimK * dimK;
+    if (total > 0) {
+        assemble_floquet_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+            (const double*)k, (const double*)rv, (const cplx*)amps, (const cplx*)diag, (const cplx*)fac,
+            (const cplx*)ons, (const int*)ptr, (const int*)ent, (cplx*)K, total, (int)dim_k, (int)norb,
+            (int)nspin, nhop, (int)M, omega);
     }
     return (int)cudaGetLastError();
 }

@@ -16,11 +16,17 @@ over the occupation is kernel 17.  ``effective_mass``, ``kp_model`` and
 ``KPModel`` take the band energies and the Cartesian dH, d2H matrix
 elements at one k-point (kernels 1 and 15, ``eigh_batched``, einsums) and
 do the perturbation-theory algebra on the host, as the JAX package does.
-``superfluid_weight`` is not ported yet.
+``superfluid_weight`` takes H, dH and d2H at +k and -k in one launch each
+(kernels 1 and 15), packs the BdG matrix by torch indexing, solves it
+with ``eigh_batched`` and sums the Daleckii-Krein Hessian on kernel 23;
+its finite-difference route assembles every twist's +-k in one kernel-1
+launch, takes ``eigvalsh_batched`` and sums the grand potential on
+kernel 23's second mode.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -28,12 +34,15 @@ import torch
 
 from . import config
 from .model import PythtbError
+from .ops.bdg_hessian import bdg_grand_potential, bdg_hessian
+from .ops.eigh import eigh_batched, eigvalsh_batched
 from .ops.fermi_sweep import fermi_sweep
+from .ops.hamiltonian import assemble, assemble_d2k, assemble_dk
 from .ops.solver import device_uniform_grid
 from .optical import _band_tensors, _inv_gaps, _inverse_mass, _velocity_tensors
 
 __all__ = ["quantum_geometric_tensor", "quantum_metric", "berry_curvature", "integrated_metric",
-           "drude_weight", "effective_mass", "kp_model", "KPModel"]
+           "superfluid_weight", "drude_weight", "effective_mass", "kp_model", "KPModel"]
 
 _DEG_TOL = 1e-7  # energy-denominator mask, as in optical and flows
 
@@ -160,6 +169,146 @@ def integrated_metric(model, occ, nk=(31, 31)):
     if data.dim_k == 2:
         out["chern"] = float(out["curvature"][0, 1] * 2.0 * np.pi / abs(np.linalg.det(lat)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# superfluid weight (BdG phase-twist response)
+# ---------------------------------------------------------------------------
+
+
+def _bdg_matrix(Hp, Hm, mu, delta):
+    """(B, 2S, 2S) BdG matrices [[Hp - mu, delta], [delta, -(conj(Hm) -
+    mu)]] with s-wave pairing delta on every orbital."""
+    B, S = Hp.shape[0], Hp.shape[-1]
+    M = torch.zeros((B, 2 * S, 2 * S), dtype=config.COMPLEX, device=Hp.device)
+    idx = torch.arange(S, device=Hp.device)
+    M[:, :S, :S] = Hp
+    M[:, S:, S:] = -Hm.conj()
+    M[:, idx, idx] -= mu
+    M[:, S + idx, S + idx] += mu
+    M[:, idx, S + idx] = delta
+    M[:, S + idx, idx] = delta
+    return M
+
+
+def _sfw_free_energy(data, nk, dqs, mu, delta, kt):
+    """BdG grand potential per cell at each reduced twist of ``dqs`` (nq,
+    d) (counterpart of ``pythtb_tpu.geometry._sfw_free_energy_jit``): the
+    particle block H(k + dq), the hole block -conj(H(-k + dq)) + mu.
+    Returns (nq,) float64 as a tensor."""
+    dev = data.device
+    d, S = data.dim_k, data.nsta
+    kg = device_uniform_grid(nk, np.zeros(d), dev)
+    B = kg.shape[0]
+    dq = torch.as_tensor(np.asarray(dqs, dtype=np.float64)).to(dev)
+    nq = dq.shape[0]
+    kp = (kg[None] + dq[:, None]).reshape(nq * B, d)
+    km = (-kg[None] + dq[:, None]).reshape(nq * B, d)
+    H = assemble(data, torch.cat([kp, km]))
+    Hp, Hm = H[: nq * B], H[nq * B:]
+    lam = eigvalsh_batched(_bdg_matrix(Hp, Hm, mu, delta))
+    tr = torch.diagonal(Hm, dim1=-2, dim2=-1).real.sum(dim=-1)
+    return bdg_grand_potential(lam, tr, nq, kt, mu * S) / B
+
+
+def _sfw_analytic(data, nk, lat, mu, delta, kt):
+    """Analytic BdG phase-twist Hessian d2F/dq_a dq_b at q = 0
+    (counterpart of ``pythtb_tpu.geometry._sfw_analytic_jit``): the
+    Daleckii-Krein sums on kernel 23, plus the hole normal-ordering trace
+    sum_k Re tr d2H(-k), over B, symmetrized.  Returns (d, d) float64."""
+    dev = data.device
+    d = data.dim_k
+    kg = device_uniform_grid(nk, np.zeros(d), dev)
+    B = kg.shape[0]
+    ks = torch.cat([kg, -kg])
+    H = assemble(data, ks)
+    dH = assemble_dk(data, ks)
+    d2H = assemble_d2k(data, ks)
+    lam, U = eigh_batched(_bdg_matrix(H[:B], H[B:], mu, delta))
+    # the near-degeneracy switch of the divided differences: one tolerance
+    # for the whole batch, as the reference's
+    tol = 256.0 * torch.finfo(config.FLOAT).eps * max(float(lam.abs().max()), 1.0)
+    out = bdg_hessian(lam, U, dH[:B], dH[B:], d2H[:B], d2H[B:], lat, kt, tol)
+    latt = torch.as_tensor(lat, dtype=config.FLOAT).to(dev)
+    tr_red = torch.diagonal(d2H[B:], dim1=-2, dim2=-1).real.sum(dim=(0, -1))  # (d, d) reduced
+    tr2 = torch.einsum("ra,sc,rs->ac", latt, latt, tr_red) / ((2.0 * math.pi) ** 2)
+    out = (out + tr2) / B
+    return 0.5 * (out + out.T)
+
+
+def _hessian_offsets(d, h):
+    """Central-difference stencil for a d-dim Hessian: origin, +-h e_a,
+    and the four signed corners per (a, b) pair."""
+    qs = [np.zeros(d)]
+    for a in range(d):
+        for s in (+1.0, -1.0):
+            v = np.zeros(d)
+            v[a] = s * h
+            qs.append(v)
+    pairs = [(a, b) for a in range(d) for b in range(a + 1, d)]
+    for a, b in pairs:
+        for sa, sb in ((1, 1), (-1, -1), (1, -1), (-1, 1)):
+            v = np.zeros(d)
+            v[a], v[b] = sa * h, sb * h
+            qs.append(v)
+    return np.array(qs), pairs
+
+
+def superfluid_weight(model, mu, delta, nk=(31, 31), temperature=None, step=1e-3, method="analytic"):
+    """Superfluid weight D_s^{ab} of the s-wave mean-field state by exact
+    BdG phase-twist response (counterpart of
+    ``pythtb_tpu.geometry.superfluid_weight``): ``method="analytic"`` (the
+    Daleckii-Krein Hessian) or ``"fd"`` (the central-difference stencil on
+    the twisted grand potential).  Counts both spin species of a spinless
+    model.  Returns (d, d) float64 per cell volume."""
+    data, lat, _ = _prep(model, "superfluid_weight")
+    if data.nspin != 1:
+        raise PythtbError(
+            "superfluid_weight supports spinless (spin-degenerate) "
+            "models only -- explicit-spin pairing needs a Delta matrix"
+        )
+    if float(delta) <= 0.0:
+        raise PythtbError("superfluid_weight requires delta > 0")
+    d = data.dim_k
+    nk = tuple(int(n) for n in np.atleast_1d(nk))
+    if len(nk) != d or min(nk) < 2:
+        raise PythtbError("nk must give %d sizes >= 2" % d)
+    kt = float(delta) / 50.0 if temperature is None else float(temperature)
+    if kt <= 0.0:
+        raise PythtbError("temperature must be > 0 (use the default)")
+    if method not in ("analytic", "fd"):
+        raise PythtbError("superfluid_weight: unknown method %r" % (method,))
+    vol = abs(np.linalg.det(lat))
+    if method == "analytic":
+        D = _sfw_analytic(data, nk, lat, float(mu), float(delta), kt).cpu().numpy()
+        return D / vol
+    h = float(step)
+    # the BdG dispersion near the Fermi surface curves on the twist
+    # scale q_c ~ delta / v_F; a step that cannot resolve it
+    # underestimates the weight
+    bw = float(np.abs(np.asarray(model._site_energies)).max() + 2.0 * sum(
+        np.abs(complex(hh[0])) for hh in model._hoppings) + 1e-12)
+    if h > float(delta) / max(bw, 1e-12):
+        warnings.warn(
+            "superfluid_weight: step = %.1e cannot resolve the BdG "
+            "coherence scale delta / bandwidth ~ %.1e -- the finite-"
+            "difference Hessian will underestimate D_s; reduce `step` "
+            "(or treat the delta -> 0 limit with drude_weight)."
+            % (h, float(delta) / max(bw, 1e-12)),
+            UserWarning, stacklevel=2,
+        )
+    qs_cart, pairs = _hessian_offsets(d, h)
+    # reduced twist: k_red = lat @ k_cart / (2 pi) (row convention)
+    dqs = qs_cart @ lat.T / (2.0 * np.pi)
+    F = _sfw_free_energy(data, nk, dqs, float(mu), float(delta), kt).cpu().numpy()
+    D = np.zeros((d, d))
+    for a in range(d):
+        D[a, a] = (F[1 + 2 * a] + F[2 + 2 * a] - 2.0 * F[0]) / h**2
+    base = 1 + 2 * d
+    for idx, (a, b) in enumerate(pairs):
+        f = F[base + 4 * idx: base + 4 * idx + 4]
+        D[a, b] = D[b, a] = (f[0] + f[1] - f[2] - f[3]) / (4.0 * h**2)
+    return D / vol
 
 
 def drude_weight(model, mu, nk=(64, 64), temperature=1e-3):

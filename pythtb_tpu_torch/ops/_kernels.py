@@ -70,6 +70,12 @@ _SIGNATURES = {
     "pythtb_pole_resolved": [_P] * 8 + [_I] * 3 + [_P],
     "pythtb_tetra_dos": [_P] * 5 + [_I] * 4 + [_D, _P],
     "pythtb_spectral_sum_qbatch": [_P] * 5 + [_I] * 5 + [_D, _P],
+    "pythtb_propagate_state": [_P] * 7 + [_I] * 6 + [_P],
+    "pythtb_propagate_full": [_P] * 5 + [_I] * 3 + [_P],
+    "pythtb_bdg_hessian": [_P] * 9 + [_I] * 3 + [_D] * 11 + [_P],
+    "pythtb_bdg_grand_potential": [_P] * 3 + [_I] * 3 + [_D] * 2 + [_P],
+    "pythtb_assemble_floquet": [_P] * 9 + [_I] * 6 + [_D, _P],
+    "pythtb_winding": [_P] * 8 + [_I] * 5 + [_D, _P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -91,14 +97,21 @@ _SIGNATURES = {
 # pass and a reduction each; map and resolved: one launch); "tetra_dos"
 # counts kernel 21's calls (corners, partial sums and reduction each);
 # "spectral_sum_qbatch" counts kernel 16's q-batch calls (a partial pass
-# and a reduction each, not in "spectral_sum").
+# and a reduction each, not in "spectral_sum"); "propagate_state" and
+# "propagate_full" count kernel 22's calls in its two modes (a chunk of
+# steps each; the state mode adds a reduction launch); "bdg_hessian" and
+# "bdg_grand_potential" count kernel 23's calls (a partial pass and a
+# reduction each); "assemble_floquet" counts kernel 1's Floquet-block
+# mode (not in "assemble"); "winding" counts kernel 24's calls (the
+# periodized history, the stencil and a reduction each).
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
      "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov",
      "eigh_jacobi", "assemble_members", "transport_chain", "transport_rotate",
      "transport_follow", "mv_step", "mv_final", "dense_filter", "pole_sum", "tetra_dos",
-     "spectral_sum_qbatch"), 0
+     "spectral_sum_qbatch", "propagate_state", "propagate_full", "bdg_hessian", "bdg_grand_potential",
+     "assemble_floquet", "winding"), 0
 )
 
 _lib = None

@@ -41,6 +41,7 @@ __all__ = [
     "berry_phase_traced",
     "berry_flux_planes",
     "berry_evals",
+    "berry_evals_device",
     "berry_loop_products",
     "wilson_loop",
     "unitary_eig",
@@ -309,6 +310,10 @@ def berry_evals(wfs, occ, dir, nspin, dim_arr):
     prod, smin = _loop_products(wfs, occ, dir, nspin, dim_arr)
     out = torch.sort(-wilson_eigenphases(prod), dim=-1).values
     return out.cpu().numpy().astype(np.float64), float(smin.amin())
+
+
+# the JAX package's name for the same call (its device-resident variant)
+berry_evals_device = berry_evals
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,9 @@ matrices, at shared k-points, in one launch (``magnetic.hofstadter_fn``).
 the direct terms only, no partner and no diagonal (the inter-layer block
 of ``pythtb_tpu.surface._one_sided``).  :func:`assemble_dk` and
 :func:`assemble_d2k` are kernel 15, the analytic k-derivatives.
+:func:`assemble_floquet` is kernel 1's Floquet-block mode: the truncated
+extended-zone Floquet matrix of ``pythtb_tpu.floquet._spectrum_jit``,
+written in one launch.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from .. import config
 from ..core import BlochData
 from . import _kernels
 
-__all__ = ["assemble", "assemble_members", "assemble_one_sided", "assemble_dk", "assemble_d2k"]
+__all__ = ["assemble", "assemble_members", "assemble_one_sided", "assemble_dk", "assemble_d2k", "assemble_floquet"]
 
 
 def _phases(data: BlochData, kpts):
@@ -262,3 +265,87 @@ def assemble_d2k(data: BlochData, kpts):
     (B, dim_k, dim_k, nsta, nsta) complex128, each slice Hermitian and
     symmetric in (a, b); same conventions as :func:`assemble_dk`."""
     return _derivative(data, kpts, 2)
+
+
+def _assemble_hm_plain(data: BlochData, kpts, fac, fac_partner):
+    """sum_h amp_h e^{2 pi i k.rv_h} fac[m, h] at (i_h, j_h) plus
+    conj(amp_h e^{2 pi i k.rv_h}) fac_partner[m, h] at (j_h, i_h), (B, nm,
+    nsta, nsta), no diagonal: the scatter of
+    ``pythtb_tpu.floquet._assemble_hm``."""
+    B = kpts.shape[0]
+    n = data.norb
+    nm = fac.shape[0]
+    if data.nhop == 0:
+        return torch.zeros((B, nm, data.nsta, data.nsta), dtype=config.COMPLEX, device=kpts.device)
+    ph = _phases(data, kpts)
+    ii, jj = data.ii, data.jj
+    if data.nspin == 1:
+        direct = ph[:, None, :] * (data.amps[None, None, :] * fac[None])
+        partner = torch.conj_physical(ph[:, None, :] * data.amps[None, None, :]) * fac_partner[None]
+        H = torch.zeros((B, nm, n, n), dtype=config.COMPLEX, device=kpts.device)
+        rows = torch.arange(B, device=kpts.device)[:, None, None]
+        ms = torch.arange(nm, device=kpts.device)[None, :, None]
+        H.index_put_((rows, ms, ii[None, None], jj[None, None]), direct, accumulate=True)
+        H.index_put_((rows, ms, jj[None, None], ii[None, None]), partner, accumulate=True)
+        return H
+    vals = ph[:, None, :, None, None] * (data.amps[None, None] * fac[None, :, :, None, None])
+    pvals = torch.conj_physical(ph[:, None, :, None, None] * data.amps.transpose(-1, -2)[None, None]) * \
+        fac_partner[None, :, :, None, None]
+    Hblk = torch.zeros((B, nm, n, n, 2, 2), dtype=config.COMPLEX, device=kpts.device)
+    rows = torch.arange(B, device=kpts.device)[:, None, None]
+    ms = torch.arange(nm, device=kpts.device)[None, :, None]
+    Hblk.index_put_((rows, ms, ii[None, None], jj[None, None]), vals, accumulate=True)
+    Hblk.index_put_((rows, ms, jj[None, None], ii[None, None]), pvals, accumulate=True)
+    return Hblk.permute(0, 1, 2, 4, 3, 5).reshape(B, nm, data.nsta, data.nsta)
+
+
+def _assemble_floquet_plain(data: BlochData, kpts, fac, ons, omega, nharm):
+    """Plain Floquet matrix: :func:`_assemble_hm_plain` with the partner
+    factors conj(fac[::-1]), the static diagonal on H_0, the on-site
+    harmonics on every H_m's diagonal, then the block gather K[p, q] =
+    H_{p - q} plus (p - M) omega on the diagonal blocks (the steps of
+    ``pythtb_tpu.floquet._spectrum_jit``).  The oracle of kernel 1's
+    Floquet-block mode."""
+    B, S = kpts.shape[0], data.nsta
+    mmax = 2 * nharm
+    Hm = _assemble_hm_plain(data, kpts, fac, torch.conj_physical(fac.flip(0)))
+    Hm[:, mmax] += data.diag[None]
+    idx = torch.arange(S, device=kpts.device)
+    Hm[:, :, idx, idx] += ons[None]
+    NM = 2 * nharm + 1
+    p = torch.arange(NM, device=kpts.device)
+    K = Hm[:, p[:, None] - p[None, :] + mmax]  # (B, NM, NM, S, S)
+    shift = (p - nharm).to(config.FLOAT) * float(omega)
+    K[:, p[:, None], p[:, None], idx[None, :], idx[None, :]] += shift[:, None].to(config.COMPLEX)
+    return K.permute(0, 1, 3, 2, 4).reshape(B, NM * S, NM * S)
+
+
+def assemble_floquet(data: BlochData, kpts, fac, ons, omega, nharm):
+    """The truncated Floquet matrix K (B, NM nsta, NM nsta), NM = 2 nharm +
+    1: block (p, q) is H_{p-q} + (p - nharm) omega delta_pq, where H_m
+    carries the direct hops times ``fac[m]`` and their partners times
+    conj(fac[-m]), the static diagonal at m = 0 and ``ons[m]`` on its
+    diagonal.
+
+    :param fac: (4 nharm + 1, nhop) complex128 hop harmonics, m = -2
+      nharm..2 nharm
+    :param ons: (4 nharm + 1, nsta) complex128 on-site harmonics
+    """
+    B = kpts.shape[0]
+    if kpts.device.type == "cpu":
+        return _assemble_floquet_plain(data, kpts, fac, ons, omega, nharm)
+    dev = data.device
+    nm, S = 4 * nharm + 1, data.nsta
+    _kernels.require(kpts, "kpts", config.FLOAT, (B, data.dim_k), dev)
+    _kernels.require(data.rv, "rv", config.FLOAT, (data.nhop, data.dim_k), dev)
+    _kernels.require(data.amps, "amps", config.COMPLEX, (data.nhop,) + (2, 2)[: 2 * (data.nspin - 1)], dev)
+    _kernels.require(data.diag, "diag", config.COMPLEX, (S, S), dev)
+    _kernels.require(fac, "fac", config.COMPLEX, (nm, data.nhop), dev)
+    _kernels.require(ons, "ons", config.COMPLEX, (nm, S), dev)
+    _kernels.require(data.ptr, "ptr", torch.int32, (data.norb**2 + 1,), dev)
+    _kernels.require(data.ent, "ent", torch.int32, (2 * data.nhop,), dev)
+    dimK = (2 * nharm + 1) * S
+    K = torch.empty((B, dimK, dimK), dtype=config.COMPLEX, device=dev)
+    _kernels.launch("assemble_floquet", dev, kpts, data.rv, data.amps, data.diag, fac, ons, data.ptr, data.ent, K,
+                    B, data.dim_k, data.norb, data.nspin, data.nhop, nharm, float(omega))
+    return K

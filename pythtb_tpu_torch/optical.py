@@ -20,8 +20,16 @@ Physics, units and the Hall orientation are those of the JAX package:
 ``sigma_ab(w) = (i / (N_k V_c)) sum_{k, n != m} (f_n - f_m) / (e_m - e_n)
 v^b_nm v^a_mn / (w - (e_m - e_n) + i eta)`` reported as the MIRRORED
 tensor, so that ``sigma_xy(w -> 0) == chern_number(...)`` in e^2/h, plus
-the intraband Drude term at ``temperature > 0``.  ``harmonic_spectrum``
-is not ported yet.
+the intraband Drude term at ``temperature > 0``.
+
+:func:`harmonic_spectrum` evolves the filled bands under the exact
+Peierls Hamiltonian H(k + A(t)).  Per chunk of steps, with the frequency
+batch folded into the rows, it assembles every step's H(k + A_mid) in
+one kernel-1 launch, solves them in one ``eigh_batched``, assembles dH at
+the step ends in one kernel-15 launch, and lets kernel 22
+(:func:`pythtb_tpu_torch.ops.propagate.propagate_state`) walk the chain
+and read the current; the field A(t) and the Fourier analysis of the
+final periods are the JAX package's host code.
 """
 
 from __future__ import annotations
@@ -36,10 +44,11 @@ from .model import PythtbError
 from .ops import _kernels
 from .ops.eigh import eigh_batched, eigvalsh_batched
 from .ops.hamiltonian import assemble, assemble_d2k, assemble_dk
+from .ops.propagate import chunk_steps, propagate_state
 from .ops.solver import device_uniform_grid
 
-__all__ = ["optical_conductivity", "joint_dos", "shift_current", "injection_current", "spectral_sum",
-           "spectral_sum_qbatch"]
+__all__ = ["optical_conductivity", "joint_dos", "shift_current", "injection_current", "harmonic_spectrum",
+           "spectral_sum", "spectral_sum_qbatch"]
 
 # transitions per chunk of the plain contraction (the JAX package's _CHUNK)
 _CHUNK = 4096
@@ -355,3 +364,140 @@ def joint_dos(model, omegas, occ, nk=(101, 101), sigma=0.05):
     ones = torch.ones((1, de.shape[0]), dtype=config.FLOAT, device=data.device)
     acc = spectral_sum(ones, de, om, float(sigma), "gauss")[0]
     return (acc / float(np.prod(nk))).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# time-domain nonlinear response (exact Peierls gauge)
+# ---------------------------------------------------------------------------
+
+
+def _td_current_batch(data, nk, occ, dks_mid, dks_out, dts, lat):
+    """Exact evolution of the filled bands under uniform vector potentials
+    and the resulting currents (counterpart of
+    ``pythtb_tpu.optical._td_current_batch_jit``): ``dks_mid`` /
+    ``dks_out`` (nw, nt, d) are the REDUCED A at the step midpoints / ends
+    of each drive frequency, ``dts`` (nw,) its step.  Returns the (nw, nt,
+    d_cart) currents per unit cell as a tensor.
+
+    The frequencies share the k-grid, so their rows are stacked (row g * B
+    + b is frequency g at k-point b); each chunk of steps is one kernel-1
+    launch, one ``eigh_batched``, one kernel-15 launch and one kernel-22
+    launch."""
+    dev = data.device
+    d, S = data.dim_k, data.nsta
+    nw, nt = dks_mid.shape[:2]
+    kg = device_uniform_grid(nk, np.zeros(d), dev)
+    B = kg.shape[0]
+    R = nw * B
+    _, v0 = eigh_batched(assemble(data, kg))
+    occ_idx = torch.as_tensor(occ, dtype=torch.int64, device=dev)
+    psi = v0[:, occ_idx, :].repeat(nw, 1, 1).contiguous()  # (nw * B, nocc, S), rows are states
+    dt_rows = torch.as_tensor(np.repeat(np.asarray(dts, dtype=np.float64), B)).to(dev)
+    mid = torch.as_tensor(np.asarray(dks_mid, dtype=np.float64)).to(dev)
+    end = torch.as_tensor(np.asarray(dks_out, dtype=np.float64)).to(dev)
+    # a row-step holds H and V (16 S^2 each), w, dH and both k-points
+    Tc = chunk_steps(nt, R * (8 * S + 16 * S * S * (2 + d) + 16 * d))
+    js = []
+    for t0 in range(0, nt, Tc):
+        n = min(Tc, nt - t0)
+        kmid = (kg[None, None] + mid[:, t0:t0 + n].transpose(0, 1)[:, :, None, :]).reshape(-1, d)
+        w, V = eigh_batched(assemble(data, kmid))
+        del kmid
+        kend = (kg[None, None] + end[:, t0:t0 + n].transpose(0, 1)[:, :, None, :]).reshape(-1, d)
+        dH = assemble_dk(data, kend)
+        del kend
+        psi, j = propagate_state(w.reshape(n, R, S), V.reshape(n, R, S, S), dH.reshape(n, R, d, S, S), psi,
+                                 dt_rows, nw)
+        del w, V, dH
+        js.append(j)
+    j = torch.cat(js)  # (nt, nw, d) reduced
+    latt = torch.as_tensor(lat, dtype=config.FLOAT).to(dev)
+    return torch.einsum("tgr,ra->gta", j, latt) / (2.0 * math.pi * B)
+
+
+def harmonic_spectrum(model, omega, efield, occ, nk=(48, 48), cycles=24, ramp_cycles=8, steps_per_cycle=96,
+                      n_harmonics=5, pol=None):
+    """Nonlinear optical response by exact time evolution (counterpart of
+    ``pythtb_tpu.optical.harmonic_spectrum``): drive the filled bands with
+    E(t) = E0 cos(omega t), sin^2-ramped over ``ramp_cycles``, evolve with
+    H(k + A(t)), and Fourier-analyze the current over the final integer
+    periods.
+
+    :param omega: drive frequency, scalar or (nw,) array (a batch runs
+      every frequency's evolution together, its rows stacked)
+    :param efield: field amplitude E0; :param occ: filled bands
+    :param pol: Cartesian polarization (default x)
+    :returns: dict with ``harmonics`` ((n_harmonics + 1, d) complex
+      amplitudes C_n), ``sigma1``, ``sigma2``, ``current`` and ``dt``; an
+      omega batch prepends an (nw,) axis to each
+    """
+    data = model._get_finalized()
+    if data.dim_k != model._dim_r:
+        raise PythtbError("harmonic_spectrum requires a fully periodic model")
+    d = data.dim_k
+    nk = tuple(int(x) for x in np.atleast_1d(nk))
+    if len(nk) != d:
+        raise PythtbError("nk must give %d sizes" % d)
+    occ_t = tuple(int(o) for o in np.atleast_1d(occ))
+    if len(occ_t) == 0 or len(set(occ_t)) != len(occ_t) or min(occ_t) < 0 or max(occ_t) >= data.nsta:
+        raise PythtbError("occ must be distinct bands in range")
+    omegas_in = np.atleast_1d(np.asarray(omega, dtype=np.float64))
+    scalar_w = np.ndim(omega) == 0
+    E0 = float(efield)
+    pol_v = np.zeros(d)
+    pol_v[0] = 1.0
+    if pol is not None:
+        pol_v = np.asarray(pol, dtype=np.float64)
+        if pol_v.shape != (d,):
+            raise PythtbError("pol must have %d components" % d)
+        pol_v = pol_v / np.linalg.norm(pol_v)
+    cycles = int(cycles)
+    ramp_cycles = int(ramp_cycles)
+    spc = int(steps_per_cycle)
+    if cycles - ramp_cycles < 3:
+        raise PythtbError("need at least 3 cycles after the ramp")
+    nt = cycles * spc
+    lat = np.asarray(model._lat, dtype=np.float64)
+    nw = len(omegas_in)
+    dks_mid = np.zeros((nw, nt, d))
+    dks_out = np.zeros((nw, nt, d))
+    dts = np.zeros(nw)
+    for iw, om in enumerate(omegas_in):
+        T = 2.0 * np.pi / om
+        dt = T / spc
+        dts[iw] = dt
+        # E(t) = E0 r(t) cos(w t); A = -int E dt (fine host trapezoid)
+        tfine = np.arange(2 * nt + 1) * (dt / 2.0)
+        tr = ramp_cycles * T
+        env = np.where(tfine < tr, np.sin(0.5 * np.pi * tfine / max(tr, 1e-300)) ** 2, 1.0)
+        Efine = E0 * env * np.cos(om * tfine)
+        Afine = -np.concatenate([[0.0], np.cumsum(0.5 * (Efine[1:] + Efine[:-1]) * (dt / 2.0))])
+        A_mid = Afine[1::2][:nt]  # midpoints t_s + dt/2
+        A_out = Afine[2::2][:nt]  # step ends
+        # reduced shift: dk_red = lat @ A_cart / (2 pi)
+        dks_mid[iw] = (A_mid[:, None] * pol_v[None, :]) @ lat.T / (2.0 * np.pi)
+        dks_out[iw] = (A_out[:, None] * pol_v[None, :]) @ lat.T / (2.0 * np.pi)
+    js = _td_current_batch(data, nk, occ_t, dks_mid, dks_out, dts, lat).cpu().numpy()  # (nw, nt, d)
+    # analysis window: final integer periods, skipping 2 settle cycles
+    nwin = max(1, cycles - ramp_cycles - 2)
+    sl = slice(nt - nwin * spc, nt)
+    nH = int(n_harmonics)
+    vol = abs(np.linalg.det(lat))
+    C = np.zeros((nw, nH + 1, d), dtype=complex)
+    for iw, om in enumerate(omegas_in):
+        twin = (np.arange(nt) * dts[iw] + dts[iw])[sl]
+        jwin = js[iw, sl]
+        for n in range(nH + 1):
+            w_ = np.exp(1.0j * n * om * twin)
+            C[iw, n] = (2.0 if n else 1.0) * (w_[:, None] * jwin).mean(axis=0)
+    # -2 pi: the e^2/h units and phase convention of optical_conductivity
+    out = {
+        "harmonics": C / vol,
+        "sigma1": -2.0 * np.pi * C[:, 1] / E0 / vol,
+        "sigma2": -2.0 * np.pi * C[:, 2] / E0**2 / vol,
+        "current": js / vol,
+        "dt": dts,
+    }
+    if scalar_w:
+        out = {k: (v[0] if k != "dt" else float(v[0])) for k, v in out.items()}
+    return out

@@ -299,3 +299,55 @@ def test_port_refuses_slice_ten_misuse_like_jax(name):
     want = _refusal(pythtb_tpu, fn)
     assert want[0] == "PythtbError"
     assert _refusal(pythtb_tpu_torch, fn) == want
+
+
+_CIRC = {"A": [0.5, 0.5], "phase": [0.0, np.pi / 2]}
+_K = np.zeros((1, 2))
+
+# misuse of the eleventh slice's calls (harmonic_spectrum, superfluid_weight
+# and the floquet module): each must raise in both packages
+SLICE11_CASES = {
+    "hhg_finite": lambda M: M.optical.harmonic_spectrum(M.models.bn().cut_piece(3, 0, glue_edgs=False), 0.5, 1e-3,
+                                                        occ=[0]),
+    "hhg_nk_entries": lambda M: M.optical.harmonic_spectrum(M.models.bn(), 0.5, 1e-3, occ=[0], nk=(4,)),
+    "hhg_occ_repeated": lambda M: M.optical.harmonic_spectrum(M.models.bn(), 0.5, 1e-3, occ=[0, 0]),
+    "hhg_occ_range": lambda M: M.optical.harmonic_spectrum(M.models.bn(), 0.5, 1e-3, occ=[2]),
+    "hhg_occ_empty": lambda M: M.optical.harmonic_spectrum(M.models.bn(), 0.5, 1e-3, occ=[]),
+    "hhg_pol_length": lambda M: M.optical.harmonic_spectrum(M.models.bn(), 0.5, 1e-3, occ=[0], pol=[1.0, 0.0, 0.0]),
+    "hhg_cycles": lambda M: M.optical.harmonic_spectrum(M.models.bn(), 0.5, 1e-3, occ=[0], cycles=9, ramp_cycles=8),
+    "sfw_spinful": lambda M: M.geometry.superfluid_weight(M.models.kane_mele(), 0.0, 0.3, nk=(4, 4)),
+    "sfw_delta": lambda M: M.geometry.superfluid_weight(M.models.lieb(), 0.0, 0.0, nk=(4, 4)),
+    "sfw_nk": lambda M: M.geometry.superfluid_weight(M.models.lieb(), 0.0, 0.3, nk=(4, 1)),
+    "sfw_nk_entries": lambda M: M.geometry.superfluid_weight(M.models.lieb(), 0.0, 0.3, nk=(4,)),
+    "sfw_temperature": lambda M: M.geometry.superfluid_weight(M.models.lieb(), 0.0, 0.3, nk=(4, 4), temperature=0.0),
+    "sfw_method": lambda M: M.geometry.superfluid_weight(M.models.lieb(), 0.0, 0.3, nk=(4, 4), method="twist"),
+    "sfw_finite": lambda M: M.geometry.superfluid_weight(M.models.lieb().cut_piece(2, 0), 0.0, 0.3),
+    "flq_omega": lambda M: M.floquet.quasienergies(M.models.graphene(), -1.0, _CIRC, _K),
+    "flq_k_missing": lambda M: M.floquet.quasienergies(M.models.graphene(), 2.0, _CIRC),
+    "flq_k_columns": lambda M: M.floquet.quasienergies(M.models.graphene(), 2.0, _CIRC, np.zeros((2, 3))),
+    "flq_nharm": lambda M: M.floquet.quasienergies(M.models.graphene(), 2.0, _CIRC, _K, nharm=0),
+    "flq_nt_aliased": lambda M: M.floquet.quasienergies(M.models.graphene(), 2.0, _CIRC, _K, nharm=2, nt=8),
+    "flq_drive_keys": lambda M: M.floquet.quasienergies(M.models.graphene(), 2.0, {"B": [1.0, 0.0]}, _K),
+    "flq_drive_length": lambda M: M.floquet.propagator(M.models.graphene(), 2.0, {"A": [1.0]}, _K, nt=8),
+    "flq_drive_callable": lambda M: M.floquet.propagator(M.models.graphene(), 2.0, lambda t: np.zeros(3), _K, nt=8),
+    "flq_hop_factors": lambda M: M.floquet.propagator(M.models.graphene(), 2.0, {"hop_factors": lambda t: np.ones(2)},
+                                                      _K, nt=8),
+    "flq_onsite": lambda M: M.floquet.propagator(M.models.graphene(), 2.0, {"onsite": lambda t: np.ones(3)}, _K,
+                                                 nt=8),
+    "flq_prop_nt": lambda M: M.floquet.propagator(M.models.graphene(), 2.0, _CIRC, _K, nt=3),
+    "flq_chern_1d": lambda M: M.floquet.chern(M.models.chain(), 2.0, {"A": [1.0]}, band=0),
+    "flq_chern_band": lambda M: M.floquet.chern(M.models.graphene(), 2.0, _CIRC, band=2, nk=(5, 5), nt=8),
+    "flq_winding_1d": lambda M: M.floquet.winding_number(M.models.chain(), 2.0, {"A": [1.0]}, 0.0),
+    "flq_winding_nk": lambda M: M.floquet.winding_number(M.models.graphene(), 2.0, _CIRC, 0.0, nk=(2, 5), nt=8),
+    "flq_effective_omega": lambda M: M.floquet.effective_model(M.models.graphene(), 0.0, _CIRC),
+    "flq_effective_nt": lambda M: M.floquet.effective_model(M.models.graphene(), 2.0, _CIRC, nharm=3, nt=10),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE11_CASES))
+def test_port_refuses_slice_eleven_misuse_like_jax(name):
+    """The same exception class and message in both packages."""
+    fn = SLICE11_CASES[name]
+    want = _refusal(pythtb_tpu, fn)
+    assert want[0] == "PythtbError"
+    assert _refusal(pythtb_tpu_torch, fn) == want

@@ -1289,3 +1289,208 @@ def test_fermi_surface_and_response_slice_goes_through_kernels(dev):
         config.set_device(prev)
     for got, want in zip(card, cpu):
         assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+
+
+# -- slice 11: kernel 22 (propagator chain), kernel 23 (BdG Hessian and grand
+# potential), kernel 24 (winding stencil), kernel 1's Floquet-block mode ------
+
+
+def _hermitian(rng, shape, n):
+    a = rng.normal(size=tuple(shape) + (n, n)) + 1j * rng.normal(size=tuple(shape) + (n, n))
+    return (a + np.conj(np.swapaxes(a, -1, -2))) / 2
+
+
+def _eig_rows(H):
+    """Eigenpairs of a numpy Hermitian batch, eigenvectors as rows."""
+    w, v = np.linalg.eigh(H)
+    return w, np.ascontiguousarray(np.swapaxes(v, -1, -2))
+
+
+@pytest.mark.parametrize("S", [2, 4, 8, 9, 24, 32, 64])
+def test_propagate_kernel_modes(dev, S):
+    from pythtb_tpu_torch.ops import propagate
+
+    rng = np.random.default_rng(2200 + S)
+    Tc, groups, Rg, d = 7, 2, (300 if S <= 8 else 5), 2
+    R = groups * Rg
+    w, V = _eig_rows(_hermitian(rng, (Tc, R), S))
+    dH = _hermitian(rng, (Tc, R, d), S)
+    nocc = max(1, S // 2)
+    psi0 = np.linalg.qr(rng.normal(size=(R, S, S)) + 1j * rng.normal(size=(R, S, S)))[0][:, :nocc, :]
+    dt = rng.uniform(0.05, 0.3, R)
+    t = {k: torch.as_tensor(np.ascontiguousarray(v)).to(dev) for k, v in
+         dict(w=w, V=V, dH=dH, psi=psi0, dt=dt).items()}
+    before = _kernels.LAUNCHES["propagate_state"]
+    psi_k, j_k = propagate.propagate_state(t["w"], t["V"], t["dH"], t["psi"].clone(), t["dt"], groups)
+    assert _kernels.LAUNCHES["propagate_state"] == before + 1
+    psi_p, j_p = propagate._propagate_state_plain(t["w"], t["V"], t["dH"], t["psi"], t["dt"], groups)
+    assert _rel_err(psi_k, psi_p) <= TOL and _rel_err(j_k, j_p) <= TOL
+    U0 = torch.as_tensor(np.linalg.qr(rng.normal(size=(R, S, S)) + 1j * rng.normal(size=(R, S, S)))[0]).to(dev)
+    hist_k = torch.empty((Tc, R, S, S), dtype=torch.complex128, device=dev)
+    hist_p = torch.empty_like(hist_k)
+    U_k = propagate.propagate_full(t["w"], t["V"], U0.clone(), t["dt"], hist_k)
+    U_p = propagate._propagate_full_plain(t["w"], t["V"], U0, t["dt"], hist_p)
+    assert _rel_err(U_k, U_p) <= TOL and _rel_err(hist_k, hist_p) <= TOL
+    U_n = propagate.propagate_full(t["w"], t["V"], U0.clone(), t["dt"])
+    assert _rel_err(U_n, U_p) <= TOL
+
+
+def _bdg_inputs(seed, B, S, d, dev):
+    rng = np.random.default_rng(seed)
+    lam, U = _eig_rows(_hermitian(rng, (B,), 2 * S))
+    lam[0, 1] = lam[0, 0]  # an exact degeneracy takes the f' branch
+    mats = [_hermitian(rng, (B, d), S), _hermitian(rng, (B, d), S)]
+    d2 = [_hermitian(rng, (B, d, d), S) for _ in range(2)]
+    d2 = [(x + np.swapaxes(x, 1, 2)) / 2 for x in d2]
+    lat = rng.normal(size=(d, d)) + 2.0 * np.eye(d)
+    t = [torch.as_tensor(np.ascontiguousarray(x)).to(dev) for x in (lam, U, *mats, *d2)]
+    return t, lat
+
+
+@pytest.mark.parametrize("N,d", [(2, 2), (6, 2), (8, 3), (12, 2), (64, 2), (6, 1)])
+def test_bdg_hessian_kernel_modes(dev, N, d):
+    from pythtb_tpu_torch.ops import bdg_hessian as bh
+
+    B = 300 if N <= 8 else 7
+    (lam, U, dHp, dHm, d2p, d2m), lat = _bdg_inputs(2300 + N, B, N // 2, d, dev)
+    kt, tol = 0.05, 1e-13
+    got = bh.bdg_hessian(lam, U, dHp, dHm, d2p, d2m, lat, kt, tol)
+    want = bh._bdg_hessian_plain(lam, U, dHp, dHm, d2p, d2m, lat, kt, tol)
+    assert _rel_err(got, want) <= 1e-10
+    nq = 5
+    lamq = torch.as_tensor(np.random.default_rng(N).normal(size=(nq * B, N)) * 3.0).to(dev)
+    tr = torch.as_tensor(np.random.default_rng(N + 1).normal(size=nq * B)).to(dev)
+    for kt in (1e-3, 0.3):
+        got = bh.bdg_grand_potential(lamq, tr, nq, kt, 0.7)
+        want = bh._bdg_grand_potential_plain(lamq, tr, nq, kt, 0.7)
+        assert float((got - want).abs().max()) <= 1e-10 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("S", [2, 4, 16])
+def test_winding_kernel(dev, S):
+    from pythtb_tpu_torch.ops import propagate, winding
+
+    rng = np.random.default_rng(2400 + S)
+    n0, n1, nt, G = 4, 3, 6, 2
+    B = n0 * n1
+    w, V = _eig_rows(_hermitian(rng, (nt, B), S))
+    U = torch.eye(S, dtype=torch.complex128, device=dev).expand(B, S, S).contiguous()
+    hist = torch.empty((nt + 1, B, S, S), dtype=torch.complex128, device=dev)
+    hist[0] = U
+    propagate._propagate_full_plain(torch.as_tensor(w).to(dev), torch.as_tensor(V).to(dev), U,
+                                    torch.full((B,), 0.2, dtype=torch.float64, device=dev), hist[1:])
+    theta, P = berry.unitary_eig(hist[-1])
+    eps = torch.as_tensor(rng.uniform(-1.0, 1.0, (G, B, S))).to(dev)
+    p0, p1 = (torch.as_tensor(np.exp(2j * np.pi * rng.random(S))).to(dev) for _ in range(2))
+    got = winding.winding(hist, P.contiguous(), eps, p0, p1, n0, n1, 1.3)
+    want = winding._winding_plain(hist, P, eps, p0, p1, n0, n1, 1.3)
+    assert float((got - want).abs().max()) <= 1e-10 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("nspin,nharm", [(1, 1), (1, 3), (2, 2)])
+def test_assemble_floquet_kernel(dev, nspin, nharm):
+    data, k = _random_data(2500 + nspin, 2, nspin, dev, norb=3, nhop=9)
+    rng = np.random.default_rng(nharm)
+    nm = 4 * nharm + 1
+    fac = torch.as_tensor(rng.normal(size=(nm, data.nhop)) + 1j * rng.normal(size=(nm, data.nhop))).to(dev)
+    ons = torch.as_tensor(rng.normal(size=(nm, data.nsta)) + 1j * rng.normal(size=(nm, data.nsta))).to(dev)
+    got = hamiltonian.assemble_floquet(data, k, fac, ons, 2.5, nharm)
+    want = hamiltonian._assemble_floquet_plain(data, k, fac, ons, 2.5, nharm)
+    assert _max_diff(got, want) <= TOL
+
+
+def test_slice_eleven_kernels_refuse_above_their_limits(dev):
+    from pythtb_tpu_torch.ops import bdg_hessian as bh
+    from pythtb_tpu_torch.ops import propagate, winding
+
+    S = 65
+    w = torch.zeros((1, 2, S), dtype=torch.float64, device=dev)
+    V = torch.zeros((1, 2, S, S), dtype=torch.complex128, device=dev)
+    dt = torch.zeros((2,), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="at most 64 states.*set_device"):
+        propagate.propagate_full(w, V, V[0].clone(), dt)
+    with pytest.raises(ValueError, match="at most 64 states.*set_device"):
+        propagate.propagate_state(w, V, V[:, :, None], V[0, :, :1].clone(), dt)
+    lam = torch.zeros((2, 66), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="at most 64 BdG states.*set_device"):
+        bh.bdg_grand_potential(lam, lam[:, 0], 1, 0.1, 0.0)
+    z = torch.zeros((2, 1, 33, 33), dtype=torch.complex128, device=dev)
+    with pytest.raises(ValueError, match="at most 64 BdG states.*set_device"):
+        bh.bdg_hessian(lam, torch.zeros((2, 66, 66), dtype=torch.complex128, device=dev), z, z, z[:, :, None],
+                       z[:, :, None], np.eye(1), 0.1, 1e-13)
+    h = torch.zeros((3, 4, 17, 17), dtype=torch.complex128, device=dev)
+    with pytest.raises(ValueError, match="at most 16 states.*set_device"):
+        winding.winding(h, h[0], torch.zeros((1, 4, 17), dtype=torch.float64, device=dev), h[0, 0, 0], h[0, 0, 0],
+                        2, 2, 1.0)
+
+
+def test_floquet_and_superfluid_slice_goes_through_kernels(dev):
+    """harmonic_spectrum, superfluid_weight (both methods) and the Floquet
+    calls on the card launch kernels 22, 23, 24 and kernel 1's Floquet-block
+    mode, and agree with the CPU run of the same calls (1e-10 relative)."""
+    import pythtb_tpu_torch as pt
+
+    circ = {"A": [0.8, 0.8], "phase": [0.0, np.pi / 2]}
+    kl = np.array([[0.1, 0.2], [1 / 3, 2 / 3]])
+
+    def run():
+        g = pt.models.graphene()
+        h = pt.optical.harmonic_spectrum(pt.models.bn(delta=1.0), np.array([0.5, 0.7]), 0.05, occ=[0], nk=(8, 8),
+                                         cycles=5, ramp_cycles=1, steps_per_cycle=16, n_harmonics=3)
+        return [h["current"], h["harmonics"],
+                pt.geometry.superfluid_weight(pt.models.lieb(), 0.0, 0.3, nk=(8, 8)),
+                pt.geometry.superfluid_weight(pt.models.lieb(), 0.0, 0.3, nk=(8, 8), method="fd", step=1e-2),
+                pt.floquet.quasienergies(g, 10.0, circ, kl, nharm=3)[0],
+                pt.floquet.propagator(g, 10.0, circ, kl, nt=32),
+                np.array([pt.floquet.chern(g, 10.0, circ, band=0, nk=(9, 9), nt=32)]),
+                pt.floquet.winding_number(g, 10.0, circ, egap=[0.0, 5.0], nk=(7, 7), nt=32)]
+
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        _kernels.reset_launches()
+        card = run()
+        for name in ("propagate_state", "propagate_full", "bdg_hessian", "bdg_grand_potential", "assemble_floquet",
+                     "winding"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        config.set_device("cpu")
+        cpu = run()
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+
+
+def test_chains_split_into_chunks_hand_over_the_state(dev, monkeypatch):
+    """With a chunk budget of one step, harmonic_spectrum (an omega batch
+    of 2), propagator and winding_number on the card make one kernel-22
+    launch a step, the state or U passing from launch to launch, and
+    agree with the CPU run in one chunk (1e-10 relative)."""
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch.ops import propagate
+
+    circ = {"A": [0.8, 0.8], "phase": [0.0, np.pi / 2]}
+    kl = np.array([[0.1, 0.2], [1 / 3, 2 / 3]])
+    nt_h = 5 * 16
+
+    def run():
+        g = pt.models.graphene()
+        h = pt.optical.harmonic_spectrum(pt.models.bn(delta=1.0), np.array([0.5, 0.7]), 0.05, occ=[0], nk=(6, 6),
+                                         cycles=5, ramp_cycles=1, steps_per_cycle=16, n_harmonics=3)
+        return [h["current"], h["harmonics"], pt.floquet.propagator(g, 10.0, circ, kl, nt=24),
+                pt.floquet.winding_number(g, 10.0, circ, egap=[0.0, 5.0], nk=(5, 5), nt=24)]
+
+    prev = config.device()
+    try:
+        config.set_device("cpu")
+        cpu = run()
+        config.set_device(dev)
+        monkeypatch.setattr(propagate, "CHUNK_BYTES", 1)
+        _kernels.reset_launches()
+        card = run()
+        assert _kernels.LAUNCHES["propagate_state"] == nt_h
+        assert _kernels.LAUNCHES["propagate_full"] == 2 * 24
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())

@@ -15,7 +15,12 @@ check (on the CPU, float64):
   weight C = tau (1 - (1 - e^{-x}) / x) and one orbit's tensor meet an
   ``np.longdouble`` evaluation to 1e-14 relative for x = dt / tau in
   1e-9 - 1 (the reference's closed form loses eps / x), and meet the
-  JAX package's integrator at 1e-10 where x > 1e-4.
+  JAX package's integrator at 1e-10 where x > 1e-4;
+* the public names: an ``ast`` diff of every ``pythtb_tpu/**/*.py``
+  (top-level public names and ``__all__``) against ``pythtb_tpu_torch/``
+  finds only the gaps listed in ``ALLOWED_GAPS``, each with its reason,
+  and every listed gap is still open; ``PYTHTB_COMPAT_VERSION`` and
+  ``ops.berry.berry_evals_device`` are there.
 """
 
 import ast
@@ -239,3 +244,83 @@ def test_chambers_orbit_matches_jax_off_the_repaired_branch(x):
     v, dt, tau = _open_orbit(x)
     want = jboltzmann._chambers_orbit(v, dt, tau)
     assert np.abs(boltzmann._chambers_orbit(v, dt, tau) - want).max() <= 1e-10 * np.abs(want).max()
+
+
+# The public names of pythtb_tpu that the port does not have yet, with the
+# reason: a queue-1 item of ROADMAP.md still to port, or a name that only
+# the TPU runtime needed.  The list only shrinks: a closed gap must leave it.
+ALLOWED_GAPS = {
+    ("__init__.py", "phonon"): "queue 1 item 8a",
+    ("phonon.py", "<module>"): "queue 1 item 8a",
+    ("eph.py", "<module>"): "queue 1 item 8a",
+    ("__init__.py", "magnon"): "queue 1 item 8b",
+    ("magnon.py", "<module>"): "queue 1 item 8b",
+    ("__init__.py", "exciton"): "queue 1 item 8b",
+    ("exciton.py", "<module>"): "queue 1 item 8b",
+    ("flows.py", "energy_fn"): "queue 1 item 3a",
+    ("flows.py", "chern_fn"): "queue 1 item 3a",
+    ("__main__.py", "<module>"): "queue 1 item 9",
+    ("utils/profiling.py", "<module>"): "queue 1 item 9",
+    ("__init__.py", "parallel"): "queue 1 item 10",
+    ("parallel/__init__.py", "<module>"): "queue 1 item 10",
+    ("parallel/mesh.py", "<module>"): "queue 1 item 10",
+    ("ops/solver.py", "shard_axis"): "queue 1 item 10",
+    ("ops/solver.py", "shard_grid_axis0"): "queue 1 item 10",
+    ("utils/xfer.py", "<module>"): "TPU-only: ri-packing",
+    ("ops/position.py", "position_expectation_packed"): "TPU-only: ri-packing",
+    ("ops/position.py", "position_hwf_packed"): "TPU-only: ri-packing",
+    ("ops/position.py", "position_matrix_packed"): "TPU-only: ri-packing",
+    ("family.py", "unpack_host"): "TPU-only: ri-packing",
+    ("config.py", "PATTERN_MAX_ELEMS"): "TPU-only: dtype and backend policy",
+    ("config.py", "complex_dtype"): "TPU-only: dtype and backend policy",
+    ("config.py", "cpu_like_backend"): "TPU-only: dtype and backend policy",
+    ("config.py", "float_dtype"): "TPU-only: dtype and backend policy",
+    ("config.py", "int_dtype"): "TPU-only: dtype and backend policy",
+    ("config.py", "is_x64"): "TPU-only: dtype and backend policy",
+    ("core.py", "ModelStatic"): "TPU-only: the port's frozen BlochData carries its fields",
+}
+
+
+def _public_names(path):
+    """Top-level public functions, classes and assignments of a module,
+    with the entries of its ``__all__``."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name) and t.id == "__all__":
+                    out |= set(ast.literal_eval(node.value))
+                elif isinstance(t, ast.Name):
+                    out.add(t.id)
+    return {n for n in out if not n.startswith("_")}
+
+
+def _name_gaps():
+    gaps = set()
+    for path in sorted((ROOT / "pythtb_tpu").rglob("*.py")):
+        rel = path.relative_to(ROOT / "pythtb_tpu")
+        twin = ROOT / "pythtb_tpu_torch" / rel
+        if not twin.exists():
+            gaps.add((rel.as_posix(), "<module>"))
+            continue
+        gaps |= {(rel.as_posix(), n) for n in _public_names(path) - _public_names(twin)}
+    return gaps
+
+
+def test_public_names_match_the_reference_but_for_the_listed_gaps():
+    gaps = _name_gaps()
+    assert sorted(gaps - set(ALLOWED_GAPS)) == []  # a new gap
+    assert sorted(set(ALLOWED_GAPS) - gaps) == []  # a closed gap still listed
+    assert all(r.startswith(("queue 1 item", "TPU-only")) for r in ALLOWED_GAPS.values())
+
+
+def test_parity_names_repaired():
+    import pythtb_tpu_torch
+    from pythtb_tpu_torch.ops import berry
+
+    assert pythtb_tpu_torch.PYTHTB_COMPAT_VERSION == "1.8.0"
+    assert "PYTHTB_COMPAT_VERSION" in pythtb_tpu_torch.__all__
+    assert berry.berry_evals_device is berry.berry_evals
+    assert "berry_evals_device" in berry.__all__
