@@ -60,7 +60,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    row, random 2S 2-64; 1e-10 relative), kernel 24 (the Rudner winding
    stencil, random S 4 and 16; 1e-10 relative) and kernel 1's
    Floquet-block mode (driven graphene at nharm 5, Kane-Mele at nspin 2),
-   with the device times PERF.md listed as not measured;
+   with the device times PERF.md listed as not measured; the twelfth
+   slice's kernel 25 (the phonon kappa sweep at the 768^2 x 40 T row,
+   1e-10 relative), kernel 26 (the e-ph vertex at the linewidth example's
+   49 k x 18^2 q and eliashberg's default 576 k x 24^2 q chunk) and kernel
+   27 (the Colpa factorization at the thermal-Hall 41^2 grid and the
+   neutron row's 4,096 q, random 2n 16 and 64, a matrix that is not
+   positive definite), the library eigh of the kappa row against kernel 7,
+   and the Floquet Chern row's states step with its bound;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -129,7 +136,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    steps, the superfluid weight at 12^2, the Chern row at 11^2 x 32 steps
    there; exact quasienergies as sets on the circle; the small harmonic
    calls and the Rudner numbers also run on the card in chunks of 13
-   steps);
+   steps); and the twelfth slice's rows with their pins:
+   phonon_kappa_map_honeycomb (768^2 x 40 T), examples/phonon_bands.py,
+   examples/eph_linewidths.py and eliashberg at its defaults (24^2 x 24^2),
+   magnon_thermal_hall_map (41^2 x 20 T, Chern 31^2) and
+   neutron_map_kagome_4096q (4,096 q x 300 w, the FM trace sum rule),
+   against the CPU run at 1e-10 relative (kappa at 48^2, eliashberg at
+   14^2, the neutron map at 64 q there; the phonon DOS at 1e-7);
    then the steady wall time of the main calls;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
@@ -708,6 +721,7 @@ def phase_kernels(torch, pt, device):
     slice9_kernels(torch, pt, device, record, held)
     slice10_kernels(torch, pt, device, record, held)
     slice11_kernels(torch, pt, device, record, held)
+    slice12_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -3995,6 +4009,414 @@ def compare_slice11(out, ref):
         print("  %s vs CPU: max|diff| %.3e (quasienergy phases modulo 2 pi, as sets)" % (key, err))
 
 
+# -- slice 12: lattice dynamics, electron-phonon coupling, linear spin waves --
+
+S12 = {"kappa_nk": 768, "kappa_cpu_nk": 48, "dos_nk": 96, "hc_nk": 64, "eli_nk": 24, "eli_cpu_nk": 14, "neutron_q": 4096,
+       "neutron_cpu_q": 64, "hall_nk": 41, "chern_nk": 31}
+KAPPA_TS = np.linspace(0.05, 1.0, 40)  # phonon_kappa_map_honeycomb
+KAPPA_PIN = 0.074135  # kappa_xx(0.5) (tools/bench_suite.py:648)
+OMEGA_M_PIN = np.array([0.707107, 1.322876, 1.414214, 1.802776])  # omega at M, the same row
+MAGNON_TS = np.linspace(0.05, 1.0, 20)  # magnon_thermal_hall_map
+KXY_PIN = -0.0916  # kappa_xy(0.5) (tools/bench_suite.py:576)
+NEUTRON_W = np.linspace(0.0, 4.5, 300)  # neutron_map_kagome_4096q (:812)
+EPH_BETA, EPH_MU = 2.0, -0.8  # examples/eph_linewidths.py
+EPH_TS = np.array([0.02, 0.04, 0.08, 0.15, 0.3])
+
+
+def honeycomb_springs(pt):
+    """The spring honeycomb of examples/phonon_bands.py and the kappa row."""
+    fm = pt.phonon.force_model([[1.0, 0.0], [0.5, np.sqrt(3.0) / 2.0]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]])
+    fm.set_spring(1.0, 0, 1, [0, 0], kt=0.25)
+    fm.set_spring(1.0, 1, 0, [1, 0], kt=0.25)
+    fm.set_spring(1.0, 1, 0, [0, 1], kt=0.25)
+    return fm
+
+
+def eph_honeycomb(pt):
+    """examples/eph_linewidths.py's electrons and phonons on one honeycomb."""
+    lat, orb = [[1.0, 0.0], [0.5, np.sqrt(3.0) / 2.0]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]]
+    m = pt.tb_model(2, 2, lat, orb)
+    m.set_hop(-1.0, 0, 1, [0, 0])
+    m.set_hop(-1.0, 1, 0, [1, 0])
+    m.set_hop(-1.0, 1, 0, [0, 1])
+    fc = pt.phonon.force_model(lat, orb, masses=[1.0, 1.0])
+    fc.set_spring(1.0, 0, 1, [0, 0], kt=0.25)
+    fc.set_spring(1.0, 1, 0, [1, 0], kt=0.25)
+    fc.set_spring(1.0, 1, 0, [0, 1], kt=0.25)
+    return m, fc
+
+
+def eph_paths(m):
+    """examples/eph_linewidths.py's k-path (49 k) and its Fermi-surface
+    and band-bottom points."""
+    kpath = m.k_path([[0, 0], [2 / 3, 1 / 3], [0.5, 0.0], [0, 0]], 49, report=False)[0]
+    kline = np.stack([np.linspace(0.0, 2 / 3, 160), np.linspace(0.0, 1 / 3, 160)], axis=-1)
+    e_lo = np.asarray(m.solve_all(kline))[0]
+    return kpath, np.stack([kline[np.argmin(np.abs(e_lo - EPH_MU))], [0.0, 0.0]])
+
+
+def honeycomb_magnet(pt):
+    """magnon_thermal_hall_map's FM honeycomb with DM and field."""
+    sm = pt.magnon.spin_model([[1.0, 0.0], [0.5, np.sqrt(3) / 2]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]], spin=0.5)
+    sm.set_coupling(-1.0, 0, 1, [0, 0])
+    sm.set_coupling(-1.0, 1, 0, [1, 0])
+    sm.set_coupling(-1.0, 1, 0, [0, 1])
+    for dR in ((1, 0), (-1, 1), (0, -1)):
+        sm.set_coupling(np.zeros((3, 3)), 0, 0, dR, dm=[0, 0, 0.2])
+        sm.set_coupling(np.zeros((3, 3)), 1, 1, dR, dm=[0, 0, -0.2])
+    sm.set_field([0, 0, 0.05])
+    return sm
+
+
+def kagome_magnet(pt):
+    """neutron_map_kagome_4096q's FM kagome with DM and field, and its q draws."""
+    sm = pt.magnon.spin_model([[1.0, 0.0], [0.5, np.sqrt(3) / 2]], [[0.0, 0.0], [0.5, 0.0], [0.0, 0.5]], spin=0.5)
+    for i, j, R in ((0, 1, [0, 0]), (0, 2, [0, 0]), (1, 2, [0, 0]), (1, 0, [1, 0]), (2, 0, [0, 1]), (2, 1, [-1, 1])):
+        sm.set_coupling(-1.0, i, j, R, dm=[0.0, 0.0, 0.15])
+    sm.set_field([0, 0, 0.02])
+    return sm, np.random.default_rng(7).random((S12["neutron_q"], 2))
+
+
+def cost_phonon_kappa(B, N, dk, nT):
+    """Kernel 25: the eigenvectors and dD read once (16 (1 + dk) B N^2
+    bytes), omega and the (nT, dk, dk) result; per (k, mode) the dk
+    sandwiches (8 N^2 each) and per (k, mode, T) the c_v weight (~25
+    operations: a division, a sinh, a square) and dk^2 products."""
+    nbytes = C128 * B * N * N * (1 + dk) + F64 * B * N + F64 * nT * (1 + dk * dk)
+    return bound(nbytes, B * N * (8 * dk * N * N + nT * (25 + 2 * dk * dk)))
+
+
+def cost_eph_vertex(Kc, Q, nmode, S, nh, natom, d):
+    """Kernel 26: the |g|^2 write, the states of k and k + q and the
+    amplitudes read once; 8 S^2 nh operations a (k, q, mode) for the
+    complex sums (the coefficients' ~40 nh come on top)."""
+    nbytes = F64 * Kc * Q * nmode * S * S + C128 * (Kc * Q * S * S + Kc * S * S + Q * nmode * natom * d)
+    return bound(nbytes, Kc * Q * nmode * (8 * S * S * nh + 40 * nh))
+
+
+def cost_colpa(B, m, nb):
+    """Kernel 27: T and L written (32 m^2 bytes a k), the k-points read;
+    per k the Cholesky (m^3 / 6 complex multiply-adds, 8 operations each)
+    and the product (m^3 / 3 of them), and the bond gather (m^2 nb
+    comparisons)."""
+    return bound(B * (2 * C128 * m * m + F64 * 2), B * (4 * m**3 + m * m * nb))
+
+
+def slice12_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernel 25 (the kappa sweep at phonon_kappa_map_honeycomb:
+    768^2 k, N 4, 40 T; the sums at 1e-10 relative), kernel 26 (the e-ph
+    vertex at examples/eph_linewidths.py's 49-k path x 18^2 q and at
+    eliashberg's default 24^2 x 24^2 chunk; random S 4 / 17 held) and
+    kernel 27 (the Colpa factorization at magnon_thermal_hall_map's 41^2 x
+    2n 4 and neutron_map_kagome_4096q's 4,096 q x 2n 6, random 2n 16 / 64),
+    each against its plain version (1e-12 of its largest entry), captured
+    from the real calls.  Then the library eigh of the kappa row (36 slices
+    of 16,384 4 x 4 matrices, eigh_batched) against kernel 7 on the same
+    matrices, and the device time and bound of the Floquet Chern row's
+    states step (unitary_eig and kernels 3-4, PERF.md section 6)."""
+    from pythtb_tpu_torch import eph, floquet, magnon, phonon
+    from pythtb_tpu_torch.ops import colpa, eigh, eph_vertex, phonon_kappa
+
+    rng = np.random.default_rng(12)
+    fm = honeycomb_springs(pt)
+    nk = S12["kappa_nk"]
+    args, _ = captured(phonon, "phonon_kappa", lambda: pt.phonon.thermal_conductivity(fm, KAPPA_TS, nk))
+    vecs, dD, omega, Ts = args
+    B, N, dk = vecs.shape[0], vecs.shape[1], dD.shape[1]
+    want = phonon_kappa._phonon_kappa_plain(*args)
+    err = max_diff(torch, phonon_kappa.phonon_kappa(*args), want) / float(want.abs().max())
+    record("phonon_kappa", "kappa honeycomb %d^2: B %d, N %d, %d T" % (nk, B, N, Ts.shape[0]), err,
+           lambda: phonon_kappa.phonon_kappa(*args), lambda: phonon_kappa._phonon_kappa_plain(*args),
+           cost_phonon_kappa(B, N, dk, Ts.shape[0]), True, tol=1e-10, reps=10)
+    for Bs, Ns, dks in ((4096, 6, 3), (20000, 2, 1)):
+        v = unit_states(torch, rng, (Bs, Ns, Ns), device)
+        a = rng.normal(size=(Bs, dks, Ns, Ns)) + 1j * rng.normal(size=(Bs, dks, Ns, Ns))
+        dDr = torch.as_tensor(a + np.conj(np.swapaxes(a, -1, -2))).to(device)
+        om = torch.as_tensor(rng.uniform(0.0, 3.0, (Bs, Ns))).to(device)
+        want = phonon_kappa._phonon_kappa_plain(v, dDr, om, Ts)
+        held("phonon_kappa", "random B %d, N %d, dim_k %d" % (Bs, Ns, dks),
+             max_diff(torch, phonon_kappa.phonon_kappa(v, dDr, om, Ts), want) / float(want.abs().max()), tol=1e-10)
+    # the library eigh of the kappa row, and kernel 7 on the same matrices
+    (D,), _ = captured(phonon, "eigh_batched", lambda: pt.phonon.thermal_conductivity(fm, KAPPA_TS, nk))
+    lib_ms = cuda_ms(torch, lambda: eigh.eigh_batched(D), 3)
+    jac_ms = cuda_ms(torch, lambda: eigh.eigh_jacobi(D.contiguous()), 3)
+    wl, _ = eigh.eigh_batched(D)
+    wj, _ = eigh.eigh_jacobi(D.contiguous())
+    print("  kappa row's eigensolve, %d 4 x 4 (eigh_batched: torch.linalg.eigh in %d slices of %d): %.3f ms; "
+          "kernel 7 on the same matrices %.3f ms (eigenvalues %.3e apart)  bound %.5f ms (%s)"
+          % (D.shape[0], -(-D.shape[0] // eigh.LIBRARY_BATCH), eigh.LIBRARY_BATCH, lib_ms, jac_ms,
+             max_diff(torch, wl, wj), *cost_eigh(D.shape[0], 4)))
+    del D, wl, wj, args, vecs, dD, omega
+
+    # kernel 26: the example's linewidth path and eliashberg's default chunk
+    m, fc = eph_honeycomb(pt)
+    kpath, _ = eph_paths(m)
+    for key, call, main in (
+            ("eph example: 49 k x 18^2 q", lambda: pt.eph.linewidths(m, fc, EPH_BETA, kpath, mu=EPH_MU, temperature=0.08,
+                                                                      nkq=(18, 18), sigma=0.08), False),
+            ("eliashberg default: 576 k x 24^2 q", lambda: pt.eph.eliashberg(m, fc, EPH_BETA, mu=EPH_MU), True)):
+        va, _ = captured(eph, "eph_vertex", call)
+        vk, vkq, A, tab, kk, qg = va
+        Kc, Q, S = vkq.shape[0], vkq.shape[1], vkq.shape[-1]
+        want = eph_vertex._eph_vertex_plain(*va)
+        err = max_diff(torch, eph_vertex.eph_vertex(*va), want) / float(want.abs().max())
+        record("eph_vertex", "%s, %d modes, S %d" % (key, A.shape[1], S), err, lambda: eph_vertex.eph_vertex(*va),
+               lambda: eph_vertex._eph_vertex_plain(*va),
+               cost_eph_vertex(Kc, Q, A.shape[1], S, tab.nh, A.shape[2], A.shape[3]), main, reps=10)
+    for S, nh in ((4, 40), (17, 300)):
+        geom = {"i": rng.integers(0, S, nh), "j": rng.integers(0, S, nh), "R": rng.integers(-2, 3, (nh, 2)) * 1.0,
+                "tp": rng.normal(size=nh) + 1j * rng.normal(size=nh), "dhat": rng.normal(size=(nh, 2)),
+                "atom_of": rng.integers(0, 3, S)}
+        tabr = eph_vertex.VertexTables(geom, device)
+        vk, vkq = unit_states(torch, rng, (4, S, S), device), unit_states(torch, rng, (4, 36, S, S), device)
+        A = torch.as_tensor(rng.normal(size=(36, 6, 3, 2)) + 1j * rng.normal(size=(36, 6, 3, 2))).to(device)
+        kk = torch.as_tensor(rng.random((4, 2))).to(device)
+        qg = torch.as_tensor(rng.random((36, 2))).to(device)
+        want = eph_vertex._eph_vertex_plain(vk, vkq, A, tabr, kk, qg)
+        held("eph_vertex", "random S %d, nh %d, 4 k x 36 q x 6 modes" % (S, nh),
+             max_diff(torch, eph_vertex.eph_vertex(vk, vkq, A, tabr, kk, qg), want) / float(want.abs().max()))
+
+    # kernel 27: the thermal-Hall grid and the neutron row
+    hm = honeycomb_magnet(pt)
+    km, qs = kagome_magnet(pt)
+    for key, call, main in (
+            ("thermal Hall 41^2, 2n 4", lambda: pt.magnon.thermal_hall(hm, MAGNON_TS, nk=S12["hall_nk"]), True),
+            ("neutron 4,096 q, 2n 6", lambda: pt.magnon.structure_factor(km, qs, omegas=NEUTRON_W, eta=0.05), False)):
+        (tab, shift, kk), _ = captured(magnon, "colpa", call)
+        T, L = colpa.colpa(tab, shift, kk)
+        Tp, Lp = colpa._colpa_plain(tab, shift, kk)
+        err = max(max_diff(torch, T, Tp) / float(Tp.abs().max()), max_diff(torch, L, Lp) / float(Lp.abs().max()))
+        m2 = 2 * tab.n
+        record("colpa", "%s, B %d" % (key, kk.shape[0]), err, lambda: colpa.colpa(tab, shift, kk),
+               lambda: colpa._colpa_plain(tab, shift, kk), cost_colpa(kk.shape[0], m2, tab.nb), main)
+        hlib = (Lp @ Lp.mH).contiguous()
+        print("  colpa %s: torch.linalg.cholesky_ex of the same h alone %.4f ms (a part of the function)"
+              % (key, cuda_ms(torch, lambda: torch.linalg.cholesky_ex(hlib))))
+    for n, nb, B in ((8, 40, 4096), (32, 200, 256)):
+        amp = (rng.normal(size=nb) + 1j * rng.normal(size=nb)) * 0.3
+        tabr = colpa.ColpaTables(rng.integers(0, n, nb), rng.integers(0, n, nb), rng.normal(size=(nb, 2)), amp,
+                                 np.roll(amp, 1), -(3.0 + 0.3 * nb / n) * np.ones(n), device)
+        kk = torch.as_tensor(rng.random((B, 2))).to(device)
+        T, L = colpa.colpa(tabr, 1e-9, kk)
+        Tp, Lp = colpa._colpa_plain(tabr, 1e-9, kk)
+        err = max(max_diff(torch, T, Tp) / float(Tp.abs().max()), max_diff(torch, L, Lp) / float(Lp.abs().max()))
+        record("colpa", "random 2n %d, nb %d, B %d" % (2 * n, nb, B), err, lambda: colpa.colpa(tabr, 1e-9, kk),
+               lambda: colpa._colpa_plain(tabr, 1e-9, kk), cost_colpa(B, 2 * n, nb), reps=5)
+    bad = pt.magnon.spin_model([[2.0]], [[0.0], [0.5]], spin=0.5)
+    bad.set_coupling(1.0, 0, 1, [0])
+    bad.set_coupling(1.0, 1, 0, [1])
+    T, _ = colpa.colpa(colpa.ColpaTables(*bad._tables(), device), 0.0, torch.tensor([[0.25]], device=device,
+                                                                                    dtype=torch.float64))
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(T).all()), "kernel 27 did not write NaN for an h(k) that is not positive definite")
+    try:
+        pt.magnon.bands(bad, [[0.25]], shift=0.0)
+        check(False, "magnon.bands accepted a configuration that is not a classical minimum")
+    except pt.PythtbError as exc:
+        check("Colpa decomposition failed" in str(exc), "unexpected error %s" % exc)
+    print("  colpa: an h(k) that is not positive definite gives NaN and the reference's error on the card")
+
+    # the Floquet Chern row's states step (floquet._eigenphases_packed,
+    # _floquet_states_jit): unitary_eig and kernels 3-4, PERF.md section 6
+    g = pt.models.graphene()
+    fargs, _ = captured(floquet, "_floquet_states_flux",
+                        lambda: pt.floquet.chern(g, FLQ_W, circ(0.8), band=0, nk=(S11["flq_nk"],) * 2,
+                                                 nt=S11["flq_nt"]))
+    U = fargs[4]
+    Bf, Sf = U.shape[0], U.shape[-1]
+    us = event_us(torch, lambda: floquet._floquet_states_flux(*fargs))
+    prof_us, prof_n = device_us(torch, lambda: floquet._floquet_states_flux(*fargs), 10)
+    A = (U + U.mH) / 2
+    lib = event_us(torch, lambda: torch.linalg.eigh(A))
+    nbytes = C128 * Bf * Sf * Sf
+    bnd = bound(nbytes, Bf * 36 * Sf**3)
+    print("  gap: floquet._eigenphases_packed + _floquet_states_jit (unitary_eig, kernels 3-4) at the Chern row's "
+          "%d states of %d x %d: %.1f us (CUDA events; the eigh's info check waits on the device, so host time is "
+          "in it), profiler %s us in %s device activities; bound %.5f ms (%s: the states read once, 36 m^3 "
+          "operations an eigh); library torch.linalg.eigh of (U + U^H) / 2 alone %.1f us"
+          % (Bf, Sf, Sf, us, fmt(prof_us), fmt(prof_n), bnd[0], bnd[1], lib))
+    slice12_rows(torch, pt, device)
+
+
+def slice12_rows(torch, pt, device):
+    """The device time and bound of each B2 program of PERF.md section 6,
+    whole, at its row's shape: _dynmat_jit (kernel 1 on the expanded force
+    blocks), _solve_jit (+ eigh_batched) and _kappa_jit (kernels 1, 15,
+    eigh_batched and 25) at the kappa row's 589,824 k, _gsq_qbatch_jit at
+    eliashberg's default chunk (kernels 1, 2, 26 and the torch glue) and
+    _lswt_solve_jit at the thermal-Hall grid (kernel 27, eigh_batched and
+    the triangular solve).  CUDA events, and the profiler's device time
+    (the library eigh and the Colpa failure check read flags on the host,
+    so the events' span holds host time too).  A program's bound adds its
+    parts' bounds."""
+    from pythtb_tpu_torch import eph, magnon, phonon
+    from pythtb_tpu_torch.ops import eigh, hamiltonian, phonon_kappa
+
+    fm = honeycomb_springs(pt)
+    data = phonon._bloch(fm)
+    kk = torch.as_tensor(phonon._grid(fm, S12["kappa_nk"], shift=0.5)).to(device)
+    B, N = kk.shape[0], data.nsta
+    Ts = torch.as_tensor(KAPPA_TS).to(device)
+
+    def kappa():
+        w2, v = eigh.eigh_batched(hamiltonian.assemble(data, kk))
+        return phonon_kappa.phonon_kappa(v, hamiltonian.assemble_dk(data, kk), torch.sqrt(torch.clamp(w2, min=0.0)),
+                                         Ts)
+
+    b_asm, b_eig = cost_assemble(data, B), cost_eigh(B, N)
+    rows = [("phonon._dynmat_jit (kernel 1)", "kappa row B %d, N %d" % (B, N), lambda: hamiltonian.assemble(data, kk),
+             [b_asm]),
+            ("phonon._solve_jit (kernel 1 + eigh_batched)", "the same", lambda: eigh.eigh_batched(
+                hamiltonian.assemble(data, kk)), [b_asm, b_eig]),
+            ("phonon._kappa_jit (kernels 1, 15, 25 + eigh_batched)", "the same, 40 T", kappa,
+             [b_asm, b_eig, cost_assemble_deriv(data, B, 1), cost_phonon_kappa(B, N, data.dim_k, len(KAPPA_TS))])]
+    m, fc = eph_honeycomb(pt)
+    _, _, _, _, grid = eph._qgrid_setup(m, fc, EPH_BETA, None, (S12["eli_nk"],) * 2)
+    ed = m._get_finalized()
+    n = S12["eli_nk"]
+    kg = torch.as_tensor(np.stack(np.meshgrid(np.arange(n) / n, np.arange(n) / n, indexing="ij"), -1).reshape(-1, 2))
+    kg = kg.to(device)
+    Kc, Q = kg.shape[0], grid.qg.shape[0]
+    rows.append(("eph._gsq_qbatch_jit (kernels 1, 2, 26)", "eliashberg chunk %d k x %d q, S %d" % (Kc, Q, ed.nsta),
+                 lambda: eph._gsq_chunk(ed, kg, grid),
+                 [cost_assemble(ed, Kc * (Q + 1)), cost_eig2(Kc * (Q + 1)),
+                  cost_eph_vertex(Kc, Q, grid.A.shape[1], ed.nsta, grid.tab.nh, grid.A.shape[2], grid.A.shape[3])]))
+    hm = honeycomb_magnet(pt)
+    nh = S12["hall_nk"]
+    kh = np.stack(np.meshgrid(np.arange(nh) / nh, np.arange(nh) / nh, indexing="ij"), -1).reshape(-1, 2)
+    mm = 2 * hm._nsite
+    Bh = kh.shape[0]
+    rows.append(("magnon._lswt_solve_jit (kernel 27 + eigh_batched + solve)", "thermal Hall %d^2, 2n %d" % (nh, mm),
+                 lambda: magnon._solve_device(hm, kh, 1e-8, True),
+                 [cost_colpa(Bh, mm, len(hm._tables()[0])), cost_eigh(Bh, mm),
+                  bound(3 * C128 * Bh * mm * mm, 4 * Bh * mm**3)]))
+    for name, shape, fn, parts in rows:
+        us = event_us(torch, fn)
+        prof_us, prof_n = device_us(torch, fn, 5)
+        t = sum(p[0] for p in parts)
+        by = max(parts, key=lambda p: p[0])[1]
+        print("  row: %s at %s: %.1f us (CUDA events), profiler %s us in %s device activities; bound %.5f ms (%s, "
+              "the parts' bounds added)" % (name, shape, us, fmt(prof_us), fmt(prof_n), t, by))
+
+
+def slice12_path(pt, where, reference):
+    """The twelfth slice's calls with their pins: phonon_kappa_map_honeycomb
+    (tools/bench_suite.py:648; kappa_xx(0.5) within 1e-3 of 0.074135, omega
+    at M within 1e-3 of the row's four values) at 768^2 x 40 T;
+    examples/phonon_bands.py (181-k path, DOS at 96^2 x 301 E, C_v at 64^2
+    x 40 T, the 6 x 6 isotope cluster); examples/eph_linewidths.py
+    (linewidths on the 49-k path at 18^2 q, the Fermi-liquid sweep of 5 T,
+    eliashberg 14^2 x 14^2) and eliashberg at its defaults 24^2 x 24^2;
+    magnon_thermal_hall_map (:576; 20 T on 41^2, kappa_xy(0.5) within
+    5e-3 of -0.0916, Chern +1 at 31^2); neutron_map_kagome_4096q (:812;
+    4,096 q x 300 omega, the FM trace sum rule 1.5 on the gapped of the
+    first 64 draws at 1e-10).  The CPU reference runs kappa at 48^2,
+    eliashberg at 14^2 only and the neutron map at its first 64 q; the card
+    runs those sizes too, for the comparison."""
+    import warnings
+
+    out = {}
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            result = fn(*args, **kwargs)
+        return result, time.perf_counter() - t0
+
+    fm = honeycomb_springs(pt)
+    if not reference:
+        k31, sec = timed(pt.phonon.thermal_conductivity, fm, KAPPA_TS, S12["kappa_nk"])
+        wM = pt.phonon.bands(fm, [[0.5, 0.0]])[0]
+        kap5 = float(np.interp(0.5, KAPPA_TS, k31[:, 0, 0]))
+        print("  %s phonon_kappa_map_honeycomb %d^2 x 40 T: kappa_xx(0.5) %.6f (pin %.6f), omega(M) %s  [%.2f s]"
+              % (where, S12["kappa_nk"], kap5, KAPPA_PIN, np.array2string(wM, precision=6), sec))
+        check(abs(kap5 - KAPPA_PIN) < 1e-3 and np.abs(wM - OMEGA_M_PIN).max() < 1e-3,
+              "phonon_kappa_map_honeycomb: kappa_xx(0.5) %.6f, omega(M) %s" % (kap5, wM))
+    out["kappa_small"] = pt.phonon.thermal_conductivity(fm, KAPPA_TS, S12["kappa_cpu_nk"])
+    # examples/phonon_bands.py
+    nodes = [[0, 0], [0.5, 0.0], [1 / 3, 2 / 3], [0, 0]]
+    kp = [(1 - s / 60) * np.asarray(nodes[a]) + s / 60 * np.asarray(nodes[a + 1]) for a in range(3) for s in range(60)]
+    kp = np.asarray(kp + [nodes[-1]])
+    (w, sec) = timed(pt.phonon.bands, fm, kp)
+    d = pt.phonon.dos(fm, np.linspace(0.0, 2.1, 301), S12["dos_nk"], smearing=0.02)
+    C = pt.phonon.heat_capacity(fm, np.logspace(-1.6, 0.8, 40), S12["hc_nk"])
+    masses = np.tile([1.0, 1.0], 36)
+    masses[20] = 0.45
+    _, wc = pt.phonon.dynamical_cluster(fm, (6, 6), masses=masses)
+    print("  %s examples/phonon_bands.py: band top %.4f, defect mode %.4f, C_v(6.3) %.4f (Dulong-Petit 4)  [%.2f s]"
+          % (where, w.max(), wc.max(), C[-1], sec))
+    check(wc.max() > w.max() + 0.05 and abs(C[-1] - 4.0) < 0.05, "phonon_bands.py: no split-off mode or C_v %.4f"
+          % C[-1])
+    # omega^2: the path starts and ends at Gamma, where omega = sqrt(clip(w^2))
+    # of the acoustic modes is 0 or ~1e-8 from a 1e-16 w^2
+    out.update(ph_bands=w**2, ph_dos=d, ph_cv=C, ph_cluster=wc)
+    # examples/eph_linewidths.py
+    m, fc = eph_honeycomb(pt)
+    kpath, k2 = eph_paths(m)
+    gam, sec = timed(pt.eph.linewidths, m, fc, EPH_BETA, kpath, mu=EPH_MU, temperature=0.08, nkq=(18, 18), sigma=0.08)
+    sweep = np.array([pt.eph.linewidths(m, fc, EPH_BETA, k2, mu=EPH_MU, temperature=float(T), nkq=(18, 18),
+                                        sigma=0.08)[:, 0] for T in EPH_TS])
+    r = pt.eph.eliashberg(m, fc, EPH_BETA, mu=EPH_MU, nk=(S12["eli_cpu_nk"],) * 2, nkq=(S12["eli_cpu_nk"],) * 2)
+    print("  %s examples/eph_linewidths.py: Gamma on the path [%.3e, %.3e]  [%.2f s]; on-shell Gamma(T) %s; "
+          "lambda(14^2) %.6f" % (where, gam.min(), gam.max(), sec, np.array2string(sweep[:, 0], precision=4),
+                                 r["lambda"]))
+    check(bool(np.all(gam >= 0.0)) and sweep[0, 0] < sweep[-1, 0] and sweep[0, 1] > 0.0,
+          "eph_linewidths.py: the on-shell state does not sharpen as T -> 0")
+    out.update(eph_gamma=gam, eph_sweep=sweep, eph_a2f=r["a2f"], eph_lam=np.array([r["lambda"], r["dos_ef"]]))
+    if not reference:
+        r24, sec = timed(pt.eph.eliashberg, m, fc, EPH_BETA, mu=EPH_MU)
+        print("  %s eph.eliashberg defaults 24^2 x 24^2: lambda %.6f, N(mu) %.6f  [%.2f s]"
+              % (where, r24["lambda"], r24["dos_ef"], sec))
+        check(np.isfinite(r24["a2f"]).all() and r24["lambda"] > 0.0, "eliashberg at its defaults")
+    # magnon_thermal_hall_map
+    hm = honeycomb_magnet(pt)
+    kxy, sec = timed(pt.magnon.thermal_hall, hm, MAGNON_TS, nk=S12["hall_nk"])
+    c0 = pt.magnon.chern(hm, 0, nk=S12["chern_nk"])
+    kx5 = float(np.interp(0.5, MAGNON_TS, kxy))
+    print("  %s magnon_thermal_hall_map %d^2 x 20 T: kappa_xy(0.5) %.5f (pin %.4f), Chern %+g  [%.2f s]"
+          % (where, S12["hall_nk"], kx5, KXY_PIN, c0, sec))
+    check(abs(kx5 - KXY_PIN) < 5e-3 and c0 == 1.0, "magnon_thermal_hall_map: kxy(0.5) %.5f, C %g" % (kx5, c0))
+    out.update(mag_kxy=kxy, mag_chern=np.array([c0]))
+    # neutron_map_kagome_4096q
+    km, qs = kagome_magnet(pt)
+    if not reference:
+        I, sec = timed(pt.magnon.structure_factor, km, qs, omegas=NEUTRON_W, eta=0.05)
+        print("  %s neutron_map_kagome_4096q %d q x 300 w: finite %s  [%.2f s]"
+              % (where, S12["neutron_q"], bool(np.isfinite(I).all()), sec))
+        check(I.shape == (S12["neutron_q"], len(NEUTRON_W)) and bool(np.isfinite(I).all()), "the neutron map")
+    nq = S12["neutron_cpu_q"]
+    w45, S45 = pt.magnon.structure_factor(km, qs[:nq])
+    tr = np.real(np.einsum("qnaa->q", S45))
+    gapped = w45[:, 0] > 0.1
+    dev = float(np.abs(tr[gapped] - 1.5).max())
+    print("  %s FM trace sum rule on %d gapped of %d draws: max |tr - 1.5| %.3e" % (where, gapped.sum(), nq, dev))
+    check(dev < 1e-10 and gapped.sum() > 48, "the FM trace sum rule: %.3e" % dev)
+    out["neutron_small"] = pt.magnon.structure_factor(km, qs[:nq], omegas=NEUTRON_W, eta=0.05)
+    out["neutron_T"] = pt.magnon.structure_factor(km, qs[:16], omegas=np.linspace(-4.5, 4.5, 301), eta=0.05,
+                                                  temperature=0.3, polarization=False)
+    return out
+
+
+def compare_slice12(out, ref):
+    """The twelfth slice on the card against the CPU run, at 1e-10 relative
+    to the largest entry: kappa at 48^2, the example's omega^2 on its path,
+    C_v and cluster, the linewidths and their T sweep, eliashberg at 14^2, the
+    thermal Hall sweep and Chern number, the neutron maps at 64 q (T = 0)
+    and 16 q (T 0.3, both sides); the phonon DOS at 1e-7: the grid holds
+    Gamma, where omega = sqrt(clip(w^2)) of the acoustic modes is 0 or
+    ~1e-8 from a 1e-16 w^2 on either side, which the Gaussian's slope at
+    smearing 0.02 turns into ~1e-9 of the DOS."""
+    for key in ("kappa_small", "ph_bands", "ph_cv", "ph_cluster", "eph_gamma", "eph_sweep", "eph_a2f", "eph_lam",
+                "mag_kxy", "mag_chern", "neutron_small", "neutron_T", "ph_dos"):
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        check(got.shape == want.shape, "%s: shape %s differs from the CPU run's %s" % (key, got.shape, want.shape))
+        err = float(np.abs(got - want).max() / max(1e-300, np.abs(want).max()))
+        tol = 1e-7 if key == "ph_dos" else 1e-10
+        print("  %s vs CPU: max|diff| %.3e (relative)" % (key, err))
+        check(err <= tol, "%s differs from the CPU path by %.3e (relative)" % (key, err))
+
+
 def _state_of(m):
     """Host state of a model, for convert.tb_model_from_state."""
     hops = m._hoppings
@@ -4078,6 +4500,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out.update(slice9_path(pt, where, reference))
     out.update(slice10_path(pt, where, reference))
     out.update(slice11_path(pt, where, reference))
+    out.update(slice12_path(pt, where, reference))
     return out
 
 
@@ -4481,6 +4904,26 @@ def phase_walls(torch, pt, card):
         "floquet.winding_number rudner 17x17 nt 200, 2 gaps (kernels 22, 24)": (
             lambda: pt.floquet.winding_number(rd11, RUDNER_W, rdrv11, egap=[0.0, 0.5], nk=(17, 17), nt=200), 5, 3),
     })
+    # the twelfth slice's calls
+    fm12, hm12 = honeycomb_springs(pt), honeycomb_magnet(pt)
+    m12, fc12 = eph_honeycomb(pt)
+    kpath12, _ = eph_paths(m12)
+    km12, qs12 = kagome_magnet(pt)
+    calls.update({
+        "phonon.thermal_conductivity honeycomb 768^2 x 40 T (kernels 1, 15, 25)": (
+            lambda: pt.phonon.thermal_conductivity(fm12, KAPPA_TS, S12["kappa_nk"]), 3, 1),
+        "phonon.dos honeycomb 96^2 x 301 E (examples/phonon_bands.py)": (
+            lambda: pt.phonon.dos(fm12, np.linspace(0.0, 2.1, 301), S12["dos_nk"], smearing=0.02), 5, 3),
+        "eph.linewidths 49 k x 18^2 q (examples/eph_linewidths.py, kernel 26)": (
+            lambda: pt.eph.linewidths(m12, fc12, EPH_BETA, kpath12, mu=EPH_MU, temperature=0.08, nkq=(18, 18),
+                                      sigma=0.08), 5, 3),
+        "eph.eliashberg defaults 24^2 x 24^2 (one chunk)": (
+            lambda: pt.eph.eliashberg(m12, fc12, EPH_BETA, mu=EPH_MU), 3, 1),
+        "magnon.thermal_hall honeycomb 41^2 x 20 T (kernel 27)": (
+            lambda: pt.magnon.thermal_hall(hm12, MAGNON_TS, nk=S12["hall_nk"]), 5, 3),
+        "magnon.structure_factor kagome 4,096 q x 300 w (kernels 27, 16)": (
+            lambda: pt.magnon.structure_factor(km12, qs12, omegas=NEUTRON_W, eta=0.05), 3, 1),
+    })
     hf = calls["meanfield.hartree_fock 6-ring U 4 (examples/hubbard_ed.py)"][0]
     calls["meanfield.hartree_fock 6-ring U 4, the reference's 80-step mu bisection"] = (
         with_plain_bisection(torch, pt, hf), 3, 0)
@@ -4514,7 +4957,10 @@ def phase_walls(torch, pt, card):
                  "response.lindhard graphene 64 q x 576 k x 16 w",
                  "wf_array.berry_phase slab 41x41, 20 states, Wilson loops (kernel 5 S 20)",
                  "optical.harmonic_spectrum bn strong field 48^2 x 2,560 steps (kernel 22)",
-                 "geometry.superfluid_weight lieb 48x48 analytic (kernel 23)"):
+                 "geometry.superfluid_weight lieb 48x48 analytic (kernel 23)",
+                 "phonon.thermal_conductivity honeycomb 768^2 x 40 T (kernels 1, 15, 25)",
+                 "eph.eliashberg defaults 24^2 x 24^2 (one chunk)",
+                 "magnon.structure_factor kagome 4,096 q x 300 w (kernels 27, 16)"):
         top, total = device_top(torch, calls[name][0])
         print("  device time of %s: %s us per call; largest: %s" % (name, fmt(total), "; ".join(
             "%s %.1f us" % (k[:70], us) for k, us in top)))
@@ -4580,7 +5026,8 @@ def main():
     print("[4 main] Haldane bands and Chern, Kane-Mele flows and Z2, slab HWF, flake, w90 silicon, "
           "KPM DOS/LDOS/Kubo, Chebyshev evolution, quench echo, interior and lowest states, markers, surfaces, "
           "Hall sweeps, orbital magnetization, optics, shift current, QGT, Boltzmann, Edelstein, Hall bar, Lyapunov "
-          "spectra, CPA, ribbons, impurity T-matrix, ED sectors and twists, DMFT, mean fields, BdG:")
+          "spectra, CPA, ribbons, impurity T-matrix, ED sectors and twists, DMFT, mean fields, BdG, harmonics, "
+          "superfluid weight, Floquet, phonons, e-ph coupling, magnons:")
     t0 = time.perf_counter()
     _kernels.reset_launches()
     out = phase_main_path(torch, pt, "[gpu]")
@@ -4595,6 +5042,7 @@ def main():
     compare_slice9(torch, pt, out, ref, device)
     compare_slice10(out, ref)
     compare_slice11(out, ref)
+    compare_slice12(out, ref)
     check_lowest_bound(torch, pt, out["lowest"], device)
     print("[4 main] kernel 7 launches in the slab's solve_on_grid: %d; in hofstadter_fn: %s"
           % (out["slab_jacobi_launches"], out["hof_launches"]))
@@ -4625,7 +5073,8 @@ def main():
                "assemble_dk", "spectral_sum", "fermi_sweep", "decimation_green", "cpa", "lyapunov", "eigh_jacobi",
                "assemble_members", "transport_chain", "transport_rotate", "transport_follow", "mv_step",
                "dense_filter", "pole_sum", "tetra_dos", "spectral_sum_qbatch", "propagate_state", "propagate_full",
-               "bdg_hessian", "bdg_grand_potential", "assemble_floquet", "winding")
+               "bdg_hessian", "bdg_grand_potential", "assemble_floquet", "winding", "phonon_kappa", "eph_vertex",
+               "colpa")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -4665,6 +5114,9 @@ def main():
         "bdg_grand_potential": ("bdg_hessian.cu", "pythtb_tpu/geometry.py:333"),
         "assemble_floquet": ("assemble.cu", "pythtb_tpu/floquet.py:260"),
         "winding": ("winding.cu", "pythtb_tpu/floquet.py:592"),
+        "phonon_kappa": ("phonon_kappa.cu", "pythtb_tpu/phonon.py:389"),
+        "eph_vertex": ("eph_vertex.cu", "pythtb_tpu/eph.py:220"),
+        "colpa": ("colpa.cu", "pythtb_tpu/magnon.py:284"),
     }
     rows = []
     for name in kernels:

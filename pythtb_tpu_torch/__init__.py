@@ -51,22 +51,24 @@ and ``save``/``load`` of models and wf_arrays in the JAX package's
 clusters with many-body topology (:mod:`ed`), single-site DMFT with an ED
 impurity solver (:mod:`dmft`), Hartree-Fock and BCS mean fields
 (:mod:`meanfield`), BdG models and Majorana numbers (:mod:`bdg`), and
-Pade continuation (:mod:`continuation`).
+Pade continuation (:mod:`continuation`); and bosons: phonon bands,
+heat capacity and thermal conductivity of force-constant models
+(:mod:`phonon`), electron-phonon linewidths and the Eliashberg function
+(:mod:`eph`), and linear spin waves with magnon Berry curvature, thermal
+Hall conductivity and the neutron structure factor (:mod:`magnon`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through 22 hand-written CUDA
-kernels, with kernel 1's one-sided and flux-batch modes, kernel 12's
-Green's-function mode, kernel 14's three modes, kernel 16's q-batch
-mode and kernel 20's four
-(``csrc/``, built with nvcc at first use); on the CPU the same
-functions run their plain PyTorch versions.  This package never imports
-JAX.
+an NVIDIA Hopper card the hot paths run through 28 hand-written CUDA
+kernels (kernels 1-27 and 11b, with the extra modes of kernels 1, 12, 14,
+16, 20, 22 and 23; ``csrc/``, built with nvcc at first use); on the CPU
+the same functions run their plain PyTorch versions.  This package
+never imports JAX.
 """
 
-from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, fermisurface, flows,
-               floquet, geometry, impurity, localization, magnetic, meanfield, models, negf, optical, realspace, response,
-               surface, symmetry, unfold, wannier)
+from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, eph, fermisurface,
+               flows, floquet, geometry, impurity, localization, magnetic, magnon, meanfield, models, negf, optical,
+               phonon, realspace, response, surface, symmetry, unfold, wannier)
 from .family import ModelFamily, family
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
@@ -81,6 +83,7 @@ __all__ = [
     "tb_model", "wf_array", "w90", "PythtbError", "no_2pi", "flows", "config", "dynamics",
     "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
     "impurity", "disorder", "family", "ModelFamily", "wannier", "unfold", "entanglement", "symmetry",
-    "ed", "dmft", "meanfield", "bdg", "continuation", "fermisurface", "response", "floquet",
+    "ed", "dmft", "meanfield", "bdg", "continuation", "fermisurface", "response", "floquet", "phonon", "eph",
+    "magnon",
     "__version__", "PYTHTB_COMPAT_VERSION",
 ]

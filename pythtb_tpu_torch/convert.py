@@ -18,7 +18,11 @@ package it converts from:
 * :func:`dmft_result_from_numpy` rebuilds a converged DMFT state from
   another package's result arrays (two correct runs of the L-BFGS-B bath
   fit can take different iterates from 1e-15 differences, so the real-
-  axis observables are compared on the identical state).
+  axis observables are compared on the identical state);
+* :func:`force_model_from_state` and :func:`spin_model_from_state`
+  rebuild a phonon :class:`~pythtb_tpu_torch.phonon.force_model` or a
+  :class:`~pythtb_tpu_torch.magnon.spin_model` from another package's
+  model state.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from .wf_array import wf_array
 
 __all__ = [
     "tb_model_from_state", "bloch_from_numpy", "wf_array_from_numpy", "wannier_inputs_from_numpy",
-    "dmft_result_from_numpy",
+    "dmft_result_from_numpy", "force_model_from_state", "spin_model_from_state",
 ]
 
 
@@ -181,3 +185,46 @@ def dmft_result_from_numpy(state, model_state=None, device=None):
         res._model = None
         res._orb = None
     return res
+
+
+def force_model_from_state(state):
+    """Build a :class:`~pythtb_tpu_torch.phonon.force_model` from a dict of
+    NumPy arrays.
+
+    Keys: ``lat`` (dim_r, dim_r), ``pos`` (natom, dim_r), ``masses``
+    (natom,), ``dim_k``, the listed force blocks ``fc_blocks`` (nb, d, d)
+    with their atoms ``fc_i``, ``fc_j`` (nb,) and cells ``fc_R`` (nb,
+    dim_r), and the pinning blocks ``pins`` (natom, d, d).
+    """
+    from .phonon import force_model
+
+    fm = force_model(state["lat"], state["pos"], masses=np.asarray(state["masses"], dtype=float),
+                     dim_k=int(state["dim_k"]))
+    blocks = np.asarray(state["fc_blocks"], dtype=float)
+    for b in range(blocks.shape[0]):
+        fm._fcs.append((blocks[b].copy(), int(state["fc_i"][b]), int(state["fc_j"][b]),
+                        np.array(state["fc_R"][b], dtype=float)))
+    fm._pin = [np.array(p, dtype=float) for p in state["pins"]]
+    return fm
+
+
+def spin_model_from_state(state):
+    """Build a :class:`~pythtb_tpu_torch.magnon.spin_model` from a dict of
+    NumPy arrays.
+
+    Keys: ``lat`` (dim_r, dim_r), ``pos`` (nsite, dim_r), ``spin``
+    (nsite,), ``dim_k``, the listed bonds ``J`` (nb, 3, 3) with their
+    sites ``i``, ``j`` (nb,) and cells ``R`` (nb, dim_r), ``single_ion``
+    (nsite, 3, 3), ``field`` (nsite, 3) and ``moments`` (nsite, 3).
+    """
+    from .magnon import spin_model
+
+    sm = spin_model(state["lat"], state["pos"], spin=np.asarray(state["spin"], dtype=float),
+                    dim_k=int(state["dim_k"]))
+    J = np.asarray(state["J"], dtype=float)
+    for b in range(J.shape[0]):
+        sm._bonds.append((J[b].copy(), int(state["i"][b]), int(state["j"][b]), np.array(state["R"][b], dtype=float)))
+    sm._single_ion = [np.array(a, dtype=float) for a in state["single_ion"]]
+    sm._field = np.array(state["field"], dtype=float)
+    sm._moments = np.array(state["moments"], dtype=float)
+    return sm

@@ -10,7 +10,9 @@ import: the CPU tests import every module.
 
 Each kernel wrapper (in the module of the JAX program it replaces, in
 ``ops/chebyshev.py`` for the recursions of kernels 9, 10 and 11, or in
-``ops/fermi_sweep.py`` for kernel 17, which serves three modules)
+``ops/fermi_sweep.py`` for kernel 17, which serves three modules, and
+in ``ops/phonon_kappa.py``, ``ops/eph_vertex.py`` and ``ops/colpa.py``
+for kernels 25-27)
 validates its tensors with :func:`require`, allocates its outputs with
 ``torch.empty``, launches through :func:`launch` on the current stream,
 and counts the launch in :data:`LAUNCHES`.
@@ -76,6 +78,9 @@ _SIGNATURES = {
     "pythtb_bdg_grand_potential": [_P] * 3 + [_I] * 3 + [_D] * 2 + [_P],
     "pythtb_assemble_floquet": [_P] * 9 + [_I] * 6 + [_D, _P],
     "pythtb_winding": [_P] * 8 + [_I] * 5 + [_D, _P],
+    "pythtb_phonon_kappa": [_P] * 6 + [_I] * 4 + [_P],
+    "pythtb_eph_vertex": [_P] * 13 + [_I] * 8 + [_P],
+    "pythtb_colpa": [_P] * 9 + [_I] * 4 + [_D, _P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -103,7 +108,9 @@ _SIGNATURES = {
 # "bdg_grand_potential" count kernel 23's calls (a partial pass and a
 # reduction each); "assemble_floquet" counts kernel 1's Floquet-block
 # mode (not in "assemble"); "winding" counts kernel 24's calls (the
-# periodized history, the stencil and a reduction each).
+# periodized history, the stencil and a reduction each); "phonon_kappa"
+# counts kernel 25's calls (a partial pass and a reduction each);
+# "eph_vertex" counts kernel 26 and "colpa" kernel 27 (one launch each).
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
@@ -111,7 +118,7 @@ LAUNCHES = dict.fromkeys(
      "eigh_jacobi", "assemble_members", "transport_chain", "transport_rotate",
      "transport_follow", "mv_step", "mv_final", "dense_filter", "pole_sum", "tetra_dos",
      "spectral_sum_qbatch", "propagate_state", "propagate_full", "bdg_hessian", "bdg_grand_potential",
-     "assemble_floquet", "winding"), 0
+     "assemble_floquet", "winding", "phonon_kappa", "eph_vertex", "colpa"), 0
 )
 
 _lib = None

@@ -351,3 +351,95 @@ def test_port_refuses_slice_eleven_misuse_like_jax(name):
     want = _refusal(pythtb_tpu, fn)
     assert want[0] == "PythtbError"
     assert _refusal(pythtb_tpu_torch, fn) == want
+
+
+def _chain_fc(M, k=0.9, masses=1.3):
+    fc = M.phonon.force_model([[1.0]], [[0.0]], masses=masses)
+    fc.set_spring(k, 0, 0, [1])
+    return fc
+
+
+def _chain_tb(M, orb=0.0):
+    m = M.tb_model(1, 1, [[1.0]], [[orb]])
+    m.set_hop(-1.0, 0, 0, [1])
+    return m
+
+
+def _unstable_fc(M):
+    fc = M.phonon.force_model([[1.0]], [[0.0], [0.5]], masses=[1.0, 2.0])
+    fc.set_spring(1.0, 0, 1, [0])
+    fc.set_spring(-1.5, 1, 0, [1])
+    return fc
+
+
+def _non_pd_magnet(M):
+    """An AFM coupling about FM moments: not a classical minimum."""
+    sm = M.magnon.spin_model([[2.0]], [[0.0], [0.5]], spin=0.5)
+    sm.set_coupling(1.0, 0, 1, [0])
+    sm.set_coupling(1.0, 1, 0, [1])
+    return sm
+
+
+def _slab_tb(M):
+    m = M.tb_model(1, 2, np.eye(2), [[0.0, 0.0]])
+    m.set_hop(-1.0, 0, 0, [1, 0])
+    return m
+
+
+def _slab_fc(M):
+    fc = M.phonon.force_model(np.eye(2), [[0.0, 0.0]], dim_k=1)
+    fc.set_spring(1.0, 0, 0, [1, 0])
+    return fc
+
+
+def _onsite_only(M):
+    m = M.tb_model(1, 1, [[1.0]], [[0.0], [0.0]])
+    m.set_hop(-1.0, 0, 1, [0])
+    return m
+
+
+def _pair_fc(M):
+    fc = M.phonon.force_model([[1.0]], [[0.0], [0.0]])
+    fc.set_spring(1.0, 0, 1, [1])
+    return fc
+
+
+# misuse of the twelfth slice's calls (phonon, eph, magnon): each must
+# raise in both packages, with the same class and message
+SLICE12_CASES = {
+    "ph_unstable_bands": lambda M: M.phonon.bands(_unstable_fc(M), [[0.25]]),
+    "ph_unstable_heat_capacity": lambda M: M.phonon.heat_capacity(_unstable_fc(M), [0.5], 8),
+    "ph_bad_masses": lambda M: M.phonon.force_model([[1.0]], [[0.0]], masses=-1.0),
+    "ph_onsite_block": lambda M: _chain_fc(M).set_fc(1.0, 0, 0),
+    "ph_fc_shape": lambda M: _chain_fc(M).set_fc(np.eye(2), 0, 0, [1]),
+    "ph_k_columns": lambda M: M.phonon.bands(_chain_fc(M), [[0.1, 0.2]]),
+    "ph_kappa_slab": lambda M: M.phonon.thermal_conductivity(_slab_fc(M), [0.5], 8),
+    "ph_kappa_temperature": lambda M: M.phonon.thermal_conductivity(_chain_fc(M), [0.0], 8),
+    "ph_cluster_masses": lambda M: M.phonon.dynamical_cluster(_chain_fc(M), 3, masses=[1.0, 1.0]),
+    "mag_colpa_not_pd": lambda M: M.magnon.bands(_non_pd_magnet(M), [[0.25]], shift=0.0),
+    "mag_colpa_not_pd_vectors": lambda M: M.magnon.structure_factor(_non_pd_magnet(M), [[0.25]], shift=0.0),
+    "mag_same_site": lambda M: M.magnon.spin_model([[1.0]], [[0.0]]).set_coupling(1.0, 0, 0),
+    "mag_zero_moment": lambda M: M.magnon.spin_model([[1.0]], [[0.0]]).set_moments([[0.0, 0.0, 0.0]]),
+    "mag_chern_1d": lambda M: M.magnon.chern(_non_pd_magnet(M), 0),
+    "mag_sf_columns": lambda M: M.magnon.structure_factor(_non_pd_magnet(M), [[0.1, 0.2]]),
+    "eph_spinful": lambda M: M.eph.coupling(M.models.kane_mele(), _chain_fc(M), 1.0, [0.1, 0.1], [0.2, 0.0]),
+    "eph_not_periodic": lambda M: M.eph.coupling(_slab_tb(M), _slab_fc(M), 1.0, [0.1], [0.2]),
+    "eph_bad_atom_of": lambda M: M.eph.coupling(_chain_tb(M), _chain_fc(M), 1.0, [0.1], [0.2], atom_of=[3]),
+    "eph_orbital_off_atom": lambda M: M.eph.coupling(_chain_tb(M, 0.5), _chain_fc(M), 1.0, [0.1], [0.2]),
+    "eph_orbital_lattice_vector": lambda M: M.eph.coupling(_chain_tb(M, 1.0), _chain_fc(M), 1.0, [0.1], [0.2]),
+    "eph_no_finite_bond": lambda M: M.eph.coupling(_onsite_only(M), _pair_fc(M), 1.0, [0.1], [0.2]),
+    "eph_atom_count": lambda M: M.eph.coupling(_onsite_only(M), _chain_fc(M), 1.0, [0.1], [0.2]),
+    "eph_linewidth_temperature": lambda M: M.eph.linewidths(_chain_tb(M), _chain_fc(M), 1.0, [[0.1]], 0.0, 0.0,
+                                                            nkq=(4,)),
+    "eph_nkq_entries": lambda M: M.eph.linewidths(_chain_tb(M), _chain_fc(M), 1.0, [[0.1]], 0.0, 0.1, nkq=(4, 4)),
+    "eph_eliashberg_no_states": lambda M: M.eph.eliashberg(_chain_tb(M), _chain_fc(M), 1.0, 9.0, nk=(4,), nkq=(4,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE12_CASES))
+def test_port_refuses_slice_twelve_misuse_like_jax(name):
+    """The same exception class and message in both packages."""
+    fn = SLICE12_CASES[name]
+    want = _refusal(pythtb_tpu, fn)
+    assert want[0] == "PythtbError"
+    assert _refusal(pythtb_tpu_torch, fn) == want

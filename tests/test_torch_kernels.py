@@ -1494,3 +1494,166 @@ def test_chains_split_into_chunks_hand_over_the_state(dev, monkeypatch):
         config.set_device(prev)
     for got, want in zip(card, cpu):
         assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+
+
+def _honeycomb_fc(pt):
+    fm = pt.phonon.force_model([[1, 0], [0.5, np.sqrt(3) / 2]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]])
+    fm.set_spring(1.0, 0, 1, [0, 0], kt=0.25)
+    fm.set_spring(1.0, 1, 0, [1, 0], kt=0.25)
+    fm.set_spring(1.0, 1, 0, [0, 1], kt=0.25)
+    return fm
+
+
+def _honeycomb_tb(pt):
+    m = pt.tb_model(2, 2, [[1, 0], [0.5, np.sqrt(3) / 2]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]])
+    for i, j, R in ((0, 1, [0, 0]), (1, 0, [1, 0]), (1, 0, [0, 1])):
+        m.set_hop(-1.0, i, j, R)
+    return m
+
+
+def _kagome_magnet(pt):
+    sm = pt.magnon.spin_model([[1.0, 0.0], [0.5, np.sqrt(3) / 2]], [[0.0, 0.0], [0.5, 0.0], [0.0, 0.5]], spin=0.5)
+    for i, j, R in ((0, 1, [0, 0]), (0, 2, [0, 0]), (1, 2, [0, 0]), (1, 0, [1, 0]), (2, 0, [0, 1]), (2, 1, [-1, 1])):
+        sm.set_coupling(-1.0, i, j, R, dm=[0.0, 0.0, 0.15])
+    sm.set_field([0, 0, 0.02])
+    return sm
+
+
+@pytest.mark.parametrize("B,N,dk,nT", [(1, 1, 1, 1), (4096, 4, 2, 40), (333, 6, 3, 17), (1000, 2, 1, 33)])
+def test_phonon_kappa_kernel(dev, B, N, dk, nT):
+    from pythtb_tpu_torch.ops import phonon_kappa
+
+    rng = np.random.default_rng(B + N)
+    vecs = torch.as_tensor(np.linalg.qr(rng.normal(size=(B, N, N)) + 1j * rng.normal(size=(B, N, N)))[0]).to(dev)
+    a = rng.normal(size=(B, dk, N, N)) + 1j * rng.normal(size=(B, dk, N, N))
+    dD = torch.as_tensor(a + np.conj(np.swapaxes(a, -1, -2))).to(dev)
+    om = rng.uniform(0.0, 3.0, (B, N))
+    om[0, 0] = 0.0
+    omega = torch.as_tensor(om).to(dev)
+    Ts = torch.as_tensor(np.geomspace(0.01, 60.0, nT)).to(dev)
+    got = phonon_kappa.phonon_kappa(vecs, dD, omega, Ts)
+    want = phonon_kappa._phonon_kappa_plain(vecs, dD, omega, Ts)
+    assert _max_diff(got, want) <= 1e-10 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("Kc,Q,S,nmode,nh", [(1, 324, 2, 4, 6), (3, 36, 4, 6, 40), (2, 9, 17, 3, 700), (1, 4, 64, 2, 30)])
+def test_eph_vertex_kernel(dev, Kc, Q, S, nmode, nh):
+    from pythtb_tpu_torch.ops import eph_vertex
+
+    rng = np.random.default_rng(Kc * Q + S)
+    d, natom = 2, max(1, nmode // 2)
+    geom = {"i": rng.integers(0, S, nh), "j": rng.integers(0, S, nh), "R": rng.integers(-2, 3, (nh, d)).astype(float),
+            "tp": rng.normal(size=nh) + 1j * rng.normal(size=nh), "dhat": rng.normal(size=(nh, d)),
+            "atom_of": rng.integers(0, natom, S)}
+    tab = eph_vertex.VertexTables(geom, dev)
+
+    def unit(shape):
+        return torch.as_tensor(np.linalg.qr(rng.normal(size=shape) + 1j * rng.normal(size=shape))[0]).to(dev)
+
+    vk, vkq = unit((Kc, S, S)), unit((Kc, Q, S, S))
+    A = torch.as_tensor(rng.normal(size=(Q, nmode, natom, d)) + 1j * rng.normal(size=(Q, nmode, natom, d))).to(dev)
+    k = torch.as_tensor(rng.random((Kc, d))).to(dev)
+    qg = torch.as_tensor(rng.random((Q, d))).to(dev)
+    got = eph_vertex.eph_vertex(vk, vkq, A, tab, k, qg)
+    want = eph_vertex._eph_vertex_plain(vk, vkq, A, tab, k, qg)
+    assert _max_diff(got, want) <= 1e-12 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,n,nb", [(1681, 2, 12), (4096, 3, 12), (64, 8, 40), (16, 32, 200)])
+def test_colpa_kernel(dev, B, n, nb):
+    """Random directed tables with a diagonal large enough for h(k) to be
+    positive definite."""
+    from pythtb_tpu_torch.ops import colpa
+
+    rng = np.random.default_rng(B + n)
+    amp = lambda: (rng.normal(size=nb) + 1j * rng.normal(size=nb)) * 0.3  # noqa: E731
+    tab = colpa.ColpaTables(rng.integers(0, n, nb), rng.integers(0, n, nb), rng.normal(size=(nb, 2)), amp(), amp(),
+                            -(3.0 + 0.3 * nb / n) * np.ones(n), dev)
+    k = torch.as_tensor(rng.random((B, 2))).to(dev)
+    T, L = colpa.colpa(tab, 1e-9, k)
+    Tp, Lp = colpa._colpa_plain(tab, 1e-9, k)
+    scale = float(Tp.abs().max())
+    assert _max_diff(T, Tp) <= 1e-12 * scale and _max_diff(L, Lp) <= 1e-12 * float(Lp.abs().max())
+
+
+def test_colpa_kernel_gives_nan_and_the_error_where_not_positive_definite(dev):
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch.ops import colpa
+
+    bad = pt.magnon.spin_model([[2.0]], [[0.0], [0.5]], spin=0.5)
+    bad.set_coupling(1.0, 0, 1, [0])
+    bad.set_coupling(1.0, 1, 0, [1])
+    tab = colpa.ColpaTables(*bad._tables(), dev)
+    T, L = colpa.colpa(tab, 0.0, torch.tensor([[0.25], [0.1]], dtype=torch.float64, device=dev))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(T).all()) and bool(torch.isnan(L).all())
+    prev = config.device()
+    config.set_device(dev)
+    try:
+        with pytest.raises(pt.PythtbError, match="Colpa decomposition failed"):
+            pt.magnon.bands(bad, [[0.25]], shift=0.0)
+    finally:
+        config.set_device(prev)
+
+
+def test_slice_twelve_kernels_refuse_above_their_limits(dev):
+    from pythtb_tpu_torch.ops import colpa, eph_vertex, phonon_kappa
+
+    z = torch.zeros((2, 4, 3, 3), dtype=torch.complex128, device=dev)
+    with pytest.raises(ValueError, match="dim_k <= 3"):
+        phonon_kappa.phonon_kappa(z[:, 0], z, torch.ones((2, 3), dtype=torch.float64, device=dev),
+                                  torch.ones((1,), dtype=torch.float64, device=dev))
+    n = 33
+    tab = colpa.ColpaTables(np.zeros(1), np.zeros(1), np.zeros((1, 1)), np.ones(1), np.ones(1), np.ones(n), dev)
+    with pytest.raises(ValueError, match="2n <= 64.*set_device"):
+        colpa.colpa(tab, 0.0, torch.zeros((1, 1), dtype=torch.float64, device=dev))
+    S = 65
+    geom = {"i": np.zeros(1, int), "j": np.zeros(1, int), "R": np.zeros((1, 1)), "tp": np.ones(1, complex),
+            "dhat": np.ones((1, 1)), "atom_of": np.zeros(S, int)}
+    v = torch.zeros((1, S, S), dtype=torch.complex128, device=dev)
+    with pytest.raises(ValueError, match="at most 64 states.*set_device"):
+        eph_vertex.eph_vertex(v, v[:, None], torch.zeros((1, 1, 1, 1), dtype=torch.complex128, device=dev),
+                              eph_vertex.VertexTables(geom, dev), torch.zeros((1, 1), dtype=torch.float64, device=dev),
+                              torch.zeros((1, 1), dtype=torch.float64, device=dev))
+
+
+def test_bosons_slice_goes_through_kernels(dev, monkeypatch):
+    """thermal_conductivity, linewidths, eliashberg (one chunk, and a chunk
+    a k-point), magnon bands, thermal_hall and the neutron map on the card
+    launch kernels 25, 26, 27 and 16's q-batch mode, and agree with the
+    CPU run of the same calls (1e-10 relative)."""
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch.ops import propagate
+
+    qs = np.random.default_rng(4).random((32, 2))
+
+    def run():
+        fm, m, sm = _honeycomb_fc(pt), _honeycomb_tb(pt), _kagome_magnet(pt)
+        out = [pt.phonon.thermal_conductivity(fm, np.linspace(0.05, 1.0, 7), 12),
+               pt.eph.linewidths(m, fm, 2.0, [[0.1, 0.2], [0.3, 0.05]], mu=-0.8, temperature=0.08, nkq=(6, 6),
+                                 sigma=0.08)]
+        r = pt.eph.eliashberg(m, fm, 2.0, -0.8, nk=(4, 4), nkq=(4, 4), sigma_e=0.2)
+        out += [r["a2f"], np.array([r["lambda"], r["dos_ef"]]), pt.magnon.bands(sm, qs),
+                np.atleast_1d(pt.magnon.thermal_hall(sm, [0.3, 0.6], nk=9)),
+                pt.magnon.structure_factor(sm, qs, omegas=np.linspace(-1.0, 4.5, 41), eta=0.05, temperature=0.3)]
+        return out
+
+    prev = config.device()
+    try:
+        config.set_device("cpu")
+        cpu = run()
+        config.set_device(dev)
+        _kernels.reset_launches()
+        card = run()
+        for name in ("phonon_kappa", "eph_vertex", "colpa", "spectral_sum_qbatch", "assemble", "assemble_dk"):
+            assert _kernels.LAUNCHES[name] > 0, name
+        assert _kernels.LAUNCHES["eph_vertex"] == 2  # one chunk a call
+        monkeypatch.setattr(propagate, "CHUNK_BYTES", 1)
+        r = pt.eph.eliashberg(_honeycomb_tb(pt), _honeycomb_fc(pt), 2.0, -0.8, nk=(4, 4), nkq=(4, 4), sigma_e=0.2)
+        assert _kernels.LAUNCHES["eph_vertex"] == 2 + 16
+        card.append(r["a2f"])
+        cpu.append(cpu[2])
+    finally:
+        config.set_device(prev)
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() <= 1e-10 * max(1e-300, np.abs(want).max())

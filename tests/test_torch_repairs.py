@@ -250,11 +250,6 @@ def test_chambers_orbit_matches_jax_off_the_repaired_branch(x):
 # reason: a queue-1 item of ROADMAP.md still to port, or a name that only
 # the TPU runtime needed.  The list only shrinks: a closed gap must leave it.
 ALLOWED_GAPS = {
-    ("__init__.py", "phonon"): "queue 1 item 8a",
-    ("phonon.py", "<module>"): "queue 1 item 8a",
-    ("eph.py", "<module>"): "queue 1 item 8a",
-    ("__init__.py", "magnon"): "queue 1 item 8b",
-    ("magnon.py", "<module>"): "queue 1 item 8b",
     ("__init__.py", "exciton"): "queue 1 item 8b",
     ("exciton.py", "<module>"): "queue 1 item 8b",
     ("flows.py", "energy_fn"): "queue 1 item 3a",
