@@ -67,7 +67,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    27 (the Colpa factorization at the thermal-Hall 41^2 grid and the
    neutron row's 4,096 q, random 2n 16 and 64, a matrix that is not
    positive definite), the library eigh of the kappa row against kernel 7,
-   and the Floquet Chern row's states step with its bound;
+   and the Floquet Chern row's states step with its bound; the thirteenth
+   slice's kernel 28 (the BSE pair matrix and its Fock shifts, captured
+   from the bse_exciton_hbn_30x30 call and the same model at 48^2, random
+   S 4 / 8 with s_x 0, 1, 2 on a 3-D grid; 1e-12 of the largest entry) and
+   kernel 29 (the band-energy gradient gather at Haldane 301^2, the Peierls
+   sweep and random S 4 / 16 / 40; 1e-10 relative to torch autograd
+   through the plain versions);
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -143,7 +149,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    neutron_map_kagome_4096q (4,096 q x 300 w, the FM trace sum rule),
    against the CPU run at 1e-10 relative (kappa at 48^2, eliashberg at
    14^2, the neutron map at 64 q there; the phonon DOS at 1e-7);
-   then the steady wall time of the main calls;
+   and the thirteenth slice's calls with their pins: bse_exciton_hbn_30x30
+   (qp "hf"), absorption on its model over 401 omega, the 37 x 41 Haldane
+   phase diagram through chern_fn's member axis, the graphene fit of
+   examples/autodiff_tools.py (150 steps through kernel 29), the Peierls
+   sweep and a band loss's gradient on Haldane 301^2, against the CPU run
+   of the same calls (1e-10; group sums of oscillator strengths 1e-8);
+   then the steady wall time of the main calls and of the thirteenth
+   slice's five paths;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -237,21 +250,20 @@ def unit_states(torch, rng, shape, device):
 
 
 def cuda_ms(torch, fn, reps=REPS):
-    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up (up to
-    three runs, no more than ``reps``)."""
+    """Median milliseconds of ``fn`` over ``reps`` runs after warm-up (up
+    to three runs, no more than ``reps``), each run timed by the port's
+    ``utils.profiling.timed``: CUDA events behind a synchronize."""
+    from pythtb_tpu_torch import config
+    from pythtb_tpu_torch.utils import profiling
+
+    check(config.device().type == "cuda", "cuda_ms times the card, not %s" % config.device())
     for _ in range(min(3, reps)):
         fn()
-    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        with profiling.timed(out=times):
+            fn()
+    return 1e3 * float(np.median(times))
 
 
 def event_us(torch, fn, reps=10):
@@ -722,6 +734,7 @@ def phase_kernels(torch, pt, device):
     slice10_kernels(torch, pt, device, record, held)
     slice11_kernels(torch, pt, device, record, held)
     slice12_kernels(torch, pt, device, record, held)
+    slice13_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -4417,6 +4430,454 @@ def compare_slice12(out, ref):
         check(err <= tol, "%s differs from the CPU path by %.3e (relative)" % (key, err))
 
 
+S13 = {"bse_nk": 30, "bse_big_nk": 48, "pd_delta": 37, "pd_phi": 41, "pd_nk": 21, "fit_steps": 150, "loss_nk": 301,
+       "peierls_nk": 256, "peierls_p": 121}
+BSE_E0_PIN, BSE_F_PIN = 1.051907, 23.570831  # bse_exciton_hbn_30x30 (tools/bench_suite.py:674-700)
+ABS_W = np.linspace(0.0, 6.0, 401)
+FIT_T = -1.37  # examples/autodiff_tools.py
+PD_T2 = 0.15  # examples/haldane_phase_diagram.py
+PD_MARGIN = 0.1  # |Delta| this far from the analytic boundary counts as away from it
+
+
+def hbn_bse(pt):
+    """The bse_exciton_hbn_30x30 row's model and interaction."""
+    m = pt.tb_model(2, 2, [[1.0, 0.0], [0.5, np.sqrt(3.0) / 2.0]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]])
+    m.set_onsite([-0.9, 0.9])
+    for ij in ((0, 1, [0, 0]), (1, 0, [1, 0]), (1, 0, [0, 1])):
+        m.set_hop(-1.0, *ij)
+    return m, pt.exciton.radial_interaction(m, lambda x: 1.6 / (x + 0.5), 3.0)
+
+
+def phase_diagram_params(torch, pt):
+    """examples/haldane_phase_diagram.py's 37 x 41 (delta, phi) members:
+    their amplitudes (in the hop order of the graph) and on-site matrices,
+    built on the host and uploaded once."""
+    from pythtb_tpu_torch import config
+
+    deltas = np.linspace(0.0, 1.2, S13["pd_delta"])
+    phis = np.linspace(-np.pi, np.pi, S13["pd_phi"])
+    amps, diags = [], []
+    for d in deltas:
+        for p in phis:
+            m = pt.models.haldane(delta=d, t2=PD_T2 * np.exp(1.0j * p))
+            amps.append(np.array([h[0] for h in m._hoppings], dtype=complex))
+            diags.append(np.diag(np.asarray(m._site_energies, dtype=complex)))
+    dev = config.device()
+    return deltas, phis, {"amps": torch.as_tensor(np.stack(amps)).to(dev),
+                          "diag": torch.as_tensor(np.stack(diags)).to(dev)}
+
+
+def peierls_params(torch, device, offset=0.0):
+    """examples/peierls_ssh.py's sweep: 121 distortions of the SSH chain as
+    member amplitudes (the on-site matrix shared), and its 256 k-points;
+    ``offset`` shifts the distortions (by half a step, no member closes
+    its gap at k = 1/2)."""
+    deltas = np.linspace(-0.6, 0.6, S13["peierls_p"]) + offset
+    amps = np.stack([1.0 + deltas, 1.0 - deltas], axis=-1).astype(complex)
+    kpts = (np.arange(S13["peierls_nk"]) / S13["peierls_nk"])[:, None]
+    return torch.as_tensor(amps).to(device), torch.as_tensor(kpts).to(device)
+
+
+def cost_bse_pair(B, nc, nv, S, sx):
+    """Kernel 28's pair mode: the states, the table and W(Q) read once, H
+    (M^2) written once.  Operations, the function's least: per (x, y)
+    block the products conj(ue) ue and conj(uh) uh (nc^2 S + nv^2 S
+    complex products, 6 each), W contracted with the smaller of them
+    (min(nc^2, nv^2) S^2 multiply-adds, 8 each) and with the other
+    (nc^2 nv^2 S); the scale of an element (2) and the diagonal (1).  The
+    exchange is rank S: P = conj(ue) uh and Pc (M S products), PW = P WQ
+    (M S^2 multiply-adds), then 8 S a element, its scale and its sum (4)."""
+    M = B * nc * nv
+    nbytes = (B * (nc + nv) * S + B * S * S + S * S + M * M) * C128 + M * F64
+    direct = B * B * (6 * (nc * nc + nv * nv) * S + 8 * min(nc * nc, nv * nv) * S * S + 8 * nc * nc * nv * nv * S)
+    exchange = M * M * (8 * S + 4) + M * S * (12 + 8 * S) if sx else 0
+    return bound(nbytes, direct + 2 * M * M + M + exchange)
+
+
+def cost_bse_fock(B, nb, S):
+    """Kernel 28's Fock mode: the table, rho and the states read once, the
+    shifts written; the convolution's 8 operations a (x, y, a, b) and the
+    contraction's S (8 S + 4) a (x, n)."""
+    nbytes = (2 * B * S * S + B * nb * S) * C128 + B * nb * F64
+    return bound(nbytes, 8 * B * B * S * S + B * nb * S * (8 * S + 4))
+
+
+def cost_energy_vjp(data, P, NK):
+    """Kernel 29: U and gbar read once, the k-points and the graph once,
+    the gradients written once.  Operations, the function's least: per
+    (member, k) G = sum_n gbar_n u_n u_n^H on its S (S + 1) / 2 entries on
+    and above the diagonal (G is Hermitian; 8 S each), and for a hop
+    entry its phase (2 dim_k + 2) and the complex multiply-add (8)."""
+    S, ns2 = data.nsta, data.nspin**2
+    nhe = data.nhop * ns2
+    nbytes = (P * NK * (S * S * C128 + S * F64) + NK * data.dim_k * F64 + data.nhop * (data.dim_k * F64 + 2 * I64)
+              + P * (nhe + S * S) * C128)
+    return bound(nbytes, P * NK * (S * (S + 1) // 2 * 8 * S + nhe * (2 * data.dim_k + 10)))
+
+
+def slice13_kernels(torch, pt, device, record, held):
+    """Phase 3 for kernel 28 (the BSE pair matrix and the Fock shifts) and
+    kernel 29 (the band-energy gradient gather), each against its plain
+    version: kernel 28 captured from the bse_exciton_hbn_30x30 call (B 900,
+    S 2, nc = nv = 1) and the same model at 48^2 (M 2,304), and on random
+    states and tables at S 4 / nc 2 / nv 2 / B 256 (16^2) and S 8 / nc 3 /
+    nv 4 / B 64 (4^3) with s_x 0, 1 and 2 (any W(Q)), at 1e-12 of the
+    largest entry; kernel 29 at the Haldane 301^2 grid (B 90,000), the
+    Peierls sweep (P 121 x 256 k, its distortions shifted by half a step so
+    that no member closes its gap) and random models at S 4 / 16 / 40 (the
+    eigensolve of the last through kernel 7), against torch autograd
+    through the plain assembly and eigensolver at 1e-10 relative."""
+    import dataclasses
+
+    from pythtb_tpu_torch import core, exciton, optical
+    from pythtb_tpu_torch.ops import bse, eigh, hamiltonian, solver
+
+    rng = np.random.default_rng(13)
+    m, V = hbn_bse(pt)
+    for nk, main in ((S13["bse_nk"], True), (S13["bse_big_nk"], False)):
+        call = lambda: pt.exciton.bse(m, V, occ=[0], nk=(nk, nk), qp="hf")  # noqa: E731
+        args, _ = captured(exciton, "pair_matrix", call)
+        ue, uh, wtab, wq, de, grid, sx = args
+        B, nc, S = ue.shape
+        nv = uh.shape[1]
+        want = bse._pair_matrix_plain(*args)
+        err = max_diff(torch, bse.pair_matrix(*args), want) / float(want.abs().max())
+        record("bse_pair", "hBN %d^2: M %d, S %d, s_x %g" % (nk, B * nc * nv, S, sx), err,
+               lambda: bse.pair_matrix(*args), lambda: bse._pair_matrix_plain(*args), cost_bse_pair(B, nc, nv, S, sx),
+               main, reps=10 if main else 3)
+        fargs, _ = captured(exciton, "fock_shifts", call)
+        wt, occ_u, u, grid = fargs
+        want = bse._fock_shifts_plain(*fargs)
+        err = max_diff(torch, bse.fock_shifts(*fargs), want) / float(want.abs().max())
+        record("bse_fock", "hBN %d^2: B %d, S %d, nb %d" % (nk, B, S, u.shape[1]), err,
+               lambda: bse.fock_shifts(*fargs), lambda: bse._fock_shifts_plain(*fargs),
+               cost_bse_fock(B, u.shape[1], S), main, reps=10 if main else 3)
+        del args, fargs, want
+    # the rest of the row's program: its W table on kernel 1's one-sided
+    # mode, the M x M library eigh, absorption's poles on kernel 16
+    nk = S13["bse_nk"]
+    wdata = exciton._interaction_data(m, *exciton._prep_interaction(m, V), device)
+    kg = solver.device_uniform_grid((nk, nk), (0.0, 0.0), device)
+    err = max_diff(torch, hamiltonian.assemble_one_sided(wdata, kg), hamiltonian._one_sided_plain(wdata, kg))
+    record("assemble_one_sided", "BSE W table %d^2, %d terms" % (nk, wdata.nhop), err,
+           lambda: hamiltonian.assemble_one_sided(wdata, kg), lambda: hamiltonian._one_sided_plain(wdata, kg),
+           cost_one_sided(wdata, kg.shape[0]), reps=10)
+    call = lambda: pt.exciton.bse(m, V, occ=[0], nk=(nk, nk), qp="hf")  # noqa: E731
+    H = bse.pair_matrix(*captured(exciton, "pair_matrix", call)[0])
+    M = H.shape[0]
+    ms = cuda_ms(torch, lambda: eigh.eigh_batched(H[None]), 5)
+    us = event_us(torch, lambda: eigh.eigh_batched(H[None]), 5)
+    print("  bse row's M x M eigh (eigh_batched: torch.linalg.eigh), M %d: %.4f ms (CUDA-event span %.1f us; the info "
+          "check reads the device)  bound %.5f ms (%s)" % (M, ms, us, *cost_eigh(1, M)))
+    (W, de, om, width, mode), _ = captured(exciton, "spectral_sum",
+                                           lambda: pt.exciton.absorption(m, V, ABS_W, occ=[0], nk=(nk, nk)))
+    want = optical._spectral_sum_plain(W, de, om, width, mode)
+    err = max_diff(torch, optical.spectral_sum(W, de, om, width, mode), want) / float(want.abs().max())
+    lib = cuda_ms(torch, lambda: W @ (1.0 / (om[None, :] - de[:, None] + 1j * width)))
+    record("spectral_sum", "absorption poles T %d, P %d, nw %d" % (de.shape[0], W.shape[0], om.shape[0]), err,
+           lambda: optical.spectral_sum(W, de, om, width, mode),
+           lambda: optical._spectral_sum_plain(W, de, om, width, mode),
+           cost_spectral_sum(de.shape[0], W.shape[0], om.shape[0], True), library_ms=lib, tol=1e-10, reps=10)
+    del H, W
+    for grid, S, nc, nv in (((16, 16), 4, 2, 2), ((4, 4, 4), 8, 3, 4)):
+        B = int(np.prod(grid))
+        ue, uh, occ_u = (unit_states(torch, rng, (B, n, S), device) for n in (nc, nv, 3))
+        wtab = torch.as_tensor(rng.normal(size=(B, S, S)) + 1j * rng.normal(size=(B, S, S))).to(device)
+        wq = torch.as_tensor(rng.normal(size=(S, S)) + 1j * rng.normal(size=(S, S))).to(device)
+        de = torch.as_tensor(rng.uniform(1.0, 3.0, B * nc * nv)).to(device)
+        for sx in (0.0, 1.0, 2.0):
+            want = bse._pair_matrix_plain(ue, uh, wtab, wq, de, grid, sx)
+            err = max_diff(torch, bse.pair_matrix(ue, uh, wtab, wq, de, grid, sx), want) / float(want.abs().max())
+            record("bse_pair", "random %s S %d nc %d nv %d s_x %g" % ("x".join(map(str, grid)), S, nc, nv, sx), err,
+                   lambda: bse.pair_matrix(ue, uh, wtab, wq, de, grid, sx),
+                   lambda: bse._pair_matrix_plain(ue, uh, wtab, wq, de, grid, sx), cost_bse_pair(B, nc, nv, S, sx),
+                   reps=3)
+        want = bse._fock_shifts_plain(wtab, occ_u, ue, grid)
+        err = max_diff(torch, bse.fock_shifts(wtab, occ_u, ue, grid), want) / float(want.abs().max())
+        record("bse_fock", "random %s S %d nb %d, 3 occupied" % ("x".join(map(str, grid)), S, nc), err,
+               lambda: bse.fock_shifts(wtab, occ_u, ue, grid), lambda: bse._fock_shifts_plain(wtab, occ_u, ue, grid),
+               cost_bse_fock(B, nc, S), reps=3)
+
+    # kernel 29: the Haldane 301^2 grid, one member
+    def vjp_case(key, data, amps, diag, kpts, main, reps, tol_held=False):
+        P, NK, S = amps.shape[0], kpts.shape[0], data.nsta
+        H = hamiltonian.assemble_members(data, amps, diag, kpts) if P > 1 else hamiltonian.assemble(
+            dataclasses.replace(data, amps=amps[0], diag=diag[0]), kpts)
+        _, U = eigh.eigh_batched(H)
+        gbar = torch.as_tensor(rng.normal(size=(P * NK, S))).to(device)
+        got = hamiltonian.energy_vjp(data, amps, diag, kpts, U, gbar)
+        want = hamiltonian._energy_vjp_plain(data, amps, diag, kpts, gbar)
+        err = max(max_diff(torch, g, w) / float(w.abs().max()) for g, w in zip(got, want))
+        if tol_held:
+            held("energy_vjp", key, err, tol=1e-10)
+            ms = cuda_ms(torch, lambda: hamiltonian.energy_vjp(data, amps, diag, kpts, U, gbar), 3)
+            print("  %-15s %-34s kernel %.4f ms  bound %.5f ms (%s)" % ("energy_vjp", key, ms,
+                                                                        *cost_energy_vjp(data, P, NK)))
+            return
+        record("energy_vjp", key, err, lambda: hamiltonian.energy_vjp(data, amps, diag, kpts, U, gbar),
+               lambda: hamiltonian._energy_vjp_plain(data, amps, diag, kpts, gbar), cost_energy_vjp(data, P, NK),
+               main, tol=1e-10, reps=reps)
+
+    hal = haldane(pt)._get_finalized()
+    k_hal = solver.device_uniform_grid((GRID - 1, GRID - 1), (-0.5, -0.5), device)
+    vjp_case("haldane %d^2: B %d, S 2" % (GRID, k_hal.shape[0]), hal, hal.amps[None], hal.diag[None], k_hal, True,
+             10)
+    ssh = pt.models.ssh(0.0)._get_finalized()
+    amps, kp = peierls_params(torch, device, offset=0.005)
+    vjp_case("peierls P %d x %d k, S 2" % (amps.shape[0], kp.shape[0]), ssh, amps,
+             ssh.diag[None].expand(amps.shape[0], 2, 2).contiguous(), kp, False, 5)
+    for S, P, NK in ((4, 4, 1024), (16, 2, 256), (40, 1, 64)):
+        data = random_model_data(core, rng, device, norb=S, nhop=6 * S, dim=2)
+        amps = torch.as_tensor(rng.normal(size=(P, data.nhop)) + 1j * rng.normal(size=(P, data.nhop))).to(device)
+        diag = data.diag[None].expand(P, S, S).contiguous()
+        kk = torch.as_tensor(rng.random((NK, 2))).to(device)
+        vjp_case("random S %d: P %d x %d k, nhop %d" % (S, P, NK, data.nhop), data, amps, diag, kk, False, 3,
+                 tol_held=S == 40)
+
+
+def _timed_call(fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    return result, time.perf_counter() - t0
+
+
+def _group_sums(E, f, tol=1e-7):
+    """Sums of ``f`` (M, ...) over each group of (near-)degenerate levels
+    of the ascending E."""
+    cuts = np.nonzero(np.diff(E) > tol)[0] + 1
+    return np.stack([f[g].sum(0) for g in np.split(np.arange(E.size), cuts)])
+
+
+def slice13_path(pt, where, reference):
+    """The thirteenth slice's calls with their pins, the same on the card
+    and in the CPU reference: bse_exciton_hbn_30x30 (tools/bench_suite.py
+    :674-700; qp "hf": E0 within 5e-3 of 1.051907, the doublet's oscillator
+    sum within 0.12 of 23.570831); absorption on the same model at 30^2
+    over 401 omega; examples/haldane_phase_diagram.py (37 x 41 members at
+    NK 21 through chern_fn's member axis: integers 0 or +-1, 0 beyond the
+    analytic boundary |Delta| = 3 sqrt(3) |t2| |sin phi| and +-1 inside it,
+    where |Delta| is 0.1 away from it); examples/autodiff_tools.py's
+    graphene fit (150 descent steps through energy_fn's backward, fitted t
+    within 1e-3 of -1.37); examples/peierls_ssh.py's sweep (121 members x
+    256 k, forward); and one forward and backward of a mean-squared band
+    loss on Haldane 301^2 (300^2 k-points)."""
+    import torch
+
+    from pythtb_tpu_torch import config
+
+    dev = config.device()
+    out = {}
+    m, V = hbn_bse(pt)
+    nk = (S13["bse_nk"],) * 2
+    r, sec = _timed_call(pt.exciton.bse, m, V, occ=[0], nk=nk, qp="hf")
+    f = r.oscillator_strengths(0)
+    print("  %s bse_exciton_hbn_30x30 (M %d): E0 %.6f (pin %.6f), f0 + f1 %.6f (pin %.6f)  [%.2f s]"
+          % (where, r.energies.size, r.energies[0], BSE_E0_PIN, f[0] + f[1], BSE_F_PIN, sec))
+    check(abs(r.energies[0] - BSE_E0_PIN) < 5e-3 and abs(f[0] + f[1] - BSE_F_PIN) < 0.12,
+          "bse_exciton_hbn_30x30: E0 %.6f, f0 + f1 %.6f" % (r.energies[0], f[0] + f[1]))
+    check(r.amplitudes.shape == (900, 900) and np.isfinite(r.dipoles).all(), "bse: bad amplitudes or dipoles")
+    osc = np.stack([r.oscillator_strengths(d) for d in range(2)], axis=-1)
+    out.update(bse_e=r.energies, bse_de=r.pair_energies, bse_osc=_group_sums(r.energies, osc),
+               bse_amp2=_group_sums(r.energies, np.abs(r.amplitudes) ** 2))
+    sig, sec = _timed_call(pt.exciton.absorption, m, V, ABS_W, occ=[0], nk=nk, qp="hf")
+    i0 = int(np.argmax(sig[0, 0].real))
+    print("  %s absorption hBN 30^2 x %d omega: Re sigma_xx peaks %.4f at omega %.4f  [%.2f s]"
+          % (where, ABS_W.size, sig[0, 0].real[i0], ABS_W[i0], sec))
+    check(sig.shape == (2, 2, ABS_W.size) and np.isfinite(sig).all() and abs(ABS_W[i0] - r.energies[0]) < 0.1,
+          "absorption: shape %s or its first peak at %.4f is not the exciton's" % (sig.shape, ABS_W[i0]))
+    out["abs"] = sig
+
+    # examples/haldane_phase_diagram.py through chern_fn's member axis
+    deltas, phis, params = phase_diagram_params(torch, pt)
+    fn, _ = pt.flows.chern_fn(pt.models.haldane(), [0], nk=(S13["pd_nk"],) * 2)
+    C, sec = _timed_call(lambda: fn(params).cpu().numpy())
+    C = C.reshape(deltas.size, phis.size)
+    edge = 3.0 * np.sqrt(3.0) * PD_T2 * np.abs(np.sin(phis))[None, :]
+    away = phase_diagram_away()
+    inside, beyond = away & (deltas[:, None] < edge), away & (deltas[:, None] > edge)
+    print("  %s haldane phase diagram %d x %d members at %d^2: %d inside with |C| 1, %d beyond with C 0, worst "
+          "|C - round(C)| away from the boundary %.2e  [%.2f s]"
+          % (where, deltas.size, phis.size, S13["pd_nk"], inside.sum(), beyond.sum(),
+             np.abs(C - np.round(C))[away].max(), sec))
+    check(np.abs(C - np.round(C))[away].max() < 1e-6 and np.all(np.abs(np.round(C[inside])) == 1)
+          and np.all(np.round(C[beyond]) == 0) and inside.sum() > 100 and beyond.sum() > 100,
+          "the Haldane phase diagram is not 0 / +-1 on either side of the boundary")
+    out["pd"] = C
+
+    # examples/autodiff_tools.py: fit t by 150 descent steps
+    amps, sec = _timed_call(graphene_fit(torch, pt, dev))
+    fitted = float(amps[0].real)
+    print("  %s examples/autodiff_tools.py fit: t %.6f (target %.2f) after %d steps  [%.2f s]"
+          % (where, fitted, FIT_T, S13["fit_steps"], sec))
+    check(abs(fitted - FIT_T) < 1e-3, "the graphene fit ended at t %.6f" % fitted)
+    out["fit"] = amps.numpy()
+
+    # examples/peierls_ssh.py: the distortion sweep as one member call
+    fn, p0 = pt.flows.energy_fn(pt.models.ssh(0.0))
+    pamps, kp = peierls_params(torch, dev)
+    e_el, sec = _timed_call(lambda: torch.clamp(fn({"amps": pamps, "diag": p0["diag"]}, kp), max=0.0).sum(dim=(1, 2))
+                            .cpu().numpy() / S13["peierls_nk"])
+    deltas = np.linspace(-0.6, 0.6, S13["peierls_p"])
+    e_tot = e_el + 0.5 * 1.8 * deltas**2
+    print("  %s examples/peierls_ssh.py sweep %d x %d k: min E at delta %+.3f  [%.2f s]"
+          % (where, deltas.size, S13["peierls_nk"], deltas[np.argmin(e_tot)], sec))
+    check(abs(deltas[np.argmin(e_tot)]) > 1e-3, "the Peierls sweep's minimum is not dimerized")
+    out["peierls"] = e_el
+
+    # one forward and backward of a mean-squared band loss on Haldane 301^2
+    (loss, grads), sec = _timed_call(band_loss_301(torch, pt, dev))
+    print("  %s band loss Haldane %d^2: loss %.9f, |grad amps| %.6e  [%.2f s]"
+          % (where, S13["loss_nk"], loss, np.abs(grads[0]).max(), sec))
+    check(np.isfinite(loss) and all(np.isfinite(g).all() for g in grads), "the 301^2 band loss is not finite")
+    out.update(loss301=np.array([loss]), grad301_amps=grads[0], grad301_diag=grads[1])
+    return out
+
+
+def graphene_fit(torch, pt, dev):
+    """examples/autodiff_tools.py's fit as a function: 150 descent steps
+    (rate 0.5) of the mean-squared band misfit to graphene at t -1.37 on
+    a 6 x 6 mesh, from t -1; returns the fitted amplitudes (host)."""
+    target = pt.models.graphene(t=FIT_T)
+    kfit = target.k_uniform_mesh([6, 6])
+    tb = torch.as_tensor(target.solve_all(kfit).T).to(dev)
+    fn, p = pt.flows.energy_fn(pt.models.graphene(t=-1.0))
+
+    def fit():
+        amps = p["amps"]
+        for _ in range(S13["fit_steps"]):
+            a = amps.detach().requires_grad_()
+            (g,) = torch.autograd.grad(((fn({"amps": a, "diag": p["diag"]}, kfit) - tb) ** 2).mean(), a)
+            amps = a.detach() - 0.5 * g
+        return amps.cpu()
+
+    return fit
+
+
+def band_loss_301(torch, pt, dev):
+    """One forward and backward of mean((E - E_target)^2), Haldane (delta
+    0.2) against Haldane (delta 0.35), on the 301^2 Chern grid's 300^2
+    k-points, as a function returning (loss, (g_amps, g_diag)) on the host."""
+    from pythtb_tpu_torch.ops import solver
+
+    kp = solver.device_uniform_grid((S13["loss_nk"] - 1,) * 2, (-0.5, -0.5), dev)
+    fn, p0 = pt.flows.energy_fn(pt.models.haldane())
+    ft, pt0 = pt.flows.energy_fn(pt.models.haldane(delta=0.35))
+    with torch.no_grad():
+        target = ft(pt0, kp)
+
+    def step():
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        loss = ((fn(p, kp) - target) ** 2).mean()
+        loss.backward()
+        return float(loss.detach()), (p["amps"].grad.cpu().numpy(), p["diag"].grad.cpu().numpy())
+
+    return step
+
+
+def slice13_rows(torch, pt, card):
+    """Wall (host clock, median of 3), the span between two CUDA events
+    around a call (host waits inside the call, such as the eigh's info
+    check and the copies back, are in it), the profiler's device time and
+    the launches of kernels 28 and 29 per call, for the five paths: bse at
+    the row, absorption, the phase diagram, the graphene fit and the 301^2
+    loss."""
+    from pythtb_tpu_torch import config
+    from pythtb_tpu_torch.ops import _kernels
+
+    dev = config.device()
+    m, V = hbn_bse(pt)
+    nk = (S13["bse_nk"],) * 2
+    deltas, phis, params = phase_diagram_params(torch, pt)
+    cfn, _ = pt.flows.chern_fn(pt.models.haldane(), [0], nk=(S13["pd_nk"],) * 2)
+    rows = (("exciton.bse hBN 30^2, qp hf", lambda: pt.exciton.bse(m, V, occ=[0], nk=nk, qp="hf")),
+            ("exciton.absorption hBN 30^2, 401 omega", lambda: pt.exciton.absorption(m, V, ABS_W, occ=[0], nk=nk)),
+            ("flows.chern_fn phase diagram 37 x 41 at 21^2", lambda: cfn(params).cpu()),
+            ("energy_fn graphene fit, 150 steps", graphene_fit(torch, pt, dev)),
+            ("energy_fn Haldane 301^2 loss, forward + backward", band_loss_301(torch, pt, dev)))
+    for name, fn in rows:
+        before = dict(_kernels.LAUNCHES)
+        fn()
+        torch.cuda.synchronize()
+        n = {k: _kernels.LAUNCHES[k] - before[k] for k in ("bse_pair", "bse_fock", "energy_vjp", "assemble",
+                                                            "assemble_members", "spectral_sum", "eig2")}
+        wall = wall_ms(torch, fn, 3)
+        span = event_us(torch, fn, 3)
+        prof_us, prof_n = device_us(torch, fn, 2)
+        print("  path: %s: wall %.3f ms, CUDA-event span %.1f us, profiler device %s us in %s activities; launches "
+              "a call %s  (%s)" % (name, wall, span, fmt(prof_us), fmt(prof_n),
+                                  {k: v for k, v in n.items() if v}, card))
+
+
+def phase_diagram_away():
+    """(37, 41) mask of the phase diagram's members whose |Delta| is more
+    than PD_MARGIN from the analytic boundary 3 sqrt(3) |t2| |sin phi|."""
+    deltas = np.linspace(0.0, 1.2, S13["pd_delta"])
+    edge = 3.0 * np.sqrt(3.0) * PD_T2 * np.abs(np.sin(np.linspace(-np.pi, np.pi, S13["pd_phi"])))
+    return np.abs(deltas[:, None] - edge[None, :]) > PD_MARGIN
+
+
+def phase_diagram_gapless():
+    """(37, 41) mask of the phase diagram's members on the analytic boundary
+    itself: Delta 0 at phi 0 and +-pi, where H(K) is degenerate, the
+    plaquette that holds K has a flux of +-pi to rounding and the Chern
+    number is not defined."""
+    deltas = np.linspace(0.0, 1.2, S13["pd_delta"])
+    edge = 3.0 * np.sqrt(3.0) * PD_T2 * np.abs(np.sin(np.linspace(-np.pi, np.pi, S13["pd_phi"])))
+    return np.abs(deltas[:, None] - edge[None, :]) < 1e-9
+
+
+def gapless_cherns(pt, device, nk):
+    """chern_fn at the phase diagram's gapless members, on ``device`` at
+    NK ``nk``: what a finer grid gives where the Chern number is not
+    defined."""
+    deltas = np.linspace(0.0, 1.2, S13["pd_delta"])
+    phis = np.linspace(-np.pi, np.pi, S13["pd_phi"])
+    prev = pt.config.device()
+    pt.config.set_device(device)
+    try:
+        vals = []
+        for i, j in np.argwhere(phase_diagram_gapless()):
+            fn, p0 = pt.flows.chern_fn(pt.models.haldane(delta=deltas[i], t2=PD_T2 * np.exp(1.0j * phis[j])), [0],
+                                       nk=(nk, nk))
+            vals.append(round(float(fn(p0)), 12))
+        return vals
+    finally:
+        pt.config.set_device(prev)
+
+
+def compare_slice13(pt, out, ref, device):
+    """The thirteenth slice on the card against the CPU run: exciton energies
+    and pair energies at 1e-10, oscillator strengths and |A|^2 summed over
+    each degenerate group at 1e-8 of the largest, absorption, the phase
+    diagram (every member but the three on the boundary itself, where the
+    gap closes and the Chern number is not defined: those only integers),
+    the fitted amplitudes, the Peierls sweep and the 301^2 loss and its
+    gradients at 1e-10 relative to the largest entry."""
+    gapless = phase_diagram_gapless()
+    pd_got, pd_want = np.asarray(out["pd"]), np.asarray(ref["pd"])
+    near = ~phase_diagram_away() & ~gapless
+    print("  pd: %d members within %.1f of the boundary held with the rest; on the boundary itself (gap closed, "
+          "not held) card %s, CPU %s" % (near.sum(), PD_MARGIN, np.round(pd_got[gapless], 12).tolist(),
+                                         np.round(pd_want[gapless], 12).tolist()))
+    check(np.abs(pd_got[gapless] - np.round(pd_got[gapless])).max() < 1e-6
+          and np.abs(np.round(pd_got[gapless])).max() <= 1,
+          "the phase diagram's gapless members are not 0 or +-1 on the card: %s" % pd_got[gapless])
+    nk = 2 * S13["pd_nk"] - 1
+    print("  pd: the gapless members at NK %d: card %s, CPU %s" % (nk, gapless_cherns(pt, device, nk),
+                                                                 gapless_cherns(pt, "cpu", nk)))
+    for key in ("bse_e", "bse_de", "bse_osc", "bse_amp2", "abs", "pd", "fit", "peierls", "loss301", "grad301_amps",
+                "grad301_diag"):
+        got, want = np.asarray(out[key]), np.asarray(ref[key])
+        if key == "pd":
+            got, want = got[~gapless], want[~gapless]
+        check(got.shape == want.shape, "%s: shape %s differs from the CPU run's %s" % (key, got.shape, want.shape))
+        scale = 1.0 if key in ("bse_e", "bse_de") else max(1e-300, np.abs(want).max())
+        err = float(np.abs(got - want).max() / scale)
+        tol = 1e-8 if key in ("bse_osc", "bse_amp2") else 1e-10
+        print("  %s vs CPU: max|diff| %.3e (%s)" % (key, err, "absolute" if scale == 1.0 else "relative"))
+        check(err <= tol, "%s differs from the CPU path by %.3e" % (key, err))
+
+
 def _state_of(m):
     """Host state of a model, for convert.tb_model_from_state."""
     hops = m._hoppings
@@ -4501,6 +4962,7 @@ def phase_main_path(torch, pt, where, reference=False):
     out.update(slice10_path(pt, where, reference))
     out.update(slice11_path(pt, where, reference))
     out.update(slice12_path(pt, where, reference))
+    out.update(slice13_path(pt, where, reference))
     return out
 
 
@@ -5027,7 +5489,7 @@ def main():
           "KPM DOS/LDOS/Kubo, Chebyshev evolution, quench echo, interior and lowest states, markers, surfaces, "
           "Hall sweeps, orbital magnetization, optics, shift current, QGT, Boltzmann, Edelstein, Hall bar, Lyapunov "
           "spectra, CPA, ribbons, impurity T-matrix, ED sectors and twists, DMFT, mean fields, BdG, harmonics, "
-          "superfluid weight, Floquet, phonons, e-ph coupling, magnons:")
+          "superfluid weight, Floquet, phonons, e-ph coupling, magnons, excitons, differentiable flows:")
     t0 = time.perf_counter()
     _kernels.reset_launches()
     out = phase_main_path(torch, pt, "[gpu]")
@@ -5043,6 +5505,7 @@ def main():
     compare_slice10(out, ref)
     compare_slice11(out, ref)
     compare_slice12(out, ref)
+    compare_slice13(pt, out, ref, device)
     check_lowest_bound(torch, pt, out["lowest"], device)
     print("[4 main] kernel 7 launches in the slab's solve_on_grid: %d; in hofstadter_fn: %s"
           % (out["slab_jacobi_launches"], out["hof_launches"]))
@@ -5064,6 +5527,7 @@ def main():
     walls = phase_walls(torch, pt, card)
     walls["bounds"] = composite_bounds(torch, pt, card)
     walls["bounds"].update(more_bounds(torch, pt, card))
+    slice13_rows(torch, pt, card)
     print("[4 main] steady walls in %.1f s" % (time.perf_counter() - t0))
 
     # -- phase 5: launches -----------------------------------------------
@@ -5074,7 +5538,7 @@ def main():
                "assemble_members", "transport_chain", "transport_rotate", "transport_follow", "mv_step",
                "dense_filter", "pole_sum", "tetra_dos", "spectral_sum_qbatch", "propagate_state", "propagate_full",
                "bdg_hessian", "bdg_grand_potential", "assemble_floquet", "winding", "phonon_kappa", "eph_vertex",
-               "colpa")
+               "colpa", "bse_pair", "bse_fock", "energy_vjp")
     for name in kernels:
         check(launches[name] > 0, "kernel %s was not launched on the main path" % name)
 
@@ -5117,6 +5581,9 @@ def main():
         "phonon_kappa": ("phonon_kappa.cu", "pythtb_tpu/phonon.py:389"),
         "eph_vertex": ("eph_vertex.cu", "pythtb_tpu/eph.py:220"),
         "colpa": ("colpa.cu", "pythtb_tpu/magnon.py:284"),
+        "bse_pair": ("bse_kernel.cu", "pythtb_tpu/exciton.py:339"),
+        "bse_fock": ("bse_kernel.cu", "pythtb_tpu/exciton.py:257"),
+        "energy_vjp": ("energy_vjp.cu", "pythtb_tpu/flows.py:521"),
     }
     rows = []
     for name in kernels:

@@ -55,20 +55,24 @@ Pade continuation (:mod:`continuation`); and bosons: phonon bands,
 heat capacity and thermal conductivity of force-constant models
 (:mod:`phonon`), electron-phonon linewidths and the Eliashberg function
 (:mod:`eph`), and linear spin waves with magnon Berry curvature, thermal
-Hall conductivity and the neutron structure factor (:mod:`magnon`).
+Hall conductivity and the neutron structure factor (:mod:`magnon`); and
+excitons from the Bethe-Salpeter equation with their absorption
+(:mod:`exciton`), and band energies and Chern numbers as functions of
+the model parameters, differentiable (:func:`flows.energy_fn`) or over a
+member axis (:func:`flows.chern_fn`).
 
 Tensors live on the CUDA device unless :func:`config.set_device` chooses
 another (``set_device("cpu")`` for the CPU), in float64/complex128.  On
-an NVIDIA Hopper card the hot paths run through 28 hand-written CUDA
-kernels (kernels 1-27 and 11b, with the extra modes of kernels 1, 12, 14,
-16, 20, 22 and 23; ``csrc/``, built with nvcc at first use); on the CPU
+an NVIDIA Hopper card the hot paths run through 30 hand-written CUDA
+kernels (kernels 1-29 and 11b, with the extra modes of kernels 1, 12, 14,
+16, 20, 22, 23 and 28; ``csrc/``, built with nvcc at first use); on the CPU
 the same functions run their plain PyTorch versions.  This package
 never imports JAX.
 """
 
-from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, eph, fermisurface,
-               flows, floquet, geometry, impurity, localization, magnetic, magnon, meanfield, models, negf, optical,
-               phonon, realspace, response, surface, symmetry, unfold, wannier)
+from . import (bdg, boltzmann, config, continuation, disorder, dmft, dynamics, ed, entanglement, eph, exciton,
+               fermisurface, flows, floquet, geometry, impurity, localization, magnetic, magnon, meanfield, models,
+               negf, optical, phonon, realspace, response, surface, symmetry, unfold, wannier)
 from .family import ModelFamily, family
 from .model import PythtbError, tb_model
 from .utils.continuity import no_2pi
@@ -84,6 +88,6 @@ __all__ = [
     "magnetic", "models", "realspace", "surface", "optical", "boltzmann", "geometry", "negf", "localization",
     "impurity", "disorder", "family", "ModelFamily", "wannier", "unfold", "entanglement", "symmetry",
     "ed", "dmft", "meanfield", "bdg", "continuation", "fermisurface", "response", "floquet", "phonon", "eph",
-    "magnon",
+    "magnon", "exciton",
     "__version__", "PYTHTB_COMPAT_VERSION",
 ]

@@ -22,7 +22,12 @@ package it converts from:
 * :func:`force_model_from_state` and :func:`spin_model_from_state`
   rebuild a phonon :class:`~pythtb_tpu_torch.phonon.force_model` or a
   :class:`~pythtb_tpu_torch.magnon.spin_model` from another package's
-  model state.
+  model state;
+* :func:`params_from_jax` and :func:`grad_from_jax` carry the parameters
+  of ``energy_fn`` / ``chern_fn`` and their gradients across: the JAX
+  package packs them as real arrays with a trailing [re, im] axis, the
+  port keeps complex tensors, and its gradients follow torch's
+  convention for complex leaves.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from .wf_array import wf_array
 
 __all__ = [
     "tb_model_from_state", "bloch_from_numpy", "wf_array_from_numpy", "wannier_inputs_from_numpy",
-    "dmft_result_from_numpy", "force_model_from_state", "spin_model_from_state",
+    "dmft_result_from_numpy", "force_model_from_state", "spin_model_from_state", "params_from_jax", "grad_from_jax",
 ]
 
 
@@ -228,3 +233,21 @@ def spin_model_from_state(state):
     sm._field = np.array(state["field"], dtype=float)
     sm._moments = np.array(state["moments"], dtype=float)
     return sm
+
+
+def params_from_jax(params, device=None):
+    """``{"amps", "diag"}`` of the JAX package's ``energy_fn`` /
+    ``chern_fn`` (ri-packed NumPy arrays, any leading member axis) as the
+    port's complex128 tensors on ``device`` (default ``config.device()``)."""
+    dev = config.checked_device(device)
+    return {key: torch.as_tensor(_unpack(params[key]), dtype=config.COMPLEX).to(dev) for key in ("amps", "diag")}
+
+
+def grad_from_jax(g):
+    """A gradient of the JAX package with respect to ri-packed parameters
+    (an array, or a dict of them) in torch's convention for a complex leaf,
+    dL/dRe + i dL/dIm: g[..., 0] + 1j g[..., 1], as complex128 CPU
+    tensors."""
+    if isinstance(g, dict):
+        return {key: grad_from_jax(val) for key, val in g.items()}
+    return torch.as_tensor(_unpack(g), dtype=config.COMPLEX)

@@ -39,9 +39,12 @@ per-band fluxes of the Hall sweeps, partitioned on the host),
 TRIMs), ``find_nodes`` / ``node_chirality`` (a gap scan on kernels 1-2,
 a Hellmann-Feynman descent on kernels 1, 2 and 15, cube fluxes on
 kernels 3-4) and ``second_chern`` / ``axion_theta`` (the projector
-curvature of a model family as torch einsums).  The JAX package's
-``energy_fn`` and ``chern_fn`` exist to be differentiated or vmapped and
-are not ported (they need backward kernels).
+curvature of a model family as torch einsums).
+
+Functions of the model parameters: ``energy_fn`` (band energies with a
+``torch.autograd.Function`` whose backward is kernel 29) and
+``chern_fn`` (a member axis in place of ``jax.vmap``: one flux-batch
+solve, then kernels 3-4 per member).
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ from .ops import chebyshev
 from .ops.berry import _dets, _plane_link_dets, _wrap, plaquette_flux, wilson_eigenphases, wilson_loop
 from .ops.eigh import eigh_batched, eigvalsh_batched
 from .ops.fermi_sweep import fermi_sweep
-from .ops.hamiltonian import assemble, assemble_dk
+from .ops.hamiltonian import _hermitian_part, assemble, assemble_dk, assemble_members, energy_vjp
 from .ops.solver import device_uniform_grid, extend_pbc_seq
 from .optical import _band_tensors, _inv_gaps
 
@@ -69,6 +72,7 @@ __all__ = [
     "spin_hall_conductivity", "orbital_magnetization", "density_of_states", "projected_dos",
     "band_velocities", "spin_texture", "quadrupole", "sector_chern", "spin_chern", "valley_chern",
     "parity_z2", "parity_polarization", "find_nodes", "node_chirality", "second_chern", "axion_theta",
+    "energy_fn", "chern_fn",
 ]
 
 
@@ -133,6 +137,154 @@ def chern_number(model, occ, nk=(101, 101), start_k=(-0.5, -0.5), mesh=None):
     """Chern number of the ``occ`` bands (flux / 2 pi); ``mesh`` must be
     None."""
     return berry_flux_grid(model, occ, nk, start_k, mesh) / (2.0 * np.pi)
+
+
+def _params(data: BlochData, params):
+    """(amps (P, nhop[, 2, 2]), diag (P, nsta, nsta), member): the
+    parameters as complex128 tensors on the model's device, with a member
+    axis; ``member`` says whether either came with one (the other is
+    broadcast along it)."""
+    amps = torch.as_tensor(params["amps"]).to(device=data.device, dtype=config.COMPLEX)
+    diag = torch.as_tensor(params["diag"]).to(device=data.device, dtype=config.COMPLEX)
+    a_member = amps.dim() == data.amps.dim() + 1
+    d_member = diag.dim() == 3
+    if tuple(amps.shape[int(a_member):]) != tuple(data.amps.shape):
+        raise ValueError("amps must have shape %s or (P, *%s), got %s"
+                         % (tuple(data.amps.shape), tuple(data.amps.shape), tuple(amps.shape)))
+    if tuple(diag.shape[int(d_member):]) != (data.nsta, data.nsta):
+        raise ValueError("diag must have shape (%d, %d) or (P, %d, %d), got %s"
+                         % (data.nsta, data.nsta, data.nsta, data.nsta, tuple(diag.shape)))
+    if a_member and d_member and amps.shape[0] != diag.shape[0]:
+        raise ValueError("amps and diag have %d and %d members" % (amps.shape[0], diag.shape[0]))
+    P = amps.shape[0] if a_member else (diag.shape[0] if d_member else 1)
+    amps = (amps if a_member else amps[None]).expand((P,) + tuple(data.amps.shape))
+    diag = (diag if d_member else diag[None]).expand(P, data.nsta, data.nsta)
+    return amps, diag, a_member or d_member
+
+
+def _degenerate_mean(w, g):
+    """``g`` (B, S) averaged over each group of the ascending ``w`` (B, S)
+    whose levels are equal to rounding (1e-12 of max(1, |w|) apart).  At
+    a degeneracy sum_n g_n u_n u_n^H then sums projectors onto the groups,
+    which no choice of basis inside a group changes: the symmetric
+    subgradient, as the closed-form 2 x 2 gives."""
+    tol = 1e-12 * torch.clamp(w.abs().amax(dim=-1, keepdim=True), min=1.0)
+    brk = (w[:, 1:] - w[:, :-1]) > tol
+    gid = torch.cat([torch.zeros_like(brk[:, :1], dtype=torch.int64), brk.to(torch.int64).cumsum(dim=-1)], dim=-1)
+    sums = torch.zeros_like(g).scatter_add_(-1, gid, g)
+    counts = torch.zeros_like(g).scatter_add_(-1, gid, torch.ones_like(g))
+    return (sums / counts.clamp(min=1.0)).gather(-1, gid)
+
+
+class _BandEnergies(torch.autograd.Function):
+    """Band energies of P members of one hopping graph at shared k-points,
+    (P, NK, nsta), with kernel 29 as the backward (:func:`energy_vjp`).
+    The cotangent is averaged over each degenerate group first
+    (:func:`_degenerate_mean`), so the gradient does not depend on the
+    eigenbasis the solver returns there, on the card or on the CPU."""
+
+    @staticmethod
+    def forward(ctx, amps, diag, kpts, data):
+        P, NK, S = amps.shape[0], kpts.shape[0], data.nsta
+        amps, diag_h = amps.contiguous(), _hermitian_part(diag).contiguous()
+        if P == 1:  # kernel 1
+            H = assemble(dataclasses.replace(data, amps=amps[0], diag=diag_h[0]), kpts)
+        else:  # kernel 1's flux-batch mode
+            H = assemble_members(data, amps, diag_h, kpts)
+        w, U = eigh_batched(H)
+        ctx.save_for_backward(amps, diag_h, kpts, U, w)
+        ctx.data = data
+        return w.reshape(P, NK, S)
+
+    @staticmethod
+    def backward(ctx, gw):
+        amps, diag_h, kpts, U, w = ctx.saved_tensors
+        gbar = _degenerate_mean(w, gw.reshape(w.shape).to(config.FLOAT))
+        ga, gd = energy_vjp(ctx.data, amps, diag_h, kpts, U, gbar.contiguous())
+        return ga, gd, None, None
+
+
+def energy_fn(model):
+    """Differentiable band-energy function: returns ``(fn, params0)``,
+    ``params0 = {"amps": ..., "diag": ...}`` the model's hopping amplitudes
+    (nhop,) ((nhop, 2, 2) at nspin 2, in :class:`~pythtb_tpu_torch.core.BlochData`'s
+    hop order) and on-site matrix (nsta, nsta) as complex128 tensors, and
+    ``fn(params, kpts) -> evals (B, nsta)``, a torch function of them.
+
+    Gradients flow through a ``torch.autograd.Function`` whose forward is
+    kernel 1 and ``eigh_batched`` and whose backward is kernel 29
+    (:func:`~pythtb_tpu_torch.ops.hamiltonian.energy_vjp`, the plain
+    autograd version on the CPU): first derivatives with respect to the
+    parameters, not to ``kpts``.  The energies are those of the on-site
+    matrix's Hermitian part, and ``.grad`` of a complex leaf is
+    dL/dRe + i dL/dIm (torch's convention; ``convert.grad_from_jax``
+    turns the JAX package's ri-packed gradient into it).
+
+    Params with a leading member axis, (P, nhop[, 2, 2]) amplitudes and/or
+    (P, nsta, nsta) on-site matrices (the other broadcast), give (P, B,
+    nsta): one launch of kernel 1's flux-batch mode, the counterpart of
+    ``jax.vmap`` over the JAX package's ``fn``.
+
+    Example::
+
+        fn, p0 = flows.energy_fn(model)
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        ev = fn(p, kpts)
+        (ev[:, 1].min() - ev[:, 0].max()).backward()
+        dgap = p["amps"].grad
+    """
+    data = model._get_finalized()
+    params0 = {"amps": data.amps.clone(), "diag": data.diag.clone()}
+
+    def fn(params, kpts):
+        amps, diag, member = _params(data, params)
+        k = torch.as_tensor(np.asarray(kpts) if not torch.is_tensor(kpts) else kpts)
+        k = k.to(device=data.device, dtype=config.FLOAT).reshape(-1, data.dim_k).contiguous()
+        ev = _BandEnergies.apply(amps, diag, k, data)
+        return ev if member else ev[0]
+
+    return fn, params0
+
+
+def chern_fn(model, occ, nk=(31, 31), start_k=(-0.5, -0.5)):
+    """Chern-number function of the model parameters: returns ``(fn,
+    params0)`` with ``params0`` as in :func:`energy_fn` and ``fn(params)
+    -> chern``, a 0-d float64 tensor, or (P,) for params with a leading
+    member axis (the phase diagram that the JAX package vmaps):
+
+        fn, p0 = flows.chern_fn(model, [0])
+        cherns = fn({"amps": amps_grid, "diag": p0["diag"]})   # (P,)
+
+    One call solves every member on the grid with
+    ``ops.solver.solve_grid_family`` (one launch of kernel 1's flux-batch
+    mode and one ``eigh_batched``), extends it by the periodic gauge, and
+    sums plaquette fluxes with kernels 3 and 4.  The value is an integer
+    almost everywhere, so ``fn`` computes it without autograd and returns
+    a tensor with no graph.  The hopping graph is fixed; only amplitudes
+    and on-site energies (their Hermitian part) vary.
+    """
+    from .ops.solver import solve_grid_family
+
+    data = model._get_finalized()
+    if data.dim_k != 2:
+        raise ValueError("chern_fn requires a model with dim_k == 2")
+    occ = _check_occ(occ, data.nsta)
+    n0, n1 = int(nk[0]), int(nk[1])
+    start = np.asarray(start_k, dtype=np.float64)
+    params0 = {"amps": data.amps.clone(), "diag": data.diag.clone()}
+    occ_idx = torch.as_tensor(np.asarray(occ, dtype=np.int64), device=data.device)
+
+    def fn(params):
+        amps, diag, member = _params(data, params)
+        with torch.no_grad():
+            _, _, w = solve_grid_family(data, amps.contiguous(), _hermitian_part(diag).contiguous(), (n0, n1), start,
+                                        model._orb, model._per, model._nspin)
+            P = w.shape[0]
+            ws = w.reshape(P, n0, n1, data.nsta, data.nsta).index_select(3, occ_idx).contiguous()
+            flux = plaquette_flux(*_plane_link_dets(ws))[0] / (2.0 * np.pi)
+        return flux if member else flux[0]
+
+    return fn, params0
 
 
 def wilson_flow(model, occ, nk=(41, 41), loop_dir=1, start_k=(-0.5, -0.5)):

@@ -12,7 +12,7 @@ Each kernel wrapper (in the module of the JAX program it replaces, in
 ``ops/chebyshev.py`` for the recursions of kernels 9, 10 and 11, or in
 ``ops/fermi_sweep.py`` for kernel 17, which serves three modules, and
 in ``ops/phonon_kappa.py``, ``ops/eph_vertex.py`` and ``ops/colpa.py``
-for kernels 25-27)
+for kernels 25-27, in ``ops/bse.py`` for kernel 28)
 validates its tensors with :func:`require`, allocates its outputs with
 ``torch.empty``, launches through :func:`launch` on the current stream,
 and counts the launch in :data:`LAUNCHES`.
@@ -81,6 +81,9 @@ _SIGNATURES = {
     "pythtb_phonon_kappa": [_P] * 6 + [_I] * 4 + [_P],
     "pythtb_eph_vertex": [_P] * 13 + [_I] * 8 + [_P],
     "pythtb_colpa": [_P] * 9 + [_I] * 4 + [_D, _P],
+    "pythtb_bse_pair": [_P] * 6 + [_I] * 7 + [_D, _P],
+    "pythtb_bse_fock": [_P] * 5 + [_I] * 6 + [_P],
+    "pythtb_energy_vjp": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 # Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
@@ -110,7 +113,11 @@ _SIGNATURES = {
 # mode (not in "assemble"); "winding" counts kernel 24's calls (the
 # periodized history, the stencil and a reduction each); "phonon_kappa"
 # counts kernel 25's calls (a partial pass and a reduction each);
-# "eph_vertex" counts kernel 26 and "colpa" kernel 27 (one launch each).
+# "eph_vertex" counts kernel 26 and "colpa" kernel 27 (one launch each);
+# "bse_pair" and "bse_fock" count kernel 28's two modes (a call each; a
+# Fock call is two launches, the convolution and the contraction);
+# "energy_vjp" counts kernel 29's calls (a partial pass and a reduction
+# each).
 LAUNCHES = dict.fromkeys(
     ("assemble", "assemble_one_sided", "eig2", "link_dets", "plaquette_flux", "wilson_loop",
      "position", "ell_matvec", "cheb_moments", "cheb_evolve", "cheb_filter", "decimation",
@@ -118,7 +125,8 @@ LAUNCHES = dict.fromkeys(
      "eigh_jacobi", "assemble_members", "transport_chain", "transport_rotate",
      "transport_follow", "mv_step", "mv_final", "dense_filter", "pole_sum", "tetra_dos",
      "spectral_sum_qbatch", "propagate_state", "propagate_full", "bdg_hessian", "bdg_grand_potential",
-     "assemble_floquet", "winding", "phonon_kappa", "eph_vertex", "colpa"), 0
+     "assemble_floquet", "winding", "phonon_kappa", "eph_vertex", "colpa", "bse_pair", "bse_fock",
+     "energy_vjp"), 0
 )
 
 _lib = None

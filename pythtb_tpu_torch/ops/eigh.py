@@ -209,6 +209,29 @@ def eigh_batched(H):
     return w, v.transpose(-1, -2)
 
 
+def _eigvalsh_plain(H):
+    """Ascending eigenvalues of (B, m, m) by the plain versions on any
+    device: the closed form at m 2, the plain Jacobi at 33-64,
+    ``torch.linalg.eigvalsh`` elsewhere.  Differentiable by torch
+    autograd (the oracle of kernel 29 takes its gradient): at m 2 the
+    splitting is sqrt(delta^2 + |c|^2), set to 0 with a zero gradient where
+    it vanishes (hypot's gradient is NaN there, at graphene's K points),
+    as the JAX package's closed form differentiates."""
+    m = H.shape[-1]
+    if m == 1:
+        return H[..., 0, 0].real[..., None].to(config.FLOAT)
+    if m == 2:
+        a, b, c = H[..., 0, 0].real, H[..., 1, 1].real, H[..., 0, 1]
+        mid, delta = 0.5 * (a + b), 0.5 * (a - b)
+        r2 = delta * delta + c.real * c.real + c.imag * c.imag
+        split = r2 > 0
+        r = torch.where(split, torch.sqrt(torch.where(split, r2, torch.ones_like(r2))), torch.zeros_like(r2))
+        return torch.stack([mid - r, mid + r], dim=-1)
+    if JACOBI_MIN <= m <= JACOBI_MAX:
+        return _eigh_jacobi_plain(H, vectors=False)
+    return torch.linalg.eigvalsh(H)
+
+
 def eigvalsh_batched(H):
     """Ascending eigenvalues of (B, m, m)."""
     m = H.shape[-1]

@@ -15,7 +15,9 @@ of ``pythtb_tpu.surface._one_sided``).  :func:`assemble_dk` and
 :func:`assemble_d2k` are kernel 15, the analytic k-derivatives.
 :func:`assemble_floquet` is kernel 1's Floquet-block mode: the truncated
 extended-zone Floquet matrix of ``pythtb_tpu.floquet._spectrum_jit``,
-written in one launch.
+written in one launch.  :func:`energy_vjp` is kernel 29, the backward of
+band energies: the gradient of sum gbar E with respect to the amplitudes
+and the on-site matrix, from the eigenvectors, without forming dL/dH.
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ from .. import config
 from ..core import BlochData
 from . import _kernels
 
-__all__ = ["assemble", "assemble_members", "assemble_one_sided", "assemble_dk", "assemble_d2k", "assemble_floquet"]
+__all__ = ["assemble", "assemble_members", "assemble_one_sided", "assemble_dk", "assemble_d2k", "assemble_floquet",
+           "energy_vjp"]
+
+# kernel 29 splits each member's k-points into chunks, aiming at this many
+# blocks in all (eight per SM of an H100)
+_VJP_BLOCKS = 1056
 
 
 def _phases(data: BlochData, kpts):
@@ -349,3 +356,78 @@ def assemble_floquet(data: BlochData, kpts, fac, ons, omega, nharm):
     _kernels.launch("assemble_floquet", dev, kpts, data.rv, data.amps, data.diag, fac, ons, data.ptr, data.ent, K,
                     B, data.dim_k, data.norb, data.nspin, data.nhop, nharm, float(omega))
     return K
+
+
+def _hermitian_part(diag):
+    """(D + D^H) / 2 over the last two axes: the on-site matrix whose band
+    energies :func:`energy_vjp` differentiates (the JAX package's eigh
+    symmetrizes its input the same way)."""
+    return 0.5 * (diag + diag.conj().transpose(-1, -2))
+
+
+def _band_energies_plain(data: BlochData, amps, diag, kpts):
+    """Band energies (P * NK, nsta) of P members (``amps`` (P, nhop[, 2,
+    2]), ``diag`` (P, nsta, nsta)) at ``kpts``: the plain flux-batch
+    assembly of the on-site matrices' Hermitian parts, then the plain
+    eigensolver.  Differentiable by torch autograd."""
+    from .eigh import _eigvalsh_plain
+
+    return _eigvalsh_plain(_assemble_members_plain(data, amps, _hermitian_part(diag), kpts))
+
+
+def _energy_vjp_plain(data: BlochData, amps, diag, kpts, gbar):
+    """Torch autograd of sum(gbar * E) through :func:`_band_energies_plain`:
+    the oracle of kernel 29.  Returns (g_amps, g_diag) in torch's
+    convention for complex leaves (dL/dRe + i dL/dIm)."""
+    with torch.enable_grad():
+        a = amps.detach().requires_grad_(True)
+        d = diag.detach().requires_grad_(True)
+        E = _band_energies_plain(data, a, d, kpts)
+        ga, gd = torch.autograd.grad(E, (a, d), grad_outputs=gbar.to(E.dtype), allow_unused=True)
+    return (torch.zeros_like(a) if ga is None else ga), (torch.zeros_like(d) if gd is None else gd)
+
+
+def energy_vjp(data: BlochData, amps, diag, kpts, U, gbar):
+    """Gradient of L = sum gbar * E, E the band energies of P members of
+    ``data``'s hopping graph (``amps`` (P, nhop[, 2, 2]), ``diag`` (P,
+    nsta, nsta) complex128) at the NK points ``kpts``, with respect to
+    the amplitudes and the on-site matrix.
+
+    :param U: (P * NK, nsta, nsta) complex128 eigenvectors (rows are
+      states) of the members' H(k), member-major (kernel 1's flux-batch
+      layout)
+    :param gbar: (P * NK, nsta) float64 cotangent of the energies
+    :returns: (g_amps (P, nhop[, 2, 2]), g_diag (P, nsta, nsta)) complex128,
+      torch's gradient of a complex leaf (dL/dRe + i dL/dIm): with
+      G_k = sum_n gbar_kn u_n u_n^H, g_amps[h] = 2 sum_k G_k[i_h, j_h]
+      e^{-2 pi i k.rv_h} and g_diag = sum_k G_k, the energies being
+      those of the on-site matrix's Hermitian part
+
+    On a CUDA tensor this launches kernel 29 (``csrc/energy_vjp.cu``),
+    which reads U and never forms dL/dH; on a CPU tensor it runs
+    :func:`_energy_vjp_plain`, torch autograd through the plain assembly
+    and eigensolver (``U`` unused).
+    """
+    if U.device.type == "cpu":
+        return _energy_vjp_plain(data, amps, diag, kpts, gbar)
+    P, NK, S = amps.shape[0], kpts.shape[0], data.nsta
+    if P > 65535:
+        raise ValueError("kernel 29 takes at most 65,535 members, got %d" % P)
+    dev = data.device
+    blk = (2, 2)[: 2 * (data.nspin - 1)]
+    U, gbar, kpts = U.contiguous(), gbar.contiguous(), kpts.contiguous()
+    _kernels.require(U, "U", config.COMPLEX, (P * NK, S, S), dev)
+    _kernels.require(gbar, "gbar", config.FLOAT, (P * NK, S), dev)
+    _kernels.require(kpts, "kpts", config.FLOAT, (NK, data.dim_k), dev)
+    _kernels.require(data.rv, "rv", config.FLOAT, (data.nhop, data.dim_k), dev)
+    _kernels.require(data.ii, "ii", torch.int64, (data.nhop,), dev)
+    _kernels.require(data.jj, "jj", torch.int64, (data.nhop,), dev)
+    chunks = max(1, min(-(-NK // 8), -(-_VJP_BLOCKS // P)))
+    kchunk = -(-NK // chunks)
+    nout = data.nhop * data.nspin**2 + S * S
+    partial = torch.empty((P, -(-NK // kchunk), nout), dtype=config.COMPLEX, device=dev)
+    g_amps = torch.empty((P, data.nhop) + blk, dtype=config.COMPLEX, device=dev)
+    g_diag = torch.empty((P, S, S), dtype=config.COMPLEX, device=dev)
+    _kernels.launch("energy_vjp", dev, U, gbar, kpts, data.rv, data.ii, data.jj, partial, g_amps, g_diag,
+                    P, NK, kchunk, data.dim_k, S, data.nspin, data.nhop)
+    return g_amps, g_diag

@@ -443,3 +443,75 @@ def test_port_refuses_slice_twelve_misuse_like_jax(name):
     want = _refusal(pythtb_tpu, fn)
     assert want[0] == "PythtbError"
     assert _refusal(pythtb_tpu_torch, fn) == want
+
+
+def _bn_ex(M):
+    m = M.tb_model(2, 2, [[1.0, 0.0], [0.5, np.sqrt(3.0) / 2.0]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]])
+    m.set_onsite([-0.7, 0.7])
+    m.set_hop(-1.0, 0, 1, [0, 0])
+    m.set_hop(-1.0, 1, 0, [1, 0])
+    return m
+
+
+def _chain_ex(M):
+    m = M.tb_model(1, 1, [[1.0]], [[0.0], [0.4]])
+    m.set_onsite([0.0, 4.0])
+    m.set_hop(0.5, 1, 1, [1])
+    return m
+
+
+_EX_V = [(1.0, 0, 1, (0, 0))]
+
+# misuse of the thirteenth slice's calls (exciton, chern_fn): each must
+# raise in both packages, with the same class and message
+SLICE13_CASES = {
+    "ex_spinful": lambda M: M.exciton.bse(M.models.kane_mele(), None, [0, 1], (4, 4)),
+    "ex_finite": lambda M: M.exciton.bse(_chain_ex(M).cut_piece(3, 0), None, [0], ()),
+    "ex_spin_channel": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0], (4, 4), spin="quartet"),
+    "ex_qp": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0], (4, 4), qp="gw"),
+    "ex_nk_entries": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0], (4,)),
+    "ex_nk_zero": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0], (4, 0)),
+    "ex_occ_repeated": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0, 0], (4, 4)),
+    "ex_occ_range": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [2], (4, 4)),
+    "ex_no_conduction": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0, 1], (4, 4)),
+    "ex_vbands_empty": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0], (4, 4), vbands=[1]),
+    "ex_cbands_occupied": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0], (4, 4), cbands=[0, 1]),
+    "ex_term_length": lambda M: M.exciton.bse(_bn_ex(M), [(1.0, 0, 1)], [0], (4, 4)),
+    "ex_term_cell": lambda M: M.exciton.bse(_bn_ex(M), [(1.0, 0, 1, (0,))], [0], (4, 4)),
+    "ex_term_orbital": lambda M: M.exciton.bse(_bn_ex(M), [(1.0, 0, 5, (0, 0))], [0], (4, 4)),
+    "ex_term_onsite": lambda M: M.exciton.bse(_bn_ex(M), [(1.0, 1, 1, (0, 0))], [0], (4, 4)),
+    "ex_q_entries": lambda M: M.exciton.bse(_bn_ex(M), _EX_V, [0], (4, 4), Q=[0.1]),
+    "ex_rcut": lambda M: M.exciton.radial_interaction(_bn_ex(M), lambda r: 1.0 / r, 0.0),
+    "ex_dispersion_qlist": lambda M: M.exciton.dispersion(_chain_ex(M), None, [0], (4,), [0.1, 0.2]),
+    "ex_absorption_1d": lambda M: M.exciton.absorption(_chain_ex(M), None, [0.5], [0], (4,)),
+    "ex_absorption_q": lambda M: M.exciton.absorption(_bn_ex(M), _EX_V, [0.5], [0], (4, 4), Q=[0.1, 0.0]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE13_CASES))
+def test_port_refuses_slice_thirteen_misuse_like_jax(name):
+    """The same exception class and message in both packages."""
+    fn = SLICE13_CASES[name]
+    want = _refusal(pythtb_tpu, fn)
+    assert want[0] == "PythtbError"
+    assert _refusal(pythtb_tpu_torch, fn) == want
+
+
+def _flows(M):
+    import importlib
+
+    return importlib.import_module(M.__name__ + ".flows")
+
+
+FLOW_FN_CASES = {
+    "chern_fn_1d": lambda M: _flows(M).chern_fn(M.models.ssh(), [0]),
+    "chern_fn_occ_range": lambda M: _flows(M).chern_fn(M.models.haldane(), [2]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLOW_FN_CASES))
+def test_port_refuses_chern_fn_misuse_like_jax(name):
+    fn = FLOW_FN_CASES[name]
+    want = _refusal(pythtb_tpu, fn)
+    assert want[0] in ("ValueError", "IndexError")
+    assert _refusal(pythtb_tpu_torch, fn) == want

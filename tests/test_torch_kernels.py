@@ -1657,3 +1657,127 @@ def test_bosons_slice_goes_through_kernels(dev, monkeypatch):
         config.set_device(prev)
     for got, want in zip(card, cpu):
         assert np.abs(got - want).max() <= 1e-10 * max(1e-300, np.abs(want).max())
+
+
+@pytest.mark.parametrize("nk,S,nc,nv,sx", [((30, 30), 2, 1, 1, 1.0), ((16, 16), 4, 2, 2, 0.0),
+                                            ((4, 4, 4), 8, 3, 4, 2.0), ((7,), 3, 1, 2, 1.0)])
+def test_bse_kernel_modes(dev, nk, S, nc, nv, sx):
+    """Kernel 28's pair and Fock modes against their plain einsum chains,
+    1e-12 of the largest entry."""
+    from pythtb_tpu_torch.ops import bse
+
+    rng = np.random.default_rng(28)
+    B = math.prod(nk)
+
+    def cplx(*shape):
+        return torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape)).to(dev)
+
+    ue, uh, occ, wtab, wq = cplx(B, nc, S), cplx(B, nv, S), cplx(B, 2, S), cplx(B, S, S), cplx(S, S)
+    de = torch.as_tensor(rng.normal(size=B * nc * nv)).to(dev)
+    want = bse._pair_matrix_plain(ue, uh, wtab, wq, de, nk, sx)
+    assert _max_diff(bse.pair_matrix(ue, uh, wtab, wq, de, nk, sx), want) <= TOL * float(want.abs().max())
+    want = bse._fock_shifts_plain(wtab, occ, ue, nk)
+    assert _max_diff(bse.fock_shifts(wtab, occ, ue, nk), want) <= TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("nspin,S,P,NK", [(1, 2, 1, 900), (1, 4, 3, 257), (2, 8, 2, 64), (1, 16, 1, 40), (1, 40, 2, 9)])
+def test_energy_vjp_kernel(dev, nspin, S, P, NK):
+    """Kernel 29 against torch autograd through the plain assembly and
+    eigensolver (random, non-degenerate spectra), 1e-10 relative."""
+    rng = np.random.default_rng(29)
+    data, _ = _random_data(29 + S, 2, nspin, dev, norb=S // nspin, nhop=4 * S)
+    amps = torch.as_tensor(rng.normal(size=(P,) + tuple(data.amps.shape))
+                           + 1j * rng.normal(size=(P,) + tuple(data.amps.shape))).to(dev)
+    diag = hamiltonian._hermitian_part(data.diag[None].expand(P, data.nsta, data.nsta)).contiguous()
+    k = torch.as_tensor(rng.random((NK, 2))).to(dev)
+    _, U = eigh.eigh_batched(hamiltonian.assemble_members(data, amps, diag, k))
+    gbar = torch.as_tensor(rng.normal(size=(P * NK, data.nsta))).to(dev)
+    got = hamiltonian.energy_vjp(data, amps, diag, k, U, gbar)
+    want = hamiltonian._energy_vjp_plain(data, amps, diag, k, gbar)
+    for g, w in zip(got, want):
+        assert _max_diff(g, w) <= 1e-10 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("case", ["graphene_K", "spin_pairs"])
+def test_energy_gradient_at_a_degeneracy_matches_the_cpu(dev, case):
+    """energy_fn's gradient where levels are exactly degenerate, with a
+    cotangent that differs inside each group: graphene at K (S 2, eig2)
+    and a spinful chain with no spin-orbit term (S 4, the library solver),
+    on-site and amplitude gradients on the card (kernel 29) against the
+    CPU run, 1e-10 of the largest entry.  Both take the cotangent's mean over each
+    group, so the basis the solvers return there does not matter."""
+    import pythtb_tpu_torch as pt
+
+    def run():
+        if case == "graphene_K":
+            m = pt.models.graphene()
+            k = np.array([[1.0 / 3.0, 2.0 / 3.0], [2.0 / 3.0, 1.0 / 3.0]])
+        else:
+            m = pt.tb_model(1, 1, [[1.0]], [[0.0], [0.5]], nspin=2)
+            m.set_onsite([0.3, -0.2])
+            m.set_hop(0.7, 0, 1, [0])
+            m.set_hop(0.4 - 0.1j, 1, 0, [1])
+            k = np.array([[0.13], [0.61]])
+        fn, p0 = pt.flows.energy_fn(m)
+        p = {key: v.clone().requires_grad_() for key, v in p0.items()}
+        ev = fn(p, k)
+        (ev * torch.arange(1.0, ev.shape[-1] + 1.0, dtype=torch.float64, device=ev.device)).sum().backward()
+        return [p["amps"].grad.cpu().numpy(), p["diag"].grad.cpu().numpy()]
+
+    prev = config.device()
+    try:
+        config.set_device("cpu")
+        cpu = run()
+        config.set_device(dev)
+        _kernels.reset_launches()
+        card = run()
+        assert _kernels.LAUNCHES["energy_vjp"] > 0
+    finally:
+        config.set_device(prev)
+    scale = max(np.abs(w).max() for w in cpu)  # at K the amplitude gradient is 0 up to rounding
+    for got, want in zip(card, cpu):
+        assert np.abs(got - want).max() <= 1e-10 * scale, (got, want)
+
+
+def test_excitons_and_autodiff_slice_goes_through_kernels(dev):
+    """bse (qp "hf") and absorption, energy_fn's forward and backward (one
+    member and a member axis) and chern_fn's member form on the card launch
+    kernels 28 and 29, and agree with the CPU run of the same calls (1e-10;
+    energies absolute, the rest relative)."""
+    import pythtb_tpu_torch as pt
+
+    def run():
+        m = pt.tb_model(2, 2, [[1.0, 0.0], [0.5, np.sqrt(3.0) / 2.0]], [[1 / 3, 1 / 3], [2 / 3, 2 / 3]])
+        m.set_onsite([-0.9, 0.9])
+        for ij in ((0, 1, [0, 0]), (1, 0, [1, 0]), (1, 0, [0, 1])):
+            m.set_hop(-1.0, *ij)
+        V = pt.exciton.radial_interaction(m, lambda x: 1.6 / (x + 0.5), 3.0)
+        r = pt.exciton.bse(m, V, occ=[0], nk=(6, 6), qp="hf", Q=[1 / 6, 0.0])
+        out = [r.energies, r.pair_energies,
+               pt.exciton.absorption(m, V, np.linspace(0.0, 5.0, 21), occ=[0], nk=(5, 5), spin="singlet")]
+        fn, p0 = pt.flows.energy_fn(pt.models.haldane())
+        k = np.random.default_rng(3).random((33, 2))
+        p = {key: v.clone().requires_grad_() for key, v in p0.items()}
+        (fn(p, k) ** 2).sum().backward()
+        out += [p["amps"].grad.cpu().numpy(), p["diag"].grad.cpu().numpy()]
+        amps = torch.stack([p0["amps"] * s for s in (1.0, 0.8, 1.3)]).requires_grad_()
+        (fn({"amps": amps, "diag": p0["diag"]}, k)[:, :, 0].sum()).backward()
+        out.append(amps.grad.cpu().numpy())
+        cfn, _ = pt.flows.chern_fn(pt.models.haldane(), [0], nk=(11, 11))
+        out.append(cfn({"amps": amps.detach(), "diag": p0["diag"]}).cpu().numpy())
+        return out
+
+    prev = config.device()
+    try:
+        config.set_device("cpu")
+        cpu = run()
+        config.set_device(dev)
+        _kernels.reset_launches()
+        card = run()
+        for name in ("bse_pair", "bse_fock", "energy_vjp", "assemble_one_sided", "assemble_members", "spectral_sum"):
+            assert _kernels.LAUNCHES[name] > 0, name
+    finally:
+        config.set_device(prev)
+    for i, (got, want) in enumerate(zip(card, cpu)):
+        scale = 1.0 if i < 2 else max(1e-300, np.abs(want).max())
+        assert np.abs(got - want).max() <= 1e-10 * scale, i

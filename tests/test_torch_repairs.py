@@ -250,12 +250,6 @@ def test_chambers_orbit_matches_jax_off_the_repaired_branch(x):
 # reason: a queue-1 item of ROADMAP.md still to port, or a name that only
 # the TPU runtime needed.  The list only shrinks: a closed gap must leave it.
 ALLOWED_GAPS = {
-    ("__init__.py", "exciton"): "queue 1 item 8b",
-    ("exciton.py", "<module>"): "queue 1 item 8b",
-    ("flows.py", "energy_fn"): "queue 1 item 3a",
-    ("flows.py", "chern_fn"): "queue 1 item 3a",
-    ("__main__.py", "<module>"): "queue 1 item 9",
-    ("utils/profiling.py", "<module>"): "queue 1 item 9",
     ("__init__.py", "parallel"): "queue 1 item 10",
     ("parallel/__init__.py", "<module>"): "queue 1 item 10",
     ("parallel/mesh.py", "<module>"): "queue 1 item 10",

@@ -210,14 +210,15 @@ def test_parity_misuse_raises_like_jax(i):
 
 
 def test_the_slice_completes_flows_magnetic_and_family():
-    """flows holds every public name of pythtb_tpu.flows but the two that
-    wait for backward kernels; magnetic and family hold all of theirs, and
-    the package exports ``family`` and ``ModelFamily`` as pythtb_tpu does."""
+    """flows holds every public name of pythtb_tpu.flows (energy_fn and
+    chern_fn since their backward kernel); magnetic and family hold all of
+    theirs, and the package exports ``family`` and ``ModelFamily`` as
+    pythtb_tpu does."""
     import importlib
 
     import pythtb_tpu_torch
 
-    assert set(jflows.__all__) - set(flows.__all__) == {"energy_fn", "chern_fn"}
+    assert set(jflows.__all__) - set(flows.__all__) == set()
     for mod in ("magnetic", "family"):
         ref = importlib.import_module("pythtb_tpu." + mod)
         port = importlib.import_module("pythtb_tpu_torch." + mod)
