@@ -15,9 +15,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    time of each over 25 runs (CUDA events), the time of the one PyTorch
    call that computes the same function where there is one, and the
    least time the card could take for the work (bytes over 3.35 TB/s or
-   float64 operations over 34 TFLOP/s, whichever is larger); single
-   steps of kernels 9 and 10 are held at 1e-12, their whole recursions
-   at 1e-10 relative (sums of N terms in another order), kernel 11's
+   float64 operations over 34 TFLOP/s, 67 TFLOP/s for kernel 6's matrix
+   product on the tensor cores, whichever is larger); kernel 5 on both
+   of its designs (a warp or a block a link) and kernel 6 on both of its
+   own (a thread an element, tiles on the FP64 tensor cores) at the
+   shapes that place their dispatch lines; single steps of kernels 9 and
+   10 are held at 1e-12, their whole recursions at 1e-10 relative (sums
+   of N terms in another order), kernel 11's
    Gaussian filters (the magic-angle moire cell's tables, degree 512 and
    6,144, and a spinful table) at 1e-10 relative, kernel 12's decimation
    (the Fermi-arc map and a spinful ribbon) and kernel 1's one-sided mode
@@ -73,7 +77,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    S 4 / 8 with s_x 0, 1, 2 on a 3-D grid; 1e-12 of the largest entry) and
    kernel 29 (the band-energy gradient gather at Haldane 301^2, the Peierls
    sweep and random S 4 / 16 / 40; 1e-10 relative to torch autograd
-   through the plain versions);
+   through the plain versions); and kernel 14's chain mode beside the
+   library SVD of its overlaps;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -183,6 +188,7 @@ GRID = 301
 REPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
+FP64_TC_FLOPS_PER_S = 67e12  # H100 SXM float64 on the tensor cores (data sheet)
 C128, F64, I64 = 16, 8, 8  # bytes per element
 ROOT = Path(__file__).resolve().parent
 
@@ -366,10 +372,11 @@ def eigh_library_ms(torch, H):
         torch.backends.cuda.preferred_linalg_library(prev)
 
 
-def bound(nbytes, flops):
-    """Least time (ms) of the work on the card, and what bounds it."""
+def bound(nbytes, flops, rate=FP64_FLOPS_PER_S):
+    """Least time (ms) of the work on the card, and what bounds it; the
+    operations at ``rate`` (the tensor cores' for a matrix product)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP64_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -444,9 +451,12 @@ def cost_wilson(grid, S, F, axis):
 
 
 def cost_position(B, S, F, diagonal=False):
+    """Kernel 6: the chosen states read once, X written once; X's upper
+    triangle is a matrix product, at the FP64 tensor cores' rate."""
     if diagonal:
         return bound(B * S * F * C128 + F * F64 + S * I64 + B * S * F64, B * S * F * 4)
-    return bound(B * S * F * C128 + F * F64 + S * I64 + B * S * S * C128, B * S * (S + 1) // 2 * F * 8)
+    return bound(B * S * F * C128 + F * F64 + S * I64 + B * S * S * C128, B * S * (S + 1) // 2 * F * 8,
+                 FP64_TC_FLOPS_PER_S)
 
 
 def _ell_table_bytes(h):
@@ -715,7 +725,39 @@ def phase_kernels(torch, pt, device):
         err = max(err, max_diff(torch, position.xmat(fv, p), position._xmat_plain(fv, p)))
     record("position", "flake B=1 S=800 F=800", err, lambda: position.xmat(fv, p),
            lambda: position._xmat_plain(fv, p), cost_position(1, 800, 800), reps=5, profile=True,
-           prof_reps=3)
+           prof_reps=3, library_ms=cuda_ms(torch, lambda: torch.einsum("bnf,f,bmf->bnm", fv.conj(),
+                                                                        p.to(fv.dtype), fv), 5))
+
+    def position_paths(key, st, p, o, reps):
+        """Kernel 6's two designs for X (threads: a thread an element;
+        tiles: the FP64 tensor cores) on the same inputs."""
+        B, S, F = st.shape[0], o.shape[0], st.shape[-1]
+        want = position._xmat_plain(st, p, o)
+        sel = st.index_select(1, o).contiguous()
+        lib = cuda_ms(torch, lambda: torch.einsum("bnf,f,bmf->bnm", sel.conj(), p.to(sel.dtype), sel), reps)
+        for path in ("tiles", "threads"):
+            X = position._xmat(st, p, o, False, path)
+            err = max_diff(torch, X, want)
+            check(float((X - X.conj().transpose(-1, -2)).abs().max()) == 0.0,
+                  "kernel 6's %s path: X is not exactly Hermitian at %s" % (path, key))
+            record("position", "%s, %s" % (key, path), err, lambda: position._xmat(st, p, o, False, path),
+                   lambda: position._xmat_plain(st, p, o), cost_position(B, S, F), reps=reps, library_ms=lib)
+
+    position_paths("flake B=1 S=800 F=800", fv, p, torch.arange(800, device=device), 5)
+    position_paths("slab 41x41 B=1681 S=20 F=39", w3, pos, occ, 5)
+    for key, B, S, nsta, F in (("ragged B=1 S=333 of 340 F=797", 1, 333, 340, 797),
+                               ("ragged B=3 S=33 of 40 F=97", 3, 33, 40, 97),
+                               ("kane_mele marker shape B=1 S=392 of 784 F=784", 1, 392, 784, 784)):
+        st = unit_states(torch, rng, (B, nsta, F), device)
+        p = torch.as_tensor(rng.uniform(-15.0, 15.0, F)).to(device)
+        o = torch.as_tensor(rng.permutation(nsta)[:S]).to(device)
+        position_paths(key, st, p, o, 5)
+    # where the tiles overtake: the slab's k-points at S 4-16 (F 39)
+    for S in (4, 8, 12, 16):
+        st = unit_states(torch, rng, (1681, 39, 39), device)
+        p = torch.as_tensor(rng.uniform(0.0, 20.0, 39)).to(device)
+        position_paths("slab-like B=1681 S=%d of 39 F=39" % S, st, p,
+                       torch.as_tensor(rng.permutation(39)[:S]).to(device), 3)
     for S, F in ((1, 3), (2, 4), (8, 16), (64, 96)):
         st = unit_states(torch, rng, (257, S + 2, F), device)
         p = torch.as_tensor(rng.uniform(0.0, 20.0, F)).to(device)
@@ -3059,9 +3101,12 @@ def slice10_kernels(torch, pt, device, record, held):
     at 1e-10 relative; kernel 16's q-batch mode at the Lindhard row (64 q,
     4 operator pairs, 2,304 transitions, 16 w) and the Stoner row at 1e-10
     relative; kernels 3 and 5 at the slab's 20 occupied states (41 x 41)
-    and random states at S 9, 12, 16, 32, 64, kernel 14 at the slab's 20
-    states and random frames at S 9-64, kernel 19's single steps at nw 9,
-    12, 16, 32, all at 1e-12 as their register paths."""
+    and random states at S 9, 12, 16, 32, 64, kernel 5 also at S 1-8, 24
+    and 28, and from S 20 to 32 on both of its designs (a warp or a block
+    a link), beside the library SVD; kernel 14 at the
+    slab's 20 states and random frames at S 9-64 (beside the library SVD
+    of the chain's overlaps), kernel 19's single steps at nw 9, 12, 16,
+    32, all at 1e-12 as their register paths."""
     from pythtb_tpu_torch import fermisurface, optical, response, wannier
     from pythtb_tpu_torch.ops import berry, solver, tetra, transport
 
@@ -3095,6 +3140,28 @@ def slice10_kernels(torch, pt, device, record, held):
                lambda: optical.spectral_sum_qbatch(W, de, om, eta),
                lambda: optical._spectral_sum_qbatch_plain(W, de, om, eta), cost_spectral_sum_qbatch(Q, P, T, len(w)),
                main, library_ms=lib, tol=1e-10, scale=float(want.abs().max()), reps=REPS if main else 5)
+
+    def wilson_paths(key, st, reps):
+        """Kernel 5 at its default design, and from S 20 to 32 (about its
+        dispatch line) at the other (a warp or a block a link), beside the
+        library SVD of the same overlaps."""
+        S, F = st.shape[-2], st.shape[-1]
+        ov = berry._overlap(st[:-1], st[1:]).contiguous()
+        lib = cuda_ms(torch, lambda: torch.linalg.svd(ov, full_matrices=False), 3)
+        default = berry._wilson_path(S)
+        for path in [default] + [q for q in berry._WILSON_MODES if q != default and 20 <= S <= 32]:
+            err = 0.0
+            for ax in (0, 1):
+                prod, smin = berry._wilson_loop(st, ax, path)
+                want, want_min = berry._wilson_loop_plain(st, ax)
+                err = max(err, max_diff(torch, prod, want), max_diff(torch, smin, want_min))
+            record("wilson_loop", key if path == default else "%s, %s path" % (key, path), err,
+                   lambda: berry._wilson_loop(st, 0, path), lambda: berry._wilson_loop_plain(st, 0),
+                   cost_wilson(tuple(st.shape[:-2]), S, F, 0), reps=reps, library_ms=lib)
+
+    # kernel 5 below S 9, and where a warp a link gives way to a block a link
+    for S in (1, 2, 3, 4, 5, 6, 7, 8, 24, 28):
+        wilson_paths("33x17 S=%d F=%d random" % (S, S + 8), unit_states(torch, rng, (33, 17, S, S + 8), device), 3)
     # kernels 3 and 5 past S 8: the slab's 20 occupied states, then random states
     slab = cubic_slab(pt)
     sd = slab._get_finalized()
@@ -3108,15 +3175,7 @@ def slice10_kernels(torch, pt, device, record, held):
         record("link_dets", key, err, lambda: berry.link_dets(st, 0), lambda: berry._link_dets_plain(st, 0),
                cost_link_dets(tuple(st.shape[:-2]), S, F, 0), reps=reps,
                library_ms=cuda_ms(torch, lambda: torch.linalg.det(berry._overlap(st[:-1], st[1:])), 3))
-        err = 0.0
-        for ax in (0, 1):
-            prod, smin = berry.wilson_loop(st, ax)
-            want, want_min = berry._wilson_loop_plain(st, ax)
-            err = max(err, max_diff(torch, prod, want), max_diff(torch, smin, want_min))
-        ov = berry._overlap(st[:-1], st[1:]).contiguous()
-        record("wilson_loop", key, err, lambda: berry.wilson_loop(st, 0), lambda: berry._wilson_loop_plain(st, 0),
-               cost_wilson(tuple(st.shape[:-2]), S, F, 0), reps=reps,
-               library_ms=cuda_ms(torch, lambda: torch.linalg.svd(ov, full_matrices=False), 3))
+        wilson_paths(key, st, reps)
     # kernel 14 past 8 states: the slab's smooth gauge and following of its
     # 20 occupied states (of 39), then random frames
     w5s, _ = transport._strings(ws, 1, 2, 0)
@@ -3133,9 +3192,12 @@ def slice10_kernels(torch, pt, device, record, held):
         S = len(occ)
         C, smin = transport._chain(w5, occ_t)
         Cp, sp = transport._chain_plain(w5, occ_t)
+        sel = w5.index_select(3, occ_t)
+        ov = berry._overlap(sel[:, :-1], sel[:, 1:]).contiguous()
         record("transport_chain", key, max(max_diff(torch, C, Cp), max_diff(torch, smin, sp)),
                lambda: transport._chain(w5, occ_t), lambda: transport._chain_plain(w5, occ_t),
-               cost_transport_chain(outer, L, inner, S, F), reps=reps)
+               cost_transport_chain(outer, L, inner, S, F), reps=reps,
+               library_ms=cuda_ms(torch, lambda: torch.linalg.svd(ov, full_matrices=False), 3))
         theta, P = (t.contiguous() for t in berry.unitary_eig(Cp[:, -1].contiguous()))
         record("transport_rotate", key + ", closed",
                max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, True),
@@ -4611,8 +4673,9 @@ def slice13_kernels(torch, pt, device, record, held):
         if tol_held:
             held("energy_vjp", key, err, tol=1e-10)
             ms = cuda_ms(torch, lambda: hamiltonian.energy_vjp(data, amps, diag, kpts, U, gbar), 3)
-            print("  %-15s %-34s kernel %.4f ms  bound %.5f ms (%s)" % ("energy_vjp", key, ms,
-                                                                        *cost_energy_vjp(data, P, NK)))
+            ev = event_us(torch, lambda: hamiltonian.energy_vjp(data, amps, diag, kpts, U, gbar), 5)
+            print("  %-15s %-34s kernel %.4f ms (device %.1f us, CUDA events)  bound %.5f ms (%s)"
+                  % ("energy_vjp", key, ms, ev, *cost_energy_vjp(data, P, NK)))
             return
         record("energy_vjp", key, err, lambda: hamiltonian.energy_vjp(data, amps, diag, kpts, U, gbar),
                lambda: hamiltonian._energy_vjp_plain(data, amps, diag, kpts, gbar), cost_energy_vjp(data, P, NK),

@@ -28,6 +28,29 @@ __device__ __forceinline__ cplx cmul_conj(cplx a, cplx b) {
 
 __device__ __forceinline__ cplx csub(cplx a, cplx b) { return make_cuDoubleComplex(a.x - b.x, a.y - b.y); }
 
+// Asynchronous copies from device to shared memory (cp.async, sm_80+),
+// 16 or 8 bytes; with ok false the destination is filled with zeros and
+// src is not read (it must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok = true) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok = true) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 8 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Pair k of round `round` of the circle ordering of Se (even) players:
 // over Se - 1 rounds every pair p < q appears once, disjoint within a
 // round (the parallel Jacobi sweeps of polar.cuh and mv_step.cu).

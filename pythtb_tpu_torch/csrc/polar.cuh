@@ -1,5 +1,5 @@
-// The polar factor of a small complex matrix in registers, shared by
-// kernel 5 (wilson_loop.cu) and kernel 14 (transport.cu).
+// The polar factor of a small complex matrix in registers, for kernel 14
+// (transport.cu).
 //
 // polar_factor<S>(M) overwrites M (S x S) with U V^H, where M = U diag(s) V^H,
 // and returns the smallest singular value:
@@ -15,8 +15,9 @@
 // of up to kPolarBlockMaxS = 64 rows in shared memory, run by a whole
 // block of kBlockThreads threads: each sweep visits the S (S - 1) / 2
 // column pairs in S - 1 rounds of disjoint pairs (the circle ordering),
-// a warp per pair, so the pairs of a round rotate at once.  The large-S
-// paths of kernels 5 and 14 (9 <= S <= 64) call it.
+// a warp per pair, so the pairs of a round rotate at once.  Kernel 14's
+// large-S paths (9 <= S <= 64) call it; kernel 5 has its own
+// (link_polar.cuh) and multiplies its chains with block_mul_left.
 #pragma once
 
 #include "common.cuh"

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "pythtb_eig2": [_P] * 3 + [_I, _P],
     "pythtb_link_dets": [_P] * 2 + [_I] * 5 + [_P],
     "pythtb_plaquette_flux": [_P] * 7 + [_I] * 4 + [_P],
-    "pythtb_wilson_loop": [_P] * 3 + [_I] * 5 + [_P],
+    "pythtb_wilson_loop": [_P] * 5 + [_I] * 6 + [_P],
     "pythtb_position": [_P] * 4 + [_I] * 5 + [_P],
     "pythtb_ell_matvec": [_P] * 4 + [_I] * 6 + [_P],
     "pythtb_cheb_moments": [_P] * 6 + [_I] * 5 + [_P],
@@ -86,10 +86,12 @@ _SIGNATURES = {
     "pythtb_energy_vjp": [_P] * 9 + [_I] * 7 + [_P],
 }
 
-# Launches per kernel since the last reset.  Kernels 9, 10 and 11 run a
-# whole recursion from one C call; they count each step (kernel 9) or term
-# (kernels 10 and 11) that ran on the device.  "assemble_one_sided" counts
-# kernel 1's one-sided launches (not in "assemble"); "assemble_dk" counts
+# Launches per kernel since the last reset.  "wilson_loop" counts kernel
+# 5's launches, two a call (the links' polar factors, then the chains).
+# Kernels 9, 10 and 11 run a whole recursion from one C call; they count
+# each step (kernel 9) or term (kernels 10 and 11) that ran on the device.
+# "assemble_one_sided" counts kernel 1's one-sided launches (not in
+# "assemble"); "assemble_dk" counts
 # kernel 15 in both its modes (dH/dk and d2H/dk dk); "spectral_sum" counts
 # kernel 16's calls (a partial pass and a reduction each); "decimation_green"
 # counts kernel 12's Green's-function mode (not in "decimation"); "lyapunov"

@@ -13,10 +13,12 @@
 * Wilson loops (the ``berry_evals`` path): the polar factor of every
   link overlap, chained in link order, and the smallest singular value:
   kernel 5 (``csrc/wilson_loop.cu``) on CUDA, :func:`_wilson_loop_plain`
-  (``torch.linalg.svd`` and a pairwise product) on CPU.  The eigenphases
-  of the S x S products stay plain PyTorch (closed forms at S <= 2,
-  ``torch.linalg.eigh`` above), as the JAX package leaves them to
-  ``jnp.linalg``.
+  (``torch.linalg.svd`` and a pairwise product) on CPU.  Kernel 5 gives
+  every link's polar factor a team of its own, a warp up to 28 states and
+  a block above (:func:`_wilson_path`), then a block a string for the
+  chain.  The eigenphases of the S x S products stay plain PyTorch
+  (closed forms at S <= 2, ``torch.linalg.eigh`` above), as the JAX
+  package leaves them to ``jnp.linalg``.
 
 States arrive as (grid..., S, norb[, 2]) complex tensors on the device;
 band selection and axis arrangement happen on the device, and only the
@@ -49,9 +51,13 @@ __all__ = [
     "wilson_eigenphases",
 ]
 
-# most bands S that kernels 3 and 5 take (registers up to 8, a block's
-# shared memory from 9 to 64)
+# most bands S that kernels 3 and 5 take
 _KERNEL_MAX_S = 64
+# kernel 5's dispatch line: a warp a link up to _WARP_MAX_S states, a
+# block a link above (PERF.md section 6 has both designs' times at S 20-32)
+_WARP_MAX_S = 28
+# C modes of kernel 5's designs, and the most states each takes
+_WILSON_MODES = {"warp": (0, 32), "block": (1, _KERNEL_MAX_S)}
 # most planes kernel 4 takes in one launch (CUDA's grid y-dimension limit)
 _MAX_PLANES = 65535
 
@@ -274,18 +280,41 @@ def _wilson_loop_plain(w, axis):
     return _chain_product(U @ Vh), s.amin(dim=0).amin(dim=-1)
 
 
+def _wilson_path(S):
+    """Kernel 5's design for S states: "warp" or "block" a link."""
+    return "warp" if S <= _WARP_MAX_S else "block"
+
+
 def wilson_loop(w, axis):
     """Wilson loops of states ``w`` (grid..., S, F) along grid ``axis``:
     the ordered product of the polar factors of the link overlaps, per
     string, as (rest..., S, S) with ``rest`` the grid without ``axis``,
-    and the smallest link singular value per string (rest...)."""
+    and the smallest link singular value per string (rest...).  On the
+    card it takes strings x (L - 1) x S x S complex scratch for the link
+    factors (92 MB at 301 x 301, S 8), as the plain version's SVD takes
+    several such arrays."""
+    return _wilson_loop(w, axis, None)
+
+
+def _wilson_loop(w, axis, path):
+    """:func:`wilson_loop` on kernel 5's design ``path`` ("warp" or
+    "block"; :func:`_wilson_path`'s choice if None)."""
+    if path is not None and path not in _WILSON_MODES:
+        raise ValueError("kernel 5 has no %r path; it has %s" % (path, ", ".join(_WILSON_MODES)))
     if w.device.type == "cpu":
         return _wilson_loop_plain(w, axis)
     grid, S, F, outer, L, inner = _strings(w, axis)
+    path = _wilson_path(S) if path is None else path
+    if S > _WILSON_MODES[path][1]:
+        raise ValueError("kernel 5's %r path does not take %d bands" % (path, S))
     rest = grid[:axis] + grid[axis + 1 :]
-    prod = torch.empty(rest + (S, S), dtype=config.COMPLEX, device=w.device)
-    smin = torch.empty(rest, dtype=config.FLOAT, device=w.device)
-    _kernels.launch("wilson_loop", w.device, w, prod, smin, outer, L, inner, S, F)
+    dev = w.device
+    prod = torch.empty(rest + (S, S), dtype=config.COMPLEX, device=dev)
+    smin = torch.empty(rest, dtype=config.FLOAT, device=dev)
+    links = torch.empty((outer * inner * (L - 1), S, S), dtype=config.COMPLEX, device=dev)
+    link_smin = torch.empty(outer * inner * (L - 1), dtype=config.FLOAT, device=dev)
+    _kernels.launch("wilson_loop", dev, w, prod, smin, links, link_smin, outer, L, inner, S, F,
+                    _WILSON_MODES[path][0], count=2)
     return prod, smin
 
 

@@ -9,7 +9,9 @@ centres (eigenvalues) and functions (eigenvectors, rows).
 * X and its diagonal: kernel 6 (``csrc/position.cu``) on a CUDA tensor,
   :func:`_xmat_plain` / :func:`_xdiag_plain` on a CPU tensor.  The kernel
   reads the chosen states through an index array, so the selection is
-  never copied out of the state grid.
+  never copied out of the state grid.  X takes a thread an element below
+  ``_TILE_MIN_S`` states and tiles on the FP64 tensor cores from there
+  (:func:`_position_path`).
 * The eigen-decomposition goes through :func:`ops.eigh.eigh_batched`
   (kernel 2 at two states, ``torch.linalg.eigh`` above), as the JAX
   package leaves it to ``jnp.linalg.eigh``.  The back-transform of the
@@ -39,6 +41,19 @@ __all__ = [
 ]
 
 
+# kernel 6's dispatch line: from this many chosen states X is formed in
+# tiles on the FP64 tensor cores, below it a thread an element (PERF.md
+# section 6 has both designs' times)
+_TILE_MIN_S = 16
+# C modes of kernel 6
+_POSITION_MODES = {"threads": 0, "diagonal": 1, "tiles": 2}
+
+
+def _position_path(S):
+    """Kernel 6's design for X of S chosen states: "threads" or "tiles"."""
+    return "tiles" if S >= _TILE_MIN_S else "threads"
+
+
 def _select(w, occ):
     return w if occ is None else w.index_select(-2, occ)
 
@@ -60,6 +75,14 @@ def xmat(w, pos, occ=None, diagonal=False):
     """Position matrices of states ``occ`` (all if None) of ``w``
     (B, nsta, F), with orbital positions ``pos`` (F,): (B, S, S) complex,
     exactly Hermitian, or with ``diagonal`` only Re X_nn as (B, S) float."""
+    return _xmat(w, pos, occ, diagonal, None)
+
+
+def _xmat(w, pos, occ, diagonal, path):
+    """:func:`xmat` with X on kernel 6's design ``path`` ("threads" or
+    "tiles"; :func:`_position_path`'s choice if None)."""
+    if path not in (None, "threads", "tiles"):
+        raise ValueError("kernel 6 has no %r path; it has threads, tiles" % (path,))
     if w.device.type == "cpu":
         return _xdiag_plain(w, pos, occ) if diagonal else _xmat_plain(w, pos, occ)
     dev = w.device
@@ -71,10 +94,12 @@ def xmat(w, pos, occ=None, diagonal=False):
     _kernels.require(pos, "pos", config.FLOAT, (F,), dev)
     _kernels.require(occ, "occ", torch.int64, (S,), dev)
     if diagonal:
+        mode = _POSITION_MODES["diagonal"]
         out = torch.empty((B, S), dtype=config.FLOAT, device=dev)
     else:
+        mode = _POSITION_MODES[_position_path(S) if path is None else path]
         out = torch.empty((B, S, S), dtype=config.COMPLEX, device=dev)
-    _kernels.launch("position", dev, w, pos, occ, out, B, nsta, S, F, int(bool(diagonal)))
+    _kernels.launch("position", dev, w, pos, occ, out, B, nsta, S, F, mode)
     return out
 
 

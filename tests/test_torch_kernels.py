@@ -138,9 +138,9 @@ def test_plaquette_flux_kernel(dev, grid):
 @pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 9, 12, 16, 32, 64])
 def test_wilson_loop_kernel(dev, S):
     """Every string orientation: axis 0 (outer 1, inner 24), axis 1
-    (outer 5, inner 6), axis 2 (outer 20, inner 1); registers up to S 8, a
-    block's shared-memory Jacobi polar factor from 9 to 64, every S
-    through the kernel."""
+    (outer 5, inner 6), axis 2 (outer 20, inner 1); two launches a call
+    (the links' polar factors, then the chains), every S through the
+    kernel."""
     w = _unit_states(20 + S, (5, 4, 6), S, 2 * S, dev)
     launched = _kernels.LAUNCHES["wilson_loop"]
     for axis in range(3):
@@ -151,7 +151,82 @@ def test_wilson_loop_kernel(dev, S):
         # products of unitaries stay unitary
         eye = torch.eye(S, dtype=prod.dtype, device=dev)
         assert _max_diff(prod @ prod.conj().transpose(-1, -2), eye.expand_as(prod)) < TOL
-    assert _kernels.LAUNCHES["wilson_loop"] == launched + 3
+    assert _kernels.LAUNCHES["wilson_loop"] == launched + 3 * 2
+
+
+def _paths(S):
+    """Kernel 5's designs that take S states."""
+    return [p for p, (_, most) in berry._WILSON_MODES.items() if S <= most]
+
+
+@pytest.mark.parametrize("S,F", [(9, 12), (12, 15), (16, 20), (20, 39), (32, 40), (64, 72)])
+def test_wilson_loop_link_path(dev, S, F):
+    """Both designs, a warp and a block a link, on 41-link strings (the
+    slab's axis: S 20, F 39) and across the strings (41 of 3 links)."""
+    w = _unit_states(100 + S, (41, 3), S, F, dev)
+    for path in _paths(S):
+        for axis in (0, 1):
+            launched = _kernels.LAUNCHES["wilson_loop"]
+            prod, smin = berry._wilson_loop(w, axis, path)
+            assert _kernels.LAUNCHES["wilson_loop"] == launched + 2
+            want, want_min = berry._wilson_loop_plain(w, axis)
+            assert _max_diff(prod, want) < TOL
+            assert _max_diff(smin, want_min) < TOL
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_wilson_loop_paths_at_small_S(dev, S):
+    """Both of kernel 5's designs (a warp and a block a link) agree with
+    the plain version at S 1-8."""
+    w = _unit_states(200 + S, (33, 17), S, S + 8, dev)
+    want, want_min = berry._wilson_loop_plain(w, 0)
+    for path in _paths(S):
+        prod, smin = berry._wilson_loop(w, 0, path)
+        assert _max_diff(prod, want) < TOL
+        assert _max_diff(smin, want_min) < TOL
+
+
+def _near_singular_string(S, F, L, eps, seed):
+    """One string of L unit-row frames whose link 3 has singular values 1
+    (S - 1 times) and ``eps``: the second frame of the link keeps S - 1
+    rows of the first and turns the last almost orthogonal, then mixes
+    its rows by a random unitary."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for _ in range(L):
+        z = rng.normal(size=(F, S)) + 1j * rng.normal(size=(F, S))
+        frames.append(np.linalg.qr(z)[0].T)
+    a = frames[3]
+    z = rng.normal(size=F) + 1j * rng.normal(size=F)
+    u = z - a.T @ (a.conj() @ z)
+    u /= np.linalg.norm(u)
+    b = a.copy()
+    b[-1] = math.sqrt(1.0 - eps * eps) * u + eps * a[-1]
+    q = np.linalg.qr(rng.normal(size=(S, S)) + 1j * rng.normal(size=(S, S)))[0]
+    frames[4] = q @ b
+    return np.stack(frames)
+
+
+@pytest.mark.parametrize("S", [4, 12, 40])
+def test_wilson_loop_near_singular_link(dev, S):
+    """A link with smallest singular value ~1e-9: every path gives the
+    plain path's s_min, and a unitary product."""
+    w = torch.as_tensor(_near_singular_string(S, S + 6, 9, 1e-9, S)[None]).to(dev)
+    want, want_min = berry._wilson_loop_plain(w, 1)
+    assert abs(float(want_min[0]) - 1e-9) < 1e-12
+    eye = torch.eye(S, dtype=want.dtype, device=dev)
+    for path in _paths(S):
+        prod, smin = berry._wilson_loop(w, 1, path)
+        assert _max_diff(smin, want_min) < TOL
+        assert _max_diff(prod @ prod.conj().transpose(-1, -2), eye.expand_as(prod)) < TOL
+
+
+def test_wilson_loop_refuses_a_path_beyond_its_states(dev):
+    w = _unit_states(5, (3, 4), 33, 40, dev)
+    with pytest.raises(ValueError, match="'warp' path does not take 33"):
+        berry._wilson_loop(w, 0, "warp")
+    with pytest.raises(ValueError, match="no 'registers' path"):
+        berry._wilson_loop(w, 0, "registers")
 
 
 def test_berry_kernels_refuse_more_than_64_bands(dev):
@@ -179,6 +254,35 @@ def test_position_kernel(dev, S, F):
     Xall = position.xmat(w, pos)
     assert _max_diff(Xall, position._xmat_plain(w, pos)) < TOL
     assert _kernels.LAUNCHES["position"] == before + 3
+
+
+@pytest.mark.parametrize("B,S,nsta,F,permuted", [
+    (1, 800, 800, 800, False),  # the 800-orbital flake's position_matrix
+    (1, 392, 784, 784, True),  # the Kane-Mele marker's occupied half
+    (3, 33, 40, 97, True),  # ragged tiles
+    (2, 333, 340, 797, True),
+    (5, 64, 64, 64, False),
+])
+def test_position_tiles(dev, B, S, nsta, F, permuted):
+    """Kernel 6's tiled path on the FP64 tensor cores against the plain
+    einsum and the thread-an-element path: 1e-12, X exactly Hermitian,
+    one launch a call."""
+    rng = np.random.default_rng(S)
+    z = rng.normal(size=(B, nsta, F)) + 1j * rng.normal(size=(B, nsta, F))
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    w = torch.as_tensor(z).to(dev)
+    pos = torch.as_tensor(rng.uniform(-15.0, 15.0, F)).to(dev)
+    order = rng.permutation(nsta) if permuted else np.arange(nsta)
+    occ = torch.as_tensor(order[:S]).to(dev)
+    want = position._xmat_plain(w, pos, occ)
+    for path in ("tiles", "threads"):
+        before = _kernels.LAUNCHES["position"]
+        X = position._xmat(w, pos, occ, False, path)
+        assert _kernels.LAUNCHES["position"] == before + 1
+        assert _max_diff(X, want) < TOL
+        assert float((X - X.conj().transpose(-1, -2)).abs().max()) == 0.0  # exactly Hermitian
+        assert float(torch.diagonal(X, dim1=-2, dim2=-1).imag.abs().max()) == 0.0
+    assert position._position_path(S) == "tiles"
 
 
 @pytest.mark.parametrize("n", [3, 4, 8])

@@ -146,3 +146,32 @@ def test_xmat_modes_match_the_plain_einsum():
     np.testing.assert_allclose(position.xmat(wt, pt_, ot).numpy(), want, rtol=0, atol=ATOL)
     np.testing.assert_allclose(position.xmat(wt, pt_, ot, diagonal=True).numpy(),
                                np.einsum("bnn->bn", want).real, rtol=0, atol=ATOL)
+
+
+def test_flake_position_matrix_matches_jax():
+    """position_matrix / position_hwf of every state of a 200-orbital
+    Haldane flake (S = F = 200, kernel 6's tiled shape on the card)."""
+    with redirect_stdout(io.StringIO()):
+        jm = zoo.haldane(pythtb_tpu).cut_piece(10, 0).cut_piece(10, 1)
+    pm = carry(jm)
+    _, evecs = jm.solve_all(eig_vectors=True)
+    assert evecs.shape == (200, 200)
+    for d in (0, 1):
+        np.testing.assert_allclose(pm.position_matrix(evecs, d), jm.position_matrix(evecs, d), rtol=0, atol=1e-10)
+        np.testing.assert_allclose(pm.position_hwf(evecs, d), jm.position_hwf(evecs, d), rtol=0, atol=1e-10)
+
+
+def test_position_path_dispatch():
+    """Kernel 6's design for X by S: a thread an element below 16 states,
+    tiles from 16; a CPU tensor runs the plain einsum whatever path is
+    asked, and an unknown path is refused."""
+    assert [position._position_path(S) for S in (1, 8, 15, 16, 20, 800)] == [
+        "threads", "threads", "threads", "tiles", "tiles", "tiles"]
+    rng = np.random.default_rng(8)
+    w = torch.as_tensor(rng.normal(size=(2, 5, 4)) + 1j * rng.normal(size=(2, 5, 4)))
+    pos = torch.as_tensor(rng.normal(size=4))
+    assert torch.equal(position.xmat(w, pos), position._xmat_plain(w, pos))
+    for path in (None, "threads", "tiles"):
+        assert torch.equal(position._xmat(w, pos, None, False, path), position._xmat_plain(w, pos))
+    with pytest.raises(ValueError, match="no 'blocks' path"):
+        position._xmat(w, pos, None, False, "blocks")

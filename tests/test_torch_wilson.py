@@ -64,6 +64,9 @@ CASES = [
     ("random_S2", lambda: (_unit_states(2, (5, 4, 3, 6)), [0, 2], 1, 2)),
     ("random_S3_3d", lambda: (_unit_states(3, (3, 4, 3, 4, 7)), [3, 0, 1], 1, 3)),
     ("random_S9_1d", lambda: (_unit_states(4, (6, 10, 12)), list(range(9)), 1, 1)),
+    ("random_S16", lambda: (_unit_states(5, (5, 7, 20, 24)), list(range(16)), 1, 2)),
+    # the slab's shape: 20 of 39 states of 39 orbitals on 41-point strings
+    ("S20_F39", lambda: (_unit_states(6, (41, 3, 39, 39)), list(range(20)), 1, 2)),
 ]
 
 
@@ -87,6 +90,21 @@ def test_loop_products_match_jax(case):
         got_ev, _ = berry.berry_evals(wt, occ, d, nspin, dim_arr)
         want_ev, _ = jberry.berry_evals(host_pack(wfs), occ, d, nspin, dim_arr)
         _sets_close(got_ev, want_ev, PHASE_TOL)
+
+
+def test_wilson_path_dispatch():
+    """Kernel 5's design by S: a warp a link to S 28, a block a link to
+    64; a CPU tensor runs the plain version whatever design is asked, and
+    an unknown design is refused."""
+    assert [berry._wilson_path(S) for S in (1, 2, 8, 9, 28, 29, 32, 64)] == [
+        "warp", "warp", "warp", "warp", "warp", "block", "block", "block"]
+    assert berry._WILSON_MODES["warp"][1] == 32 and berry._WILSON_MODES["block"][1] == 64
+    w = torch.as_tensor(_unit_states(7, (4, 3, 5, 6)))
+    want = berry._wilson_loop_plain(w, 0)
+    for got in [berry.wilson_loop(w, 0)] + [berry._wilson_loop(w, 0, path) for path in (None, "warp", "block")]:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="no 'registers' path"):
+        berry._wilson_loop(w, 0, "registers")
 
 
 @pytest.mark.parametrize("S", [3, 5])
