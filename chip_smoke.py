@@ -77,8 +77,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    S 4 / 8 with s_x 0, 1, 2 on a 3-D grid; 1e-12 of the largest entry) and
    kernel 29 (the band-energy gradient gather at Haldane 301^2, the Peierls
    sweep and random S 4 / 16 / 40; 1e-10 relative to torch autograd
-   through the plain versions); and kernel 14's chain mode beside the
-   library SVD of its overlaps;
+   through the plain versions); kernel 14's chain mode beside the
+   library SVD of its overlaps, on every design that takes S at the
+   pump, Kane-Mele, 301 x 300 (S 1 / 2 / 4 / 8), slab and random-frame
+   shapes (the fifteenth slice's register path at S 1 and link path, a
+   warp or a block a link); and kernel 11b's two designs (tensor cores,
+   CUDA cores) at the Hubbard row, nb 1 / 16 / 17 / 32 at its sector,
+   a repeated call giving the same bits;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -160,8 +165,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    examples/autodiff_tools.py (150 steps through kernel 29), the Peierls
    sweep and a band loss's gradient on Haldane 301^2, against the CPU run
    of the same calls (1e-10; group sums of oscillator strengths 1e-8);
-   then the steady wall time of the main calls and of the thirteenth
-   slice's five paths;
+   then the steady wall time of the main calls, of the thirteenth
+   slice's five paths and of the fifteenth slice's two (the slab's
+   smooth gauge, the 4,900-dim ED solve: walls and CUDA-event spans);
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -694,10 +700,13 @@ def phase_kernels(torch, pt, device):
             want, want_min = berry._wilson_loop_plain(st, axis)
             err = max(err, max_diff(torch, prod, want), max_diff(torch, smin, want_min))
         ax = axes[0]
+        ws_ = torch.movedim(st, ax, 0)
+        ov = berry._overlap(ws_[:-1], ws_[1:]).contiguous()
         record("wilson_loop", key, err, lambda: berry.wilson_loop(st, ax),
                lambda: berry._wilson_loop_plain(st, ax),
                cost_wilson(tuple(st.shape[:-2]), st.shape[-2], st.shape[-1], ax), main,
-               reps=REPS if main else 3)
+               cuda_ms(torch, lambda: torch.linalg.svd(ov, full_matrices=False), 3), reps=REPS if main else 3)
+        del ov
 
     # kernel 6: position matrices.  Main shape: the 20-layer slab on a
     # 41 x 41 grid (B 1681, 39 states of F 39, the lower 20 chosen)
@@ -2678,9 +2687,11 @@ def cost_dense_filter(D, nb, steps):
     """Kernel 11b: H read once a step where it is larger than the H100's
     50 MB L2 (a step needs the whole previous block), else once; X read
     once, F written once; per step the complex (D x D) x (D x nb) product
-    (8 D^2 nb) and the epilogue (~12 per element)."""
+    (8 D^2 nb) and the epilogue (~12 per element), all at the FP64 tensor
+    cores' rate (the product's peak, whichever design runs it)."""
     h_reads = steps if D * D * C128 > 50e6 else 1
-    return bound(h_reads * D * D * C128 + 2 * D * nb * C128, steps * (8 * D * D * nb + 12 * D * nb))
+    return bound(h_reads * D * D * C128 + 2 * D * nb * C128, steps * (8 * D * D * nb + 12 * D * nb),
+                 FP64_TC_FLOPS_PER_S)
 
 
 def cost_pole(mode, Nk, nv, nw):
@@ -2712,7 +2723,8 @@ def slice9_kernels(torch, pt, device, record, held):
     """Phase 3 for kernels 11b and 20.  Kernel 11b at the ed_hubbard row's
     4,900-dim sector (nb 10, the solver's first window): one step at 1e-12
     of each column's largest entry, the whole p = 30 filter at 1e-10; the
-    6-ring's D 400 and the spinful-layout D 924 sector filtered whole.
+    6-ring's D 400 and the spinful-layout D 924 sector filtered whole on
+    both designs, each timed beside the recurrence as torch.matmul steps.
     Kernel 20's four modes at the DMFT rows' shapes at 1e-12 (relative):
     the k-mean at the ARPES row's lattice (Nk 256, nv 7, 96 Matsubara
     points), the pole mode at the Bethe quadrature (512 nodes x 128) and
@@ -2733,25 +2745,51 @@ def slice9_kernels(torch, pt, device, record, held):
         err = col_rel(torch, chebyshev.dense_filter(Hd, X, p, c, hw), chebyshev._dense_filter_plain(Hd, X, p, c, hw))
         held("dense_filter", "hubbard D 4900 nb 10, %d step%s" % (p, "s" if p > 1 else ""), err)
 
-    def library():
+    def library(Hm, Xm, cm, hwm):
         # the same recurrence as torch.matmul steps, without the rescale
-        a, b = X, (Hd @ X - c * X) / hw
+        a, b = Xm, (Hm @ Xm - cm * Xm) / hwm
         for _ in range(29):
-            a, b = b, 2.0 * ((Hd @ b - c * b) / hw) - a
+            a, b = b, 2.0 * ((Hm @ b - cm * b) / hwm) - a
         return b
 
-    err = col_rel(torch, chebyshev.dense_filter(Hd, X, 30, c, hw), chebyshev._dense_filter_plain(Hd, X, 30, c, hw))
+    got = chebyshev.dense_filter(Hd, X, 30, c, hw)
+    err = col_rel(torch, got, chebyshev._dense_filter_plain(Hd, X, 30, c, hw))
+    check(torch.equal(got, chebyshev.dense_filter(Hd, X, 30, c, hw)), "kernel 11b: a repeated call gave other bits")
+    lib = cuda_ms(torch, lambda: library(Hd, X, c, hw), 5)
     record("dense_filter", "hubbard D 4900 nb 10, p 30", err, lambda: chebyshev.dense_filter(Hd, X, 30, c, hw),
            lambda: chebyshev._dense_filter_plain(Hd, X, 30, c, hw), cost_dense_filter(D, nb, 30), True,
-           cuda_ms(torch, library, 5), reps=5, tol=1e-10, prof_reps=2)
+           lib, reps=5, tol=1e-10, prof_reps=2)
+    # the other design (the default is _dense_design's), timed in the same run
+    for design in chebyshev._DENSE_DESIGNS:
+        if design == chebyshev._dense_design(D, nb):
+            continue
+        err = col_rel(torch, chebyshev._dense_filter(Hd, X, 30, c, hw, design),
+                      chebyshev._dense_filter_plain(Hd, X, 30, c, hw))
+        record("dense_filter", "hubbard D 4900 nb 10, p 30, %s design" % design, err,
+               lambda: chebyshev._dense_filter(Hd, X, 30, c, hw, design),
+               lambda: chebyshev._dense_filter_plain(Hd, X, 30, c, hw), cost_dense_filter(D, nb, 30),
+               library_ms=lib, reps=5, tol=1e-10)
+    # other block widths at the sector: one to four n-tiles of 8, a ragged group
+    for nbx in (1, 16, 17, 32):
+        Xx = torch.as_tensor(rng.normal(size=(D, nbx)) + 1j * rng.normal(size=(D, nbx))).to(device)
+        err = col_rel(torch, chebyshev.dense_filter(Hd, Xx, 2, c, hw), chebyshev._dense_filter_plain(Hd, Xx, 2, c, hw))
+        record("dense_filter", "hubbard D 4900 nb %d, 2 steps" % nbx, err,
+               lambda: chebyshev.dense_filter(Hd, Xx, 2, c, hw),
+               lambda: chebyshev._dense_filter_plain(Hd, Xx, 2, c, hw), cost_dense_filter(D, nbx, 2), reps=5)
     del Hd
     for key, Hs in (("6-ring D 400, p 30", hubbard_sector(pt, 6, 4.0)),
                     ("spinful layout 6-ring D 924, p 30", spinful_sector(pt, 6, 4.0))):
         c6, hw6 = gershgorin_filter_args(Hs)
         H6 = torch.as_tensor(Hs).to(device)
         X6 = torch.as_tensor(rng.normal(size=(Hs.shape[0], nb)) + 1j * rng.normal(size=(Hs.shape[0], nb))).to(device)
-        held("dense_filter", key, col_rel(torch, chebyshev.dense_filter(H6, X6, 30, c6, hw6),
-                                          chebyshev._dense_filter_plain(H6, X6, 30, c6, hw6)), tol=1e-10)
+        lib6 = cuda_ms(torch, lambda: library(H6, X6, c6, hw6), 5)
+        for design in chebyshev._DENSE_DESIGNS:
+            record("dense_filter", "%s, %s design" % (key, design),
+                   col_rel(torch, chebyshev._dense_filter(H6, X6, 30, c6, hw6, design),
+                           chebyshev._dense_filter_plain(H6, X6, 30, c6, hw6)),
+                   lambda: chebyshev._dense_filter(H6, X6, 30, c6, hw6, design),
+                   lambda: chebyshev._dense_filter_plain(H6, X6, 30, c6, hw6), cost_dense_filter(Hs.shape[0], nb, 30),
+                   library_ms=lib6, reps=5, tol=1e-10)
         # the full path's one sector eigh (ed._eigh_dev): the library at D > 64
         m = Hs.shape[0]
         ms = cuda_ms(torch, lambda: eigh.eigh_batched(H6[None]), 5)
@@ -3044,7 +3082,7 @@ def compare_slice9(torch, pt, out, ref, device):
 S10 = {"tetra_nk": 48, "tetra_cpu_nk": 16, "lind_nk": 24, "lind_cpu_q": 8, "fs_nk": 301, "gdos_nk": 256,
        "gdos_cpu_nk": 64, "stoner_nk": 25, "mt_nk": 301, "mt_bt_nk": 901, "ext_slices": 48, "ext_nk": 151,
        "ext_cpu_slices": 12, "ext_cpu_nk": 51, "mlwf_nk": 12, "mlwf_coarse": 6, "mlwf_steps": 100, "slab_occ": 20,
-       "smooth_occ": 20}
+       "smooth_occ": 20, "chain_strings": 301, "chain_L": 300}
 TETRA_E = np.linspace(-6.5, 6.5, 1601)  # tetrahedron_dos_3d_48cube
 LIND_Q = np.array([[i / 8, j / 8] for i in range(8) for j in range(8)])  # lindhard_qsweep_64q
 LIND_W = np.linspace(0.0, 6.0, 16)
@@ -3056,7 +3094,7 @@ _STONER_PATH = np.array([[0.0, 0.0], [0.5, 0.0], [1 / 3, 2 / 3], [0.0, 0.0]])  #
 STONER_Q = np.concatenate([_STONER_PATH[i] + (_STONER_PATH[i + 1] - _STONER_PATH[i]) * np.linspace(0, 1, 12, False)[:, None]
                            for i in range(3)] + [_STONER_PATH[-1:]], axis=0)
 MT_BS = np.array([0.02, 0.1, 0.3, 1.0]) / 7.0  # tests/test_magnetotransport.py's Drude collapse, tau 7
-LARGE_S = (9, 12, 16, 32, 64)  # kernels 3, 5 and 14 past their register paths
+LARGE_S = (9, 12, 16, 32, 64)  # kernels 3, 5 and 14 past 8 states
 LARGE_NW = (9, 12, 16, 32)  # kernel 19 past its register path
 # (simplex, energy) pairs: operations where E lies in the simplex's range
 TETRA_OPS = {1: 4, 2: 14, 3: 25}
@@ -3186,25 +3224,57 @@ def slice10_kernels(torch, pt, device, record, held):
         fr = torch.as_tensor(np.ascontiguousarray(np.swapaxes(np.linalg.qr(z)[0], -1, -2))).to(device)
         frames.append(("random 9x7 frames, %d of %d" % (S, NS), transport._strings(fr, 1, 2, 0)[0].contiguous(),
                        list(range(S)), 3))
+    def chain_paths(key, w5, occ, reps):
+        """Kernel 14's chain at its default design, and at the others where
+        the dispatch line was measured (S 1-8: the register path; S 20-32:
+        a warp or a block a link), beside the library SVD of the same
+        overlaps; C and the smallest singular value at 1e-12."""
+        outer, L, inner, NS, F = w5.shape
+        occ_t = torch.as_tensor(occ, dtype=torch.int64, device=device)
+        S = len(occ)
+        Cp, sp = transport._chain_plain(w5, occ_t)
+        sel = w5.index_select(3, occ_t)
+        ov = berry._overlap(sel[:, :-1], sel[:, 1:]).contiguous()
+        lib = cuda_ms(torch, lambda: torch.linalg.svd(ov, full_matrices=False), 3)
+        default = transport._chain_path(S, outer * inner, L,
+                                        torch.cuda.get_device_properties(device).multi_processor_count)
+        others = [q for q, (_, most, _) in transport._CHAIN_MODES.items()
+                  if q != default and S <= most and (S <= 8 or 20 <= S <= 32)]
+        for path in [default] + others:
+            C, smin = transport._chain(w5, occ_t, path)
+            record("transport_chain", key if path == default else "%s, %s path" % (key, path),
+                   max(max_diff(torch, C, Cp), max_diff(torch, smin, sp)),
+                   lambda: transport._chain(w5, occ_t, path), lambda: transport._chain_plain(w5, occ_t),
+                   cost_transport_chain(outer, L, inner, S, F), reps=reps, library_ms=lib)
+        return Cp
+
+    # the chain where the register path ran before: 301 strings of 300 points
+    ns, nl = S10["chain_strings"], S10["chain_L"]
+    for S in (1, 2, 4, 8):
+        st = unit_states(torch, rng, (ns, nl, S, 2 * S), device)
+        chain_paths("%dx%d S=%d F=%d random" % (ns, nl, S, 2 * S), transport._strings(st, 1, 2, 1)[0].contiguous(),
+                    list(range(S)), 3)
+        del st
+    # about the link path's warp / block line
+    for S in (24, 28, 32):
+        fr = torch.as_tensor(np.ascontiguousarray(np.swapaxes(np.linalg.qr(
+            rng.normal(size=(9, 7, S + 4, S + 2)) + 1j * rng.normal(size=(9, 7, S + 4, S + 2)))[0], -1, -2))).to(device)
+        chain_paths("random 9x7 frames, %d of %d" % (S, S + 2), transport._strings(fr, 1, 2, 0)[0].contiguous(),
+                    list(range(S)), 3)
     for key, w5, occ, reps in frames:
         outer, L, inner, NS, F = w5.shape
         occ_t = torch.as_tensor(occ, dtype=torch.int64, device=device)
         S = len(occ)
-        C, smin = transport._chain(w5, occ_t)
-        Cp, sp = transport._chain_plain(w5, occ_t)
-        sel = w5.index_select(3, occ_t)
-        ov = berry._overlap(sel[:, :-1], sel[:, 1:]).contiguous()
-        record("transport_chain", key, max(max_diff(torch, C, Cp), max_diff(torch, smin, sp)),
-               lambda: transport._chain(w5, occ_t), lambda: transport._chain_plain(w5, occ_t),
-               cost_transport_chain(outer, L, inner, S, F), reps=reps,
-               library_ms=cuda_ms(torch, lambda: torch.linalg.svd(ov, full_matrices=False), 3))
+        Cp = chain_paths(key, w5, occ, reps)
         theta, P = (t.contiguous() for t in berry.unitary_eig(Cp[:, -1].contiguous()))
+        sel = w5.index_select(3, occ_t)
         record("transport_rotate", key + ", closed",
                max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, True),
                         transport._rotate_plain(w5, occ_t, Cp, theta, P, True)),
                lambda: transport._rotate(w5, occ_t, Cp, theta, P, True),
                lambda: transport._rotate_plain(w5, occ_t, Cp, theta, P, True),
-               cost_transport_rotate(outer, L, inner, S, NS, F), reps=reps)
+               cost_transport_rotate(outer, L, inner, S, NS, F), reps=reps,
+               library_ms=cuda_ms(torch, lambda: torch.matmul(Cp.conj(), sel), 3))
         held("transport_rotate", key + ", open", max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, False),
                                                            transport._rotate_plain(w5, occ_t, Cp, theta, P, False)))
         nocc = S
@@ -5195,7 +5265,7 @@ def with_plain_bisection(torch, pt, fn):
 def phase_walls(torch, pt, card):
     """Steady wall time of the main calls and their device time per call
     (profiler): the device's busy share."""
-    from pythtb_tpu_torch.ops import matvec
+    from pythtb_tpu_torch.ops import _kernels, matvec
     from tests import zoo
 
     m = haldane(pt)
@@ -5457,14 +5527,29 @@ def phase_walls(torch, pt, card):
           "max |density diff| %.3e, |mu diff| %.3e" % (
               a["iters"], b["iters"], max(np.abs(a["n_up"] - b["n_up"]).max(), np.abs(a["n_dn"] - b["n_dn"]).max()),
               abs(a["mu"] - b["mu"])))
+    # the walls behind kernels 14 and 11b also get the span between two CUDA
+    # events around a call (host waits inside the call in it) and the
+    # launches of their kernels a call
+    spans = {"wf_array.smooth_gauge slab 41x41, 20 states (kernel 14 S 20)": ("transport_chain", "transport_rotate"),
+             "ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4": ("dense_filter", "eigh_jacobi")}
+    check(set(spans) <= set(calls), "phase_walls: a span row names no call")
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
         ms = wall_ms(torch, fn, reps)
         dev_us, n = device_us(torch, fn, prof_reps) if prof_reps else (None, None)
         busy = None if dev_us is None else 100.0 * dev_us / (1e3 * ms)
         walls[name] = {"wall_ms": ms, "device_us": dev_us, "device_activities": n, "busy_pct": busy}
-        print("  steady wall %s: median %.3f ms, device %s us in %s activities per call, busy %s %% (%s)"
-              % (name, ms, fmt(dev_us), fmt(n), fmt(busy), card))
+        extra = ""
+        if name in spans:
+            before = dict(_kernels.LAUNCHES)
+            fn()
+            torch.cuda.synchronize()
+            ran = {k: _kernels.LAUNCHES[k] - before[k] for k in spans[name]}
+            span = event_us(torch, fn, reps)
+            walls[name].update(span_us=span, launches=ran)
+            extra = ", CUDA-event span %.1f us, launches a call %s" % (span, ran)
+        print("  steady wall %s: median %.3f ms, device %s us in %s activities per call, busy %s %%%s (%s)"
+              % (name, ms, fmt(dev_us), fmt(n), fmt(busy), extra, card))
     # where the device time of the heaviest response rows goes
     for name in ("boltzmann.transport_coefficients 512^2 201 mu", "optical.shift_current bn 161x161 121 w",
                  "optical.optical_conductivity 161x161 121 w", "boltzmann.edelstein 256^2 201 mu",

@@ -1,10 +1,13 @@
 // The overlap and polar factor of one link, computed by a team of threads:
 // a warp (kTeam 32, one warp a block) or a whole block (kTeam =
-// kBlockThreads).  Used by kernel 5 (wilson_loop.cu), where
-// every link of the grid is a team of its own.
+// kBlockThreads).  Used by kernel 5 (wilson_loop.cu) and kernel 14's
+// chain (transport.cu), where every link of the grid is a team of its own.
 //
 // team_overlap forms M = <wa | wb> (S x S, rows of F components) in shared
-// memory, staging chunks of both state panels there by cp.async.
+// memory, staging chunks of both state panels there by cp.async; the
+// panels' rows are either the first S rows of wa and wb (rows null) or
+// rows[0..S) of them (kernel 14's selected states, gathered by the
+// staging copies themselves).
 // team_jacobi is the one-sided (Hestenes) Jacobi of polar.cuh on M's
 // columns, giving M V = U diag(sigma), with the same rotation, tolerance
 // and sweep limit; only the work split differs.  A sweep's S (S - 1) / 2
@@ -55,11 +58,12 @@ __host__ __device__ inline size_t link_smem(int S) {
     return (size_t)S * (link_ld(S) + link_vld(S)) * sizeof(cplx) + 2 * (size_t)S * sizeof(double);
 }
 
-// M = <wa | wb>: M[n][m] = sum_f conj(wa[n][f]) wb[m][f].  `stage` holds
-// 2 S kc complex entries (kc = link_chunk(S)).
+// M = <wa | wb>: M[n][m] = sum_f conj(wa[r_n][f]) wb[r_m][f], r_n = n
+// (rows null) or rows[n].  `stage` holds 2 S kc complex entries (kc =
+// link_chunk(S)).
 template <int kTeam>
 __device__ void team_overlap(const cplx* __restrict__ wa, const cplx* __restrict__ wb, cplx* M, cplx* stage,
-                             int S, int F) {
+                             int S, int F, const int64_t* __restrict__ rows = nullptr) {
     const int tt = threadIdx.x % kTeam;
     const int ld = link_ld(S), kc = link_chunk(S);
     cplx* A = stage;
@@ -70,7 +74,8 @@ __device__ void team_overlap(const cplx* __restrict__ wa, const cplx* __restrict
         for (int e = tt; e < 2 * S * nf; e += kTeam) {
             const int panel = e / (S * nf), rest = e % (S * nf);
             const int n = rest / nf, f = rest % nf;
-            cp_async16((panel ? B : A) + n * kc + f, (panel ? wb : wa) + (int64_t)n * F + f0 + f);
+            const int64_t r = rows ? rows[n] : n;
+            cp_async16((panel ? B : A) + n * kc + f, (panel ? wb : wa) + r * F + f0 + f);
         }
         cp_async_commit();
         cp_async_wait<0>();

@@ -88,17 +88,6 @@ constexpr int kTileThreads = 128;  // four warps, 2 x 2 sub-tiles of 16 x 16
 // panels and pos chunks.
 constexpr size_t kTileSmem = kStages * (2 * kTile * kLdk * sizeof(cplx) + kChunk * sizeof(double));
 
-// D += A B on the FP64 tensor cores, one 16 x 8 x 8 step: a lane holds
-// A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4], B[t][g], B[t + 4][g]
-// and D[g][2t + {0, 1}], D[g + 8][2t + {0, 1}], with g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void dmma16(double (&d)[4], double a0, double a1, double a2, double a3, double b0,
-                                       double b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
-}
-
 __global__ void __launch_bounds__(kTileThreads)
 position_tiles_kernel(const cplx* __restrict__ w, const double* __restrict__ pos, const int64_t* __restrict__ occ,
                       cplx* __restrict__ X, int64_t nsta, int64_t S, int64_t F, int64_t nt) {

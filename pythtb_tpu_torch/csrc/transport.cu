@@ -7,10 +7,10 @@
 // is the L of such a view, with no copy -- and a list of S selected rows
 // (occ).  Three modes:
 //
-//   chain   each string (o, i) walks its L - 1 links: M_l = <w_l | w_{l+1}>
-//           over the occ rows, W_l = polar(M_l), C_{l+1} = C_l W_l with
-//           C_0 = I.  Writes every prefix C_m to C (outer, L, inner, S, S)
-//           and the smallest link singular value of the string.
+//   chain   each string (o, i) has L - 1 links: M_l = <w_l | w_{l+1}> over
+//           the occ rows, W_l = polar(M_l), C_{l+1} = C_l W_l with C_0 = I.
+//           Writes every prefix C_m to C (outer, L, inner, S, S) and the
+//           smallest link singular value of the string.
 //   rotate  each grid point m of a string: B_m = C_m Lambda^{-t_m}, with
 //           t_m = m / (L - 1) and Lambda^{-t} = P diag(e^{-i theta t}) P^H
 //           formed in registers from the string's holonomy eigenpairs
@@ -25,21 +25,33 @@
 //           Per step it writes the indices, the captured fraction and the
 //           states; the next step reads the states back from the output.
 //
-// What bounds it on the H100: bytes.  Chain and rotate read the selected
-// rows once per string (rotate reads them once more and writes them), follow
-// reads every state once and writes NOCC rows a point; the link algebra is
-// O(S^3) a link, far below the fp64 peak at S <= 8.  Design: one thread per
-// string (chain, follow) or per grid point (rotate); the TPU's log-depth
-// associative_scan of the chain becomes the string's loop, so the prefixes
-// agree with the JAX program to about L eps, not bit for bit.  The matrices
-// stay in registers (S and NOCC are template parameters) up to 8 states
-// (S of chain and rotate, NS of follow).  From 9 to 64 states a block of
-// 256 threads takes a string (chain, follow) or a grid point (rotate), its
-// S x S matrices in dynamic shared memory (at most 192 kB at 64), their
-// entries spread over the threads, the polar factors by polar_factor_block
-// (polar.cuh); follow ranks the NS weights in parallel (rank = the count
-// of larger weights, ties to the lower index).  Larger S is refused.
-#include "polar.cuh"
+// What bounds it on the H100: bytes at small S (chain and rotate read the
+// selected rows once per string, rotate reads them once more and writes
+// them; follow reads every state once and writes NOCC rows a point), the
+// O(S^3) link algebra from S ~ 16 on.  The chain has two designs.  The
+// register path runs a thread a string at S 1, the string's loop standing
+// in for the TPU's log-depth associative_scan (it loses to the link path
+// from S 2 on: PERF.md section 6).  The link path (any S to 64) is kernel
+// 5's (wilson_loop.cu): phase 1 gives every link of the grid a team of its
+// own -- a warp (S <= 32) or a block of 256 threads -- that stages the two
+// panels of occ rows by cp.async (the row gather happens inside the
+// staging copies), forms M in shared memory and runs the one-sided Jacobi
+// of link_polar.cuh, writing W_l into C's slot l + 1 of the string (so the
+// link factors take no scratch beyond C) and the link's smallest singular
+// value into scratch; phase 2 gives each string a team (a warp to S 16, a
+// block above) that walks the slots in order, P <- P W_l with the next
+// factors in flight by cp.async (seven ahead for a warp, one for a block),
+// writing each prefix over the factor it consumed.  The prefixes are the
+// plain version's, in its order, to rounding; the JAX program's tree scan
+// agrees to about L eps.  The ops wrapper chooses the design
+// (ops/transport.py:_chain_path).  Rotate and follow keep the matrices in
+// registers up to 8 states (S of rotate, NS of follow); from 9 to 64 a
+// block of 256 threads takes a grid point (rotate) or a string (follow),
+// its matrices in dynamic shared memory, the polar factors by
+// polar_factor_block (polar.cuh); follow ranks the NS weights in parallel
+// (rank = the count of larger weights, ties to the lower index).  Larger S
+// is refused.
+#include "link_polar.cuh"
 
 constexpr int kMaxStates = 8;
 
@@ -266,49 +278,120 @@ __global__ void transport_follow_kernel(const cplx* __restrict__ w, const int64_
     }
 }
 
-// -- block paths, 9 <= states <= 64 ---------------------------------------
+// -- chain, the link path (any S to 64) -------------------------------------
 
-__global__ void __launch_bounds__(kBlockThreads)
-transport_chain_block_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ, cplx* __restrict__ C,
-                             double* __restrict__ smin_out, int64_t L, int64_t inner, int S, int NS, int F) {
-    extern __shared__ double smem[];
-    cplx* P = (cplx*)smem;
-    cplx* M = P + S * S;
-    cplx* V = M + S * S;
-    double* red = (double*)(V + S * S);
-    const int64_t t = blockIdx.x;  // the string
-    const int64_t i = t % inner;
-    const int64_t o = t / inner;
-    const int64_t row = (int64_t)NS * F;
-    const cplx* base = w + (o * L * inner + i) * row;
-    cplx* cbase = C + (o * L * inner + i) * S * S;
-    for (int e = threadIdx.x; e < S * S; e += kBlockThreads) {
-        P[e] = make_cuDoubleComplex(e / S == e % S ? 1.0 : 0.0, 0.0);
-        cbase[e] = P[e];
-    }
-    double smin = 1.0e300;
-    for (int64_t l = 0; l + 1 < L; ++l) {
-        const cplx* wa = base + l * inner * row;
-        const cplx* wb = wa + inner * row;
-        for (int e = threadIdx.x; e < S * S; e += kBlockThreads) {
-            const cplx* a = wa + occ[e / S] * F;
-            const cplx* b = wb + occ[e % S] * F;
-            double re = 0.0, im = 0.0;
-            for (int f = 0; f < F; ++f) {
-                const cplx z = cmul_conj(a[f], b[f]);
-                re += z.x;
-                im += z.y;
-            }
-            M[e] = make_cuDoubleComplex(re, im);
-        }
-        __syncthreads();
-        smin = fmin(smin, polar_factor_block(M, V, S, red));
-        block_mul_left(P, M, S);
-        cplx* out = cbase + (l + 1) * inner * S * S;
-        for (int e = threadIdx.x; e < S * S; e += kBlockThreads) out[e] = P[e];
-    }
-    if (threadIdx.x == 0) smin_out[t] = smin;
+// Phase 1: link t = string * (L - 1) + l of the grid, one team (kTeam
+// threads, the whole block) each: M_l over the occ rows, W_l = polar(M_l)
+// into C's slot l + 1 of the string, the link's smallest singular value
+// into link_smin[t].
+template <int kTeam>
+__global__ void __launch_bounds__(kTeam)
+transport_links_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ, cplx* __restrict__ C,
+                       double* __restrict__ link_smin, int64_t L, int64_t inner, int S, int NS, int F) {
+    extern __shared__ __align__(16) double smem[];
+    cplx* M = (cplx*)smem;
+    cplx* V = M + S * link_ld(S);
+    double* sig = (double*)(V + S * link_vld(S));
+    const int64_t t = blockIdx.x;
+    const int64_t string = t / (L - 1), l = t % (L - 1);
+    const int64_t i = string % inner, o = string / inner;
+    const int64_t row = (int64_t)NS * F;  // one grid point of w
+    const cplx* wa = w + ((o * L + l) * inner + i) * row;
+    team_overlap<kTeam>(wa, wa + inner * row, M, V, S, F, occ);
+    team_jacobi<kTeam>(M, V, S);
+    cplx* out = C + ((o * L + l + 1) * inner + i) * S * S;
+    const double smin = team_polar_store<kTeam>(M, V, S, sig, out);
+    if (threadIdx.x == 0) link_smin[t] = smin;
 }
+
+// Entries of an S x S product each thread of a team holds: a warp takes S
+// to kPrefixWarpMaxS, a block of kBlockThreads to kPolarBlockMaxS.
+constexpr int kPrefixWarpMaxS = 16;
+template <int kTeam>
+__host__ __device__ constexpr int prefix_entries() {
+    return kTeam == 32 ? kPrefixWarpMaxS * kPrefixWarpMaxS / 32 : kPolarBlockMaxS * kPolarBlockMaxS / kTeam;
+}
+
+// Factors in flight in phase 2: a warp's are small (S <= 16: 4 kB each),
+// so it keeps kDepth - 1 = 7 loads ahead of the product it forms, which
+// hides the copies' latency behind the short products of small S.
+template <int kTeam>
+__host__ __device__ constexpr int prefix_depth() {
+    return kTeam == 32 ? 8 : 2;
+}
+
+// Phase 2: string s = blockIdx.x, one team.  C_0 = I into slot 0; then in
+// order, P <- P W_l with W_l read from slot l + 1 and C_{l+1} = P written
+// over it, the next factors arriving by cp.async (a ring of kDepth
+// buffers) while P W_l forms.  The minimum of the string's link singular
+// values into smin_out[s].
+template <int kTeam>
+__global__ void __launch_bounds__(kTeam)
+transport_prefix_kernel(cplx* __restrict__ C, const double* __restrict__ link_smin, double* __restrict__ smin_out,
+                        int64_t L, int64_t inner, int S) {
+    constexpr int kE = prefix_entries<kTeam>();
+    constexpr int kDepth = prefix_depth<kTeam>();
+    extern __shared__ __align__(16) double smem[];
+    const int tt = threadIdx.x;
+    const int SS = S * S;
+    cplx* P = (cplx*)smem;
+    cplx* ring = P + SS;  // kDepth factors
+    const int64_t s = blockIdx.x;
+    const int64_t i = s % inner, o = s / inner;
+    const int64_t slot = inner * SS;  // from one prefix of the string to the next
+    cplx* base = C + (o * L * inner + i) * SS;
+    for (int e = tt; e < SS; e += kTeam) {
+        P[e] = make_cuDoubleComplex(e / S == e % S ? 1.0 : 0.0, 0.0);
+        base[e] = P[e];
+    }
+    // W_d (slot d + 1) into buffer d, a commit group each
+    for (int d = 0; d < kDepth - 1; ++d) {
+        if (d + 1 < L)
+            for (int e = tt; e < SS; e += kTeam) cp_async16(ring + d * SS + e, base + (d + 1) * slot + e);
+        cp_async_commit();
+    }
+    for (int64_t l = 0; l + 1 < L; ++l) {
+        cp_async_wait<kDepth - 2>();
+        team_sync<kTeam>();  // W_l landed; the last product's reads of the buffer refilled next are done
+        const int64_t nl = l + kDepth - 1;
+        if (nl + 1 < L) {
+            const cplx* src = base + (nl + 1) * slot;
+            cplx* dst = ring + (nl % kDepth) * SS;
+            for (int e = tt; e < SS; e += kTeam) cp_async16(dst + e, src + e);
+        }
+        cp_async_commit();
+        const cplx* W = ring + (l % kDepth) * SS;
+        cplx acc[kE];
+#pragma unroll
+        for (int j = 0; j < kE; ++j) {
+            const int e = tt + j * kTeam;
+            if (e < SS) {
+                const int r = e / S, c = e % S;
+                cplx a = make_cuDoubleComplex(0.0, 0.0);
+                for (int k = 0; k < S; ++k) a = cuCadd(a, cuCmul(P[r * S + k], W[k * S + c]));
+                acc[j] = a;
+            }
+        }
+        team_sync<kTeam>();
+        cplx* out = base + (l + 1) * slot;
+#pragma unroll
+        for (int j = 0; j < kE; ++j) {
+            const int e = tt + j * kTeam;
+            if (e < SS) {
+                P[e] = acc[j];
+                out[e] = acc[j];
+            }
+        }
+    }
+    if (tt < 32) {
+        double m = 1.0e300;
+        for (int64_t l = tt; l + 1 < L; l += 32) m = fmin(m, link_smin[s * (L - 1) + l]);
+        for (int off = 16; off > 0; off >>= 1) m = fmin(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (tt == 0) smin_out[s] = m;
+    }
+}
+
+// -- block paths of rotate and follow, 9 <= states <= 64 --------------------
 
 __global__ void __launch_bounds__(kBlockThreads)
 transport_rotate_block_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
@@ -455,24 +538,52 @@ transport_follow_block_kernel(const cplx* __restrict__ w, const int64_t* __restr
 
 static int refuse(int64_t S) { return S > kPolarBlockMaxS ? (int)cudaErrorInvalidValue : 0; }
 
-extern "C" int pythtb_transport_chain(const void* w, const void* occ, void* C, void* smin,
+// path 0: the register path (a thread a string, S 1); 1: the link path
+// with a warp a link (S <= 32); 2: the link path with a block a link (S <=
+// 64).  The link path takes link_smin (strings * (L - 1) doubles) as
+// scratch; the link factors go into C itself.
+extern "C" int pythtb_transport_chain(const void* w, const void* occ, void* C, void* smin, void* link_smin,
                                       int64_t outer, int64_t L, int64_t inner, int64_t S,
-                                      int64_t NS, int64_t F, void* stream) {
+                                      int64_t NS, int64_t F, int64_t path, void* stream) {
     if (outer * inner <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    if (S > kMaxStates) {
-        if (refuse(S)) return refuse(S);
-        const size_t smem = block_smem(transport_chain_block_kernel, (int)S, 3);
-        transport_chain_block_kernel<<<(unsigned int)(outer * inner), kBlockThreads, smem, st>>>(
-            (const cplx*)w, (const int64_t*)occ, (cplx*)C, (double*)smin, L, inner, (int)S, (int)NS, (int)F);
+    if (path < 0 || path > 2 || S < 1 || S > (path == 0 ? 1 : path == 1 ? 32 : kPolarBlockMaxS) || L < 1)
+        return (int)cudaErrorInvalidValue;
+    const int64_t strings = outer * inner;
+    if (path == 0) {
+        transport_chain_kernel<1><<<blocks_for(strings), kThreads, 0, st>>>(
+            (const cplx*)w, (const int64_t*)occ, (cplx*)C, (double*)smin, outer, L, inner, (int)NS, (int)F);
         return (int)cudaGetLastError();
     }
-#define CHAIN(K)                                                                              \
-    transport_chain_kernel<K><<<blocks_for(outer * inner), kThreads, 0, st>>>(                \
-        (const cplx*)w, (const int64_t*)occ, (cplx*)C, (double*)smin, outer, L, inner, (int)NS, \
-        (int)F)
-    PYTHTB_DISPATCH_S(S, CHAIN)
-#undef CHAIN
+    if (L > 1) {
+        const size_t bytes = link_smem((int)S);
+        const unsigned int links = (unsigned int)(strings * (L - 1));
+        if (path == 1) {
+            cudaFuncSetAttribute(transport_links_kernel<32>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+            transport_links_kernel<32><<<links, 32, bytes, st>>>((const cplx*)w, (const int64_t*)occ, (cplx*)C,
+                                                                 (double*)link_smin, L, inner, (int)S, (int)NS,
+                                                                 (int)F);
+        } else {
+            cudaFuncSetAttribute(transport_links_kernel<kBlockThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)bytes);
+            transport_links_kernel<kBlockThreads><<<links, kBlockThreads, bytes, st>>>(
+                (const cplx*)w, (const int64_t*)occ, (cplx*)C, (double*)link_smin, L, inner, (int)S, (int)NS,
+                (int)F);
+        }
+        const int rc = (int)cudaGetLastError();
+        if (rc != 0) return rc;
+    }
+    if (S <= kPrefixWarpMaxS) {
+        const size_t chain = (1 + prefix_depth<32>()) * (size_t)S * S * sizeof(cplx);
+        transport_prefix_kernel<32><<<(unsigned int)strings, 32, chain, st>>>(
+            (cplx*)C, (const double*)link_smin, (double*)smin, L, inner, (int)S);
+    } else {
+        const size_t chain = (1 + prefix_depth<kBlockThreads>()) * (size_t)S * S * sizeof(cplx);
+        cudaFuncSetAttribute(transport_prefix_kernel<kBlockThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)chain);
+        transport_prefix_kernel<kBlockThreads><<<(unsigned int)strings, kBlockThreads, chain, st>>>(
+            (cplx*)C, (const double*)link_smin, (double*)smin, L, inner, (int)S);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -60,13 +60,14 @@ _SIGNATURES = {
     "pythtb_lyapunov": [_P] * 6 + [_I] * 5 + [_P],
     "pythtb_eigh_jacobi": [_P] * 4 + [_I] * 3 + [_D, _I, _P],
     "pythtb_assemble_members": [_P] * 7 + [_I] * 6 + [_P],
-    "pythtb_transport_chain": [_P] * 4 + [_I] * 6 + [_P],
+    "pythtb_transport_chain": [_P] * 5 + [_I] * 7 + [_P],
     "pythtb_transport_rotate": [_P] * 6 + [_I] * 7 + [_P],
     "pythtb_transport_follow": [_P] * 5 + [_I] * 6 + [_P],
     "pythtb_mv_overlaps": [_P] * 5 + [_I] * 3 + [_P],
     "pythtb_mv_reduce": [_P] * 7 + [_I] * 4 + [_D, _D, _I, _P],
     "pythtb_mv_update": [_P] * 7 + [_I] * 4 + [_P],
     "pythtb_dense_filter": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
+    "pythtb_dense_filter_tc": [_P] * 7 + [_I] * 5 + [_D, _D, _P],
     "pythtb_pole_sum": [_P] * 7 + [_I] * 5 + [_D, _P],
     "pythtb_pole_map": [_P] * 6 + [_I] * 3 + [_P],
     "pythtb_pole_resolved": [_P] * 8 + [_I] * 3 + [_P],
@@ -98,11 +99,14 @@ _SIGNATURES = {
 # counts kernel 18's launches, one per chunk of steps; "eigh_jacobi" counts
 # kernel 7; "assemble_members" counts kernel 1's flux-batch mode (not in
 # "assemble"); "transport_chain", "transport_rotate" and "transport_follow"
-# count kernel 14's three modes; "mv_step" counts kernel 19's
+# count kernel 14's three modes (the chain's link path is two launches a
+# call, the links' polar factors and the prefixes); "mv_step" counts kernel 19's
 # Marzari-Vanderbilt steps (three launches each: overlaps, reduction,
 # update), "mv_final" its closing overlaps and reduction; "dense_filter"
-# counts kernel 11b's filter steps (a step is four launches: the product,
-# the epilogue, the scale reduction, the rescale; the first step two); "pole_sum"
+# counts kernel 11b's filter steps in both designs (cores: four launches a
+# step -- the product, the epilogue, the scale reduction, the rescale; the
+# first step two; tensor: one launch a step, and one more a call for the
+# final scale); "pole_sum"
 # counts kernel 20's calls in all four modes (k-mean and pole: a partial
 # pass and a reduction each; map and resolved: one launch); "tetra_dos"
 # counts kernel 21's calls (corners, partial sums and reduction each);

@@ -41,9 +41,20 @@ from .matvec import SparseH, _check_tables, _matvec_plain
 __all__ = ["phase_vectors", "moments", "recursion", "evolve", "filter", "dense_filter"]
 
 _MAX_ROW_BLOCKS = 1024  # kMaxRowBlocks of cheb_moments.cu: rows of the partial sums
-# dense_filter.cu: rows of H a product block (kBR), H columns a staged tile
-# (kTJ), rows an epilogue block (kEThreads); product blocks aimed at an SM
+# dense_filter.cu, the cores design: rows of H a product block (kBR), H
+# columns a staged tile (kTJ), rows an epilogue block (kEThreads); product
+# blocks aimed at an SM
 _DENSE_BR, _DENSE_TJ, _DENSE_EPI, _DENSE_BLOCKS_PER_SM = 128, 8, 256, 4
+# the tensor design: rows of H a block (kTcRows), H columns a box (kTcK),
+# boxes of H a stage (kTcKB), stages in the ring (kTcStages), the fewest
+# stages a slice
+_DENSE_TC_ROWS, _DENSE_TC_K, _DENSE_TC_KB, _DENSE_TC_STAGES, _DENSE_TC_MIN_STAGES = 128, 8, 4, 2, 4
+# kernel 11b's designs: "cores" (CUDA-core tiles, four launches a step) and
+# "tensor" (FP64 tensor cores fed by TMA, one launch a step); the tensor
+# design from this many rows of H (PERF.md section 6: the cores design wins
+# at the 6-ring's D 400 and 924, the tensor design from D 1,400)
+_DENSE_DESIGNS = ("cores", "tensor")
+_DENSE_TC_MIN_D = 1024
 
 
 def phase_vectors(nsta: int, R: int, seed: int, device):
@@ -268,30 +279,87 @@ def dense_filter(H, X, p: int, c: float, hw: float):
       max(p - 1, 0) does)
     :returns: (D, nb) complex128
     """
+    return _dense_filter(H, X, p, c, hw, None)
+
+
+def _dense_design(D: int, nb: int) -> str:
+    """Kernel 11b's design for a (D, D) H and nb columns: the tensor cores
+    from ``_DENSE_TC_MIN_D`` rows, where H's stream leads, the CUDA cores
+    below, where the tensor design's few row tiles leave SMs idle."""
+    return "tensor" if D >= _DENSE_TC_MIN_D else "cores"
+
+
+def _dense_filter(H, X, p, c, hw, design):
+    """:func:`dense_filter` on kernel 11b's ``design`` (one of
+    ``_DENSE_DESIGNS``; :func:`_dense_design`'s choice if None).  On the
+    card the tensor design takes (S + 4) D nb complex of scratch, S the
+    slices of :func:`_dense_tc_slices`."""
+    if design is not None and design not in _DENSE_DESIGNS:
+        raise ValueError("kernel 11b has no %r design; it has %s" % (design, ", ".join(_DENSE_DESIGNS)))
     if X.device.type == "cpu":
         return _dense_filter_plain(H, X, p, float(c), float(hw))
     D, nb = X.shape
     dev = X.device
     _kernels.require(H, "H", config.COMPLEX, (D, D), dev)
     _kernels.require(X, "X", config.COMPLEX, (D, nb), dev)
-    S, jlen = _dense_slices(D, nb, torch.cuda.get_device_properties(dev).multi_processor_count)
-    A = torch.empty((D, nb), dtype=config.COMPLEX, device=dev)
-    B = torch.empty((D, nb), dtype=config.COMPLEX, device=dev)
-    part = torch.empty((S, D, nb), dtype=config.COMPLEX, device=dev)
-    partial = torch.empty((max(-(-D // _DENSE_EPI), 1), nb), dtype=config.FLOAT, device=dev)
-    scale = torch.empty((nb,), dtype=config.FLOAT, device=dev)
+    design = _dense_design(D, nb) if design is None else design
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
     steps = max(int(p), 1)
-    _kernels.launch("dense_filter", dev, H, X, A, B, part, partial, scale, D, nb, steps, S, jlen, float(c),
-                    float(hw), count=steps)
-    return B
+    out = torch.empty((D, nb), dtype=config.COMPLEX, device=dev)
+    if design == "cores":
+        S, jlen = _dense_slices(D, nb, sms)
+        A = torch.empty((D, nb), dtype=config.COMPLEX, device=dev)
+        part = torch.empty((S, D, nb), dtype=config.COMPLEX, device=dev)
+        partial = torch.empty((max(-(-D // _DENSE_EPI), 1), nb), dtype=config.FLOAT, device=dev)
+        scale = torch.empty((nb,), dtype=config.FLOAT, device=dev)
+        _kernels.launch("dense_filter", dev, H, X, A, out, part, partial, scale, D, nb, steps, S, jlen, float(c),
+                        float(hw), count=steps)
+        return out
+    S, jlen = _dense_tc_slices(D, nb, sms, props.shared_memory_per_block_optin)
+    nrt = -(-D // _DENSE_TC_ROWS)
+    work = torch.empty((4, D, nb), dtype=config.COMPLEX, device=dev)
+    part = torch.empty((S, D, nb), dtype=config.COMPLEX, device=dev)
+    partial = torch.empty((2, nrt, nb), dtype=config.FLOAT, device=dev)
+    counters = torch.zeros((nrt * -(-nb // _dense_tc_columns(nb)),), dtype=torch.int32, device=dev)
+    _kernels.launch("dense_filter_tc", dev, H, X, work, out, part, partial, counters, D, nb, steps, S, jlen,
+                    float(c), float(hw), counter="dense_filter", count=steps)
+    return out
 
 
 def _dense_slices(D: int, nb: int, sms: int):
-    """(S, jlen): kernel 11b's product splits the H columns into S slices of
-    jlen (a multiple of the staged tile) so that some four blocks an SM are
-    in flight; the epilogue adds the S partial products in order."""
+    """(S, jlen): kernel 11b's cores design splits the H columns into S
+    slices of jlen (a multiple of the staged tile) so that some four blocks
+    an SM are in flight; the epilogue adds the S partial products in order."""
     nc = 4 if nb <= 4 else 8 if nb <= 8 else 12 if nb <= 12 else 16
     blocks = -(-D // _DENSE_BR) * -(-nb // nc)
     S = max(1, min(-(-_DENSE_BLOCKS_PER_SM * sms // blocks), -(-D // _DENSE_TJ)))
     jlen = -(-(-(-D // S)) // _DENSE_TJ) * _DENSE_TJ
+    return -(-D // jlen), jlen
+
+
+def _dense_tc_columns(nb: int) -> int:
+    """Columns of X a block of kernel 11b's tensor design takes: 8, 16 or 32."""
+    return 8 if nb <= 8 else 16 if nb <= 16 else 32
+
+
+def _dense_tc_fit(nb: int, smem: int) -> int:
+    """Blocks of the tensor design an SM holds at once, by their shared
+    memory (the ring's stages of boxes of H and b, 1 kB of alignment, ~2 kB
+    of the block's own) against ``smem``, the shared memory a block may
+    take (the device's opt-in limit): 1 on the H100's 227 kB (145 kB a
+    block at nb 10)."""
+    stage = _DENSE_TC_KB * (16384 + 1024 * (_dense_tc_columns(nb) // 8))
+    return max(1, smem // (_DENSE_TC_STAGES * stage + 1024 + 2048))
+
+
+def _dense_tc_slices(D: int, nb: int, sms: int, smem: int):
+    """(S, jlen): the tensor design splits the H columns into S slices of
+    jlen (a multiple of a stage's 32 columns, at least 4 stages) so that
+    the blocks fit on the ``sms`` SMs at once (no second wave); the last
+    block of a row tile to finish adds the S partial products in order."""
+    blocks = -(-D // _DENSE_TC_ROWS) * -(-nb // _dense_tc_columns(nb))
+    step = _DENSE_TC_K * _DENSE_TC_KB
+    S = max(1, min(_dense_tc_fit(nb, smem) * sms // blocks, D // (step * _DENSE_TC_MIN_STAGES)))
+    jlen = -(-(-(-D // S)) // step) * step
     return -(-D // jlen), jlen

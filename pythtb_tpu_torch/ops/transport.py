@@ -36,9 +36,21 @@ from .berry import _overlap, unitary_eig
 
 __all__ = ["smooth_gauge", "follow_states"]
 
-# most states kernel 14 takes (registers up to 8, a block's shared memory
-# from 9 to 64): S of chain / rotate, NS of follow
+# most states kernel 14 takes (rotate and follow: registers up to 8, a
+# block's shared memory from 9 to 64; the chain: its link path): S of
+# chain / rotate, NS of follow
 _KERNEL_MAX_STATES = 64
+# kernel 14's chain designs: C mode, the most states each takes, and its
+# launches a call ("registers": a thread a string, S 1; "warp" / "block":
+# the link path, a warp or a block a link over the grid, then a team a
+# string)
+_CHAIN_MODES = {"registers": (0, 1, 1), "warp": (1, 32, 2), "block": (2, _KERNEL_MAX_STATES, 2)}
+# the link path's dispatch line (PERF.md section 6, measured on the H100's
+# 132 SMs): a warp a link up to _CHAIN_WARP_MAX_S states, except where the
+# links are too few to fill the SMs with warps -- at most one link an SM
+# from 9 states, at most two from 20 -- where a block a link runs each
+# link's Jacobi rounds on more lanes
+_CHAIN_WARP_MAX_S = 28
 
 
 def _strings(w, nspin, dim_arr, axis):
@@ -104,14 +116,39 @@ def _plain(w, nstates):
     return False
 
 
-def _chain(w5, occ_t):
+def _chain_path(S, strings, L, sms):
+    """Kernel 14's chain design for S states on ``strings`` strings of L
+    points on a card of ``sms`` SMs: the register path at S 1; the link
+    path above, a warp a link up to ``_CHAIN_WARP_MAX_S`` states unless the
+    links are few for the SMs."""
+    links = strings * (L - 1)
+    if S == 1:
+        return "registers"
+    few = (S >= 9 and links <= sms) or (S >= 20 and links <= 2 * sms)
+    return "block" if S > _CHAIN_WARP_MAX_S or few else "warp"
+
+
+def _chain(w5, occ_t, path=None):
+    """Kernel 14's chain on design ``path`` (a key of ``_CHAIN_MODES``;
+    :func:`_chain_path`'s choice if None).  The link path takes strings x
+    (L - 1) doubles of scratch for the links' singular values; the link
+    factors go into C itself."""
     outer, L, inner, NS, F = w5.shape
     S = occ_t.shape[0]
+    if path is None:
+        path = _chain_path(S, outer * inner, L, torch.cuda.get_device_properties(w5.device).multi_processor_count)
+    if path not in _CHAIN_MODES:
+        raise ValueError("kernel 14's chain has no %r path; it has %s" % (path, ", ".join(_CHAIN_MODES)))
+    mode, most, launches = _CHAIN_MODES[path]
+    if S > most:
+        raise ValueError("kernel 14's %r path does not take %d states" % (path, S))
     _kernels.require(w5, "w", config.COMPLEX)
     _kernels.require(occ_t, "occ", torch.int64, (S,), w5.device)
     C = torch.empty((outer, L, inner, S, S), dtype=config.COMPLEX, device=w5.device)
     smin = torch.empty((outer * inner,), dtype=config.FLOAT, device=w5.device)
-    _kernels.launch("transport_chain", w5.device, w5, occ_t, C, smin, outer, L, inner, S, NS, F)
+    link_smin = torch.empty((outer * inner * (L - 1) if mode else 0,), dtype=config.FLOAT, device=w5.device)
+    _kernels.launch("transport_chain", w5.device, w5, occ_t, C, smin, link_smin, outer, L, inner, S, NS, F, mode,
+                    count=launches)
     return C, smin
 
 

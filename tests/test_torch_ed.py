@@ -123,6 +123,34 @@ def test_dense_filter_plain_matches_jax_program(p):
     assert np.all(np.abs(got - want).max(axis=0) <= tol * np.abs(want).max(axis=0))
 
 
+def test_dense_filter_dispatch():
+    """Kernel 11b's design and its split of H's columns at the shapes
+    PERF.md records (the H100's 132 SMs, 227 kB of shared memory a block):
+    the CUDA cores below D 1,024 (the 6-ring's sectors), the tensor design
+    from there, 8 / 16 / 32 columns a block, one block an SM, slices that
+    fill the SMs in one wave (117 blocks at the Hubbard row); a CPU tensor
+    runs the plain version whatever design is asked, and an unknown design
+    is refused."""
+    assert [chebyshev._dense_design(D, 10) for D in (400, 924, 1023, 1024, 1400, 4900)] == [
+        "cores", "cores", "cores", "tensor", "tensor", "tensor"]
+    assert [chebyshev._dense_tc_columns(nb) for nb in (1, 8, 10, 16, 17, 32)] == [8, 8, 16, 16, 32, 32]
+    assert [chebyshev._dense_tc_fit(nb, 232448) for nb in (1, 10, 32)] == [1, 1, 1]
+    assert chebyshev._dense_tc_slices(4900, 10, 132, 232448) == (3, 1664)
+    assert chebyshev._dense_tc_slices(4901, 32, 132, 232448) == (3, 1664)
+    assert chebyshev._dense_tc_slices(400, 10, 132, 232448) == (3, 160)
+    assert chebyshev._dense_tc_slices(924, 10, 132, 232448) == (6, 160)
+    assert chebyshev._dense_slices(4900, 10, 132) == (14, 352)
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12))
+    H = torch.as_tensor(A + A.conj().T)
+    X = torch.as_tensor(rng.standard_normal((12, 3)) + 1j * rng.standard_normal((12, 3)))
+    want = chebyshev._dense_filter_plain(H, X, 4, 0.5, 9.0)
+    for design in (None,) + chebyshev._DENSE_DESIGNS:
+        assert torch.equal(chebyshev._dense_filter(H, X, 4, 0.5, 9.0, design), want)
+    with pytest.raises(ValueError, match="no 'warp' design"):
+        chebyshev._dense_filter(H, X, 4, 0.5, 9.0, "warp")
+
+
 def test_solve_sector_lowest_matches_jax():
     """The spectrum-slice path: the same start block and re-pads (host
     generator), so the same Ritz values; product and spinful general

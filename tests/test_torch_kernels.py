@@ -989,8 +989,36 @@ def test_transport_chain_and_rotate_kernels(dev, grid, axis, occ, F):
         got = transport._rotate(w5, occ_t, Cp, theta, P, closed)
         want = transport._rotate_plain(w5, occ_t, Cp, theta, P, closed)
         assert _max_diff(got, want) < TOL
-    assert _kernels.LAUNCHES["transport_chain"] == before["transport_chain"] + 1
+    path = transport._chain_path(len(occ), w5.shape[0] * w5.shape[2], w5.shape[1],
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert _kernels.LAUNCHES["transport_chain"] == before["transport_chain"] + transport._CHAIN_MODES[path][2]
     assert _kernels.LAUNCHES["transport_rotate"] == before["transport_rotate"] + 2
+
+
+@pytest.mark.parametrize("grid,axis,S,F", [((301, 5), 1, 2, 4), ((9, 7), 0, 28, 32), ((9, 7), 0, 29, 32),
+                                           ((41, 31), 1, 1, 3), ((6, 5), 1, 4, 6), ((5, 6), 0, 8, 10),
+                                           ((6, 2), 1, 5, 14)])
+def test_transport_chain_paths(dev, grid, axis, S, F):
+    """Every design of kernel 14's chain that takes S (the register path at
+    S 1, a warp a link to 32, a block a link to 64) against the plain version
+    at 1e-12, C and the smallest singular value: 301 strings at S 2, S 28
+    and 29 on either side of the warp / block line, the occ rows scattered
+    (every other state), a 2-point axis."""
+    from pythtb_tpu_torch.ops import transport
+
+    NS = min(2 * S + 1, F)
+    w5, _ = transport._strings(_random_frames(260 + S, grid, NS, F, dev), 1, len(grid), axis)
+    w5 = w5.contiguous()
+    occ = list(range(0, 2 * S, 2)) if 2 * S - 1 < NS else list(range(S))
+    occ_t = torch.as_tensor(occ, dtype=torch.int64, device=dev)
+    Cp, sp = transport._chain_plain(w5, occ_t)
+    for path, (_, most, launches) in transport._CHAIN_MODES.items():
+        if S > most:
+            continue
+        before = _kernels.LAUNCHES["transport_chain"]
+        C, smin = transport._chain(w5, occ_t, path)
+        assert _kernels.LAUNCHES["transport_chain"] == before + launches
+        assert _max_diff(C, Cp) < TOL and _max_diff(smin, sp) < TOL, path
 
 
 @pytest.mark.parametrize("grid,axis,NS,nocc,F", [((41, 31), 0, 3, 1, 3), ((13, 5), 0, 4, 2, 4),
@@ -1191,6 +1219,29 @@ def test_dense_filter_kernel(dev, D, nb, p):
     tol = TOL if p <= 2 else 1e-10
     err = (got - want).abs().amax(dim=0)
     assert bool((err <= tol * want.abs().amax(dim=0)).all()), float((err / want.abs().amax(dim=0)).max())
+
+
+@pytest.mark.parametrize("D,nb,p", [(4901, 10, 2), (999, 1, 2), (999, 16, 2), (999, 17, 2), (999, 32, 30),
+                                    (130, 20, 5)])
+def test_dense_filter_designs(dev, D, nb, p):
+    """Both designs of kernel 11b (tensor cores, CUDA cores) against the
+    plain version, D past every tile and nb 1 / 16 / 17 / 32 (one to four
+    n-tiles of 8, a ragged group): 1e-12 of each column's largest entry
+    for one or two steps, 1e-10 for whole filters; a repeated call gives
+    the same bits (the slices are added in a fixed order)."""
+    from pythtb_tpu_torch.ops import chebyshev
+
+    H, X, c, hw = _dense_case(D * nb + p, D, nb, dev)
+    want = chebyshev._dense_filter_plain(H, X, p, c, hw)
+    tol = TOL if p <= 2 else 1e-10
+    for design in chebyshev._DENSE_DESIGNS:
+        before = _kernels.LAUNCHES["dense_filter"]
+        got = chebyshev._dense_filter(H, X, p, c, hw, design)
+        assert _kernels.LAUNCHES["dense_filter"] == before + max(p, 1)
+        torch.cuda.synchronize()
+        err = (got - want).abs().amax(dim=0)
+        assert bool((err <= tol * want.abs().amax(dim=0)).all()), (design, float((err / want.abs().amax(dim=0)).max()))
+        assert torch.equal(got, chebyshev._dense_filter(H, X, p, c, hw, design)), design
 
 
 def _pole_inputs(seed, Nk, nv, nw, dev):

@@ -12,9 +12,12 @@ mathematical definitions) run on the port at small grids.
 
 import numpy as np
 import pytest
+import torch
 
 from pythtb_tpu import wf_array as jwf_array
 from pythtb_tpu.models import library as jzoo
+from pythtb_tpu.ops import transport as jtransport
+from pythtb_tpu.utils.xfer import pack_cplx
 from pythtb_tpu_torch import convert, models, tb_model, wf_array
 from pythtb_tpu_torch.ops import transport
 
@@ -274,3 +277,66 @@ def test_plain_versions_shapes():
     np.testing.assert_allclose(C[:, 0].numpy(), 1.0)
     prod, _ = berry.wilson_loop(berry.prep_states(w, [0], 1, 2), 1)
     np.testing.assert_allclose(C[:, -1, 0].numpy(), prod.numpy(), atol=1e-12)
+
+
+def _orthonormal_frames(seed, grid, NS, F):
+    """Orthonormal rows at every grid point (random complex QR)."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=tuple(grid) + (F, NS)) + 1j * rng.normal(size=tuple(grid) + (F, NS))
+    return np.ascontiguousarray(np.swapaxes(np.linalg.qr(z)[0], -1, -2))
+
+
+def _unit_rows(seed, shape):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    return z / np.linalg.norm(z, axis=-1, keepdims=True)
+
+
+# kernel 14's chain past its register path: random orthonormal frames at S
+# 9 and 32, and the slab's shape (S 20 of 39 states, F 39, 41-point
+# strings along axis 0) with unit rows, as test_torch_wilson.py's S20_F39
+LARGE_S = {
+    "S9": lambda: (_orthonormal_frames(9, (7, 5), 11, 12), list(range(9))),
+    "S20_F39": lambda: (_unit_rows(6, (41, 3, 39, 39)), list(range(20))),
+    "S32": lambda: (_orthonormal_frames(32, (5, 4), 34, 36), list(range(32))),
+}
+
+
+@pytest.mark.parametrize("closed", [True, False])
+@pytest.mark.parametrize("case", list(LARGE_S))
+def test_smooth_gauge_large_s_matches_jax(case, closed):
+    """The port's smooth gauge (the plain chain of kernel 14's link path, on
+    the CPU) within 1e-10 of pythtb_tpu.ops.transport.smooth_gauge at S 9,
+    20 and 32, along both axes: the JAX program's tree scan of the chain
+    agrees with the in-order prefixes to about L eps."""
+    st, occ = LARGE_S[case]()
+    packed = np.asarray(pack_cplx(st))
+    for d in (0, 1):
+        want, want_s = jtransport.smooth_gauge(packed, occ, d, 1, 2, closed)
+        want = np.asarray(want)
+        got, got_s = transport.smooth_gauge(torch.as_tensor(st), occ, d, 1, 2, closed)
+        assert np.abs(got.numpy() - (want[..., 0] + 1j * want[..., 1])).max() <= 1e-10
+        assert abs(got_s - want_s) <= 1e-10
+
+
+def test_chain_path_dispatch():
+    """Kernel 14's chain design at the shapes PERF.md records (the H100's
+    132 SMs): the register path at S 1; the link path above it, a warp a
+    link to S 28 and a block a link past it, or where the links are too few
+    to fill the SMs with warps (56 links of the random 9 x 7 frames from
+    S 9, 264 from S 20);
+    designs that do not take S, and unknown designs, are refused before
+    any launch."""
+    assert [transport._chain_path(S, 41, 31, 132) for S in (1, 2)] == ["registers", "warp"]
+    assert [transport._chain_path(S, 301, 300, 132) for S in (1, 2, 4, 8)] == ["registers", "warp", "warp", "warp"]
+    assert transport._chain_path(20, 41, 41, 132) == "warp"  # the slab: 1,640 links
+    assert [transport._chain_path(S, 7, 9, 132) for S in (8, 9, 16, 28, 32, 64)] == ["warp"] + ["block"] * 5
+    assert [transport._chain_path(S, 33, 9, 132) for S in (9, 16, 19, 20, 28)] == ["warp"] * 3 + ["block"] * 2
+    assert [transport._chain_path(S, 17, 33, 132) for S in (9, 20, 28, 29)] == ["warp"] * 3 + ["block"]
+    assert {k: v[1] for k, v in transport._CHAIN_MODES.items()} == {"registers": 1, "warp": 32, "block": 64}
+    w5 = torch.as_tensor(_orthonormal_frames(1, (3, 4), 12, 12))[None]
+    occ = transport._occ_tensor(list(range(2)), w5.device)
+    with pytest.raises(ValueError, match="'registers' path does not take 2"):
+        transport._chain(w5, occ, "registers")
+    with pytest.raises(ValueError, match="no 'tree' path"):
+        transport._chain(w5, occ, "tree")
