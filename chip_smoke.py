@@ -82,8 +82,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    pump, Kane-Mele, 301 x 300 (S 1 / 2 / 4 / 8), slab and random-frame
    shapes (the fifteenth slice's register path at S 1 and link path, a
    warp or a block a link); and kernel 11b's two designs (tensor cores,
-   CUDA cores) at the Hubbard row, nb 1 / 16 / 17 / 32 at its sector,
-   a repeated call giving the same bits;
+   CUDA cores) at the Hubbard row, nb 1 / 16 / 17 / 32 at its sector
+   beside the matmul steps, a repeated call giving the same bits;
+   kernel 14's rotate on every design that takes S (the sixteenth
+   slice's register path to S 3, a warp or a block a point on the CUDA
+   cores, tensor-core tiles a block each 16 rows of a point) at the slab,
+   random 9 x 7 and 41 x 41 frames (S 2-64), beside
+   the matmul of conj(C) and the rows, the rows outside occ bit for bit;
+   kernel 7 below 33 states on both designs (a block, or to 16 states a
+   team of lanes, a matrix) at random B 1,600 m 3-32, degenerate batches and every
+   eigh_batched call of phase 4 at m 3-32 (the kappa row, Kane-Mele 41^2,
+   silicon, the magnon grids, the Floquet spectrum, the Lieb BdG),
+   beside torch.linalg.eigh;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -168,6 +178,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    then the steady wall time of the main calls, of the thirteenth
    slice's five paths and of the fifteenth slice's two (the slab's
    smooth gauge, the 4,900-dim ED solve: walls and CUDA-event spans);
+   the kappa row and the Kane-Mele flow and Z2 walls with their
+   CUDA-event spans; the kappa row's and Kane-Mele's 4 x 4 solves must
+   launch kernel 7;
 5. launches: every kernel's counter must have risen during phase 4;
 6. a JSON line of per-kernel results, then the last line
    {"ok": true, "device": {...}}.
@@ -2046,7 +2059,13 @@ HOF_K = np.stack(np.meshgrid(np.arange(4) / 4.0, np.arange(4) / 4.0, indexing="i
 S7 = {"quadrupole": 21, "spin_chern": 41, "sector": 41, "nodes": 40, "family": 16, "c2": 16, "c2_slices": 16,
       "c2_cpu": 8}
 JACOBI_M = (33, 39, 40, 48, 63, 64)  # kernel 7 held at these sizes
-JACOBI_LIBRARY_M = (8, 16, 32)  # kernel 7 against torch.linalg.eigh below its range: recorded only
+# kernel 7 against torch.linalg.eigh and the plain Jacobi at m 3-32, random B 1,600 (eigh._route's line; the
+# callers of phase 4 in that range are held on their own matrices by eigh_route_case)
+JACOBI_ROUTE_M = (3, 4, 8, 16, 24, 32)
+# (B, m) about eigh._route's batch line at 9-26 states and its library range 27-32, and about
+# eigh._jacobi_design's team / block line (to 12 states from 16,384 matrices)
+JACOBI_LINE_SHAPES = ((256, 16), (1024, 16), (256, 22), (1024, 22), (1024, 26), (1600, 28), (4096, 4), (16384, 4),
+                      (16384, 12), (16384, 16))
 
 
 def haldane_bilayer(pt):
@@ -2092,6 +2111,44 @@ def cost_assemble_members(data, P, NK):
     return bound(nbytes, P * NK * data.nhop * (2 * data.dim_k + 2 + 2 * blk * 8))
 
 
+def eigh_route_case(torch, key, H, record, reps=5, cpu_route=False):
+    """Kernel 7 on B matrices of m <= 32 states against the plain Jacobi
+    (eigenvalues within 1e-12 of max(1, ||H||_F), every group's projector
+    within its perturbation limit, projector_diff) and against
+    torch.linalg.eigh in eigh_batched's slices: the design eigh._jacobi_design
+    picks is recorded with the library's time beside it, the other design
+    that takes m timed beside it, and the route eigh._route takes for the
+    shape (with the caller's ``cpu_route``) printed with the faster of
+    kernel 7 and the library."""
+    from pythtb_tpu_torch.ops import eigh
+
+    B, m = H.shape[0], H.shape[-1]
+    scale = max(1.0, float(torch.linalg.matrix_norm(H).max()))
+    design = eigh._jacobi_design(m, B)
+    route = eigh._route(m, B, "cuda", cpu_route)
+    wp, vp = eigh._eigh_jacobi_plain(H)
+    wl, vl = eigh._library_eigh(H)
+    err, ratio = 0.0, 0.0
+    designs = [d for d, (_, most) in eigh._JACOBI_DESIGNS.items() if m <= most]
+    for d in designs:
+        w, v = eigh._eigh_jacobi(H, True, d)
+        err = max(err, max_diff(torch, w, wp), max_diff(torch, w, wl))
+        ratio = max(ratio, projector_diff(torch, wp, v, vp, scale, chunk=128 if m > 8 else 8192)[0],
+                    projector_diff(torch, wl, v, vl, scale, chunk=128 if m > 8 else 8192)[0])
+        del w, v
+    check(ratio <= 1.0, "eigh_jacobi %s: a projector exceeds its perturbation limit (%.3f)" % (key, ratio))
+    del vp, vl
+    lib = cuda_ms(torch, lambda: eigh._library_eigh(H), reps)
+    record("eigh_jacobi", "%s, %s design" % (key, design), err, lambda: eigh._eigh_jacobi(H, True, design),
+           lambda: eigh._eigh_jacobi_plain(H), cost_eigh(B, m), library_ms=lib, reps=reps, scale=scale)
+    others = ["%s design %.4f ms" % (d, cuda_ms(torch, lambda: eigh._eigh_jacobi(H, True, d), reps))
+              for d in designs if d != design]
+    kernel = cuda_ms(torch, lambda: eigh._eigh_jacobi(H, True, design), reps)
+    print("  %-15s %-34s %s; projectors within %.3f of their limits; route %s (kernel 7 %.4f, library %.4f ms: "
+          "%s faster)" % ("eigh_jacobi", key, "; ".join(others) or "one design takes m", ratio, route, kernel, lib,
+                          "kernel 7" if kernel <= lib else "the library"))
+
+
 def projector_diff(torch, w_ref, v, v_ref, scale, gap=1e-8, chunk=128):
     """The spectral projectors of the groups of eigenvalues that ``w_ref``
     (B, m) splits by more than ``gap`` (v, v_ref row eigenvectors
@@ -2131,7 +2188,11 @@ def slice7_kernels(torch, pt, device, record, held):
     degeneracies at flux 0): eigenvalues within 1e-12 of max(1, ||H||_F),
     the projectors of eigenvalue groups split by more than 1e-8 within
     1e-10; timed against torch.linalg.eigh at the slab and Hofstadter
-    shapes and (recorded only) at m 8, 16 and 32.  A group split from its
+    shapes.  Below 33 states (eigh_route_case): every design that takes m
+    at random B 1,600 m 3 / 4 / 8 / 16 / 24 / 32 and about the route's and
+    the design's lines (JACOBI_LINE_SHAPES), degenerate B 64 m 4 / 16 and every
+    eigh_batched call of phase 4 at m 3-32 (eigh_callers), each timed
+    against torch.linalg.eigh.  A group split from its
     neighbours by less than 1e-4 ||H||_F (the Hofstadter spectra have
     splittings of 1e-7) is held at its perturbation bound, 1e-14
     ||H||_F / gap, instead: no eigensolver meets 1e-10 there.  The
@@ -2195,9 +2256,54 @@ def slice7_kernels(torch, pt, device, record, held):
     wv = eigh.eigh_jacobi(Hh, vectors=False)
     held("eigh_jacobi", "hofstadter eigenvalues-only mode", max_diff(torch, wv, eigh._eigh_jacobi_plain(Hh, False)),
          scale=max(1.0, float(torch.linalg.matrix_norm(Hh).max())))
-    for m in JACOBI_LIBRARY_M:
-        H = hermitian(Hs.shape[0], m)
-        hold("below the range B=%d m=%d" % (Hs.shape[0], m), H, True, cost_eigh(Hs.shape[0], m))
+    # kernel 7 below 33 states (eigh._route's line): random B 1,600,
+    # two degenerate batches, then the callers of phase 4 on their own
+    # matrices (captured from the real calls)
+    for m in JACOBI_ROUTE_M:
+        eigh_route_case(torch, "random B=%d m=%d" % (Hs.shape[0], m), hermitian(Hs.shape[0], m), record)
+    for B, m in JACOBI_LINE_SHAPES:
+        eigh_route_case(torch, "random B=%d m=%d" % (B, m), hermitian(B, m), record, 3 if B > 4096 else 5)
+    for m in (4, 16):
+        eigh_route_case(torch, "degenerate B=64 m=%d" % m, hermitian(64, m, degenerate=True), record)
+    eigh_callers(torch, pt, record)
+
+
+def eigh_callers(torch, pt, record):
+    """Every eigh_batched call of phase 4 at m 3-32, captured from the real
+    calls: the kappa row (768^2 phonon 4 x 4), the Kane-Mele 41^2 Wilson
+    flow (4 x 4), the w90 silicon bands (8 x 8), the magnon thermal-Hall
+    grid (2n 4, on the CPU's route: its fluxes need the library's basis
+    inside a degenerate pair) and neutron map (2n 6), the Floquet spectrum
+    (22 x 22) and the Lieb superfluid weight's BdG matrices (2S 6), each
+    through eigh_route_case."""
+    from pythtb_tpu_torch import flows, floquet, geometry, magnon, phonon
+    from pythtb_tpu_torch.ops import solver
+    from tests import workloads, zoo
+
+    si = pt.w90(workloads.W90_DATA_DIR, "silicon")
+    si_k = si.w90_bands_consistency()[0]
+    si_m = si.model(min_hopping_norm=0.01)
+    km, qs = kagome_magnet(pt)
+    kv = pt.models.graphene().k_path([[0.0, 0.0], [1.0 / 3.0, 2.0 / 3.0], [0.5, 0.5], [0.0, 0.0]], 121,
+                                     report=False)[0]
+    calls = (
+        ("kappa row %d^2" % S12["kappa_nk"], phonon,
+         lambda: pt.phonon.thermal_conductivity(honeycomb_springs(pt), KAPPA_TS, S12["kappa_nk"]), 3),
+        ("kane_mele flow 41x41", flows, lambda: pt.flows.wilson_flow(zoo.kane_mele(pt, "odd"), [0, 1], nk=(41, 41)), 5),
+        ("w90 silicon bands", solver, lambda: si_m.solve_all(si_k, eig_vectors=True), 5),
+        ("magnon thermal Hall %d^2" % S12["hall_nk"], magnon, lambda: pt.magnon.thermal_hall(honeycomb_magnet(pt), MAGNON_TS,
+                                                                            nk=S12["hall_nk"]), 5),
+        ("magnon neutron 4,096 q", magnon, lambda: pt.magnon.structure_factor(km, qs, omegas=NEUTRON_W, eta=0.05), 5),
+        ("floquet spectrum 121 k nharm 5", floquet, lambda: pt.floquet.quasienergies(pt.models.graphene(), FLQ_W,
+                                                                                     circ(1.2), kv, nharm=5), 5),
+        ("lieb BdG 48^2", geometry, lambda: pt.geometry.superfluid_weight(pt.models.lieb(), 0.0, 0.3, nk=(48, 48)), 5),
+    )
+    for key, module, call, reps in calls:
+        (H,), kwargs = captured(module, "eigh_batched", call)
+        H = H.reshape(-1, H.shape[-1], H.shape[-1]).contiguous()
+        eigh_route_case(torch, "%s B=%d m=%d" % (key, H.shape[0], H.shape[-1]), H, record, reps,
+                        kwargs.get("cpu_route", False))
+        del H
 
 
 def slice7_path(pt, where, reference):
@@ -2341,10 +2447,13 @@ def cost_transport_chain(outer, L, inner, S, F):
 
 def cost_transport_rotate(outer, L, inner, S, NS, F):
     """Kernel 14's rotate: the grid read once and written once, the prefixes
-    and the holonomy eigenpairs read; S^2 F multiply-adds a point."""
+    and the holonomy eigenpairs read; S^2 F complex multiply-adds a point
+    and the two S^3 products of Lambda^{-t}, at the FP64 tensor cores' rate
+    (the card's peak for a product, whichever design runs, as
+    cost_position)."""
     pts = outer * L * inner
     nbytes = 2 * pts * NS * F * C128 + pts * S * S * C128 + outer * inner * (S * S * C128 + S * F64)
-    return bound(nbytes, pts * (8.0 * S * S * F + 16.0 * S**3))
+    return bound(nbytes, pts * (8.0 * S * S * F + 16.0 * S**3), FP64_TC_FLOPS_PER_S)
 
 
 def cost_transport_follow(outer, L, inner, NS, nocc, F):
@@ -2745,10 +2854,10 @@ def slice9_kernels(torch, pt, device, record, held):
         err = col_rel(torch, chebyshev.dense_filter(Hd, X, p, c, hw), chebyshev._dense_filter_plain(Hd, X, p, c, hw))
         held("dense_filter", "hubbard D 4900 nb 10, %d step%s" % (p, "s" if p > 1 else ""), err)
 
-    def library(Hm, Xm, cm, hwm):
+    def library(Hm, Xm, cm, hwm, p=30):
         # the same recurrence as torch.matmul steps, without the rescale
         a, b = Xm, (Hm @ Xm - cm * Xm) / hwm
-        for _ in range(29):
+        for _ in range(p - 1):
             a, b = b, 2.0 * ((Hm @ b - cm * b) / hwm) - a
         return b
 
@@ -2775,7 +2884,8 @@ def slice9_kernels(torch, pt, device, record, held):
         err = col_rel(torch, chebyshev.dense_filter(Hd, Xx, 2, c, hw), chebyshev._dense_filter_plain(Hd, Xx, 2, c, hw))
         record("dense_filter", "hubbard D 4900 nb %d, 2 steps" % nbx, err,
                lambda: chebyshev.dense_filter(Hd, Xx, 2, c, hw),
-               lambda: chebyshev._dense_filter_plain(Hd, Xx, 2, c, hw), cost_dense_filter(D, nbx, 2), reps=5)
+               lambda: chebyshev._dense_filter_plain(Hd, Xx, 2, c, hw), cost_dense_filter(D, nbx, 2),
+               library_ms=cuda_ms(torch, lambda: library(Hd, Xx, c, hw, 2), 5), reps=5)
     del Hd
     for key, Hs in (("6-ring D 400, p 30", hubbard_sector(pt, 6, 4.0)),
                     ("spinful layout 6-ring D 924, p 30", spinful_sector(pt, 6, 4.0))):
@@ -3095,6 +3205,7 @@ STONER_Q = np.concatenate([_STONER_PATH[i] + (_STONER_PATH[i + 1] - _STONER_PATH
                            for i in range(3)] + [_STONER_PATH[-1:]], axis=0)
 MT_BS = np.array([0.02, 0.1, 0.3, 1.0]) / 7.0  # tests/test_magnetotransport.py's Drude collapse, tau 7
 LARGE_S = (9, 12, 16, 32, 64)  # kernels 3, 5 and 14 past 8 states
+ROTATE_S = (2, 4, 8, 9, 16, 20, 32, 64)  # kernel 14's rotate about its dispatch line
 LARGE_NW = (9, 12, 16, 32)  # kernel 19 past its register path
 # (simplex, energy) pairs: operations where E lies in the simplex's range
 TETRA_OPS = {1: 4, 2: 14, 3: 25}
@@ -3144,7 +3255,10 @@ def slice10_kernels(torch, pt, device, record, held):
     a link), beside the library SVD; kernel 14 at the
     slab's 20 states and random frames at S 9-64 (beside the library SVD
     of the chain's overlaps), kernel 19's single steps at nw 9, 12, 16,
-    32, all at 1e-12 as their register paths."""
+    32, all at 1e-12 as their register paths; kernel 14's rotate on every
+    design about its dispatch line (rotate_paths: the frames above and S 2
+    / 4 / 8 / 9 / 16 / 20 / 32 / 64 at 63 and 1,681 points) beside the matmul,
+    the rows outside occ bit for bit."""
     from pythtb_tpu_torch import fermisurface, optical, response, wannier
     from pythtb_tpu_torch.ops import berry, solver, tetra, transport
 
@@ -3261,24 +3375,56 @@ def slice10_kernels(torch, pt, device, record, held):
             rng.normal(size=(9, 7, S + 4, S + 2)) + 1j * rng.normal(size=(9, 7, S + 4, S + 2)))[0], -1, -2))).to(device)
         chain_paths("random 9x7 frames, %d of %d" % (S, S + 2), transport._strings(fr, 1, 2, 0)[0].contiguous(),
                     list(range(S)), 3)
-    for key, w5, occ, reps in frames:
+    def rotate_paths(key, w5, occ, reps, Cp=None):
+        """Kernel 14's rotate, closed and open, on every design that takes S
+        (a block that cannot hold the occ rows whole takes them a chunk of
+        columns at a time), against the plain version at 1e-12, the rows
+        outside occ bit for bit; the default design (_rotate_path's) recorded
+        closed beside the matmul of conj(C) and the occ rows, the others
+        timed beside it (closed)."""
         outer, L, inner, NS, F = w5.shape
         occ_t = torch.as_tensor(occ, dtype=torch.int64, device=device)
         S = len(occ)
-        Cp = chain_paths(key, w5, occ, reps)
+        if Cp is None:
+            Cp, _ = transport._chain_plain(w5, occ_t)
         theta, P = (t.contiguous() for t in berry.unitary_eig(Cp[:, -1].contiguous()))
         sel = w5.index_select(3, occ_t)
-        record("transport_rotate", key + ", closed",
-               max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, True),
-                        transport._rotate_plain(w5, occ_t, Cp, theta, P, True)),
-               lambda: transport._rotate(w5, occ_t, Cp, theta, P, True),
-               lambda: transport._rotate_plain(w5, occ_t, Cp, theta, P, True),
-               cost_transport_rotate(outer, L, inner, S, NS, F), reps=reps,
-               library_ms=cuda_ms(torch, lambda: torch.matmul(Cp.conj(), sel), 3))
-        held("transport_rotate", key + ", open", max_diff(torch, transport._rotate(w5, occ_t, Cp, theta, P, False),
-                                                           transport._rotate_plain(w5, occ_t, Cp, theta, P, False)))
-        nocc = S
-        occ_f = occ_t
+        rest = torch.as_tensor([r for r in range(NS) if r not in occ], dtype=torch.int64, device=device)
+        lib = cuda_ms(torch, lambda: torch.matmul(Cp.conj(), sel), reps)
+        sms, smem = transport._card(device)
+        default = transport._rotate_path(S, outer * L * inner, F, sms, smem)
+        cost = cost_transport_rotate(outer, L, inner, S, NS, F)
+        others = []
+        for path, (_, most) in transport._ROTATE_MODES.items():
+            if S > most:
+                continue
+            err = {}
+            for closed in (True, False):
+                got = transport._rotate(w5, occ_t, Cp, theta, P, closed, path)
+                err[closed] = max_diff(torch, got, transport._rotate_plain(w5, occ_t, Cp, theta, P, closed))
+                check(torch.equal(got.index_select(3, rest), w5.index_select(3, rest)),
+                      "transport_rotate %s, %s path: a row outside occ changed" % (key, path))
+                if path != default or not closed:
+                    held("transport_rotate", "%s, %s, %s path" % (key, "closed" if closed else "open", path),
+                         err[closed])
+            if path == default:
+                record("transport_rotate", key + ", closed", err[True],
+                       lambda: transport._rotate(w5, occ_t, Cp, theta, P, True, path),
+                       lambda: transport._rotate_plain(w5, occ_t, Cp, theta, P, True), cost, reps=reps,
+                       library_ms=lib)
+            else:
+                others.append("%s %.4f ms, %.1f us" % (
+                    path, cuda_ms(torch, lambda: transport._rotate(w5, occ_t, Cp, theta, P, True, path), reps),
+                    event_us(torch, lambda: transport._rotate(w5, occ_t, Cp, theta, P, True, path))))
+        print("  %-15s %-34s default %s; the other designs (closed, wrapper and device by CUDA events): %s; "
+              "matmul %.4f ms" % ("transport_rotate", key, default, "; ".join(others), lib))
+
+    for key, w5, occ, reps in frames:
+        outer, L, inner, NS, F = w5.shape
+        Cp = chain_paths(key, w5, occ, reps)
+        rotate_paths(key, w5, occ, reps, Cp)
+        nocc = len(occ)
+        occ_f = torch.as_tensor(occ, dtype=torch.int64, device=device)
         idx, fid, stt = transport._follow(w5, occ_f)
         idx_p, fid_p, st_p = transport._follow_plain(w5, occ_f)
         check(torch.equal(idx, idx_p), "transport_follow %s: the followed indices differ from the plain version" % key)
@@ -3286,6 +3432,19 @@ def slice10_kernels(torch, pt, device, record, held):
                max(max_diff(torch, fid, fid_p), max_diff(torch, stt, st_p)),
                lambda: transport._follow(w5, occ_f), lambda: transport._follow_plain(w5, occ_f),
                cost_transport_follow(outer, L, inner, NS, nocc, F), reps=reps)
+    # the rotate's dispatch line: S 2 / 4 / 8 / 9 / 16 / 20 / 32 / 64 at
+    # 63 points (random 9 x 7 frames; the frames above hold S 9-64 there)
+    # and 1,681 (41 x 41), the occ rows scattered (every other state) where
+    # the frames have room
+    for grid in ((9, 7), (41, 41)):
+        for S in ROTATE_S if grid == (41, 41) else [S for S in ROTATE_S if S not in LARGE_S]:
+            NS = min(2 * S + 1, 66)
+            z = rng.normal(size=grid + (NS + 4, NS)) + 1j * rng.normal(size=grid + (NS + 4, NS))
+            fr = torch.as_tensor(np.ascontiguousarray(np.swapaxes(np.linalg.qr(z)[0], -1, -2))).to(device)
+            occ = list(range(1, 2 * S, 2)) if 2 * S <= NS else list(range(S))
+            rotate_paths("random %dx%d frames, %d of %d, F %d" % (grid + (S, NS, NS + 4)),
+                         transport._strings(fr, 1, 2, 0)[0].contiguous(), occ, 5)
+            del fr, z
     # kernel 19 past 8 Wannier functions: single steps on near-identity overlaps
     for n in LARGE_NW:
         B, nb = 64, 8
@@ -3813,7 +3972,8 @@ def slice11_kernels(torch, pt, device, record, held):
                        propagate._propagate_full_plain(w, V, U0, dt, hp)), max_diff(torch, hk, hp))
     record("propagate_full", "rudner 17^2 history: %d steps x %d k" % tuple(w.shape[:2]), err,
            lambda: propagate.propagate_full(w, V, U0.clone(), dt, hk),
-           lambda: propagate._propagate_full_plain(w, V, U0, dt, hp), cost_propagate(*w.shape, hist=True), reps=5)
+           lambda: propagate._propagate_full_plain(w, V, U0, dt, hp), cost_propagate(*w.shape, hist=True),
+           library_ms=cuda_ms(torch, lambda: two_matmuls(w, V, U0, dt), 5), reps=5)
     for S in (4, 8, 9, 24, 32, 64):
         Tc, R = 12, (512 if S <= 8 else 24)
         a = rng.normal(size=(Tc, R, S, S)) + 1j * rng.normal(size=(Tc, R, S, S))
@@ -4255,12 +4415,12 @@ def slice12_kernels(torch, pt, device, record, held):
     kernel 27 (the Colpa factorization at magnon_thermal_hall_map's 41^2 x
     2n 4 and neutron_map_kagome_4096q's 4,096 q x 2n 6, random 2n 16 / 64),
     each against its plain version (1e-12 of its largest entry), captured
-    from the real calls.  Then the library eigh of the kappa row (36 slices
-    of 16,384 4 x 4 matrices, eigh_batched) against kernel 7 on the same
-    matrices, and the device time and bound of the Floquet Chern row's
-    states step (unitary_eig and kernels 3-4, PERF.md section 6)."""
+    from the real calls.  Then the device time and bound of the Floquet
+    Chern row's states step (unitary_eig and kernels 3-4, PERF.md section
+    6).  (The kappa row's eigensolve, on kernel 7, is held and
+    timed against the library by eigh_callers in slice7_kernels.)"""
     from pythtb_tpu_torch import eph, floquet, magnon, phonon
-    from pythtb_tpu_torch.ops import colpa, eigh, eph_vertex, phonon_kappa
+    from pythtb_tpu_torch.ops import colpa, eph_vertex, phonon_kappa
 
     rng = np.random.default_rng(12)
     fm = honeycomb_springs(pt)
@@ -4281,17 +4441,9 @@ def slice12_kernels(torch, pt, device, record, held):
         want = phonon_kappa._phonon_kappa_plain(v, dDr, om, Ts)
         held("phonon_kappa", "random B %d, N %d, dim_k %d" % (Bs, Ns, dks),
              max_diff(torch, phonon_kappa.phonon_kappa(v, dDr, om, Ts), want) / float(want.abs().max()), tol=1e-10)
-    # the library eigh of the kappa row, and kernel 7 on the same matrices
-    (D,), _ = captured(phonon, "eigh_batched", lambda: pt.phonon.thermal_conductivity(fm, KAPPA_TS, nk))
-    lib_ms = cuda_ms(torch, lambda: eigh.eigh_batched(D), 3)
-    jac_ms = cuda_ms(torch, lambda: eigh.eigh_jacobi(D.contiguous()), 3)
-    wl, _ = eigh.eigh_batched(D)
-    wj, _ = eigh.eigh_jacobi(D.contiguous())
-    print("  kappa row's eigensolve, %d 4 x 4 (eigh_batched: torch.linalg.eigh in %d slices of %d): %.3f ms; "
-          "kernel 7 on the same matrices %.3f ms (eigenvalues %.3e apart)  bound %.5f ms (%s)"
-          % (D.shape[0], -(-D.shape[0] // eigh.LIBRARY_BATCH), eigh.LIBRARY_BATCH, lib_ms, jac_ms,
-             max_diff(torch, wl, wj), *cost_eigh(D.shape[0], 4)))
-    del D, wl, wj, args, vecs, dD, omega
+    # the kappa row's eigensolve: kernel 7, held and timed against
+    # the library by eigh_callers in slice7_kernels
+    del args, vecs, dD, omega
 
     # kernel 26: the example's linewidth path and eliashberg's default chunk
     m, fc = eph_honeycomb(pt)
@@ -4460,6 +4612,8 @@ def slice12_path(pt, where, reference):
     runs those sizes too, for the comparison."""
     import warnings
 
+    from pythtb_tpu_torch.ops import _kernels
+
     out = {}
 
     def timed(fn, *args, **kwargs):
@@ -4471,7 +4625,9 @@ def slice12_path(pt, where, reference):
 
     fm = honeycomb_springs(pt)
     if not reference:
+        before = _kernels.LAUNCHES["eigh_jacobi"]
         k31, sec = timed(pt.phonon.thermal_conductivity, fm, KAPPA_TS, S12["kappa_nk"])
+        out["kappa_jacobi_launches"] = _kernels.LAUNCHES["eigh_jacobi"] - before
         wM = pt.phonon.bands(fm, [[0.5, 0.0]])[0]
         kap5 = float(np.interp(0.5, KAPPA_TS, k31[:, 0, 0]))
         print("  %s phonon_kappa_map_honeycomb %d^2 x 40 T: kappa_xx(0.5) %.6f (pin %.6f), omega(M) %s  [%.2f s]"
@@ -5055,10 +5211,12 @@ def phase_main_path(torch, pt, where, reference=False):
     check(flow.shape == (21, 2) and np.isfinite(flow).all(), "bad Kane-Mele flow %s" % (flow.shape,))
     out["wilson_flow_21"] = pt.flows.wilson_flow(km, [0, 1], nk=(21, 21))[0]
     z2 = {}
+    before = _kernels.LAUNCHES["eigh_jacobi"]
     for topo in ("odd", "even"):
         model = zoo.kane_mele(pt, topo)
         out["wilson_flow_41_" + topo] = pt.flows.wilson_flow(model, [0, 1], nk=(41, 41))[0]
         z2[topo] = pt.flows.z2_invariant(model, check=True)
+    out["km_jacobi_launches"] = _kernels.LAUNCHES["eigh_jacobi"] - before
     print("  %s kane_mele Z2 (check=True, 31x31 and 61x61): odd %g, even %g" % (where, z2["odd"], z2["even"]))
     check(z2 == {"odd": 1.0, "even": 0.0}, "Kane-Mele Z2 %s is not odd 1, even 0" % z2)
 
@@ -5527,11 +5685,15 @@ def phase_walls(torch, pt, card):
           "max |density diff| %.3e, |mu diff| %.3e" % (
               a["iters"], b["iters"], max(np.abs(a["n_up"] - b["n_up"]).max(), np.abs(a["n_dn"] - b["n_dn"]).max()),
               abs(a["mu"] - b["mu"])))
-    # the walls behind kernels 14 and 11b also get the span between two CUDA
-    # events around a call (host waits inside the call in it) and the
-    # launches of their kernels a call
+    # the walls behind kernels 14, 11b and kernel 7 below 33 states
+    # also get the span between two CUDA events around a call (host waits
+    # inside the call in it) and the launches of their kernels a call
     spans = {"wf_array.smooth_gauge slab 41x41, 20 states (kernel 14 S 20)": ("transport_chain", "transport_rotate"),
-             "ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4": ("dense_filter", "eigh_jacobi")}
+             "ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4": ("dense_filter", "eigh_jacobi"),
+             "phonon.thermal_conductivity honeycomb 768^2 x 40 T (kernels 1, 15, 25)": (
+                 "eigh_jacobi", "phonon_kappa", "assemble", "assemble_dk"),
+             "flows.wilson_flow kane_mele 41x41": ("eigh_jacobi", "wilson_loop", "assemble"),
+             "flows.z2_invariant kane_mele check=True (31x31 + 61x61)": ("eigh_jacobi", "wilson_loop", "assemble")}
     check(set(spans) <= set(calls), "phase_walls: a span row names no call")
     walls = {}
     for name, (fn, reps, prof_reps) in calls.items():
@@ -5621,7 +5783,9 @@ def main():
     print("[3 kernels] each kernel vs its plain PyTorch version (tolerance %.0e):" % TOL)
     t0 = time.perf_counter()
     res = phase_kernels(torch, pt, device)
-    print("[3 kernels] done in %.1f s" % (time.perf_counter() - t0))
+    print("[3 kernels] done in %.1f s; launches that went through once torch's cache was released: %d "
+          "(the allocator's cache holds %.1f GB)" % (time.perf_counter() - t0, _kernels.cache_releases,
+                                                     torch.cuda.memory_reserved(device) / 1e9))
 
     # CPU references for phase 4, made before the counted window
     t0 = time.perf_counter()
@@ -5658,6 +5822,10 @@ def main():
     print("[4 main] kernel 7 launches in the slab's solve_on_grid: %d; in hofstadter_fn: %s"
           % (out["slab_jacobi_launches"], out["hof_launches"]))
     check(out["slab_jacobi_launches"] > 0, "the slab's 39-state solve did not go through kernel 7")
+    print("[4 main] kernel 7 launches in the kappa row's 589,824 4 x 4 solves: %d; in the Kane-Mele 41x41 flows and "
+          "Z2 (4 x 4): %d" % (out["kappa_jacobi_launches"], out["km_jacobi_launches"]))
+    check(out["kappa_jacobi_launches"] > 0, "the kappa row's 4 x 4 solves did not go through kernel 7")
+    check(out["km_jacobi_launches"] > 0, "the Kane-Mele flows' 4 x 4 solves did not go through kernel 7")
     check(min(out["hof_launches"].values()) > 0, "the Hofstadter call did not launch kernel 7 and the flux-batch mode")
     print("[4 main] kernel 19 in the silicon MLWF build: %s (400 steps on the coarse grid, closing spreads on both)"
           % out["si_launches"])

@@ -13,9 +13,11 @@
 //           smallest link singular value of the string.
 //   rotate  each grid point m of a string: B_m = C_m Lambda^{-t_m}, with
 //           t_m = m / (L - 1) and Lambda^{-t} = P diag(e^{-i theta t}) P^H
-//           formed in registers from the string's holonomy eigenpairs
-//           (theta, P) (closed), or B_m = C_m (open); the new occ rows are
-//           conj(B_m) w_m, written into a copy of the full state grid.
+//           from the string's holonomy eigenpairs (theta, P) (closed), or
+//           B_m = C_m (open); the new occ rows are conj(B_m) w_m.  The
+//           kernel writes every row of the output grid: the occ rows
+//           rotated, the others copied bit for bit, so the grid is read
+//           once and written once.
 //   follow  one thread per string walks the L - 1 steps of the adiabatic
 //           scan: the overlaps of the NOCC transported states with all NS
 //           states of the next point, the squared-overlap weights, the
@@ -25,10 +27,10 @@
 //           Per step it writes the indices, the captured fraction and the
 //           states; the next step reads the states back from the output.
 //
-// What bounds it on the H100: bytes at small S (chain and rotate read the
-// selected rows once per string, rotate reads them once more and writes
-// them; follow reads every state once and writes NOCC rows a point), the
-// O(S^3) link algebra from S ~ 16 on.  The chain has two designs.  The
+// What bounds it on the H100: bytes at small S (the chain reads the
+// selected rows once per string, rotate reads the grid once and writes it
+// once; follow reads every state once and writes NOCC rows a point), the
+// O(S^3) link and rotation algebra from S ~ 16 on.  The chain has two designs.  The
 // register path runs a thread a string at S 1, the string's loop standing
 // in for the TPU's log-depth associative_scan (it loses to the link path
 // from S 2 on: PERF.md section 6).  The link path (any S to 64) is kernel
@@ -44,13 +46,28 @@
 // writing each prefix over the factor it consumed.  The prefixes are the
 // plain version's, in its order, to rounding; the JAX program's tree scan
 // agrees to about L eps.  The ops wrapper chooses the design
-// (ops/transport.py:_chain_path).  Rotate and follow keep the matrices in
-// registers up to 8 states (S of rotate, NS of follow); from 9 to 64 a
-// block of 256 threads takes a grid point (rotate) or a string (follow),
-// its matrices in dynamic shared memory, the polar factors by
-// polar_factor_block (polar.cuh); follow ranks the NS weights in parallel
-// (rank = the count of larger weights, ties to the lower index).  Larger S
-// is refused.
+// (ops/transport.py:_chain_path).  Rotate has three designs, chosen by
+// ops/transport.py:_rotate_path: the register path (a thread a point, S <=
+// 3, its rows outside occ copied by the same thread); the team path (a
+// warp or a block of four warps a point, on the CUDA cores, while a
+// point's matrices fit a block's shared memory); and the split tiles (a
+// block each 16 rows of a point, to 64 states, on the FP64 tensor cores).
+// A team or tile block stages its rows of C_m, the
+// string's P and the point's occ rows (S x F) in shared memory by cp.async,
+// zero-padded, and copies its share of the rows outside occ from source to
+// destination while those copies are in flight; then T = C_m P diag(e^{-i
+// theta t_m}), B = T P^H and conj(B) w_m, each an S x S x S (or S x S x F)
+// complex product: on the CUDA cores an entry a thread, on the tensor
+// cores a 16 x 8 tile a warp from mma.sync m16n8k8 fragments, four real
+// products a step (kernel 6's).  The rows of B are independent, so a point
+// split over blocks of 16 rows repeats no product: at few points (63 at S
+// 64) that fills the SMs a block a point would leave idle, and it keeps a
+// block's shared memory within 227 kB at S 64.  Follow keeps its
+// matrices in registers up to 8 states (NS); from 9 to 64 a block of 256
+// threads takes a string, its matrices in dynamic shared memory, the polar
+// factors by polar_factor_block (polar.cuh), the NS weights ranked in
+// parallel (rank = the count of larger weights, ties to the lower index).
+// Larger S is refused.
 #include "link_polar.cuh"
 
 constexpr int kMaxStates = 8;
@@ -120,6 +137,9 @@ __global__ void transport_chain_kernel(const cplx* __restrict__ w, const int64_t
     smin_out[t] = smin;
 }
 
+// the register path's most states: from 4 its matrices spill (PERF.md section 6)
+constexpr int kRotateRegisterMaxS = 3;
+
 template <int S>
 __global__ void transport_rotate_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
                                         const cplx* __restrict__ C, const double* __restrict__ theta,
@@ -180,6 +200,14 @@ __global__ void transport_rotate_kernel(const cplx* __restrict__ w, const int64_
     int rows[S];
 #pragma unroll
     for (int n = 0; n < S; ++n) rows[n] = (int)occ[n];
+    // the rows outside occ, unchanged
+    for (int r = 0; r < NS; ++r) {
+        bool chosen = false;
+#pragma unroll
+        for (int n = 0; n < S; ++n) chosen |= rows[n] == r;
+        if (!chosen)
+            for (int f = 0; f < F; ++f) dst[(int64_t)r * F + f] = src[(int64_t)r * F + f];
+    }
     for (int f = 0; f < F; ++f) {
         cplx x[S];
 #pragma unroll
@@ -391,53 +419,216 @@ transport_prefix_kernel(cplx* __restrict__ C, const double* __restrict__ link_sm
     }
 }
 
-// -- block paths of rotate and follow, 9 <= states <= 64 --------------------
+// -- rotate: the team path and the tiles, 4 <= states <= 64 ----------------
 
-__global__ void __launch_bounds__(kBlockThreads)
-transport_rotate_block_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
-                              const cplx* __restrict__ C, const double* __restrict__ theta,
-                              const cplx* __restrict__ Pm, cplx* __restrict__ out, int64_t L, int64_t inner,
-                              int S, int NS, int F, int closed) {
-    extern __shared__ double smem[];
-    cplx* B = (cplx*)smem;
-    cplx* lam = B + S * S;
-    cplx* ph = lam + S * S;
-    const int64_t t = blockIdx.x;  // the grid point
-    const int64_t i = t % inner;
-    const int64_t l = (t / inner) % L;
-    const int64_t o = t / (inner * L);
-    const int64_t str = o * inner + i;
-    const cplx* c = C + t * S * S;
-    for (int e = threadIdx.x; e < S * S; e += kBlockThreads) B[e] = c[e];
-    if (closed) {
-        // Lambda^{-t} = P diag(e^{-i theta t}) P^H, then B <- C_m Lambda^{-t}
-        const double tm = (double)l / (double)(L - 1);
-        const cplx* p = Pm + str * S * S;
-        for (int j = threadIdx.x; j < S; j += kBlockThreads) {
-            double sn, cs;
-            sincos(-theta[str * S + j] * tm, &sn, &cs);
-            ph[j] = make_cuDoubleComplex(cs, sn);
-        }
-        __syncthreads();
-        for (int e = threadIdx.x; e < S * S; e += kBlockThreads) {
-            const int r = e / S, k = e % S;
-            cplx acc = make_cuDoubleComplex(0.0, 0.0);
-            for (int j = 0; j < S; ++j) acc = cuCadd(acc, cuCmul(cuCmul(p[r * S + j], ph[j]), cconj(p[k * S + j])));
-            lam[e] = acc;
-        }
-        __syncthreads();
-        block_mul_left(B, lam, S);
-    } else {
-        __syncthreads();
+constexpr int kRotateBlock = 128;  // threads of a team block (four warps) and of a tile block
+
+// An operand of a team product: entry (i, j) at p[i * rs + j * cs],
+// conjugated where kConj.
+template <bool kConj>
+struct Operand {
+    const cplx* p;
+    int rs, cs;
+    __device__ __forceinline__ cplx at(int i, int j) const {
+        const cplx v = p[i * rs + j * cs];
+        return kConj ? cconj(v) : v;
     }
+};
+
+// D = A B over M x N entries of depth K, each entry handed to
+// store(r, c, re, im).  Tensor cores (kTC): M a multiple of 16, N and K of
+// 8, the operands zero-padded to them; a warp forms a 16 x 8 tile at a
+// time, four real mma.sync products a depth step of 8 (re += ar br - ai
+// bi, im += ar bi + ai br).  (Strips of several tiles a warp, which share
+// the A fragments, raised the registers to 185 and lost: PERF.md section
+// 6.)  CUDA cores: a thread an entry at a time.  Every thread of the team
+// (kTeam threads, the whole block) calls it.
+template <bool kTC, int kTeam, class OpA, class OpB, class Store>
+__device__ __forceinline__ void team_product(const OpA A, const OpB B, int M, int N, int K, Store store) {
+    const int tid = threadIdx.x;
+    if constexpr (kTC) {
+        const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, tg = lane & 3;
+        const int nt = N / 8, tiles = (M / 16) * nt;
+        for (int p = warp; p < tiles; p += kTeam / 32) {
+            const int r0 = (p / nt) * 16, c0 = (p % nt) * 8;
+            double re[4] = {0.0, 0.0, 0.0, 0.0}, im[4] = {0.0, 0.0, 0.0, 0.0};
+            for (int k0 = 0; k0 < K; k0 += 8) {
+                const cplx a0 = A.at(r0 + g, k0 + tg), a1 = A.at(r0 + g + 8, k0 + tg);
+                const cplx a2 = A.at(r0 + g, k0 + tg + 4), a3 = A.at(r0 + g + 8, k0 + tg + 4);
+                const cplx b0 = B.at(k0 + tg, c0 + g), b1 = B.at(k0 + tg + 4, c0 + g);
+                dmma16(re, a0.x, a1.x, a2.x, a3.x, b0.x, b1.x);
+                dmma16(re, -a0.y, -a1.y, -a2.y, -a3.y, b0.y, b1.y);
+                dmma16(im, a0.x, a1.x, a2.x, a3.x, b0.y, b1.y);
+                dmma16(im, a0.y, a1.y, a2.y, a3.y, b0.x, b1.x);
+            }
+#pragma unroll
+            for (int h = 0; h < 4; ++h) store(r0 + g + 8 * (h >> 1), c0 + 2 * tg + (h & 1), re[h], im[h]);
+        }
+    } else {
+        for (int e = tid; e < M * N; e += kTeam) {
+            const int r = e / N, c = e - r * N;
+            double re = 0.0, im = 0.0;
+            for (int k = 0; k < K; ++k) {
+                const cplx a = A.at(r, k), b = B.at(k, c);
+                re += a.x * b.x - a.y * b.y;
+                im += a.x * b.y + a.y * b.x;
+            }
+            store(r, c, re, im);
+        }
+    }
+}
+
+__host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
+
+// Row strides of the staged matrices, in complex entries: = 4 (mod 8) for
+// those read as an A fragment or as a transposed B fragment (lanes g, tg at
+// row g, column tg), = 2 (mod 8) for the occ rows, read as a B fragment
+// (row tg, column g), so each 8-lane phase of a 16-byte load hits 8 banks.
+// P is read both ways (a B fragment in T = C P, a transposed one in T P^H):
+// the first takes 2-way conflicts.
+// Fc: the columns of the occ rows staged at a time (F, or a chunk of it
+// where the whole rows do not fit beside the matrices).
+struct RotateLayout {
+    int Sp, Fp, ldS, ldF, R;
+    size_t cs, ts, ps, xs, th, ph, flags;  // offsets in complex entries
+    size_t bytes;
+    __host__ __device__ RotateLayout(int S, int Fc, int NS, int rows, bool closed) {
+        Sp = pad8(S);
+        Fp = pad8(Fc);
+        ldS = Sp + 4;
+        ldF = Fp + 2;
+        R = rows;
+        cs = 0;
+        ts = cs + (size_t)R * ldS;
+        ps = ts + (closed ? (size_t)R * ldS : 0);
+        xs = ps + (closed ? (size_t)Sp * ldS : 0);
+        th = xs + (size_t)Sp * ldF;
+        ph = th + (closed ? (size_t)(Sp + 1) / 2 : 0);
+        flags = ph + (closed ? Sp : 0);
+        bytes = flags * sizeof(cplx) + (size_t)((NS + 31) / 32) * sizeof(unsigned);
+    }
+};
+
+// Block b = point * tiles + rb takes rows [rb R, rb R + R) of the point's
+// occ rows (R = S, one tile, on the CUDA cores) and its share of the other
+// rows.  Tensor cores: R = 16, the products over the padded sizes; CUDA
+// cores: over S and F.  The new rows are formed Fc columns at a time.  The operands that need no occ index
+// (C_m's rows, P, theta) are in flight while the occ list is read.
+template <bool kTC, int kTeam>
+__global__ void __launch_bounds__(kTeam)
+transport_rotate_team_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
+                             const cplx* __restrict__ C, const double* __restrict__ theta,
+                             const cplx* __restrict__ Pm, cplx* __restrict__ out, int64_t L, int64_t inner,
+                             int S, int NS, int F, int Fc, int closed, int rows, int tiles) {
+    extern __shared__ __align__(16) double smem[];
+    __shared__ int socc[kPolarBlockMaxS];
+    const RotateLayout lay(S, Fc, NS, rows, closed != 0);
+    cplx* base = (cplx*)smem;
+    cplx* Cs = base + lay.cs;
+    cplx* Ts = base + lay.ts;
+    cplx* Ps = base + lay.ps;
+    cplx* Xs = base + lay.xs;
+    const double* th = (const double*)(base + lay.th);
+    cplx* ph = base + lay.ph;
+    unsigned* flags = (unsigned*)(base + lay.flags);
+    const int tid = threadIdx.x, R = lay.R, Sp = lay.Sp, Fp = lay.Fp, ldS = lay.ldS, ldF = lay.ldF;
+    const int64_t t = blockIdx.x / tiles;  // the grid point
+    const int rb = (int)(blockIdx.x % tiles), n0 = rb * R;
+    const int64_t i = t % inner, l = (t / inner) % L, o = t / (inner * L);
+    const int64_t str = o * inner + i;
     const int64_t row = (int64_t)NS * F;
     const cplx* src = w + t * row;
     cplx* dst = out + t * row;
-    for (int e = threadIdx.x; e < S * F; e += kBlockThreads) {
-        const int n = e / F, f = e % F;
-        cplx acc = make_cuDoubleComplex(0.0, 0.0);
-        for (int j = 0; j < S; ++j) acc = cuCadd(acc, cuCmul(cconj(B[n * S + j]), src[occ[j] * F + f]));
-        dst[occ[n] * F + f] = acc;
+    // group 1: the block's rows of C_m, the string's P and theta, zero-padded
+    const cplx* c = C + t * S * S;
+    for (int e = tid; e < R * Sp; e += kTeam) {
+        const int r = e / Sp, k = e - r * Sp;
+        const bool ok = n0 + r < S && k < S;
+        cp_async16(Cs + r * ldS + k, ok ? c + (n0 + r) * S + k : c, ok);
+    }
+    if (closed) {
+        const cplx* p = Pm + str * S * S;
+        for (int e = tid; e < Sp * Sp; e += kTeam) {
+            const int r = e / Sp, k = e - r * Sp;
+            const bool ok = r < S && k < S;
+            cp_async16(Ps + r * ldS + k, ok ? p + r * S + k : p, ok);
+        }
+        for (int j = tid; j < S; j += kTeam) cp_async8((double*)th + j, theta + str * S + j);
+    }
+    cp_async_commit();
+    const int nwords = (NS + 31) / 32;
+    for (int j = tid; j < S; j += kTeam) socc[j] = (int)occ[j];
+    for (int j = tid; j < nwords; j += kTeam) flags[j] = 0u;
+    __syncthreads();
+    for (int j = tid; j < S; j += kTeam) atomicOr(flags + (socc[j] >> 5), 1u << (socc[j] & 31));
+    // group 2: columns [f0, f0 + Fc) of the point's occ rows
+    auto stage_rows = [&](int f0) {
+        for (int e = tid; e < Sp * Fp; e += kTeam) {
+            const int j = e / Fp, f = e - j * Fp;
+            const bool ok = j < S && f < Fc && f0 + f < F;
+            cp_async16(Xs + j * ldF + f, ok ? src + (int64_t)socc[j] * F + f0 + f : src, ok);
+        }
+        cp_async_commit();
+    };
+    stage_rows(0);
+    __syncthreads();  // the occ flags
+    // the block's share of the rows outside occ, source to destination,
+    // eight loads in flight a thread
+    {
+        constexpr int kU = 8;
+        const int e0 = (int)((int64_t)NS * rb / tiles) * F, e1 = (int)((int64_t)NS * (rb + 1) / tiles) * F;
+        for (int e = e0 + tid; e < e1; e += kU * kTeam) {
+            cplx v[kU];
+            bool keep[kU];
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+                const int x = e + u * kTeam;
+                const int r = x < e1 ? x / F : 0;
+                keep[u] = x < e1 && !((flags[r >> 5] >> (r & 31)) & 1u);
+                if (keep[u]) v[u] = src[x];
+            }
+#pragma unroll
+            for (int u = 0; u < kU; ++u)
+                if (keep[u]) dst[e + u * kTeam] = v[u];
+        }
+    }
+    // the products' sizes: padded on the tensor cores, exact on the CUDA cores
+    const int Mr = kTC ? R : min(R, S - n0), Ns = kTC ? Sp : S;
+    if (closed) {
+        cp_async_wait<1>();
+        const double tm = (double)l / (double)(L - 1);
+        for (int j = tid; j < Sp; j += kTeam) {
+            double sn = 0.0, cs = 0.0;
+            if (j < S) sincos(-th[j] * tm, &sn, &cs);
+            ph[j] = make_cuDoubleComplex(cs, sn);
+        }
+        __syncthreads();
+        // T = C_m P diag(e^{-i theta t_m})
+        team_product<kTC, kTeam>(Operand<false>{Cs, ldS, 1}, Operand<false>{Ps, ldS, 1}, Mr, Ns, Ns,
+                                 [&](int r, int k, double re, double im) {
+                                     const cplx z = ph[k];
+                                     Ts[r * ldS + k] = make_cuDoubleComplex(re * z.x - im * z.y, re * z.y + im * z.x);
+                                 });
+        __syncthreads();
+        // B = T P^H, over the block's rows of C_m
+        team_product<kTC, kTeam>(Operand<false>{Ts, ldS, 1}, Operand<true>{Ps, 1, ldS}, Mr, Ns, Ns,
+                                 [&](int r, int k, double re, double im) {
+                                     Cs[r * ldS + k] = make_cuDoubleComplex(re, im);
+                                 });
+    }
+    // the new occ rows conj(B) w_m, Fc columns at a time
+    for (int f0 = 0;;) {
+        cp_async_wait<0>();
+        __syncthreads();
+        team_product<kTC, kTeam>(Operand<true>{Cs, ldS, 1}, Operand<false>{Xs, ldF, 1}, Mr,
+                                 kTC ? Fp : min(Fc, F - f0), Ns, [&](int r, int f, double re, double im) {
+                                     if (n0 + r < S && f < Fc && f0 + f < F)
+                                         dst[(int64_t)socc[n0 + r] * F + f0 + f] = make_cuDoubleComplex(re, im);
+                                 });
+        f0 += Fc;
+        if (f0 >= F) break;
+        __syncthreads();  // every warp is done with the chunk
+        stage_rows(f0);
     }
 }
 
@@ -587,26 +778,63 @@ extern "C" int pythtb_transport_chain(const void* w, const void* occ, void* C, v
     return (int)cudaGetLastError();
 }
 
+// path 0: the register path (a thread a point, S <= 3); 1: the team path
+// with a warp a point; 2: the team path with a block of four warps a
+// point; 3: the split tiles, a block each 16 rows of a point.  out receives the
+// whole grid.
 extern "C" int pythtb_transport_rotate(const void* w, const void* occ, const void* C,
                                        const void* theta, const void* P, void* out, int64_t outer,
                                        int64_t L, int64_t inner, int64_t S, int64_t NS, int64_t F,
-                                       int64_t closed, void* stream) {
+                                       int64_t closed, int64_t path, void* stream) {
     if (outer * L * inner <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    if (S > kMaxStates) {
-        if (refuse(S)) return refuse(S);
-        const size_t smem = block_smem(transport_rotate_block_kernel, (int)S, 2, S * sizeof(cplx));
-        transport_rotate_block_kernel<<<(unsigned int)(outer * L * inner), kBlockThreads, smem, st>>>(
-            (const cplx*)w, (const int64_t*)occ, (const cplx*)C, (const double*)theta, (const cplx*)P,
-            (cplx*)out, L, inner, (int)S, (int)NS, (int)F, (int)closed);
-        return (int)cudaGetLastError();
-    }
+    if (path < 0 || path > 3 || S < 1 || S > (path == 0 ? kRotateRegisterMaxS : kPolarBlockMaxS) || NS < S)
+        return (int)cudaErrorInvalidValue;
+    const int64_t points = outer * L * inner;
+    if (path == 0) {
 #define ROTATE(K)                                                                               \
-    transport_rotate_kernel<K><<<blocks_for(outer * L * inner), kThreads, 0, st>>>(             \
+    transport_rotate_kernel<K><<<blocks_for(points), kThreads, 0, st>>>(                        \
         (const cplx*)w, (const int64_t*)occ, (const cplx*)C, (const double*)theta,              \
         (const cplx*)P, (cplx*)out, outer, L, inner, (int)NS, (int)F, (int)closed)
-    PYTHTB_DISPATCH_S(S, ROTATE)
+        switch (S) {
+            case 1: ROTATE(1); break;
+            case 2: ROTATE(2); break;
+            default: ROTATE(3); break;
+        }
 #undef ROTATE
+        return (int)cudaGetLastError();
+    }
+    const int rows = path <= 2 ? (int)S : 16;
+    const int tiles = (int)((S + rows - 1) / rows);
+    // the dynamic shared memory beside the static occ list, within the
+    // H100's 227 kB a block: the occ rows whole, or in chunks of the most
+    // columns (a multiple of 8) that fit beside the matrices
+    const size_t limit = 232448 - 1024;
+    int Fc = (int)F;
+    if (RotateLayout((int)S, Fc, (int)NS, rows, closed != 0).bytes > limit) {
+        const size_t rest = RotateLayout((int)S, 0, (int)NS, rows, closed != 0).bytes;
+        const int Sp = pad8((int)S);
+        Fc = rest < limit ? (int)((limit - rest) / (sizeof(cplx) * Sp)) - 2 : 0;
+        Fc = Fc / 8 * 8;
+        if (Fc < 8) return (int)cudaErrorInvalidValue;
+    }
+    const RotateLayout lay((int)S, Fc, (int)NS, rows, closed != 0);
+    const unsigned int blocks = (unsigned int)(points * tiles);
+#define TEAM(TC, THREADS)                                                                                    \
+    do {                                                                                                     \
+        cudaFuncSetAttribute(transport_rotate_team_kernel<TC, THREADS>,                                      \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);                   \
+        transport_rotate_team_kernel<TC, THREADS><<<blocks, THREADS, lay.bytes, st>>>(                       \
+            (const cplx*)w, (const int64_t*)occ, (const cplx*)C, (const double*)theta, (const cplx*)P,       \
+            (cplx*)out, L, inner, (int)S, (int)NS, (int)F, Fc, (int)closed, rows, tiles);                    \
+    } while (0)
+    if (path == 1)
+        TEAM(false, 32);
+    else if (path == 2)
+        TEAM(false, kRotateBlock);
+    else
+        TEAM(true, kRotateBlock);
+#undef TEAM
     return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,8 @@ The batched solve (``pythtb_tpu.magnon._lswt_solve_jit``) is kernel 27
 (:func:`pythtb_tpu_torch.ops.colpa.colpa`: h(k) from the directed bond
 entries, Hermitized and shifted, its Cholesky factor L and
 T = L^H sigma3 L), then ``eigh_batched`` of T (the positive branch is
-the upper half of its ascending spectrum) and, for vectors, one
+the upper half of its ascending spectrum; with vectors on the CPU's route,
+the library's basis inside a degenerate pair) and, for vectors, one
 triangular solve X = L^{-H} W |lambda|^{1/2}: the para-unitary
 eigenvectors with COLUMNS as modes, as the reference returns them (the
 eigenvectors of ``eigh_batched`` are rows; they are transposed here).
@@ -269,7 +270,11 @@ def _solve_device(model, kpts, shift, want_vectors):
         lam = eigvalsh_batched(T)  # ascending: n negative, n positive
         W = None
     else:
-        lam, W = eigh_batched(T)
+        # the library's basis inside a degenerate pair: the per-band
+        # plaquette fluxes of thermal_hall and berry_curvature depend on it
+        # where bands touch (the kagome magnet at Gamma), and kernel 7's
+        # Jacobi picks another one
+        lam, W = eigh_batched(T, cpu_route=True)
     omega = lam[:, n:]
     if not bool(torch.isfinite(omega).all()):
         raise PythtbError(_COLPA_FAILED)

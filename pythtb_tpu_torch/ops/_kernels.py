@@ -58,10 +58,10 @@ _SIGNATURES = {
     "pythtb_fermi_sweep": [_P] * 5 + [_I] * 3 + [_D, _I, _P],
     "pythtb_cpa": [_P] * 4 + [_I] * 3 + [_P],
     "pythtb_lyapunov": [_P] * 6 + [_I] * 5 + [_P],
-    "pythtb_eigh_jacobi": [_P] * 4 + [_I] * 3 + [_D, _I, _P],
+    "pythtb_eigh_jacobi": [_P] * 4 + [_I] * 3 + [_D, _I, _I, _P],
     "pythtb_assemble_members": [_P] * 7 + [_I] * 6 + [_P],
     "pythtb_transport_chain": [_P] * 5 + [_I] * 7 + [_P],
-    "pythtb_transport_rotate": [_P] * 6 + [_I] * 7 + [_P],
+    "pythtb_transport_rotate": [_P] * 6 + [_I] * 8 + [_P],
     "pythtb_transport_follow": [_P] * 5 + [_I] * 6 + [_P],
     "pythtb_mv_overlaps": [_P] * 5 + [_I] * 3 + [_P],
     "pythtb_mv_reduce": [_P] * 7 + [_I] * 4 + [_D, _D, _I, _P],
@@ -137,6 +137,17 @@ LAUNCHES = dict.fromkeys(
 
 _lib = None
 build_info = {"seconds": None, "path": None, "ptxas": "", "compile_seconds": {}}
+
+# cudaErrorMemoryAllocation
+_OUT_OF_MEMORY = 2
+# the C entries whose first launch may grow the card's local-memory
+# reservation and which launch nothing before it: kernel 22's register
+# paths keep the step's eigenpairs in ~18 kB stack frames a thread, and
+# the card reserves a frame for every thread it can hold (~5 GB on the
+# H100) at the first such launch, outside torch's caching allocator
+GROWS_LOCAL_MEMORY = frozenset({"propagate_state", "propagate_full"})
+# how many such launches had torch's cache released before they went through
+cache_releases = 0
 
 
 def reset_launches():
@@ -241,11 +252,19 @@ def launch(kernel: str, device: torch.device, *args, counter=None, count=1):
     """Call C entry point ``pythtb_<kernel>`` on ``device``'s current
     stream; tensors in ``args`` pass as pointers, ints as sizes, floats
     as doubles.  Raises if the launch was refused; otherwise adds
-    ``count`` device launches to ``LAUNCHES[counter or kernel]``."""
+    ``count`` device launches to ``LAUNCHES[counter or kernel]``.  An entry
+    of ``GROWS_LOCAL_MEMORY`` refused for want of memory is called once
+    more after torch's allocator releases the blocks it holds unused."""
     fn = getattr(library(), "pythtb_" + kernel)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
-        rc = fn(*conv, torch.cuda.current_stream(device).cuda_stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*conv, stream)
+        if rc == _OUT_OF_MEMORY and kernel in GROWS_LOCAL_MEMORY:
+            global cache_releases
+            torch.cuda.empty_cache()
+            rc = fn(*conv, stream)
+            cache_releases += rc == 0
     if rc != 0:
         raise RuntimeError("CUDA kernel %s failed to launch: cudaError %d" % (kernel, rc))
     LAUNCHES[counter or kernel] += count

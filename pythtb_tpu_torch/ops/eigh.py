@@ -1,20 +1,32 @@
 """Batched Hermitian eigensolvers (counterpart of ``pythtb_tpu.ops.eigh``).
 
+:func:`_route` draws the lines, by m, by the batch B and by the tensor's
+device:
+
 * ``nsta == 1``: trivial.
 * ``nsta == 2``: closed form; on a CUDA tensor this launches kernel 2
   (``csrc/eig2.cu``), on a CPU tensor it runs the plain version below.
-* ``3 <= nsta <= 32`` and ``nsta > 64``: ``torch.linalg.eigh`` over the
-  batch, in slices of at most ``LIBRARY_BATCH`` matrices: cuSOLVER's
-  batched ``syev``, which torch calls for complex matrices up to 32 x 32,
-  refuses batches of 32,768 and more (CUSOLVER_STATUS_INVALID_VALUE;
-  torch 2.11, CUDA 12.8, H100).
-* ``33 <= nsta <= 64``: cyclic complex Jacobi (:func:`eigh_jacobi`); on a
-  CUDA tensor this launches kernel 7 (``csrc/eigh_jacobi.cu``), one block
-  per matrix, on a CPU tensor it runs the plain version below with the
-  same rotation schedule.  A CUDA tensor in this range never reaches
-  ``torch.linalg.eigh``, which runs matrix by matrix above 32 x 32 there.
-  That is a shape rule, not a fallback: a failed build, launch or
+* on a CUDA tensor, ``3 <= nsta <= 8`` at every batch, ``9 <= nsta <=
+  26`` from 1,024 matrices and ``33 <= nsta <= 64``: cyclic complex
+  Jacobi (:func:`eigh_jacobi`), kernel 7 (``csrc/eigh_jacobi.cu``): a team
+  of lanes a matrix, teams packed into warps, where the batch fills the
+  card with them, a block a matrix elsewhere (:func:`_jacobi_design`).
+  PERF.md section 6 has the measurements on the H100 that draw both lines:
+  ``torch.linalg.eigh`` runs matrix by matrix above 32 x 32 there and
+  trails kernel 7 below except at small batches from 9 states and at
+  27-32.  That is a shape rule, not a fallback: a failed build, launch or
   convergence raises.
+* ``3 <= nsta <= 32`` on a CPU tensor, the rest of 3-32 on a CUDA tensor,
+  and ``nsta > 64`` on either: ``torch.linalg.eigh`` over the batch, in
+  slices of at most ``LIBRARY_BATCH`` matrices: cuSOLVER's batched
+  ``syev``, which torch calls for complex matrices up to 32 x 32, refuses
+  batches of 32,768 and more (CUSOLVER_STATUS_INVALID_VALUE; torch 2.11,
+  CUDA 12.8, H100).  The
+  plain Jacobi is kernel 7's oracle in the tests and in ``chip_smoke.py``;
+  over the CPU suite's many small batches it would be slower than LAPACK,
+  so the CPU keeps the library there.
+* ``33 <= nsta <= 64`` on a CPU tensor: the plain Jacobi below, the same
+  rotation schedule as kernel 7.
 
 Eigenvalues are ascending and eigenvectors are *rows* (``v[b, s, :]`` is
 state s), matching pythtb_tpu and the reference's ``_nicefy_eig``
@@ -33,8 +45,24 @@ __all__ = ["eig2", "eigh_jacobi", "eigh_batched", "eigvalsh_batched"]
 
 # largest batch handed to one torch.linalg.eigh / eigvalsh call
 LIBRARY_BATCH = 16384
-# the matrix sizes that go to the Jacobi solver (kernel 7 takes 1..64)
-JACOBI_MIN, JACOBI_MAX = 33, 64
+# the most states kernel 7 takes
+JACOBI_MAX = 64
+# the matrix sizes that go to the plain Jacobi on a CPU tensor
+_CPU_JACOBI = (33, JACOBI_MAX)
+# the lines of kernel 7 against torch.linalg.eigh on a CUDA tensor
+# (PERF.md section 6, measured on the H100): kernel 7 at every batch to
+# _JACOBI_ANY_M states, from _JACOBI_MID_B matrices to _JACOBI_MID_M (the
+# library wins smaller batches there: its time grows with the batch, kernel
+# 7's latency-bound sweeps do not), never from _JACOBI_MID_M + 1 to 32, at
+# every batch from 33 to 64
+_JACOBI_ANY_M = 8
+_JACOBI_MID_M, _JACOBI_MID_B = 26, 1024
+# kernel 7's designs: the C entry's design argument and the most states
+# each takes (a block a matrix; a team of lanes a matrix), the team where
+# the batch fills the card with its warps: to _TEAM_MAX_M states from
+# _TEAM_MIN_B matrices
+_JACOBI_DESIGNS = {"block": (0, JACOBI_MAX), "team": (1, 16)}
+_TEAM_MAX_M, _TEAM_MIN_B = 12, 16384
 # convergence: off(A)^2 <= (JACOBI_TOL ||A||_F)^2, within JACOBI_SWEEPS sweeps
 JACOBI_TOL = 1e-14
 JACOBI_SWEEPS = 30
@@ -165,6 +193,31 @@ def _eigh_jacobi_plain(H, vectors=True):
     return w, torch.take_along_dim(rows, order[..., None], dim=-2)
 
 
+def _route(m, B, device_type, cpu_route=False):
+    """Where ``eigh_batched`` / ``eigvalsh_batched`` send B matrices of m
+    states on a tensor of ``device_type``: "trivial" (m 1), "eig2" (m 2),
+    "jacobi" (kernel 7 on the card, the plain Jacobi on the CPU) or
+    "library" (``torch.linalg.eigh``).  The line is drawn by m, and on the
+    card by B from 9 to 26 states; ``cpu_route`` draws the CPU's lines on
+    any device."""
+    if m == 1:
+        return "trivial"
+    if m == 2:
+        return "eig2"
+    if device_type == "cpu" or cpu_route:
+        jacobi = _CPU_JACOBI[0] <= m <= _CPU_JACOBI[1]
+    else:
+        jacobi = m <= _JACOBI_ANY_M or (m <= _JACOBI_MID_M and B >= _JACOBI_MID_B) or 32 < m <= JACOBI_MAX
+    return "jacobi" if jacobi else "library"
+
+
+def _jacobi_design(m, B):
+    """Kernel 7's design for B matrices of m states: a team of lanes a
+    matrix to ``_TEAM_MAX_M`` states from ``_TEAM_MIN_B`` matrices, a
+    block a matrix elsewhere."""
+    return "team" if m <= _TEAM_MAX_M and B >= _TEAM_MIN_B else "block"
+
+
 def eigh_jacobi(H, vectors=True):
     """Eigenpairs of a (B, m, m) Hermitian complex128 batch, m <= 64, by
     cyclic complex Jacobi: kernel 7 on a CUDA tensor, the plain version on
@@ -173,14 +226,27 @@ def eigh_jacobi(H, vectors=True):
     not converge within ``JACOBI_SWEEPS`` sweeps."""
     if H.device.type == "cpu":
         return _eigh_jacobi_plain(H, vectors)
+    return _eigh_jacobi(H, vectors)
+
+
+def _eigh_jacobi(H, vectors=True, design=None):
+    """Kernel 7 on design ``design`` (a key of ``_JACOBI_DESIGNS``;
+    :func:`_jacobi_design`'s choice if None)."""
     B, m = H.shape[0], H.shape[-1]
     if m > JACOBI_MAX:
         raise ValueError("kernel 7 takes matrices up to %d x %d, got %d x %d" % (JACOBI_MAX, JACOBI_MAX, m, m))
+    if design is None:
+        design = _jacobi_design(m, B)
+    if design not in _JACOBI_DESIGNS:
+        raise ValueError("kernel 7 has no %r design; it has %s" % (design, ", ".join(_JACOBI_DESIGNS)))
+    code, most = _JACOBI_DESIGNS[design]
+    if m > most:
+        raise ValueError("kernel 7's %r design takes matrices up to %d x %d, got %d x %d" % (design, most, most, m, m))
     _kernels.require(H, "H", config.COMPLEX, (B, m, m))
     w = torch.empty((B, m), dtype=config.FLOAT, device=H.device)
     v = torch.empty((B, m, m), dtype=config.COMPLEX, device=H.device) if vectors else None
     flag = torch.zeros((B,), dtype=torch.int32, device=H.device)
-    _kernels.launch("eigh_jacobi", H.device, H, w, v, flag, B, m, int(vectors), JACOBI_TOL, JACOBI_SWEEPS)
+    _kernels.launch("eigh_jacobi", H.device, H, w, v, flag, B, m, int(vectors), JACOBI_TOL, JACOBI_SWEEPS, code)
     bad = int(flag.sum())
     if bad:
         raise RuntimeError("kernel 7: %d of %d matrices not converged in %d sweeps" % (bad, B, JACOBI_SWEEPS))
@@ -193,20 +259,37 @@ def _jacobi_input(H):
     return H.reshape(-1, m, m).to(config.COMPLEX).contiguous()
 
 
-def eigh_batched(H):
-    """(w, v): ascending eigenvalues and row-eigenvectors of (B, m, m)."""
-    m = H.shape[-1]
-    if m == 1:
-        return H[..., 0, 0].real[..., None].to(config.FLOAT), torch.ones_like(H)
-    if m == 2:
-        return eig2(H)
-    if JACOBI_MIN <= m <= JACOBI_MAX:
-        w, v = eigh_jacobi(_jacobi_input(H))
-        return w.reshape(H.shape[:-1]), v.reshape(H.shape)
+def _library_eigh(H):
+    """``torch.linalg.eigh`` in slices of ``LIBRARY_BATCH``, eigenvectors
+    as rows."""
     parts = [torch.linalg.eigh(h) for h in H.split(LIBRARY_BATCH)]
     w = torch.cat([p[0] for p in parts])
     v = torch.cat([p[1] for p in parts])
     return w, v.transpose(-1, -2)
+
+
+def _library_eigvalsh(H):
+    return torch.cat([torch.linalg.eigvalsh(h) for h in H.split(LIBRARY_BATCH)])
+
+
+def eigh_batched(H, cpu_route=False):
+    """(w, v): ascending eigenvalues and row-eigenvectors of (B, m, m).
+
+    ``cpu_route`` takes the CPU's route on any device (``torch.linalg.eigh``
+    from 3 to 32 states, kernel 7 from 33 to 64 on the card): for callers
+    whose results depend on the basis an eigensolver picks inside a
+    degenerate group, so that the card picks the library's basis there, as
+    the CPU and the JAX package do, and not kernel 7's."""
+    m = H.shape[-1]
+    route = _route(m, H.numel() // max(m * m, 1), H.device.type, cpu_route)
+    if route == "trivial":
+        return H[..., 0, 0].real[..., None].to(config.FLOAT), torch.ones_like(H)
+    if route == "eig2":
+        return eig2(H)
+    if route == "jacobi":
+        w, v = eigh_jacobi(_jacobi_input(H))
+        return w.reshape(H.shape[:-1]), v.reshape(H.shape)
+    return _library_eigh(H)
 
 
 def _eigvalsh_plain(H):
@@ -227,7 +310,7 @@ def _eigvalsh_plain(H):
         split = r2 > 0
         r = torch.where(split, torch.sqrt(torch.where(split, r2, torch.ones_like(r2))), torch.zeros_like(r2))
         return torch.stack([mid - r, mid + r], dim=-1)
-    if JACOBI_MIN <= m <= JACOBI_MAX:
+    if _CPU_JACOBI[0] <= m <= _CPU_JACOBI[1]:
         return _eigh_jacobi_plain(H, vectors=False)
     return torch.linalg.eigvalsh(H)
 
@@ -235,10 +318,11 @@ def _eigvalsh_plain(H):
 def eigvalsh_batched(H):
     """Ascending eigenvalues of (B, m, m)."""
     m = H.shape[-1]
-    if m == 1:
+    route = _route(m, H.numel() // max(m * m, 1), H.device.type)
+    if route == "trivial":
         return H[..., 0, 0].real[..., None].to(config.FLOAT)
-    if m == 2:
+    if route == "eig2":
         return eig2(H)[0]
-    if JACOBI_MIN <= m <= JACOBI_MAX:
+    if route == "jacobi":
         return eigh_jacobi(_jacobi_input(H), vectors=False).reshape(H.shape[:-1])
-    return torch.cat([torch.linalg.eigvalsh(h) for h in H.split(LIBRARY_BATCH)])
+    return _library_eigvalsh(H)

@@ -8,9 +8,11 @@
   are ``conj(C_m) w_m``; with ``closed`` the holonomy ``Lambda = C_{L-1}``
   is spread evenly along the axis, ``conj(C_m Lambda^{-m/(L-1)}) w_m``.
   On a CUDA tensor kernel 14 (``csrc/transport.cu``) runs the chain of
-  prefixes (mode ``chain``) and the rotation (mode ``rotate``), with one
-  batched :func:`..ops.berry.unitary_eig` of the holonomies between them;
-  on a CPU tensor :func:`_chain_plain` and :func:`_rotate_plain` do.
+  prefixes (mode ``chain``) and the rotation (mode ``rotate``, one launch
+  that writes the whole new grid: the rows outside ``occ`` are copied in
+  the same pass), with one batched :func:`..ops.berry.unitary_eig` of the
+  holonomies between them; on a CPU tensor :func:`_chain_plain` and
+  :func:`_rotate_plain` do.
 * :func:`follow_states` -- adiabatic following of a subspace along one
   grid axis: at each step the ``nocc`` stored states with the largest
   squared overlap with the transported subspace are selected (ties to
@@ -25,6 +27,7 @@ states (S of chain and rotate, NS of follow) on the card and raises above.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -36,9 +39,10 @@ from .berry import _overlap, unitary_eig
 
 __all__ = ["smooth_gauge", "follow_states"]
 
-# most states kernel 14 takes (rotate and follow: registers up to 8, a
-# block's shared memory from 9 to 64; the chain: its link path): S of
-# chain / rotate, NS of follow
+# most states kernel 14 takes (rotate: registers up to 3, the team path
+# and the tiles to 64; follow: registers up to 8, a block's shared memory
+# from 9 to 64; the chain: its link path): S of chain / rotate, NS of
+# follow
 _KERNEL_MAX_STATES = 64
 # kernel 14's chain designs: C mode, the most states each takes, and its
 # launches a call ("registers": a thread a string, S 1; "warp" / "block":
@@ -51,6 +55,35 @@ _CHAIN_MODES = {"registers": (0, 1, 1), "warp": (1, 32, 2), "block": (2, _KERNEL
 # from 9 states, at most two from 20 -- where a block a link runs each
 # link's Jacobi rounds on more lanes
 _CHAIN_WARP_MAX_S = 28
+# kernel 14's rotate designs: C path and the most states each takes
+# ("registers": a thread a point; "warp" / "team": a warp or a block of
+# four warps a point on the CUDA cores; "split": a block each 16 rows of a
+# point on the FP64 tensor cores).  Every design writes the whole grid,
+# the rows outside occ copied.
+_ROTATE_MODES = {"registers": (0, 3), "warp": (1, _KERNEL_MAX_STATES), "team": (2, _KERNEL_MAX_STATES),
+                 "split": (3, _KERNEL_MAX_STATES)}
+# the rotate's dispatch line (PERF.md section 6, measured on the H100): a
+# thread a point to 3 states (from 4 its registers spill), a warp a point
+# to _ROTATE_WARP_MAX_S where the points fill the SMs, a block of four
+# warps a point on the CUDA cores below _ROTATE_TILE_MIN_S, the tensor
+# cores from there, a block each 16 rows of a point
+_ROTATE_WARP_MAX_S = 8
+_ROTATE_TILE_MIN_S = 12
+
+
+def _rotate_smem(S, F, path):
+    """Shared memory (bytes) a block of rotate design ``path`` takes at S
+    states and F components, closed, with the occ rows whole (the layout
+    of ``csrc/transport.cu``'s RotateLayout; F bounds the number of stored
+    states NS)."""
+    mode = _ROTATE_MODES[path][0]
+    if mode == 0:
+        return 0
+    rows = S if mode <= 2 else 16
+    Sp, Fp = -(-S // 8) * 8, -(-F // 8) * 8
+    entries = 2 * rows * (Sp + 4) + Sp * (Sp + 4) + Sp * (Fp + 2) + (Sp + 1) // 2 + Sp
+    # the occ flags beside them, and the static occ list with the block's reserve
+    return 16 * entries + 4 * (-(-F // 32)) + 1024
 
 
 def _strings(w, nspin, dim_arr, axis):
@@ -152,19 +185,68 @@ def _chain(w5, occ_t, path=None):
     return C, smin
 
 
-def _rotate(w5, occ_t, C, theta, P, closed):
+@functools.lru_cache(maxsize=None)
+def _card(device):
+    """The SM count and the shared memory a block may opt into of a CUDA
+    ``device`` (read once: the rotate's wrapper runs in the smooth gauge's
+    hot path)."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _rotate_path(S, points, F, sms, smem):
+    """Kernel 14's rotate design for S states at ``points`` grid points of
+    F components on a card of ``sms`` SMs whose blocks may take ``smem``
+    bytes of shared memory: the register path to 3 states; to
+    ``_ROTATE_WARP_MAX_S`` a warp a point where the points fill the SMs;
+    below ``_ROTATE_TILE_MIN_S`` a block a point on the CUDA cores where a
+    point's occ rows fit it whole; the tensor-core tiles, a block each 16
+    rows of a point, elsewhere."""
+    if S <= _ROTATE_MODES["registers"][1]:
+        return "registers"
+    if S <= _ROTATE_WARP_MAX_S and points >= sms and _rotate_smem(S, F, "warp") <= smem:
+        return "warp"
+    if S < _ROTATE_TILE_MIN_S and _rotate_smem(S, F, "team") <= smem:
+        return "team"
+    return "split"
+
+
+@functools.lru_cache(maxsize=None)
+def _rotate_mode(S, points, F, sms, smem, path):
+    """The C entry's mode for design ``path`` (:func:`_rotate_path`'s choice
+    if None), once a shape: the rotate's wrapper runs in the smooth gauge's
+    hot path."""
+    if path is None:
+        path = _rotate_path(S, points, F, sms, smem)
+    if path not in _ROTATE_MODES:
+        raise ValueError("kernel 14's rotate has no %r path; it has %s" % (path, ", ".join(_ROTATE_MODES)))
+    mode, most = _ROTATE_MODES[path]
+    if S > most:
+        raise ValueError("kernel 14's rotate %r path does not take %d states" % (path, S))
+    return mode
+
+
+def _rotate(w5, occ_t, C, theta, P, closed, path=None):
+    """Kernel 14's rotation on design ``path`` (a key of ``_ROTATE_MODES``;
+    :func:`_rotate_path`'s choice if None): one launch writes the whole new
+    grid.  A block that cannot hold a point's occ rows whole forms them a
+    chunk of columns at a time."""
     outer, L, inner, NS, F = w5.shape
     S = occ_t.shape[0]
     dev = w5.device
+    card = _card(dev) if path is None else (None, None)  # a named design needs no line
+    mode = _rotate_mode(S, outer * L * inner, F, *card, path)
+    _kernels.require(w5, "w", config.COMPLEX)
+    _kernels.require(occ_t, "occ", torch.int64, (S,), dev)
     _kernels.require(C, "C", config.COMPLEX, (outer, L, inner, S, S), dev)
     if closed:
         _kernels.require(theta, "theta", config.FLOAT, (outer, inner, S), dev)
         _kernels.require(P, "P", config.COMPLEX, (outer, inner, S, S), dev)
     else:
         theta, P = C, C  # not read
-    out = w5.clone()
+    out = torch.empty_like(w5)
     _kernels.launch("transport_rotate", dev, w5, occ_t, C, theta, P, out,
-                    outer, L, inner, S, NS, F, int(bool(closed)))
+                    outer, L, inner, S, NS, F, int(bool(closed)), mode)
     return out
 
 

@@ -1,7 +1,8 @@
 """Kernel 7's plain version (the batched Jacobi eigensolver of
 ``ops/eigh.py``) and kernel 1's flux-batch plain version, on the CPU.
 
-The Jacobi solver runs every CPU batch of 33-64 states.  It is held
+The Jacobi solver runs every CPU batch of 33-64 states (on the card,
+kernel 7 takes 3-64, and the plain Jacobi is its oracle there).  It is held
 against numpy.linalg.eigh and the JAX package's ``eigh_batched`` on the
 same numpy-seeded Hermitian batches: eigenvalues within
 1e-12 * max(1, ||H||_F); the projector of every group of eigenvalues split
@@ -21,6 +22,18 @@ from pythtb_tpu_torch import core
 from pythtb_tpu_torch.ops import eigh, hamiltonian
 
 from .test_torch_ops import on_cpu  # noqa: F401  (autouse: the port on the CPU)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The plain Jacobi is thousands of tiny torch ops: one intra-op thread
+    runs them several times faster (0.18 against 1.25 s at m 32 on an
+    8-core host) and keeps them out of OpenMP's spin-waits when the suite's
+    workers share the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _hermitian(rng, B, m):
@@ -60,16 +73,24 @@ def _check_against(H, w, v, w_ref, v_ref):
 
 
 @pytest.mark.parametrize("m,case", [(33, "random"), (39, "random"), (40, "random"), (64, "random"),
-                                    (47, "random"), (40, "degenerate"), (63, "degenerate")])
+                                    (47, "random"), (40, "degenerate"), (63, "degenerate"),
+                                    (3, "random"), (4, "random"), (8, "random"), (16, "random"), (32, "random"),
+                                    (3, "degenerate"), (4, "degenerate"), (8, "degenerate"), (16, "degenerate"),
+                                    (32, "degenerate")])
 def test_plain_jacobi_matches_numpy_and_jax(m, case):
-    rng = np.random.default_rng(m)
+    """The plain Jacobi (kernel 7's oracle at every m it takes on the card;
+    ``eigh_batched``'s own route on the CPU at 33-64)."""
+    rng = np.random.default_rng(m + (100 if case == "degenerate" and m < 33 else 0))
     H = (_hermitian if case == "random" else _degenerate)(rng, 6, m)
-    w, v = (x.numpy() for x in eigh.eigh_batched(torch.as_tensor(H)))
+    w, v = (x.numpy() for x in eigh.eigh_jacobi(torch.as_tensor(H)))
+    if eigh._route(m, 6, "cpu") == "jacobi":
+        wb, vb = (x.numpy() for x in eigh.eigh_batched(torch.as_tensor(H)))
+        assert np.array_equal(wb, w) and np.array_equal(vb, v)
     wn, vn = np.linalg.eigh(H)
     _check_against(H, w, v, wn, np.swapaxes(vn, -1, -2))
     wj, vj = (np.asarray(x) for x in jax_eigh_batched(H))
     _check_against(H, w, v, wj, vj)
-    wo = eigh.eigvalsh_batched(torch.as_tensor(H)).numpy()
+    wo = eigh.eigh_jacobi(torch.as_tensor(H), vectors=False).numpy()
     assert np.abs(wo - w).max() == 0.0  # the same rotations without V
 
 
@@ -101,6 +122,27 @@ def test_jacobi_schedule_covers_every_pair_once():
             assert len(set(idx)) == len(idx)  # disjoint pairs in a step
             seen.update(zip(p.tolist(), q.tolist()))
         assert seen == {(p, q) for p in range(m) for q in range(p + 1, m)}
+
+
+def test_route():
+    """eigh_batched's lines (PERF.md section 6, the H100): the closed form
+    at 2; on the card kernel 7 at 3-8 at every batch, at 9-26 from 1,024
+    matrices, the library at 27-32 and kernel 7 at 33-64; on the CPU the
+    library to 32 and the plain Jacobi from 33 to 64; the library above 64
+    on both; ``cpu_route`` gives the CPU's lines on the card.  Kernel 7's
+    team design to 12 states from 16,384 matrices."""
+    for m in range(1, 71):
+        for B in (121, 1023, 1024, 589824):
+            cpu, cuda = eigh._route(m, B, "cpu"), eigh._route(m, B, "cuda")
+            if m <= 2:
+                assert cpu == cuda == ("trivial" if m == 1 else "eig2")
+                continue
+            assert cpu == ("jacobi" if 33 <= m <= 64 else "library"), m
+            kernel = m <= 8 or (m <= 26 and B >= 1024) or 33 <= m <= 64
+            assert cuda == ("jacobi" if kernel else "library"), (m, B)
+            assert eigh._route(m, B, "cuda", cpu_route=True) == cpu, (m, B)
+    assert [eigh._jacobi_design(m, 589824) for m in (1, 4, 12, 13, 32, 64)] == ["team"] * 3 + ["block"] * 3
+    assert [eigh._jacobi_design(4, B) for B in (1600, 16383, 16384)] == ["block", "block", "team"]
 
 
 @pytest.mark.parametrize("nspin,dim_k", [(1, 2), (2, 2), (1, 3)])

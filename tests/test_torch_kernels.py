@@ -287,19 +287,22 @@ def test_position_tiles(dev, B, S, nsta, F, permuted):
 
 @pytest.mark.parametrize("n", [3, 4, 8])
 def test_library_eigh_takes_large_batches(dev, n):
-    """eigh_batched hands torch.linalg.eigh slices of eigh.LIBRARY_BATCH
-    matrices; one cuSOLVER call on the whole batch is refused."""
+    """The library solve hands torch.linalg.eigh slices of
+    eigh.LIBRARY_BATCH matrices (one cuSOLVER call on the whole batch is
+    refused); eigh_batched, which sends these sizes to kernel 7 on the
+    card, takes the same batch in one launch."""
     rng = np.random.default_rng(n)
     B = 2 * eigh.LIBRARY_BATCH + 5
     z = rng.normal(size=(B, n, n)) + 1j * rng.normal(size=(B, n, n))
     H = torch.as_tensor(z + np.conj(np.swapaxes(z, -1, -2))).to(dev)
-    w, v = eigh.eigh_batched(H)
     want = torch.linalg.eigvalsh(H.cpu())
-    assert _max_diff(w.cpu(), want) < TOL * 10
-    assert _max_diff(eigh.eigvalsh_batched(H).cpu(), want) < TOL * 10
-    # rows are states: H v_s = w_s v_s
-    resid = torch.einsum("bij,bsj->bsi", H, v) - w[..., None] * v
-    assert float(resid.abs().max()) < TOL * 10
+    for solve, solve_w in ((eigh._library_eigh, eigh._library_eigvalsh), (eigh.eigh_batched, eigh.eigvalsh_batched)):
+        w, v = solve(H)
+        assert _max_diff(w.cpu(), want) < TOL * 10
+        assert _max_diff(solve_w(H).cpu(), want) < TOL * 10
+        # rows are states: H v_s = w_s v_s
+        resid = torch.einsum("bij,bsj->bsi", H, v) - w[..., None] * v
+        assert float(resid.abs().max()) < TOL * 10
 
 
 def test_main_path_goes_through_kernels(dev):
@@ -875,27 +878,67 @@ def test_eigh_jacobi_kernel(dev, m, degenerate):
     assert _max_diff(eigh.eigh_jacobi(H, vectors=False), w) < 1e-12 * scale
 
 
+@pytest.mark.parametrize("m,degenerate", [(3, False), (4, False), (5, False), (7, False), (8, False), (16, False),
+                                          (22, False), (31, False), (32, False), (4, True), (8, True), (16, True),
+                                          (32, True), (39, False), (64, False), (40, True)])
+def test_eigh_jacobi_designs(dev, m, degenerate):
+    """Every design of kernel 7 that takes m (a block a matrix to 64, a
+    team of lanes a matrix to 16) against the plain Jacobi at m 3-64, odd m
+    and exact degeneracies: scaled eigenvalues within 1e-12, projectors of
+    split groups within 1e-10, the residual and orthonormality within
+    1e-12, one launch a call; the eigenvalues-only mode gives the same
+    eigenvalues.  A batch that does not fill the last block's teams (B
+    37); the team design refuses m above 16."""
+    H = _hermitian_batch(170 + m, 37, m, dev, degenerate)
+    scale = max(1.0, float(torch.linalg.matrix_norm(H).max()))
+    wp, vp = eigh._eigh_jacobi_plain(H)
+    eye = torch.eye(m, dtype=torch.complex128, device=dev)
+    for design, (_, most) in eigh._JACOBI_DESIGNS.items():
+        if m > most:
+            with pytest.raises(ValueError, match="'team' design takes matrices up to 16"):
+                eigh._eigh_jacobi(H, True, design)
+            continue
+        before = _kernels.LAUNCHES["eigh_jacobi"]
+        w, v = eigh._eigh_jacobi(H, True, design)
+        assert _kernels.LAUNCHES["eigh_jacobi"] == before + 1
+        assert _max_diff(w, wp) < 1e-12 * scale, design
+        assert _projector_diff(wp, v, vp) < 1e-10, design
+        resid = H @ v.transpose(-1, -2) - v.transpose(-1, -2) * w[:, None, :]
+        assert float(resid.abs().max()) < 1e-12 * scale, design
+        assert float((v @ v.conj().transpose(-1, -2) - eye).abs().max()) < 1e-12, design
+        assert _max_diff(eigh._eigh_jacobi(H, False, design), w) < 1e-12 * scale, design
+
+
 def test_eigh_batched_routes_33_to_64_through_kernel_7(dev):
-    """m 33-64 on the card never reaches torch.linalg.eigh: both entry
-    points launch kernel 7; m 32 and 65 do not."""
-    for m, launched in ((32, 0), (33, 1), (64, 1), (65, 0)):
-        H = _hermitian_batch(200 + m, 4, m, dev)
+    """Every shape that eigh._route sends to kernel 7 on the card (3-8 at
+    every batch, 9-26 from 1,024 matrices, 33-64) never reaches
+    torch.linalg.eigh: both entry points launch kernel 7 once; m 2, 16 and
+    22 at 4 matrices, 27-32 and 65 do not."""
+    for m, B in ((2, 4), (3, 4), (4, 4), (6, 4), (8, 4), (16, 4), (16, 1024), (22, 4), (22, 1024), (27, 1024),
+                 (32, 4), (33, 4), (64, 4), (65, 4)):
+        launched = int(eigh._route(m, B, "cuda") == "jacobi")
+        assert launched == int(3 <= m <= 8 or (m in (16, 22) and B == 1024) or 33 <= m <= 64), (m, B)
+        H = _hermitian_batch(200 + m, B, m, dev)
         before = _kernels.LAUNCHES["eigh_jacobi"]
         w, v = eigh.eigh_batched(H)
         w2 = eigh.eigvalsh_batched(H)
         assert _kernels.LAUNCHES["eigh_jacobi"] == before + 2 * launched
         assert _max_diff(w, w2) < 1e-12 * max(1.0, float(w.abs().max()))
-        assert w.shape == (4, m) and v.shape == (4, m, m)
+        assert w.shape == (B, m) and v.shape == (B, m, m)
 
 
 def test_eigh_jacobi_kernel_raises_unconverged_and_refuses_m_above_64(dev, monkeypatch):
-    H = _hermitian_batch(210, 3, 40, dev)
-    monkeypatch.setattr(eigh, "JACOBI_SWEEPS", 1)
-    with pytest.raises(RuntimeError, match="not converged in 1 sweeps"):
-        eigh.eigh_jacobi(H)
-    monkeypatch.undo()
+    for m, designs in ((40, ("block",)), (8, ("block", "team"))):
+        H = _hermitian_batch(210, 3, m, dev)
+        monkeypatch.setattr(eigh, "JACOBI_SWEEPS", 1)
+        for design in designs:
+            with pytest.raises(RuntimeError, match="not converged in 1 sweeps"):
+                eigh._eigh_jacobi(H, True, design)
+        monkeypatch.undo()
     with pytest.raises(ValueError, match="up to 64"):
         eigh.eigh_jacobi(_hermitian_batch(211, 2, 65, dev))
+    with pytest.raises(ValueError, match="no 'warp' design"):
+        eigh._eigh_jacobi(_hermitian_batch(212, 2, 8, dev), True, "warp")
 
 
 @pytest.mark.parametrize("dim_k,nspin", [(1, 1), (2, 1), (3, 1), (2, 2)])
@@ -1019,6 +1062,37 @@ def test_transport_chain_paths(dev, grid, axis, S, F):
         C, smin = transport._chain(w5, occ_t, path)
         assert _kernels.LAUNCHES["transport_chain"] == before + launches
         assert _max_diff(C, Cp) < TOL and _max_diff(smin, sp) < TOL, path
+
+
+@pytest.mark.parametrize("grid,axis,S,NS,F", [((41, 41), 0, 2, 4, 4), ((7, 5), 1, 9, 19, 21), ((9, 7), 0, 16, 33, 36),
+                                            ((5, 4), 1, 20, 41, 41), ((9, 7), 0, 64, 66, 68), ((3, 2), 1, 64, 64, 64),
+                                            ((3, 2), 0, 64, 130, 200), ((4, 3), 1, 12, 25, 1000)])
+def test_transport_rotate_paths(dev, grid, axis, S, NS, F):
+    """Every design of kernel 14's rotate that takes S (the register path
+    to S 3, the team path on a warp or a block, the tensor-core tiles a
+    block each 16 rows) against the plain version at 1e-12, closed and
+    open, the occ rows scattered (every other state, or all of them), the
+    rows outside occ bit for bit, one launch a call; at F 200 and 1,000 the
+    blocks take the occ rows a chunk of columns at a time."""
+    from pythtb_tpu_torch.ops import transport
+
+    w5, _ = transport._strings(_random_frames(270 + S, grid, NS, F, dev), 1, len(grid), axis)
+    w5 = w5.contiguous()
+    occ = list(range(1, 2 * S, 2)) if 2 * S <= NS else list(range(S))
+    occ_t = torch.as_tensor(occ, dtype=torch.int64, device=dev)
+    rest = torch.as_tensor([r for r in range(NS) if r not in occ], dtype=torch.int64, device=dev)
+    Cp, _ = transport._chain_plain(w5, occ_t)
+    theta, P = (t.contiguous() for t in berry.unitary_eig(Cp[:, -1].contiguous()))
+    for closed in (True, False):
+        want = transport._rotate_plain(w5, occ_t, Cp, theta, P, closed)
+        for path, (_, most) in transport._ROTATE_MODES.items():
+            if S > most:
+                continue
+            before = _kernels.LAUNCHES["transport_rotate"]
+            got = transport._rotate(w5, occ_t, Cp, theta, P, closed, path)
+            assert _kernels.LAUNCHES["transport_rotate"] == before + 1
+            assert _max_diff(got, want) < TOL, (path, closed)
+            assert torch.equal(got.index_select(3, rest), w5.index_select(3, rest)), (path, closed)
 
 
 @pytest.mark.parametrize("grid,axis,NS,nocc,F", [((41, 31), 0, 3, 1, 3), ((13, 5), 0, 4, 2, 4),
@@ -1490,6 +1564,61 @@ def test_propagate_kernel_modes(dev, S):
     assert _rel_err(U_n, U_p) <= TOL
 
 
+_FULL_CACHE = """
+import sys
+import numpy as np
+import torch
+from pythtb_tpu_torch.ops import _kernels, propagate
+
+if sys.argv[1] == "off":
+    _kernels.GROWS_LOCAL_MEMORY = frozenset()
+dev = torch.device("cuda", 0)
+_kernels.library()
+rng = np.random.default_rng(7)
+S, Tc, R = 8, 3, 64
+a = rng.normal(size=(Tc, R, S, S)) + 1j * rng.normal(size=(Tc, R, S, S))
+w, V = np.linalg.eigh(a + np.conj(np.swapaxes(a, -1, -2)))
+V = np.ascontiguousarray(np.swapaxes(V, -1, -2))
+dH = np.ascontiguousarray(np.repeat(V[:, :, None], 2, axis=2))
+psi = np.ascontiguousarray(V[0, :, :4])
+t = [torch.as_tensor(x).to(dev) for x in (w, V, dH, psi, rng.uniform(0.05, 0.3, R))]
+free, _ = torch.cuda.mem_get_info(dev)
+block = torch.empty(free - (128 << 20), dtype=torch.uint8, device=dev)
+del block  # torch's cache holds all but 128 MB of the card
+try:
+    propagate.propagate_state(t[0], t[1], t[2], t[3], t[4], 2)
+    torch.cuda.synchronize()
+    print("launched after %d release(s), torch holds %d bytes"
+          % (_kernels.cache_releases, torch.cuda.memory_reserved(dev)))
+except RuntimeError as err:
+    print("refused:", err)
+"""
+
+
+def test_propagate_launches_while_torch_caches_the_card(dev):
+    """Kernel 22's first launch reserves local memory for its large stack
+    frames outside torch's caching allocator: with torch's cache holding
+    all but 128 MB of the card it is refused (cudaError 2), and the launch
+    releases the cache once and succeeds.  A fresh process each, since the
+    card keeps the reservation."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _kernels.library()  # built once here; the children load it
+    root = Path(__file__).resolve().parents[1]
+
+    def child(retry):
+        out = subprocess.run([sys.executable, "-c", _FULL_CACHE, retry], cwd=root, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        return out.stdout.strip().splitlines()[-1]
+
+    assert child("off") == "refused: CUDA kernel propagate_state failed to launch: cudaError 2"
+    got = child("on")
+    assert got.startswith("launched after 1 release(s), torch holds ") and int(got.split()[-2]) < (1 << 30), got
+
+
 def _bdg_inputs(seed, B, S, d, dev):
     rng = np.random.default_rng(seed)
     lam, U = _eig_rows(_hermitian(rng, (B,), 2 * S))
@@ -1800,6 +1929,7 @@ def test_bosons_slice_goes_through_kernels(dev, monkeypatch):
         config.set_device(dev)
         _kernels.reset_launches()
         card = run()
+        assert _kernels.LAUNCHES["eigh_jacobi"] > 0  # the 4 x 4 phonon solves, the magnon bands
         for name in ("phonon_kappa", "eph_vertex", "colpa", "spectral_sum_qbatch", "assemble", "assemble_dk"):
             assert _kernels.LAUNCHES[name] > 0, name
         assert _kernels.LAUNCHES["eph_vertex"] == 2  # one chunk a call

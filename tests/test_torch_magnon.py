@@ -154,6 +154,31 @@ def test_thermal_hall_matches_jax(honeycomb_ref):
     assert isinstance(one, float) and abs(one - honeycomb_ref["kxy1"]) <= 1e-10 * abs(honeycomb_ref["kxy1"])
 
 
+def test_thermal_hall_at_the_band_touching_matches_jax(monkeypatch):
+    """The kagome magnet's two upper bands touch at Gamma, where the
+    per-band plaquette fluxes depend on the basis an eigensolver picks
+    inside the pair.  With the card's eigensolver route on the CPU (the
+    plain Jacobi, kernel 7's oracle, wherever the card runs kernel 7),
+    ``thermal_hall`` and ``berry_curvature`` still give the JAX package's
+    values to 1e-10 relative: the vector solve takes the CPU's route on
+    every device.  Without it the Jacobi's basis moves kappa_xy by more
+    than 10%."""
+    from pythtb_tpu_torch.ops import eigh
+
+    sm = kagome_fm()
+    Ts = np.array([0.3, 0.6])
+    want = jmagnon.thermal_hall(sm, Ts, nk=9)
+    want_F = jmagnon.berry_curvature(sm, 9, 2)
+    card_route = eigh._route
+    pm = carry_sm(sm)
+    monkeypatch.setattr(eigh, "_route", lambda m, B, device_type, cpu_route=False: card_route(m, B, "cuda", cpu_route))
+    got = magnon.thermal_hall(pm, Ts, nk=9)
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+    assert np.abs(magnon.berry_curvature(pm, 9, 2) - want_F).max() <= 1e-10 * np.pi
+    monkeypatch.setattr(eigh, "_route", lambda m, B, device_type, cpu_route=False: card_route(m, B, "cuda"))
+    assert np.abs(magnon.thermal_hall(pm, Ts, nk=9) - want).max() > 0.1 * np.abs(want).max()
+
+
 def _qpts(n=40, seed=45):
     return np.random.default_rng(seed).random((n, 2))
 

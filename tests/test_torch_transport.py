@@ -340,3 +340,55 @@ def test_chain_path_dispatch():
         transport._chain(w5, occ, "registers")
     with pytest.raises(ValueError, match="no 'tree' path"):
         transport._chain(w5, occ, "tree")
+
+
+def test_rotate_path_dispatch():
+    """Kernel 14's rotate design at the shapes PERF.md records (the H100's
+    132 SMs and 232,448 bytes of shared memory a block): the register path
+    to S 3 (the pump, Kane-Mele 41^2), a warp a point at S 4-8 where the
+    points fill the SMs, a block of four warps a point on the CUDA cores
+    at S 4-11 elsewhere (the random 9 x 7 frames' 63 points), the
+    tensor-core tiles, a block each 16 rows of a point, from S 12 (the
+    slab) and where a point's occ rows would not fit a team block whole;
+    designs that do not take S, and unknown designs, are refused before
+    any launch."""
+    H100 = (132, 232448)
+    assert [transport._rotate_path(S, 1271, 3, *H100) for S in (1, 2, 3)] == ["registers"] * 3
+    assert [transport._rotate_path(S, 1681, 2 * S, *H100) for S in (2, 3, 4, 8)] == ["registers"] * 2 + ["warp"] * 2
+    assert [transport._rotate_path(S, 63, S + 6, *H100) for S in (4, 8)] == ["team"] * 2
+    assert [transport._rotate_path(S, 9331, S + 6, *H100) for S in (9, 11, 12, 15)] == ["team"] * 2 + ["split"] * 2
+    assert [transport._rotate_path(S, 63, S + 6, *H100) for S in (9, 11, 12, 16, 32, 64)] == ["team"] * 2 + ["split"] * 4
+    assert [transport._rotate_path(S, 1681, 39, *H100) for S in (12, 16, 20, 32, 39)] == ["split"] * 5
+    assert transport._rotate_path(9, 1681, 1000, *H100) == "split"  # its occ rows would not fit a team block
+    assert transport._rotate_smem(20, 39, "split") == 42824  # the slab's block, the occ rows whole
+    assert {k: v[1] for k, v in transport._ROTATE_MODES.items()} == {"registers": 3, "warp": 64, "team": 64, "split": 64}
+    w5 = torch.as_tensor(_orthonormal_frames(2, (3, 4), 12, 12))[None]
+    occ = transport._occ_tensor(list(range(4)), w5.device)
+    C = torch.zeros((1, 3, 4, 4, 4), dtype=torch.complex128)
+    with pytest.raises(ValueError, match="'registers' path does not take 4"):
+        transport._rotate(w5, occ, C, None, None, False, "registers")
+    with pytest.raises(ValueError, match="no 'wgmma' path"):
+        transport._rotate(w5, occ, C, None, None, False, "wgmma")
+
+
+@pytest.mark.parametrize("closed", [True, False])
+def test_rotate_plain_copies_the_rows_outside_occ(closed):
+    """The plain rotation (kernel 14's oracle) returns the rows outside
+    ``occ`` bit for bit, and the rotated rows as conj(B_m) w_m of a
+    scattered occ list."""
+    w5 = torch.as_tensor(_orthonormal_frames(5, (7, 3), 10, 12)).reshape(1, 7, 3, 10, 12)
+    occ = transport._occ_tensor([1, 4, 5, 8], w5.device)
+    C, _ = transport._chain_plain(w5, occ)
+    theta = P = None
+    if closed:
+        from pythtb_tpu_torch.ops import berry
+
+        theta, P = (t.contiguous() for t in berry.unitary_eig(C[:, -1].contiguous()))
+    out = transport._rotate_plain(w5, occ, C, theta, P, closed)
+    rest = [r for r in range(10) if r not in (1, 4, 5, 8)]
+    assert torch.equal(out[:, :, :, rest], w5[:, :, :, rest])
+    if not closed:
+        want = C.conj() @ w5[:, :, :, occ]
+        assert float((out[:, :, :, occ] - want).abs().max()) <= 1e-14
+    # the first point of each string keeps its rows (C_0 = I, t_0 = 0)
+    assert float((out[:, 0] - w5[:, 0]).abs().max()) <= 1e-14
