@@ -93,7 +93,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    team of lanes, a matrix) at random B 1,600 m 3-32, degenerate batches and every
    eigh_batched call of phase 4 at m 3-32 (the kappa row, Kane-Mele 41^2,
    silicon, the magnon grids, the Floquet spectrum, the Lieb BdG),
-   beside torch.linalg.eigh;
+   beside torch.linalg.eigh; the seventeenth slice's kernel 18 on both
+   designs (a warp a chain to S 8, a block a chain to S 40) on random
+   strips at S 1 / 3 / 8 / 16 / 40, stride 1 and 8, ndis 1 and 2 and
+   across a chunk boundary (every exponent 1e-10 relative at stride 1;
+   the largest 1e-10 and to S 8 every exponent 1e-8 at stride 8), each
+   design's device time at the row's shape and about the design line,
+   and the Lyapunov row's 200,000 steps; kernel 19's run kernel (the
+   whole run in one cooperative launch) and block design against the
+   plain step at nw 1 / 4 / 8, both branches of the step-size rule, the
+   silicon 400-step run on the block design, each design's device time a
+   step, the run kernel's split by phase and its launches a run;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -799,6 +809,7 @@ def phase_kernels(torch, pt, device):
     slice11_kernels(torch, pt, device, record, held)
     slice12_kernels(torch, pt, device, record, held)
     slice13_kernels(torch, pt, device, record, held)
+    slice17_kernels(torch, pt, device, record, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -1905,7 +1916,7 @@ def slice6_kernels(torch, pt, device, record, held):
                                           max_diff(torch, want, cpu) / scale))
     record("lyapunov", "strip 8 E=512 2048 steps W=1.5 (upper half)", max_diff(torch, got[..., :S], want[..., :S]),
            lambda: kern(wl, 8), lambda: plain(wl, 8), cost_lyapunov(1, len(LYAP_E), S, LYAP_CPU_STEPS, 8), True,
-           reps=2, scale=scale, tol=1e-8, prof_reps=3, prof_plain=False)
+           reps=1, scale=scale, tol=1e-8, prof_reps=3, prof_plain=False)
     w1 = wl[:256].contiguous()
     got, want = torch.sort(kern(w1, 1), -1)[0], torch.sort(plain(w1, 1), -1)[0]
     held("lyapunov", "strip 8 E=512 256 steps stride 1 (whole)", max_diff(torch, got, want), 1e-10,
@@ -2049,6 +2060,192 @@ def compare_slice6(out, ref):
         err = float(np.abs(got - want).max() / np.abs(want).max())
         print("  %s vs CPU%s: max|diff| %.3e (relative)" % (key, note, err))
         check(err < tol, "%s differs from the CPU path by %.3e (relative, limit %.0e)" % (key, err, tol))
+
+
+# -- the seventeenth slice: kernel 18 a warp a chain, kernel 19 a run a launch --
+
+LYAP17_S = (1, 3, 8, 16, 40)  # both of kernel 18's designs at their edges
+MV17_NW = (1, 4, 8)  # kernel 19's run kernel (the block path's nw: LARGE_NW)
+
+
+def lyap_random(torch, S, nE, seed, device, emax=3.0):
+    """A square strip of width S with a random inter-layer block (the
+    kernel tests' strip): A (nE energies in [-emax, emax]), Hinv, Bm and the
+    rng that draws its onsite values."""
+    rng = np.random.default_rng(seed)
+    h00 = -(np.eye(S, k=1) + np.eye(S, k=-1)).astype(complex)
+    h01 = -np.eye(S, dtype=complex) + 0.1 * (rng.normal(size=(S, S)) + 1j * rng.normal(size=(S, S)))
+    hinv = np.linalg.inv(h01)
+    E = np.linspace(-emax, emax, nE)
+    A = torch.as_tensor(np.ascontiguousarray(E[:, None, None] * hinv - hinv @ h00)).to(device)
+    Bm = torch.as_tensor(np.ascontiguousarray(-hinv @ h01.conj().T)).to(device)
+    return A, torch.as_tensor(hinv).to(device), Bm, rng
+
+
+def mv_random(torch, n, B, nb, dc, seed, device):
+    """Near-identity overlaps (a polar factor near 1, so |M_nn| ~ 1) and a
+    state (U near 1, a small momentum) for single MV steps."""
+    from pythtb_tpu_torch import wannier
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(B, nb, n, n)) + 1j * rng.normal(size=(B, nb, n, n))
+    u, _, vh = np.linalg.svd(np.eye(n) + 0.05 * X)
+    H = rng.normal(size=(B, n, n)) + 1j * rng.normal(size=(B, n, n))
+    A = torch.as_tensor(0.02 * (H - np.conj(np.swapaxes(H, -1, -2))))
+    return (torch.as_tensor(np.ascontiguousarray(0.98 * (u @ vh))).to(device),
+            torch.as_tensor(rng.integers(0, B, (B, nb))).to(device), torch.as_tensor(rng.uniform(0.5, 2.0, nb)).to(device),
+            torch.as_tensor(rng.normal(size=(nb, dc)) * 0.3).to(device),
+            wannier._expm_antiherm(A).to(device).contiguous(), (0.01 * A).to(device).contiguous())
+
+
+def slice17_kernels(torch, pt, device, record, held):
+    """Phase 3 for the seventeenth slice's redesigns.  Kernel 18 on both of
+    its designs (a warp a chain to S 8, a block a chain to S 40) against
+    the plain version on random strips at S 1 / 3 / 8 / 16 / 40, 5 E x 64
+    steps, ndis 1 and 2: at stride 1 every exponent at 1e-10 relative, at
+    stride 8 the largest at 1e-10 (energies in [-3, 3] take a stride's
+    product near 1 / eps, where the smallest exponents of any two QRs
+    part: reported) and, to S 8, every exponent at 1e-8 in the band
+    (energies in [-0.5, 0.5], onsite values in [-0.2, 0.2]); two chunks of
+    32 steps against one launch, bit for bit; then each design's device time at the
+    row's shape (512 E x 2,048 steps), the design line (S 8 at 1-512
+    chains, S 1-8 at 512 chains) and the row itself (512 E x 200,000
+    steps) on the wrapper's design.  Kernel 19's run kernel (the whole run
+    in one cooperative launch) and its block design (three launches a
+    step) against the plain step at 1e-12 (nw 1 / 4 / 8, both branches of
+    the step-size rule) and the silicon 400-step run on the block design
+    against the plain run (the run kernel's is slice 8's); the device time
+    of a run on each design, the run kernel's split by phase (the run with
+    phases left out) and its launches."""
+    from pythtb_tpu_torch import localization, wannier
+    from pythtb_tpu_torch.ops import _kernels
+
+    def frames(S, ndis):
+        Q0 = torch.eye(2 * S, dtype=torch.complex128, device=device).expand(ndis, 5, 2 * S, 2 * S).contiguous()
+        return Q0, torch.zeros((ndis, 5, 2 * S), dtype=torch.float64, device=device)
+
+    def spectra(A, hinv, Bm, w, stride, design):
+        Q0, l0 = frames(A.shape[-1], w.shape[1])
+        got = localization.lyapunov_chunk(A, hinv, Bm, w, Q0.clone(), l0.clone(), stride, design)[1]
+        want = localization._lyapunov_plain(A, hinv, Bm, w, Q0, l0, stride)[1]
+        return torch.sort(got, -1, descending=True)[0], torch.sort(want, -1, descending=True)[0]
+
+    for S in LYAP17_S:
+        A, hinv, Bm, rng = lyap_random(torch, S, 5, 180 + S, device)
+        Ab, hinvb, Bmb, rngb = lyap_random(torch, S, 5, 180 + S, device, emax=0.5)
+        designs = ("warp", "block") if S <= localization._LYAPUNOV_DESIGNS["warp"][1] else ("block",)
+        for ndis in (1, 2):
+            w = {stride: torch.as_tensor(rng.uniform(-1.0, 1.0, (64, ndis, S))).to(device) for stride in (8, 1)}
+            wb = torch.as_tensor(rngb.uniform(-0.2, 0.2, (64, ndis, S))).to(device)
+            for design in designs:
+                for stride in (8, 1):
+                    got, want = spectra(A, hinv, Bm, w[stride], stride, design)
+                    key = "random S %d ndis %d stride %d %s" % (S, ndis, stride, design)
+                    scale = float(want.abs().max())
+                    check(bool(torch.isfinite(got).all()), "lyapunov %s: exponents not finite" % key)
+                    held("lyapunov", key + " (largest)", max_diff(torch, got[..., 0], want[..., 0]), 1e-10, scale)
+                    if stride == 1:
+                        held("lyapunov", key + " (whole)", max_diff(torch, got, want), 1e-10, scale)
+                    else:
+                        # energies in [-3, 3] close channels: a stride's product
+                        # reaches a condition number of ~1e11, where any two
+                        # correct QRs part at ~1e-7 on the smallest exponents
+                        print("  %-15s %-34s whole spectrum max|diff| %.3e relative (reported: a stride's product "
+                              "nears 1 / eps)" % ("lyapunov", key, max_diff(torch, got, want) / scale))
+                if S <= 8:  # in the band a stride's product stays far from 1 / eps
+                    got, want = spectra(Ab, hinvb, Bmb, wb, 8, design)
+                    held("lyapunov", "in-band S %d ndis %d stride 8 %s (whole)" % (S, ndis, design),
+                         max_diff(torch, got, want), 1e-8, float(want.abs().max()))
+        # a chunk boundary: two launches of 32 steps give one launch's bits
+        w = torch.as_tensor(rng.uniform(-1.0, 1.0, (64, 2, S))).to(device)
+        Q0, l0 = frames(S, 2)
+        one = localization.lyapunov_chunk(A, hinv, Bm, w, Q0.clone(), l0.clone(), 8)[1]
+        Q1, l1 = localization.lyapunov_chunk(A, hinv, Bm, w[:32].contiguous(), Q0.clone(), l0.clone(), 8)
+        two = localization.lyapunov_chunk(A, hinv, Bm, w[32:].contiguous(), Q1, l1, 8)[1]
+        held("lyapunov", "random S %d two chunks of 32 steps vs one launch" % S, max_diff(torch, one, two), 0.0)
+
+    # each design's device time at the row's strip (CUDA events)
+    H00d, H01d, _ = localization._blocks_dense(lyap_strip(pt))
+    S = H00d.shape[0]
+    h00, h01 = torch.as_tensor(H00d).to(device), torch.as_tensor(H01d).to(device)
+    hinv = torch.linalg.solve(h01, torch.eye(S, dtype=torch.complex128, device=device)).contiguous()
+    Bm = (-hinv @ h01.conj().T).contiguous()
+    E = torch.as_tensor(LYAP_E.astype(np.complex128)).to(device)
+    A = (E[:, None, None] * hinv[None] - (hinv @ h00)[None]).contiguous()
+
+    def onsite(steps):
+        return torch.as_tensor(localization._onsite(np.zeros((1, S)), 1.5, np.random.default_rng(2), 0, steps,
+                                                    1)).to(device)
+
+    def chain(A_, w_, design=None, Bm_=Bm, hinv_=hinv):
+        n = A_.shape[-1]
+        Q0 = torch.eye(2 * n, dtype=torch.complex128, device=device).expand(1, A_.shape[0], 2 * n, 2 * n).contiguous()
+        l0 = torch.zeros((1, A_.shape[0], 2 * n), dtype=torch.float64, device=device)
+        return localization.lyapunov_chunk(A_, hinv_, Bm_, w_, Q0, l0, 8, design)
+
+    wl = onsite(LYAP_CPU_STEPS)
+    times = {d: event_us(torch, lambda: chain(A, wl, d), 3) for d in ("warp", "block")}
+    print("  %-15s %-34s device per call (CUDA events): warp %.1f us, block %.1f us; wrapper's design %s"
+          % ("lyapunov", "strip 8 E=512 2048 steps", times["warp"], times["block"],
+             localization._lyapunov_design(S, len(LYAP_E), 1, _kernels.card(device)[0])))
+    line = []
+    for nE in (1, 16, 132, 512):
+        line.append("S 8 x %d chains: warp %.1f / block %.1f" % (nE, event_us(torch, lambda: chain(A[:nE].contiguous(), wl, "warp"), 3),
+                                                              event_us(torch, lambda: chain(A[:nE].contiguous(), wl, "block"), 3)))
+    for S2 in (1, 4):
+        A2, hinv2, Bm2, rng2 = lyap_random(torch, S2, 512, 7, device)
+        w2 = torch.as_tensor(rng2.uniform(-1.0, 1.0, (LYAP_CPU_STEPS, 1, S2))).to(device)
+        line.append("S %d x 512 chains: warp %.1f / block %.1f" % (
+            S2, event_us(torch, lambda: chain(A2, w2, "warp", Bm2, hinv2), 3),
+            event_us(torch, lambda: chain(A2, w2, "block", Bm2, hinv2), 3)))
+    print("  %-15s the design line, 2,048 steps, device us (CUDA events): %s" % ("lyapunov", "; ".join(line)))
+    wrow = onsite(LYAP_STEPS)
+    print("  %-15s %-34s device per call (CUDA events) on the wrapper's design: %.1f us; bound %.1f us (%s)"
+          % ("lyapunov", "the row: strip 8 E=512 200000 steps", event_us(torch, lambda: chain(A, wrow), 2),
+             1e3 * cost_lyapunov(1, len(LYAP_E), S, LYAP_STEPS, 8)[0], cost_lyapunov(1, len(LYAP_E), S, LYAP_STEPS, 8)[1]))
+    del wrow
+
+    # kernel 19's run kernel: single steps on both designs, both branches
+    for n in MV17_NW:
+        M0, nbr, w_b, b_cart, U, dW = mv_random(torch, n, 64, 8, 3, 260 + n, device)
+        eps0 = 0.5 / (4.0 * float(w_b.sum()))
+        for om_prev in (math.inf, -1.0):
+            want = wannier._mv_step_plain(M0, nbr, w_b, b_cart, U, dW,
+                                          torch.tensor(1.3 * eps0, dtype=torch.float64, device=device),
+                                          torch.tensor(om_prev, dtype=torch.float64, device=device), 20.0 * eps0)
+            for design in ("grid", "block"):
+                got = wannier.mv_step(M0, nbr, w_b, b_cart, U, dW, 1.3 * eps0, om_prev, eps0, design)
+                held("mv_step", "random B 64 nb 8 nw %d %s, %s" % (n, design, "first" if om_prev > 0 else "overshoot"),
+                     max(max_diff(torch, a, b) / max(1.0, float(b.abs().max())) for a, b in zip(got, want)))
+    M0, nbr, w_b, b_cart = silicon_overlaps(torch, pt, (S8["si_coarse"],) * 3)
+    B, nb, n, _ = M0.shape
+    eps0 = 0.5 / (4.0 * float(w_b.sum()))
+    steps = S8["si_steps"]
+    U, hist, (rbar, oi, ot) = wannier._mv_kernel_run(M0, nbr, w_b, b_cart, steps, eps0, "block")
+    Up, hp, (rp, oip, otp) = wannier._mv_run_plain(M0, nbr, w_b, b_cart, steps, eps0)
+    e = (abs(float(oi) - float(oip)) / abs(float(oip)), abs(float(oi + ot) - float(oip + otp)) / abs(float(oip + otp)),
+         max_diff(torch, hist, hp) / float(hp.abs().max()), max_diff(torch, rbar, rp) / max(1.0, float(rp.abs().max())))
+    print("  mv_step         silicon 8^3 %d-step run, block design, vs plain run: Omega_I %.3e, Omega %.3e, history "
+          "%.3e, centres %.3e (relative)" % ((steps,) + e))
+    check(e[0] <= MV_TOL["omega_i"] and e[1] <= MV_TOL["omega"] and max(e[2:]) <= MV_TOL["history"],
+          "kernel 19's block design departs from the plain run")
+    run_us = {d: event_us(torch, lambda: wannier._mv_kernel_run(M0, nbr, w_b, b_cart, steps, eps0, d), 3)
+              for d in ("grid", "block")}
+    split = {ph: event_us(torch, lambda: wannier._mv_kernel_run(M0, nbr, w_b, b_cart, steps, eps0, "grid", ph), 3)
+             for ph in (0, 1, 3)}
+    print("  %-15s silicon 8^3 %d-step run, device (CUDA events): grid %.1f us (%.2f a step), block %.1f us (%.2f a "
+          "step); the grid's split a step (the run with phases left out): barriers and partial sums %.2f, overlaps "
+          "%.2f, reductions %.2f, update %.2f us" % ("mv_step", steps, run_us["grid"], run_us["grid"] / steps,
+                                                    run_us["block"], run_us["block"] / steps, split[0] / steps,
+                                                    (split[1] - split[0]) / steps, (split[3] - split[1]) / steps,
+                                                    (run_us["grid"] - split[3]) / steps))
+    before = dict(_kernels.LAUNCHES)
+    wannier.mv_localize(M0, nbr, w_b, b_cart, steps, 0.5)
+    torch.cuda.synchronize()
+    print("  %-15s silicon 8^3 %d-step run on the wrapper's design (%s): %d launches a run (%s)"
+          % ("mv_step", steps, wannier._mv_design(B, nb, n, _kernels.card(device)[0]),
+             sum(_kernels.LAUNCHES[k] - before[k] for k in ("mv_step", "mv_final")),
+             {k: _kernels.LAUNCHES[k] - before[k] for k in ("mv_step", "mv_final")}))
 
 
 # -- the seventh slice: kernel 7, kernel 1's flux-batch mode, the rest of
@@ -3260,7 +3457,7 @@ def slice10_kernels(torch, pt, device, record, held):
     / 4 / 8 / 9 / 16 / 20 / 32 / 64 at 63 and 1,681 points) beside the matmul,
     the rows outside occ bit for bit."""
     from pythtb_tpu_torch import fermisurface, optical, response, wannier
-    from pythtb_tpu_torch.ops import berry, solver, tetra, transport
+    from pythtb_tpu_torch.ops import _kernels, berry, solver, tetra, transport
 
     rng = np.random.default_rng(10)
     # kernel 21
@@ -3391,7 +3588,7 @@ def slice10_kernels(torch, pt, device, record, held):
         sel = w5.index_select(3, occ_t)
         rest = torch.as_tensor([r for r in range(NS) if r not in occ], dtype=torch.int64, device=device)
         lib = cuda_ms(torch, lambda: torch.matmul(Cp.conj(), sel), reps)
-        sms, smem = transport._card(device)
+        sms, smem = _kernels.card(device)
         default = transport._rotate_path(S, outer * L * inner, F, sms, smem)
         cost = cost_transport_rotate(outer, L, inner, S, NS, F)
         others = []
@@ -5827,10 +6024,10 @@ def main():
     check(out["kappa_jacobi_launches"] > 0, "the kappa row's 4 x 4 solves did not go through kernel 7")
     check(out["km_jacobi_launches"] > 0, "the Kane-Mele flows' 4 x 4 solves did not go through kernel 7")
     check(min(out["hof_launches"].values()) > 0, "the Hofstadter call did not launch kernel 7 and the flux-batch mode")
-    print("[4 main] kernel 19 in the silicon MLWF build: %s (400 steps on the coarse grid, closing spreads on both)"
-          % out["si_launches"])
-    check(out["si_launches"]["mv_step"] == S8["si_steps"] and out["si_launches"]["mv_final"] == 2,
-          "the silicon MLWF build did not run its 400 steps through kernel 19")
+    print("[4 main] kernel 19 in the silicon MLWF build: %s (the 400 steps on the coarse grid in one launch, the "
+          "closing spreads on both grids)" % out["si_launches"])
+    check(out["si_launches"]["mv_step"] == 1 and out["si_launches"]["mv_final"] == 2,
+          "the silicon MLWF build did not run its 400 steps through kernel 19 in one launch")
     print("[4 main] kernel 11b filter steps in the 4,900-dim ED solve: %d; kernel 20 calls in the ARPES map: %d"
           % (out["ed_filter_steps"], out["arpes_launches"]))
     print("[4 main] kernels 3, 5, 14 and 19 past 8 states (slab 20 states, BN MLWF nw 9): %s; kernel 16 q-batch "

@@ -7,10 +7,11 @@ direction.
   Lyapunov spectrum of the transfer-matrix product over ``length``
   principal layers, re-orthonormalized every ``stride`` steps.  The
   principal-layer blocks come from kernel 1 and its one-sided mode at
-  k = 0; the product itself is kernel 18 (``csrc/lyapunov.cu``), one
-  block per (realization, energy) carrying its frame through a whole
-  chunk of steps, through :func:`lyapunov_chunk` (on a CPU tensor its
-  plain PyTorch version, the JAX scan body).  The localization length is
+  k = 0; the product itself is kernel 18 (``csrc/lyapunov.cu``), a warp
+  (to 8 states a layer) or a block (to 40) per (realization, energy)
+  carrying its frame through a whole chunk of steps, through
+  :func:`lyapunov_chunk` (on a CPU tensor its plain PyTorch version, the
+  JAX scan body).  The localization length is
   ``1 / gamma_min`` with ``gamma_min`` the smallest positive exponent.
 * :func:`participation_ratio` -- (generalized) participation ratios of
   eigenstates of finite samples.
@@ -49,6 +50,8 @@ __all__ = [
 
 # largest principal layer (states) kernel 18 takes: csrc/lyapunov.cu's kMaxS
 LYAPUNOV_MAX_S = 40
+# kernel 18's designs: the C entry's code and the most states a layer each takes
+_LYAPUNOV_DESIGNS = {"block": (0, LYAPUNOV_MAX_S), "warp": (1, 8)}
 # onsite values (steps x realizations x states) drawn and uploaded at once
 _CHUNK_VALUES = 1 << 22
 _TINY = float(np.finfo(np.float64).tiny)
@@ -75,7 +78,16 @@ def _lyapunov_plain(A, hinv, Bm, w, Q, lyap, stride):
     return Q, lyap
 
 
-def lyapunov_chunk(A, hinv, Bm, w, Q, lyap, stride):
+def _lyapunov_design(S, nE, ndis, sms):
+    """Kernel 18's design for layers of S states and nE x ndis chains on a
+    card of ``sms`` SMs: a warp a chain wherever it takes S (to 8 states),
+    a block a chain above.  On the H100 the warp won at every S 1-8 and
+    every chain count measured, one chain to 512 on 132 SMs (PERF.md
+    section 6), so the line does not move with the chains or the SMs."""
+    return "warp" if S <= _LYAPUNOV_DESIGNS["warp"][1] else "block"
+
+
+def lyapunov_chunk(A, hinv, Bm, w, Q, lyap, stride, design=None):
     """One chunk of the QR-stabilized transfer-matrix product.
 
     :param A: (nE, S, S) complex128, E H01^-1 - H01^-1 H00 per energy
@@ -85,6 +97,8 @@ def lyapunov_chunk(A, hinv, Bm, w, Q, lyap, stride):
       layers, nsteps a multiple of ``stride``
     :param Q: (ndis, nE, 2S, 2S) complex128 frames at the chunk's start
     :param lyap: (ndis, nE, 2S) float64 log sums so far
+    :param design: kernel 18's design on a CUDA tensor, ``"warp"`` or
+      ``"block"`` (:func:`_lyapunov_design`'s choice if None)
     :returns: ``(Q, lyap)`` after the chunk (kernel 18 updates the
       tensors it was given in place and returns them)
     """
@@ -98,13 +112,20 @@ def lyapunov_chunk(A, hinv, Bm, w, Q, lyap, stride):
                          "on the CPU (config.set_device(\"cpu\"))" % (LYAPUNOV_MAX_S, S))
     dev = A.device
     nsteps, ndis = w.shape[0], w.shape[1]
+    if design is None:
+        design = _lyapunov_design(S, nE, ndis, _kernels.card(dev)[0])
+    if design not in _LYAPUNOV_DESIGNS:
+        raise ValueError("kernel 18 has no %r design; it has %s" % (design, ", ".join(_LYAPUNOV_DESIGNS)))
+    code, most = _LYAPUNOV_DESIGNS[design]
+    if S > most:
+        raise ValueError("kernel 18's %r design takes at most %d states, got %d" % (design, most, S))
     _kernels.require(A, "A", config.COMPLEX, (nE, S, S), dev)
     _kernels.require(hinv, "hinv", config.COMPLEX, (S, S), dev)
     _kernels.require(Bm, "Bm", config.COMPLEX, (S, S), dev)
     _kernels.require(w, "w", config.FLOAT, (nsteps, ndis, S), dev)
     _kernels.require(Q, "Q", config.COMPLEX, (ndis, nE, 2 * S, 2 * S), dev)
     _kernels.require(lyap, "lyap", config.FLOAT, (ndis, nE, 2 * S), dev)
-    _kernels.launch("lyapunov", dev, A, hinv, Bm, w, Q, lyap, nE, ndis, S, nsteps, int(stride))
+    _kernels.launch("lyapunov", dev, A, hinv, Bm, w, Q, lyap, nE, ndis, S, nsteps, int(stride), code)
     return Q, lyap
 
 

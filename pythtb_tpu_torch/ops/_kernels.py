@@ -21,6 +21,7 @@ and counts the launch in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -30,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "library", "require", "launch"]
+__all__ = ["LAUNCHES", "reset_launches", "library", "require", "launch", "card"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pythtb_tpu_torch"
@@ -57,12 +58,13 @@ _SIGNATURES = {
     "pythtb_spectral_sum": [_P] * 5 + [_I] * 5 + [_D, _P],
     "pythtb_fermi_sweep": [_P] * 5 + [_I] * 3 + [_D, _I, _P],
     "pythtb_cpa": [_P] * 4 + [_I] * 3 + [_P],
-    "pythtb_lyapunov": [_P] * 6 + [_I] * 5 + [_P],
+    "pythtb_lyapunov": [_P] * 6 + [_I] * 6 + [_P],
     "pythtb_eigh_jacobi": [_P] * 4 + [_I] * 3 + [_D, _I, _I, _P],
     "pythtb_assemble_members": [_P] * 7 + [_I] * 6 + [_P],
     "pythtb_transport_chain": [_P] * 5 + [_I] * 7 + [_P],
     "pythtb_transport_rotate": [_P] * 6 + [_I] * 8 + [_P],
     "pythtb_transport_follow": [_P] * 5 + [_I] * 6 + [_P],
+    "pythtb_mv_run": [_P] * 13 + [_I] * 4 + [_D] * 2 + [_I] * 3 + [_P],
     "pythtb_mv_overlaps": [_P] * 5 + [_I] * 3 + [_P],
     "pythtb_mv_reduce": [_P] * 7 + [_I] * 4 + [_D, _D, _I, _P],
     "pythtb_mv_update": [_P] * 7 + [_I] * 4 + [_P],
@@ -96,13 +98,16 @@ _SIGNATURES = {
 # kernel 15 in both its modes (dH/dk and d2H/dk dk); "spectral_sum" counts
 # kernel 16's calls (a partial pass and a reduction each); "decimation_green"
 # counts kernel 12's Green's-function mode (not in "decimation"); "lyapunov"
-# counts kernel 18's launches, one per chunk of steps; "eigh_jacobi" counts
+# counts kernel 18's launches, one per chunk of steps, in both designs; "eigh_jacobi" counts
 # kernel 7; "assemble_members" counts kernel 1's flux-batch mode (not in
 # "assemble"); "transport_chain", "transport_rotate" and "transport_follow"
 # count kernel 14's three modes (the chain's link path is two launches a
 # call, the links' polar factors and the prefixes); "mv_step" counts kernel 19's
-# Marzari-Vanderbilt steps (three launches each: overlaps, reduction,
-# update), "mv_final" its closing overlaps and reduction; "dense_filter"
+# launches that carry Marzari-Vanderbilt steps -- to 8 Wannier functions one
+# a run (every step of it in one launch), from 9 one a step (the update, the
+# last of the step's three launches: overlaps, reduction, update) -- and
+# "mv_final" its closing pairs of overlaps and reduction, one a run (a
+# launch of the run kernel with no steps, or two block launches); "dense_filter"
 # counts kernel 11b's filter steps in both designs (cores: four launches a
 # step -- the product, the epilogue, the scale reduction, the rescale; the
 # first step two; tensor: one launch a step, and one more a call for the
@@ -148,6 +153,15 @@ _OUT_OF_MEMORY = 2
 GROWS_LOCAL_MEMORY = frozenset({"propagate_state", "propagate_full"})
 # how many such launches had torch's cache released before they went through
 cache_releases = 0
+
+
+@functools.lru_cache(maxsize=None)
+def card(device):
+    """The SM count and the shared memory a block may opt into of a CUDA
+    ``device``, read once (the wrappers that pick a design by them run in
+    hot paths)."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
 def reset_launches():

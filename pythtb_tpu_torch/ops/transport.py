@@ -185,15 +185,6 @@ def _chain(w5, occ_t, path=None):
     return C, smin
 
 
-@functools.lru_cache(maxsize=None)
-def _card(device):
-    """The SM count and the shared memory a block may opt into of a CUDA
-    ``device`` (read once: the rotate's wrapper runs in the smooth gauge's
-    hot path)."""
-    props = torch.cuda.get_device_properties(device)
-    return props.multi_processor_count, props.shared_memory_per_block_optin
-
-
 def _rotate_path(S, points, F, sms, smem):
     """Kernel 14's rotate design for S states at ``points`` grid points of
     F components on a card of ``sms`` SMs whose blocks may take ``smem``
@@ -234,7 +225,7 @@ def _rotate(w5, occ_t, C, theta, P, closed, path=None):
     outer, L, inner, NS, F = w5.shape
     S = occ_t.shape[0]
     dev = w5.device
-    card = _card(dev) if path is None else (None, None)  # a named design needs no line
+    card = _kernels.card(dev) if path is None else (None, None)  # a named design needs no line
     mode = _rotate_mode(S, outer * L * inner, F, *card, path)
     _kernels.require(w5, "w", config.COMPLEX)
     _kernels.require(occ_t, "occ", torch.int64, (S,), dev)

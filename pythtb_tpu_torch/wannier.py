@@ -17,10 +17,11 @@ Fourier coefficients ``H(R) = (1/Nk) sum_k exp(-2j*pi*k.R) B(k)`` over a
 centred R grid, and ``E(k') = eigvalsh(sum_R exp(2j*pi*k'.R) H(R))``.
 
 Device work: the coarse solve is kernel 1 and ``eigh_batched`` (kernels
-2 or 7, or ``torch.linalg.eigh``, by band count); each Marzari-Vanderbilt
-step is kernel 19 (``csrc/mv_step.cu``: three launches a step and no host
-read, up to 32 Wannier functions, raising above on the card;
-:func:`_mv_step_plain`, the JAX arithmetic in torch, on CPU tensors);
+2 or 7, or ``torch.linalg.eigh``, by band count); the Marzari-Vanderbilt
+run is kernel 19 (``csrc/mv_step.cu``: to 8 Wannier functions the whole
+run in one launch and its closing spreads in a second, from 9 to 32 three
+launches a step; no host read inside the run; raising above 32 on the
+card; :func:`_mv_step_plain`, the JAX arithmetic in torch, on CPU tensors);
 the SMV subspace iteration,
 the projections and the R-grid transforms are library calls
 (``torch.linalg.eigh``/``svd``, ``torch.einsum``, ``torch.matmul``).
@@ -44,9 +45,21 @@ from .ops.solver import device_uniform_grid
 
 __all__ = ["WannierInterpolator", "interpolator", "disentangled_interpolator"]
 
-# most Wannier functions kernel 19 takes (registers up to 8, a block's
-# shared memory from 9 to 32)
+# most Wannier functions kernel 19 takes (the run kernel, a warp a k, up to
+# 8; three block launches a step from 9 to 32)
 _KERNEL_MAX_NW = 32
+# kernel 19's designs and the most Wannier functions each takes: "grid", the
+# run kernel (the whole run in one cooperative launch, a warp a k) and
+# "block", three block launches a step
+_MV_DESIGNS = {"grid": 8, "block": _KERNEL_MAX_NW}
+# the run kernel's k-points a block (csrc/mv_step.cu's kMVGridWarps): they
+# size its partial sums
+_MV_GRID_WARPS = 4
+# the run kernel's partial sums a block: dc nw (at most 3 x 8) + 2, then one
+_MV_RED_STRIDE = 3 * 8 + 2 + 1
+# all of a run kernel step's phases (overlaps 1, reductions 2, update 4);
+# chip_smoke.py leaves some out to time the others
+_MV_PHASES = 7
 # heavy-ball momentum of the MV descent
 _MU = 0.9
 
@@ -256,10 +269,26 @@ def _mv_run_plain(M0, nbr, w_b, b_cart, steps, eps0):
     return U, hist, _spread_terms(_gauge_overlaps(M0, U, nbr), w_b, b_cart)
 
 
+def _mv_design(B, nb, n, sms):
+    """Kernel 19's design for B k-points, nb b-vectors and n Wannier
+    functions on a card of ``sms`` SMs: the run kernel's cooperative grid to
+    8 Wannier functions, the three block launches a step above.  On the
+    H100 the run kernel won at every shape measured, B 64-4,096 and nw 1-8
+    on 132 SMs (PERF.md section 6), so the line does not move with B, nb or
+    the SMs."""
+    return "grid" if n <= _MV_DESIGNS["grid"] else "block"
+
+
+def _mv_red_blocks(B):
+    """Blocks the run kernel's partial sums must hold at B k-points: its
+    cooperative grid never takes more than a block each four k-points."""
+    return max(1, -(-B // _MV_GRID_WARPS))
+
+
 class _MVState:
     """Kernel 19's device buffers for one run."""
 
-    def __init__(self, M0, nbr, w_b, b_cart, steps, eps0):
+    def __init__(self, M0, nbr, w_b, b_cart, steps, eps0, design=None):
         dev = M0.device
         B, nb, n, _ = M0.shape
         dc = b_cart.shape[1]
@@ -273,52 +302,79 @@ class _MVState:
             raise ValueError(
                 "kernel 19 takes at most %d Wannier functions on a CUDA tensor, got %d; run the call on the "
                 'CPU (config.set_device("cpu")) for more' % (_KERNEL_MAX_NW, n))
+        if design is None:
+            design = _mv_design(B, nb, n, _kernels.card(dev)[0])
+        if design not in _MV_DESIGNS:
+            raise ValueError("kernel 19 has no %r design; it has %s" % (design, ", ".join(_MV_DESIGNS)))
+        if n > _MV_DESIGNS[design]:
+            raise ValueError("kernel 19's %r design takes at most %d Wannier functions, got %d"
+                             % (design, _MV_DESIGNS[design], n))
+        self.design = design
         self.args = (M0, nbr, w_b, b_cart)
         self.shape = (B, nb, n, dc)
         self.U = torch.eye(n, dtype=config.COMPLEX, device=dev).expand(B, n, n).contiguous()
         self.dW = torch.zeros_like(self.U)
         self.M = torch.empty_like(M0)
         self.part = torch.empty((B * nb, n + 2), dtype=config.FLOAT, device=dev)
+        self.red_blocks = _mv_red_blocks(B)
+        self.red = (torch.empty((self.red_blocks * _MV_RED_STRIDE,), dtype=config.FLOAT, device=dev)
+                    if design != "block" else None)
         self.scal = torch.tensor([eps0, math.inf, 0.0], dtype=config.FLOAT, device=dev)
         self.rbar = torch.empty((dc, n), dtype=config.FLOAT, device=dev)
         self.hist = torch.empty((max(steps, 1),), dtype=config.FLOAT, device=dev)
         self.fin = torch.empty((2,), dtype=config.FLOAT, device=dev)
         self.eps_cap = 20.0 * eps0
 
-    def overlaps_reduce(self, step, counter):
-        """Launches overlaps and reduce; ``step`` -1 leaves the step size alone."""
+    def run(self, steps, counter, phases=_MV_PHASES):
+        """``steps`` steps in one launch of the run kernel (0: the closing
+        pair), or three block launches a step; counted in ``counter``."""
         M0, nbr, w_b, b_cart = self.args
         B, nb, n, dc = self.shape
         dev = M0.device
-        _kernels.launch("mv_overlaps", dev, M0, nbr, self.U, self.M, self.part, B, nb, n,
-                        counter=counter, count=0)
-        _kernels.launch("mv_reduce", dev, self.part, w_b, b_cart, self.scal, self.rbar, self.hist,
-                        self.fin, B, nb, n, dc, _MU, self.eps_cap, step, counter=counter,
-                        count=int(step < 0))
+        if self.design != "block":
+            _kernels.launch("mv_run", dev, M0, nbr, w_b, b_cart, self.U, self.dW, self.M, self.part, self.red,
+                            self.scal, self.rbar, self.hist, self.fin, B, nb, n, dc, _MU, self.eps_cap, steps,
+                            self.red_blocks, phases, counter=counter)
+            return
+        for step in range(steps) if steps else (-1,):
+            _kernels.launch("mv_overlaps", dev, M0, nbr, self.U, self.M, self.part, B, nb, n,
+                            counter=counter, count=0)
+            _kernels.launch("mv_reduce", dev, self.part, w_b, b_cart, self.scal, self.rbar, self.hist,
+                            self.fin, B, nb, n, dc, _MU, self.eps_cap, step, counter=counter,
+                            count=int(step < 0))
+            if step >= 0:
+                _kernels.launch("mv_update", dev, self.M, w_b, b_cart, self.rbar, self.scal,
+                                self.U, self.dW, B, nb, n, dc, counter=counter)
 
-    def update(self):
-        M0, nbr, w_b, b_cart = self.args
-        B, nb, n, dc = self.shape
-        _kernels.launch("mv_update", M0.device, self.M, w_b, b_cart, self.rbar, self.scal,
-                        self.U, self.dW, B, nb, n, dc, counter="mv_step")
 
-
-def mv_step(M0, nbr, w_b, b_cart, U, dW, eps, om_prev, eps0):
+def mv_step(M0, nbr, w_b, b_cart, U, dW, eps, om_prev, eps0, design=None):
     """One MV step from the state (U, dW, eps, om_prev), returning the new
-    (U, dW, eps, om).  Kernel 19 on a CUDA tensor (three launches), the
-    plain version on a CPU tensor: the unit that the tests and the chip
+    (U, dW, eps, om).  Kernel 19 on a CUDA tensor (the run kernel with one
+    step, or three block launches; ``design`` as :func:`_mv_kernel_run`'s),
+    the plain version on a CPU tensor: the unit that the tests and the chip
     check hold against each other."""
     eps_cap = 20.0 * eps0
     if M0.device.type == "cpu":
         return _mv_step_plain(M0, nbr, w_b, b_cart, U, dW, torch.as_tensor(eps, dtype=config.FLOAT),
                               torch.as_tensor(om_prev, dtype=config.FLOAT), eps_cap)
-    st = _MVState(M0, nbr, w_b, b_cart, 1, eps0)
+    st = _MVState(M0, nbr, w_b, b_cart, 1, eps0, design)
     st.U.copy_(U)
     st.dW.copy_(dW)
     st.scal[0], st.scal[1] = float(eps), float(om_prev)
-    st.overlaps_reduce(0, "mv_step")
-    st.update()
+    st.run(1, "mv_step")
     return st.U, st.dW, st.scal[0], st.hist[0]
+
+
+def _mv_kernel_run(M0, nbr, w_b, b_cart, steps, eps0, design=None, phases=_MV_PHASES):
+    """Kernel 19's whole run on design ``design`` (:func:`_mv_design`'s
+    choice if None): the steps, then the closing pair.  ``phases`` leaves a
+    run kernel's phases out for timing.  Returns :func:`mv_localize`'s
+    tuple."""
+    st = _MVState(M0, nbr, w_b, b_cart, steps, eps0, design)
+    if steps:
+        st.run(steps, "mv_step", phases)
+    st.run(0, "mv_final", phases)
+    return st.U, st.hist[:steps], (st.rbar, st.fin[0], st.fin[1])
 
 
 def mv_localize(M0, nbr, w_b, b_cart, steps, alpha):
@@ -332,16 +388,10 @@ def mv_localize(M0, nbr, w_b, b_cart, steps, alpha):
     spread history (steps,), (rbar (dc, n), Omega_I, Omega_tilde)) as
     tensors.  Kernel 19 on the card (no host read inside the run); the
     plain loop on the CPU."""
-    B, nb, n, _ = M0.shape
     eps0 = float(alpha) / (4.0 * float(w_b.sum()))
     if M0.device.type == "cpu":
         return _mv_run_plain(M0, nbr, w_b, b_cart, steps, eps0)
-    st = _MVState(M0, nbr, w_b, b_cart, steps, eps0)
-    for s in range(steps):
-        st.overlaps_reduce(s, "mv_step")
-        st.update()
-    st.overlaps_reduce(-1, "mv_final")
-    return st.U, st.hist[:steps], (st.rbar, st.fin[0], st.fin[1])
+    return _mv_kernel_run(M0, nbr, w_b, b_cart, steps, eps0)
 
 
 def _smv_disentangle(S_full, nbr, w_b, win_mask, froz_mask, nw, steps, mixing, F0):

@@ -789,6 +789,80 @@ def test_lyapunov_kernel(dev, S, ndis):
         assert _max_diff(got[..., held], want[..., held]) < 1e-10 * float(want.abs().max())
 
 
+def _lyapunov_case(S, ndis, dev, seed, emax=3.0, wmax=1.0):
+    """A disordered strip of width S with a random inter-layer block, 5
+    energies in [-emax, emax] x 64 steps of onsite values in [-wmax, wmax]:
+    (A, Hinv, Bm, w, Q0, lyap0)."""
+    rng = np.random.default_rng(seed)
+    h00 = -(np.eye(S, k=1) + np.eye(S, k=-1)).astype(complex)
+    h01 = -np.eye(S, dtype=complex) + 0.1 * (rng.normal(size=(S, S)) + 1j * rng.normal(size=(S, S)))
+    hinv = np.linalg.inv(h01)
+    E = np.linspace(-emax, emax, 5)
+    A = torch.as_tensor(np.ascontiguousarray(E[:, None, None] * hinv - hinv @ h00)).to(dev)
+    Bm = torch.as_tensor(np.ascontiguousarray(-hinv @ h01.conj().T)).to(dev)
+    w = torch.as_tensor(rng.uniform(-wmax, wmax, (64, ndis, S))).to(dev)
+    Q0 = torch.eye(2 * S, dtype=torch.complex128, device=dev).expand(ndis, 5, 2 * S, 2 * S).contiguous()
+    return A, torch.as_tensor(hinv).to(dev), Bm, w, Q0, torch.zeros((ndis, 5, 2 * S), dtype=torch.float64, device=dev)
+
+
+def _lyapunov_held(design, stride, case, whole_tol=None):
+    """Kernel 18 on ``design`` against the plain version: the largest
+    exponent at 1e-10 relative, every exponent at ``whole_tol`` where
+    given; the frames stay unitary."""
+    from pythtb_tpu_torch import localization
+
+    A, hinv, Bm, w, Q0, l0 = case
+    S = A.shape[-1]
+    Qk, got = localization.lyapunov_chunk(A, hinv, Bm, w, Q0.clone(), l0.clone(), stride, design)
+    _, want = localization._lyapunov_plain(A, hinv, Bm, w, Q0, l0, stride)
+    got, want = torch.sort(got, -1, descending=True)[0], torch.sort(want, -1, descending=True)[0]
+    scale = float(want.abs().max())
+    assert _max_diff(got[..., 0], want[..., 0]) < 1e-10 * scale
+    if whole_tol is not None:
+        assert _max_diff(got, want) < whole_tol * scale
+    eye = torch.eye(2 * S, dtype=torch.complex128, device=Qk.device)
+    assert _max_diff(Qk.conj().transpose(-1, -2) @ Qk, eye.expand_as(Qk)) < 1e-13
+
+
+@pytest.mark.parametrize("S,design", [(1, "warp"), (3, "warp"), (8, "warp"), (1, "block"), (8, "block"),
+                                      (9, "block"), (16, "block")])
+def test_lyapunov_designs(dev, S, design):
+    """Kernel 18 on each design at both sides of the design line (the warp
+    to 8 states, the block above), ndis 2.  Energies in [-3, 3] close
+    channels (a stride's product reaches a condition number of 1e11, where
+    any two correct QRs part at ~1e-7 on the smallest exponents): every
+    exponent at 1e-10 relative at stride 1, the largest at stride 8.  In
+    the band (energies in [-0.5, 0.5], onsite values in [-0.2, 0.2], a
+    condition number to 1e5) every exponent at 1e-8 at stride 8 too."""
+    _lyapunov_held(design, 1, _lyapunov_case(S, 2, dev, 190 + S), 1e-10)
+    _lyapunov_held(design, 8, _lyapunov_case(S, 2, dev, 190 + S))
+    _lyapunov_held(design, 8, _lyapunov_case(S, 2, dev, 190 + S, 0.5, 0.2), 1e-8 if S <= 8 else None)
+
+
+def test_lyapunov_design_line_on_the_card(dev):
+    """The wrapper takes the warp design to 8 states and the block above,
+    and the warp design refuses 9 states."""
+    from pythtb_tpu_torch import localization
+
+    sms = _kernels.card(dev)[0]
+    assert [localization._lyapunov_design(S, 512, 1, sms) for S in (8, 9)] == ["warp", "block"]
+    A, hinv, Bm, w, Q0, l0 = _lyapunov_case(9, 1, dev, 199)
+    with pytest.raises(ValueError, match="at most 8 states"):
+        localization.lyapunov_chunk(A, hinv, Bm, w, Q0, l0, 8, "warp")
+
+
+def test_lyapunov_chunks_match_one_launch(dev):
+    """The warp design carries its frames across launches: 64 steps in two
+    chunks of 32 give one launch's bits."""
+    from pythtb_tpu_torch import localization
+
+    A, hinv, Bm, w, Q0, l0 = _lyapunov_case(8, 2, dev, 198)
+    _, one = localization.lyapunov_chunk(A, hinv, Bm, w, Q0.clone(), l0.clone(), 8)
+    Q1, l1 = localization.lyapunov_chunk(A, hinv, Bm, w[:32].contiguous(), Q0.clone(), l0.clone(), 8)
+    _, two = localization.lyapunov_chunk(A, hinv, Bm, w[32:].contiguous(), Q1, l1, 8)
+    assert torch.equal(one, two)
+
+
 def test_green_function_slice_goes_through_kernels(dev):
     """landauer_transmission, multi_terminal, lyapunov_spectrum, t_matrix
     and cpa on the card launch kernels 12G, 18, 16 and 13 and agree with
@@ -1240,6 +1314,47 @@ def _silicon_overlaps(nk, dev):
     V0, _ = wannier._project_gauge(u, torch.eye(8, dtype=torch.complex128, device=dev)[:4], False)
     nbr, w_b, b_cart = wannier._shells_on(si, nk, dev)
     return wannier._rotated_overlaps(u, V0, nbr), nbr, w_b, b_cart
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2])
+def test_mv_run_kernel_short_runs(dev, steps):
+    """The run kernel at 0, 1 and 2 steps against the plain run at 1e-12:
+    one launch carries the steps (none at 0), one more the closing pair."""
+    from pythtb_tpu_torch import wannier
+
+    M0, nbr, w_b, b_cart = _mv_inputs(280 + steps, 64, 8, 4, dev)
+    before = dict(_kernels.LAUNCHES)
+    U, hist, (rbar, oi, ot) = wannier.mv_localize(M0, nbr, w_b, b_cart, steps, 0.5)
+    assert _kernels.LAUNCHES["mv_step"] - before["mv_step"] == int(steps > 0)
+    assert _kernels.LAUNCHES["mv_final"] - before["mv_final"] == 1
+    Up, hp, (rp, oip, otp) = wannier._mv_run_plain(M0, nbr, w_b, b_cart, steps, 0.5 / (4.0 * float(w_b.sum())))
+    assert hist.shape == hp.shape
+    for a, b in ((U, Up), (hist, hp), (rbar, rp), (oi, oip), (ot, otp)):
+        if b.numel():
+            assert _max_diff(a, b) < TOL * max(1.0, float(b.abs().max()))
+
+
+def test_mv_run_kernel_history_step_by_step(dev):
+    """A 60-step run at 10 times the default step size: the bold driver
+    takes both branches (13 rises of the spread on the plain run), and
+    each step's spread meets the plain run's at 1e-10 relative (the
+    trajectory's own sensitivity, measured on the plain run, is 6e-14)
+    and the spread of chained single steps (``mv_step``) at 1e-12."""
+    from pythtb_tpu_torch import wannier
+
+    M0, nbr, w_b, b_cart = _mv_inputs(290, 64, 8, 4, dev)
+    alpha = 5.0
+    eps0 = alpha / (4.0 * float(w_b.sum()))
+    _, hist, _ = wannier.mv_localize(M0, nbr, w_b, b_cart, 60, alpha)
+    _, hp, _ = wannier._mv_run_plain(M0, nbr, w_b, b_cart, 60, eps0)
+    torch.cuda.synchronize()
+    assert 0 < int((hp[1:] > hp[:-1]).sum()) < 59  # both branches of the rule
+    U = torch.eye(4, dtype=torch.complex128, device=dev).expand(64, 4, 4).contiguous()
+    dW, eps, om = torch.zeros_like(U), eps0, math.inf
+    for i in range(60):
+        assert abs(float(hist[i]) - float(hp[i])) <= 1e-10 * abs(float(hp[i])), i
+        U, dW, eps, om = wannier.mv_step(M0, nbr, w_b, b_cart, U, dW, float(eps), float(om), eps0)
+        assert abs(float(om) - float(hist[i])) <= 1e-12 * abs(float(hist[i])), i
 
 
 def test_mv_localize_kernel_whole_run(dev):

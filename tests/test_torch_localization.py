@@ -149,3 +149,38 @@ def test_errors_match_jax():
         with pytest.raises(PythtbError) as got:
             getattr(localization, name)(*pargs, **kwargs)
         assert str(got.value) == str(want.value)
+
+
+def _csrc_constant(name, source):
+    """An ``int`` constexpr of a CUDA source of the port."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(localization.__file__).resolve().parent / "csrc" / source).read_text()
+    return int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+
+
+@pytest.mark.parametrize("S,nE,ndis,sms,want", [
+    (8, 512, 1, 132, "warp"),   # the Lyapunov row
+    (1, 512, 1, 132, "warp"),
+    (3, 5, 2, 132, "warp"),
+    (8, 1, 1, 132, "warp"),     # the clean strip's one chain
+    (8, 4096, 4, 8, "warp"),
+    (9, 512, 1, 132, "block"),  # past the warp design's 2S = 16 columns
+    (16, 1, 1, 132, "block"),
+    (40, 64, 2, 132, "block"),
+])
+def test_lyapunov_design_line(S, nE, ndis, sms, want):
+    """Kernel 18's design as a function of (S, nE, ndis, SM count): a warp a
+    chain to 8 states a layer, a block above."""
+    assert localization._lyapunov_design(S, nE, ndis, sms) == want
+    code, most = localization._LYAPUNOV_DESIGNS[want]
+    assert S <= most
+
+
+def test_lyapunov_designs_match_the_kernel_source():
+    """The wrapper's limits are csrc/lyapunov.cu's: the warp design to
+    kWarpMaxS states, the block design to kMaxS (LYAPUNOV_MAX_S)."""
+    assert localization._LYAPUNOV_DESIGNS["warp"][1] == _csrc_constant("kWarpMaxS", "lyapunov.cu")
+    assert localization._LYAPUNOV_DESIGNS["block"][1] == _csrc_constant("kMaxS", "lyapunov.cu")
+    assert localization.LYAPUNOV_MAX_S == _csrc_constant("kMaxS", "lyapunov.cu")

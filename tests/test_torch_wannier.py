@@ -320,3 +320,44 @@ def test_validation():
         wannier.disentangled_interpolator(m, nw=2, nk=4, window=(-1.4, -1.2))
     with pytest.raises(PythtbError, match="frozen"):
         wannier.disentangled_interpolator(m, nw=2, nk=4, window=(-6, 6), frozen=(-7, 0))
+
+
+def _csrc_constant(name):
+    """An ``int`` constexpr of csrc/mv_step.cu."""
+    import re
+
+    text = (pathlib.Path(wannier.__file__).resolve().parent / "csrc" / "mv_step.cu").read_text()
+    return int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+
+
+@pytest.mark.parametrize("B,nb,n,sms,want", [
+    (512, 8, 4, 132, "grid"),   # the silicon row
+    (512, 8, 1, 132, "grid"),
+    (64, 12, 8, 132, "grid"),
+    (36, 6, 3, 8, "grid"),
+    (36, 6, 9, 132, "block"),   # the BN 3x3 supercell, nw 9
+    (8, 6, 32, 132, "block"),
+])
+def test_mv_design_line(B, nb, n, sms, want):
+    """Kernel 19's design as a function of (B, nb, nw, SM count): the run
+    kernel to 8 Wannier functions, three block launches a step above."""
+    assert wannier._mv_design(B, nb, n, sms) == want
+    assert n <= wannier._MV_DESIGNS[want]
+
+
+@pytest.mark.parametrize("B,want", [(1, 1), (4, 1), (5, 2), (64, 16), (512, 128), (4096, 1024)])
+def test_mv_partial_sums_hold_every_block(B, want):
+    """The run kernel's partial sums are sized for its largest grid: a
+    k-point a warp, four warps a block, so B / 4 blocks at most."""
+    assert wannier._mv_red_blocks(B) == want
+
+
+def test_mv_run_sizes_match_the_kernel_source():
+    """The wrapper's sizes are csrc/mv_step.cu's: warps a block of the run
+    kernel, its largest nw, the partial sums a block, every phase, the
+    block path's largest nw."""
+    assert wannier._MV_GRID_WARPS == _csrc_constant("kMVGridWarps")
+    assert wannier._MV_DESIGNS["grid"] == _csrc_constant("kMVRunMaxN")
+    assert wannier._MV_RED_STRIDE == 3 * _csrc_constant("kMVRunMaxN") + 2 + 1
+    assert wannier._MV_PHASES == _csrc_constant("kMVPhases")
+    assert wannier._MV_DESIGNS["block"] == wannier._KERNEL_MAX_NW == _csrc_constant("kMVBlockMaxN")
