@@ -103,7 +103,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    whole run in one cooperative launch) and block design against the
    plain step at nw 1 / 4 / 8, both branches of the step-size rule, the
    silicon 400-step run on the block design, each design's device time a
-   step, the run kernel's split by phase and its launches a run;
+   step, the run kernel's split by phase and its launches a run; the
+   eighteenth slice's kernel 14 follow mode (the selection scan split from
+   the polar factors) at the slab, the pump, Kane-Mele 41^2, random 9 x 7
+   frames at NS 9-64 and random frames at NS 1-8 (indices identical,
+   1e-12), the slab's call split by kernel, and kernel 17's nine cases
+   called twice, bit for bit;
 4. the main path through the public API, on the card's default device,
    held against a CPU run of the same calls and PythTB's goldens:
    Haldane bands; the 301 x 301 Chern number (wf_array, flows); Kane-Mele
@@ -810,6 +815,7 @@ def phase_kernels(torch, pt, device):
     slice12_kernels(torch, pt, device, record, held)
     slice13_kernels(torch, pt, device, record, held)
     slice17_kernels(torch, pt, device, record, held)
+    slice18_kernels(torch, pt, device, held)
     check(not failures, "; ".join(failures))
     return res
 
@@ -1560,8 +1566,12 @@ def slice5_kernels(torch, pt, device, record, held):
     for name, E, G, mus, kt, kind, jpow, timed, main in cases:
         mu_t = torch.as_tensor(mus).to(device)
         want = fs._fermi_sweep_plain(E, G, mu_t, kt, kind, jpow or [0] * G.shape[0])
-        err = max_diff(torch, fs.fermi_sweep(E, G, mu_t, kt, kind, jpow), want)
+        got = fs.fermi_sweep(E, G, mu_t, kt, kind, jpow)
+        err = max_diff(torch, got, want)
         label = "%s M=%d T=%d P=%d" % (name, len(mus), E.shape[0], G.shape[0])
+        # the chunks' sums are added in a fixed order
+        check(torch.equal(got, fs.fermi_sweep(E, G, mu_t, kt, kind, jpow)),
+              "fermi_sweep %s: two calls differ in their bits" % label)
         scale = float(want.abs().max())
         lib = None
         if main:
@@ -2248,6 +2258,74 @@ def slice17_kernels(torch, pt, device, record, held):
              {k: _kernels.LAUNCHES[k] - before[k] for k in ("mv_step", "mv_final")}))
 
 
+FOLLOW18_NS = (1, 2, 3, 4, 5, 6, 7, 8)  # kernel 14's follow below 9 stored states
+FOLLOW18_GRIDS = ((9, 7), (41, 41))
+
+
+def slice18_kernels(torch, pt, device, held):
+    """Phase 3 for the eighteenth slice's redesign of kernel 14's follow
+    mode (the selection scan split from the polar factors) against the
+    plain version -- the followed indices identical, fidelity and states
+    at 1e-12 -- with its device time (CUDA events) and the designs of its
+    phases, at the slab (20 of 39 along k1, the main path's call, and k0),
+    the pump along lambda and k, Kane-Mele 41^2 along both axes, random 9 x
+    7 frames at NS 9 / 12 / 16 / 32 / 64, and random frames at NS 1-8 (9 x
+    7 and 41 x 41, nocc 1, NS / 2 and up to 4); the slab's call split by
+    kernel (profiler device times).  Kernel 17's redesign is held and timed
+    in slice 5's rows."""
+    from pythtb_tpu_torch.ops import _kernels, solver, transport
+
+    card = _kernels.card(device)
+    rng = np.random.default_rng(18)
+
+    def follow(key, w5, occ):
+        occ_t = torch.as_tensor(occ, dtype=torch.int64, device=device)
+        outer, L, inner, NS, F = w5.shape
+        ip, fp, sp = transport._follow_plain(w5, occ_t)
+        idx, fid, st = transport._follow(w5, occ_t)
+        check(torch.equal(idx, ip), "transport_follow %s: the followed indices differ from the plain version" % key)
+        held("transport_follow", key, max(max_diff(torch, fid, fp), max_diff(torch, st, sp)))
+        print("  %-15s %-34s polar factors, states: %s; device us (CUDA events): %.1f"
+              % ("transport_follow", key, ", ".join(transport._follow_path(NS, len(occ), F, outer * inner, L, *card)),
+                 event_us(torch, lambda: transport._follow(w5, occ_t), 5)))
+        return occ_t
+
+    slab = cubic_slab(pt)
+    sd = slab._get_finalized()
+    _, _, ws = solver.solve_grid_device(sd, (41, 41), (0.0, 0.0), slab._orb, slab._per, 1)
+    occ = list(range(S10["smooth_occ"]))
+    for axis in (1, 0):
+        w5 = transport._strings(ws, 1, 2, axis)[0].contiguous()
+        occ_t = follow("slab 41x41 along k%d, %d of 39" % (axis, len(occ)), w5, occ)
+        if axis == 1:
+            top, total = device_top(torch, lambda: transport._follow(w5, occ_t), n=5, reps=5)
+            print("  %-15s %-34s split by kernel, device us (profiler): %s; total %s"
+                  % ("transport_follow", "slab 41x41 along k1", "; ".join(
+                      "%s %.1f" % (name.split("(")[0].replace("void ", ""), us) for name, us in top), fmt(total)))
+    del ws, w5
+    wp, _ = pump_grid(pt)
+    kmw = pt.wf_array(pt.models.kane_mele(), [S8["km_grid"]] * 2)
+    kmw.solve_on_grid([0.0, 0.0])
+    for key, wf, nspin, occ in (("pump 41x31", wp, 1, [0]), ("kane_mele 41x41 nspin 2", kmw, 2, [0, 1])):
+        for axis in (0, 1):
+            follow("%s along %s, nocc %d" % (key, ("lambda" if key.startswith("pump") and axis == 0 else "k%d" % axis),
+                                            len(occ)), transport._strings(wf._device_states(), nspin, 2, axis)[0]
+                   .contiguous(), occ)
+
+    def frames(grid, NS, F):
+        z = rng.normal(size=grid + (F, NS)) + 1j * rng.normal(size=grid + (F, NS))
+        fr = torch.as_tensor(np.ascontiguousarray(np.swapaxes(np.linalg.qr(z)[0], -1, -2))).to(device)
+        return transport._strings(fr, 1, 2, 0)[0].contiguous()
+
+    for S in LARGE_S:
+        NS = min(S + 2, 64)
+        follow("random 9x7 frames, %d of %d" % (S, NS), frames((9, 7), NS, NS + 4), list(range(S)))
+    for grid in FOLLOW18_GRIDS:
+        for NS in FOLLOW18_NS:
+            for nocc in sorted({1, max(1, NS // 2), min(4, NS)}):
+                follow("random %dx%d, %d of %d" % (grid + (nocc, NS)), frames(grid, NS, NS + 2), list(range(nocc)))
+
+
 # -- the seventh slice: kernel 7, kernel 1's flux-batch mode, the rest of
 # flows, the Hofstadter solver and model families ---------------------------
 
@@ -2422,9 +2500,10 @@ def slice7_kernels(torch, pt, device, record, held):
         if not timed:
             held("eigh_jacobi", key + " eigenvalues", err_w, scale=scale)
             return
+        # the plain Jacobi's profile (3 calls of ~0.8 s, their events lost) is left out: ~55 s of the time limit
         record("eigh_jacobi", key, err_w, lambda: eigh.eigh_jacobi(H), lambda: eigh._eigh_jacobi_plain(H), cost,
                main, cuda_ms(torch, lambda: torch.linalg.eigh(H), 3), reps=5, scale=scale, prof_reps=3,
-               prof_plain=main, profile=True)
+               prof_plain=False, profile=True)
 
     for m in JACOBI_M:
         hold("random B=64 m=%d" % m, hermitian(64, m))
@@ -5828,6 +5907,8 @@ def phase_walls(torch, pt, card):
             lambda: slab10.berry_phase(occ10, dir=0, contin=False), 5, 3),
         "wf_array.smooth_gauge slab 41x41, 20 states (kernel 14 S 20)": (
             lambda: slab10.smooth_gauge(occ10, dir=0, closed=True), 5, 3),
+        "wf_array.adiabatic_evolve slab 41x41, 20 of 39 states along k1 (kernel 14 follow)": (
+            lambda: slab10.adiabatic_evolve(occ10, dir=1), 5, 3),
         "wannier.interpolator BN 3x3 nw 9, 6^2 x 100 MV steps -> 12^2": (bn_mlwf, 3, 1),
     })
     # the eleventh slice's calls
@@ -5882,10 +5963,13 @@ def phase_walls(torch, pt, card):
           "max |density diff| %.3e, |mu diff| %.3e" % (
               a["iters"], b["iters"], max(np.abs(a["n_up"] - b["n_up"]).max(), np.abs(a["n_dn"] - b["n_dn"]).max()),
               abs(a["mu"] - b["mu"])))
-    # the walls behind kernels 14, 11b and kernel 7 below 33 states
+    # the walls behind kernels 14, 17, 11b and kernel 7 below 33 states
     # also get the span between two CUDA events around a call (host waits
     # inside the call in it) and the launches of their kernels a call
     spans = {"wf_array.smooth_gauge slab 41x41, 20 states (kernel 14 S 20)": ("transport_chain", "transport_rotate"),
+             "wf_array.adiabatic_evolve slab 41x41, 20 of 39 states along k1 (kernel 14 follow)": ("transport_follow",),
+             "boltzmann.transport_coefficients 512^2 201 mu": ("fermi_sweep", "assemble_dk"),
+             "boltzmann.edelstein 256^2 201 mu": ("fermi_sweep",),
              "ed.hubbard 8-ring U 4, 4,900-dim sector, lowest 4": ("dense_filter", "eigh_jacobi"),
              "phonon.thermal_conductivity honeycomb 768^2 x 40 T (kernels 1, 15, 25)": (
                  "eigh_jacobi", "phonon_kappa", "assemble", "assemble_dk"),

@@ -73,3 +73,41 @@ __device__ __forceinline__ void dmma16(double (&d)[4], double a0, double a1, dou
         : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
         : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
 }
+
+// mbarriers in shared memory (sm_90; kernels 11b and 14)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(smem_u32(bar)), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// TMA's one-dimensional copy: `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) from device memory to shared memory, completing on
+// bar's transaction count
+__device__ __forceinline__ void tma_load_1d(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(bytes), "r"(smem_u32(bar))
+                 : "memory");
+}

@@ -278,33 +278,6 @@ constexpr unsigned kTcBBytes = kTcK * 8 * sizeof(cplx);        // 8 rows x one n
 __host__ __device__ constexpr unsigned tc_stage_bytes(int NT) { return kTcKB * (kTcHBytes + NT * kTcBBytes); }
 __host__ __device__ constexpr unsigned tc_smem(int NT) { return kTcStages * tc_stage_bytes(NT) + 1024; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem_u32(bar)), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
 // TMA: the box of `map` at (x, y) (x the inner coordinate, in doubles) into
 // dst, completing on bar's transaction count; with an L2 cache-policy hint
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar,

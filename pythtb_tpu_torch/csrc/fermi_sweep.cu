@@ -16,17 +16,29 @@
 //   4 -df/de    f (1 - f) / kT, in the stable form e^-|x| / ((1 + e^-|x|)^2 kT)
 //   5 gauss     exp(-x^2 / 2) / (kT sqrt(2 pi))
 //
-// What bounds it on the H100: the bytes of G (P T doubles), which each
-// block reads once for its chemical potential.  Design: one block per
-// (mu, group of up to kGroup columns); its threads stride over T
-// (neighbouring threads read neighbouring t), compute the weight once per
-// t in registers, keep one partial sum per column, and reduce them with a
-// fixed-order tree in shared memory.  The (M, B, S) arrays of the JAX
-// programs (843 MB each at Boltzmann 512^2, M 201) are never formed.
+// What bounds it on the H100: the operations -- a weight (an exp and a
+// division for most kinds) for every (mu, t), then P multiply-adds; G (P T
+// doubles, 67 MB at Boltzmann 512^2, more than the 50 MB L2) is read once.
+// Design: the grid splits t into chunks (ops/fermi_sweep.py:_sweep_layout:
+// about four blocks an SM), and a block takes a chunk, a group of up to
+// kMaxCols slots -- G's rows sorted by power, each aligned run of kRun slots
+// of one power -- and up to kSweepMaxMu chemical potentials, a thread each.
+// It streams its chunk's E and G through shared memory in tiles of
+// kSweepTile t, the next tile in flight by cp.async while the current one is
+// swept; every thread reads the same t at once (a broadcast), forms its
+// weight once, picks its power once a run, and adds it into a register sum
+// for every slot.  So each element of G leaves device memory once and each
+// weight is computed once per (mu, t) and slot group (once wherever the
+// slots number at most 16: every caller but 3-D Boltzmann).
+// The blocks write their sums to a fixed scratch layout (chunk, mu, slot); a
+// second launch adds the chunks in chunk order, so two calls give the same
+// bits.  The (M, B, S) arrays of the JAX programs (843 MB each at Boltzmann
+// 512^2, M 201) are never formed.
 #include "common.cuh"
 
-constexpr int kSweepThreads = 256;
-constexpr int kGroup = 8;
+constexpr int kSweepTile = 128;    // t a shared-memory tile
+constexpr int kSweepMaxMu = 256;   // chemical potentials (threads) a block
+constexpr int kMaxCols = 16;       // columns a block
 
 __device__ __forceinline__ double fermi_f(double x) {  // 1 / (1 + e^x), stable
     if (x >= 0.0) {
@@ -87,82 +99,198 @@ __device__ double spence(double x) {
     return y;
 }
 
-__device__ double sweep_weight(int kind, double d, double kt) {
-    if (kind == 0) return d <= 0.0 ? 1.0 : 0.0;
-    const double x = d / kt;
-    switch (kind) {
-        case 1:
+// The weight of kind kKind at d = E - mu; inv_kt = 1 / kT, a
+// multiplication where the plain version divides.
+template <int kKind>
+__device__ __forceinline__ double sweep_weight(double d, double inv_kt) {
+    if constexpr (kKind == 0) {
+        return d <= 0.0 ? 1.0 : 0.0;
+    } else {
+        const double x = d * inv_kt;
+        if constexpr (kKind == 1) {
             return fermi_f(x);
-        case 2:
+        } else if constexpr (kKind == 2) {
             return x * fermi_f(x) + softplus_neg(x);
-        case 3: {
+        } else if constexpr (kKind == 3) {
             // the closed form at |x| (every term bounded by pi^2/6), then
             // the reflection W(-x) = pi^2/3 - W(x); the clip keeps e^-x finite
             const double xa = fabs(x);
             const double w = xa * xa * fermi_f(xa) + 2.0 * xa * softplus_neg(xa) -
                              2.0 * spence(1.0 + exp(-fmin(xa, 30.0)));
             return x < 0.0 ? 3.2898681336964528729448303332920 - w : w;
-        }
-        case 4: {
+        } else if constexpr (kKind == 4) {
             const double e = exp(-fabs(x));
-            return e / ((1.0 + e) * (1.0 + e) * kt);
+            return e * inv_kt / ((1.0 + e) * (1.0 + e));
+        } else {
+            return exp(-0.5 * x * x) * (inv_kt * 0.39894228040143267793994605993438);  // 1 / sqrt(2 pi)
         }
-        default:
-            return exp(-0.5 * x * x) / (kt * 2.5066282746310005024157652848110);
     }
 }
 
-__global__ void fermi_sweep_kernel(const double* __restrict__ E, const double* __restrict__ G,
-                                   const int* __restrict__ jpow, const double* __restrict__ mu,
-                                   double* __restrict__ out, int64_t T, int P, double kt, int kind) {
-    __shared__ double red[kGroup][kSweepThreads];
-    const int m = blockIdx.x;
-    const int p0 = blockIdx.y * kGroup;
-    const int np = min(kGroup, P - p0);
-    const int tid = threadIdx.x;
-    const double mu_m = mu[m];
-    int jp[kGroup];
-    double acc[kGroup];
+// One staged tile: n terms, each weighed once for the thread's mu and
+// added, times the run's power of E - mu, into every slot's sum.  The kind
+// is a template parameter of the kernel: one instance a kind keeps each
+// instance's registers to its own weight (more blocks an SM).
+template <int kKind, int kCols, int kRuns>
+__device__ __forceinline__ void sweep_tile(const double* __restrict__ Es, const double2* __restrict__ Gs, int n,
+                                           double mu, double inv_kt, const int (&jr)[kRuns], double (&acc)[kCols]) {
+    constexpr int kPairs = kCols / kRuns / 2;  // pairs of slots a run
+#pragma unroll 2
+    for (int tt = 0; tt < n; ++tt) {
+        const double d = Es[tt] - mu;
+        const double w0 = sweep_weight<kKind>(d, inv_kt);
+        const double w1 = w0 * d, w2 = w1 * d;
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-        jp[j] = j < np ? jpow[p0 + j] : 0;
-        acc[j] = 0.0;
-    }
-    for (int64_t t = tid; t < T; t += kSweepThreads) {
-        const double d = E[t] - mu_m;
-        const double w0 = sweep_weight(kind, d, kt);
-        const double w1 = w0 * d;
-        const double w2 = w1 * d;
+        for (int r = 0; r < kRuns; ++r) {
+            const double wr = jr[r] == 0 ? w0 : (jr[r] == 1 ? w1 : w2);
 #pragma unroll
-        for (int j = 0; j < kGroup; ++j) {
-            if (j < np) {
-                const double wj = jp[j] == 0 ? w0 : (jp[j] == 1 ? w1 : w2);
-                acc[j] += G[(int64_t)(p0 + j) * T + t] * wj;
+            for (int h = 0; h < kPairs; ++h) {
+                const int q = r * kPairs + h;
+                const double2 g = Gs[q * kSweepTile + tt];
+                acc[2 * q] += g.x * wr;
+                acc[2 * q + 1] += g.y * wr;
             }
         }
     }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) red[j][tid] = acc[j];
-    __syncthreads();
-    for (int s = kSweepThreads / 2; s > 0; s >>= 1) {
-        if (tid < s) {
-#pragma unroll
-            for (int j = 0; j < kGroup; ++j) red[j][tid] += red[j][tid + s];
-        }
-        __syncthreads();
-    }
-    if (tid < np) out[(int64_t)m * P + p0 + tid] = red[tid][0];
 }
 
-// Kernel 17.  E (T,) f64; G (P, T) f64; jpow (P,) i32 in {0, 1, 2};
-// mu (M,) f64; out (M, P) f64.  kind as above; kT > 0 unless kind 0.
-extern "C" int pythtb_fermi_sweep(const void* E, const void* G, const void* jpow, const void* mu, void* out,
-                                  int64_t T, int64_t P, int64_t M, double kt, int64_t kind, void* stream) {
-    if (M > 0 && P > 0) {
-        dim3 grid((unsigned int)M, (unsigned int)((P + kGroup - 1) / kGroup));
-        fermi_sweep_kernel<<<grid, kSweepThreads, 0, (cudaStream_t)stream>>>(
-            (const double*)E, (const double*)G, (const int*)jpow, (const double*)mu, (double*)out, T, (int)P, kt,
-            (int)kind);
+// Block (chunk c, slot group g, mu block b): threads m = b blockDim + tid
+// over mu, the slots [g kCols, g kCols + kCols) -- G's rows in an order
+// the wrapper lays out (ops/fermi_sweep.py:_sweep_layout): sorted by power,
+// each aligned run of kRun slots of one power, -1 for a slot of zeros --
+// and t over [c chunk, c chunk + chunk) in tiles staged by cp.async in two
+// buffers, each of kSweepTile E values and the slots' G values (pairs of
+// slots interleaved, so a thread reads two at once).  One select of the
+// weight's power serves a run.  Sums into part[(c M + m) nslots + slot].
+constexpr int kRun = 4;
+
+template <int kCols, int kKind>
+__global__ void __launch_bounds__(kSweepMaxMu)
+fermi_sweep_chunk_kernel(const double* __restrict__ E, const double* __restrict__ G, const int* __restrict__ slots,
+                         const int* __restrict__ rpow, const double* __restrict__ mu, double* __restrict__ part,
+                         int64_t T, int M, int nslots, int64_t chunk, double inv_kt) {
+    constexpr int kStage = kSweepTile * (kCols + 1);  // doubles a buffer
+    extern __shared__ __align__(16) double smem[];
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int64_t c = blockIdx.x;
+    const int s0 = blockIdx.y * kCols;
+    const int m = blockIdx.z * nt + tid;
+    const double mu_m = mu[min(m, M - 1)];
+    int jr[kCols / kRun];
+#pragma unroll
+    for (int r = 0; r < kCols / kRun; ++r) jr[r] = rpow[s0 / kRun + r];
+    double acc[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] = 0.0;
+    const int64_t t0 = c * chunk, t1 = min(T, t0 + chunk);
+    const int tiles = (int)((t1 - t0 + kSweepTile - 1) / kSweepTile);
+    auto stage = [&](int k) {
+        double* Es = smem + (k & 1) * kStage;
+        double* Gs = Es + kSweepTile;
+        const int64_t ts = t0 + (int64_t)k * kSweepTile;
+        const int n = (int)min((int64_t)kSweepTile, t1 - ts);
+        for (int e = tid; e < kSweepTile; e += nt) cp_async8(Es + e, e < n ? E + ts + e : E, e < n);
+        for (int e = tid; e < kCols * kSweepTile; e += nt) {
+            const int j = e / kSweepTile, tt = e - j * kSweepTile;
+            const int row = slots[s0 + j];
+            const bool ok = row >= 0 && tt < n;
+            cp_async8(Gs + 2 * ((j >> 1) * kSweepTile + tt) + (j & 1), ok ? G + (int64_t)row * T + ts + tt : G, ok);
+        }
+        cp_async_commit();
+    };
+    stage(0);
+    for (int k = 0; k < tiles; ++k) {
+        if (k + 1 < tiles)
+            stage(k + 1);
+        else
+            cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const double* Es = smem + (k & 1) * kStage;
+        const double2* Gs = (const double2*)(Es + kSweepTile);
+        const int n = (int)min((int64_t)kSweepTile, t1 - t0 - (int64_t)k * kSweepTile);
+        sweep_tile<kKind>(Es, Gs, n, mu_m, inv_kt, jr, acc);
+        __syncthreads();  // the buffer is read out before the next tile's copies refill it
     }
+    if (m < M) {
+        double* out = part + ((int64_t)c * M + m) * nslots + s0;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) out[j] = acc[j];
+    }
+}
+
+// out[m, slots[s]] = the chunks' sums part[c M nslots + m nslots + s] added
+// in chunk order (none for a slot of zeros): a block takes 32 (m, s)
+// entries, eight lanes each adding every eighth chunk, then the eight
+// partial sums in lane order.
+__global__ void __launch_bounds__(256)
+fermi_sweep_sum_kernel(const double* __restrict__ part, const int* __restrict__ slots, double* __restrict__ out,
+                       int64_t chunks, int64_t M, int nslots, int P) {
+    __shared__ double red[8][32];
+    const int j = threadIdx.x, lane = threadIdx.y;
+    const int64_t MS = M * nslots;
+    const int64_t e = (int64_t)blockIdx.x * 32 + j;
+    double sum = 0.0;
+    if (e < MS)
+        for (int64_t c = lane; c < chunks; c += 8) sum += part[c * MS + e];
+    red[lane][j] = sum;
+    __syncthreads();
+    if (lane == 0 && e < MS) {
+        const int col = slots[e % nslots];
+        double r = red[0][j];
+#pragma unroll
+        for (int k = 1; k < 8; ++k) r += red[k][j];
+        if (col >= 0) out[(e / nslots) * P + col] = r;
+    }
+}
+
+// Kernel 17.  E (T,) f64; G (P, T) f64; slots (nslots,) i32 and rpow
+// (nslots / kRun,) i32, the wrapper's layout of G's rows and their powers
+// in {0, 1, 2}; mu (M,) f64; part (chunks M nslots) f64 scratch; out (M,
+// P) f64.  kind as above; kT > 0 unless kind 0.  The launch layout
+// (ops/fermi_sweep.py:_sweep_layout): t chunks of `chunk` (a multiple of
+// kSweepTile), slot groups of `cols` (4, 8 or 16; nslots a multiple) and
+// mu blocks of `threads` (a multiple of 32, at most kSweepMaxMu).
+extern "C" int pythtb_fermi_sweep(const void* E, const void* G, const void* slots, const void* rpow, const void* mu,
+                                  void* part, void* out, int64_t T, int64_t P, int64_t M, int64_t nslots,
+                                  int64_t chunk, int64_t cols, int64_t threads, double kt, int64_t kind,
+                                  void* stream) {
+    if (M <= 0 || P <= 0) return (int)cudaGetLastError();
+    if (chunk < 1 || chunk % kSweepTile || threads < 32 || threads > kSweepMaxMu || threads % 32 || cols < kRun ||
+        nslots % cols || kind < 0 || kind > 5)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int64_t chunks = (T + chunk - 1) / chunk;
+    if (chunks > 0) {
+        const dim3 grid((unsigned int)chunks, (unsigned int)(nslots / cols),
+                        (unsigned int)((M + threads - 1) / threads));
+        const size_t bytes = 2 * (size_t)kSweepTile * (cols + 1) * sizeof(double);
+        const double inv_kt = kind == 0 ? 0.0 : 1.0 / kt;
+#define SWEEP(K, KIND)                                                                                     \
+    fermi_sweep_chunk_kernel<K, KIND><<<grid, (unsigned int)threads, bytes, st>>>(                         \
+        (const double*)E, (const double*)G, (const int*)slots, (const int*)rpow, (const double*)mu,            \
+        (double*)part, T, (int)M, (int)nslots, chunk, inv_kt)
+#define KINDS(K)                                      \
+    switch (kind) {                                   \
+        case 0: SWEEP(K, 0); break;                   \
+        case 1: SWEEP(K, 1); break;                   \
+        case 2: SWEEP(K, 2); break;                   \
+        case 3: SWEEP(K, 3); break;                   \
+        case 4: SWEEP(K, 4); break;                   \
+        default: SWEEP(K, 5); break;                  \
+    }
+        switch (cols) {
+            case 4: KINDS(4); break;
+            case 8: KINDS(8); break;
+            case kMaxCols: KINDS(kMaxCols); break;
+            default: return (int)cudaErrorInvalidValue;
+        }
+#undef KINDS
+#undef SWEEP
+        const int rc = (int)cudaGetLastError();
+        if (rc != 0) return rc;
+    }
+    fermi_sweep_sum_kernel<<<(unsigned int)((M * nslots + 31) / 32), dim3(32, 8), 0, st>>>(
+        (const double*)part, (const int*)slots, (double*)out, chunks, M, (int)nslots, (int)P);
     return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@
 // memory, staging chunks of both state panels there by cp.async; the
 // panels' rows are either the first S rows of wa and wb (rows null) or
 // rows[0..S) of them (kernel 14's selected states, gathered by the
-// staging copies themselves).
+// staging copies themselves; rows_b, where given, lists wb's).
 // team_jacobi is the one-sided (Hestenes) Jacobi of polar.cuh on M's
 // columns, giving M V = U diag(sigma), with the same rotation, tolerance
 // and sweep limit; only the work split differs.  A sweep's S (S - 1) / 2
@@ -58,12 +58,13 @@ __host__ __device__ inline size_t link_smem(int S) {
     return (size_t)S * (link_ld(S) + link_vld(S)) * sizeof(cplx) + 2 * (size_t)S * sizeof(double);
 }
 
-// M = <wa | wb>: M[n][m] = sum_f conj(wa[r_n][f]) wb[r_m][f], r_n = n
-// (rows null) or rows[n].  `stage` holds 2 S kc complex entries (kc =
-// link_chunk(S)).
+// M = <wa | wb>: M[n][m] = sum_f conj(wa[r_n][f]) wb[q_m][f], r_n = n
+// (rows null) or rows[n], q_m = r_m or rows_b[m].  `stage` holds 2 S kc
+// complex entries (kc = link_chunk(S)).
 template <int kTeam>
 __device__ void team_overlap(const cplx* __restrict__ wa, const cplx* __restrict__ wb, cplx* M, cplx* stage,
-                             int S, int F, const int64_t* __restrict__ rows = nullptr) {
+                             int S, int F, const int64_t* __restrict__ rows = nullptr,
+                             const int64_t* __restrict__ rows_b = nullptr) {
     const int tt = threadIdx.x % kTeam;
     const int ld = link_ld(S), kc = link_chunk(S);
     cplx* A = stage;
@@ -74,7 +75,7 @@ __device__ void team_overlap(const cplx* __restrict__ wa, const cplx* __restrict
         for (int e = tt; e < 2 * S * nf; e += kTeam) {
             const int panel = e / (S * nf), rest = e % (S * nf);
             const int n = rest / nf, f = rest % nf;
-            const int64_t r = rows ? rows[n] : n;
+            const int64_t r = rows ? (panel && rows_b ? rows_b[n] : rows[n]) : n;
             cp_async16((panel ? B : A) + n * kc + f, (panel ? wb : wa) + r * F + f0 + f);
         }
         cp_async_commit();

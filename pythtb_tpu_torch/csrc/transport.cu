@@ -18,14 +18,13 @@
 //           kernel writes every row of the output grid: the occ rows
 //           rotated, the others copied bit for bit, so the grid is read
 //           once and written once.
-//   follow  one thread per string walks the L - 1 steps of the adiabatic
-//           scan: the overlaps of the NOCC transported states with all NS
-//           states of the next point, the squared-overlap weights, the
-//           NOCC largest (ties to the lower index, as jax.lax.top_k) with
-//           their indices sorted ascending, the polar factor of the selected
-//           NOCC x NOCC block and the new transported states conj(U) w_sel.
-//           Per step it writes the indices, the captured fraction and the
-//           states; the next step reads the states back from the output.
+//   follow  the adiabatic scan of each string: at each step l = 1 .. L - 1
+//           the overlaps of the nocc transported states with all NS states
+//           of point l, the squared-overlap weights, the nocc largest (ties
+//           to the lower index, as jax.lax.top_k) with their indices sorted
+//           ascending, the polar factor of the selected nocc x nocc block
+//           and the new transported states conj(U) w_sel.  Writes the
+//           indices, the captured fraction and the states of every step.
 //
 // What bounds it on the H100: bytes at small S (the chain reads the
 // selected rows once per string, rotate reads the grid once and writes it
@@ -62,15 +61,28 @@
 // products a step (kernel 6's).  The rows of B are independent, so a point
 // split over blocks of 16 rows repeats no product: at few points (63 at S
 // 64) that fills the SMs a block a point would leave idle, and it keeps a
-// block's shared memory within 227 kB at S 64.  Follow keeps its
-// matrices in registers up to 8 states (NS); from 9 to 64 a block of 256
-// threads takes a string, its matrices in dynamic shared memory, the polar
-// factors by polar_factor_block (polar.cuh), the NS weights ranked in
-// parallel (rank = the count of larger weights, ties to the lower index).
-// Larger S is refused.
+// block's shared memory within 227 kB at S 64.
+// Follow, NS to 64, rests on an identity: with f_{l-1} = conj(C_{l-1})
+// w_{sel_{l-1}}, C_0 = I and every C unitary, the overlaps of the
+// transported states are C_{l-1} O_l, O_l = <w_{sel_{l-1}} | w_l> the raw
+// overlaps of the stored states, so the weights (column norms) and the
+// selection do not depend on C; and polar(C_{l-1} A_l) = C_{l-1} polar(A_l)
+// for A_l = O_l[:, sel_l], so C_l = C_{l-1} W_l with W_l = polar(A_l), a
+// chain as in the chain mode.  Five launches: (1) every link's NS x NS
+// weights |<w_{l-1,n} | w_{l,s}>|^2 of the stored states, a team a link
+// over the grid (team_overlap); (2) the selection scan, a warp a string, on
+// those weights alone -- the links' weights staged by TMA three links ahead
+// while a step ranks, no polar factor and no block barrier on the serial
+// path -- writing the indices and the fidelity; (3) A_l from the rows the
+// scan chose and W_l = polar(A_l) for every link at once, into C's slot l
+// (the chain's phase 1 with a row list a point); (4) the prefixes C_l in
+// order (the chain's
+// phase 2); (5) the states conj(C_l)
+// w_{sel_l} at every point, on the rotate's teams or tensor-core tiles with
+// the rows chosen per point.  In floating point the two orders differ by
+// rounding, about L eps, as the chain's prefixes do against the JAX tree
+// scan.  Larger S is refused.
 #include "link_polar.cuh"
-
-constexpr int kMaxStates = 8;
 
 template <int S>
 __global__ void transport_chain_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
@@ -222,90 +234,6 @@ __global__ void transport_rotate_kernel(const cplx* __restrict__ w, const int64_
     }
 }
 
-template <int NOCC>
-__global__ void transport_follow_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
-                                        int64_t* __restrict__ idx, double* __restrict__ fid,
-                                        cplx* __restrict__ states, int64_t outer, int64_t L,
-                                        int64_t inner, int NS, int F) {
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const int64_t nstr = outer * inner;
-    if (t >= nstr) return;
-    const int64_t i = t % inner;
-    const int64_t o = t / inner;
-    const int64_t row = (int64_t)NS * F;
-    const cplx* wbase = w + (o * L * inner + i) * row;
-    cplx* sbase = states + (o * L * inner + i) * NOCC * F;
-    const int64_t sstep = inner * NOCC * F;  // one step of a string in states
-
-    // step 0: the chosen states themselves
-    for (int n = 0; n < NOCC; ++n) {
-        idx[t * NOCC + n] = occ[n];
-        const cplx* src = wbase + occ[n] * F;
-        for (int f = 0; f < F; ++f) sbase[n * F + f] = src[f];
-    }
-    for (int64_t l = 1; l < L; ++l) {
-        const cplx* f0 = sbase + (l - 1) * sstep;  // transported states (NOCC, F)
-        const cplx* wl = wbase + l * inner * row;  // all NS states of point l
-        cplx ovr[NOCC][kMaxStates];
-        double wt[kMaxStates];
-        for (int s = 0; s < NS; ++s) {
-            double acc = 0.0;
-#pragma unroll
-            for (int n = 0; n < NOCC; ++n) {
-                double re = 0.0, im = 0.0;
-                for (int f = 0; f < F; ++f) {
-                    const cplx z = cmul_conj(f0[n * F + f], wl[(int64_t)s * F + f]);
-                    re += z.x;
-                    im += z.y;
-                }
-                ovr[n][s] = make_cuDoubleComplex(re, im);
-                acc += re * re + im * im;
-            }
-            wt[s] = acc;
-        }
-        // the NOCC largest weights, ties to the lower index; then ascending
-        int sel[NOCC];
-        unsigned taken = 0u;
-        double topw = 0.0;
-#pragma unroll
-        for (int r = 0; r < NOCC; ++r) {
-            int best = -1;
-            for (int s = 0; s < NS; ++s)
-                if (!(taken & (1u << s)) && (best < 0 || wt[s] > wt[best])) best = s;
-            taken |= 1u << best;
-            sel[r] = best;
-            topw += wt[best];
-        }
-        {
-            int r = 0;
-            for (int s = 0; s < NS; ++s)
-                if (taken & (1u << s)) sel[r++] = s;
-        }
-        cplx M[NOCC][NOCC];
-#pragma unroll
-        for (int n = 0; n < NOCC; ++n)
-#pragma unroll
-            for (int m = 0; m < NOCC; ++m) M[n][m] = ovr[n][sel[m]];
-        polar_factor<NOCC>(M);
-        cplx* dst = sbase + l * sstep;
-        for (int f = 0; f < F; ++f) {
-            cplx x[NOCC];
-#pragma unroll
-            for (int m = 0; m < NOCC; ++m) x[m] = wl[(int64_t)sel[m] * F + f];
-#pragma unroll
-            for (int n = 0; n < NOCC; ++n) {
-                cplx acc = make_cuDoubleComplex(0.0, 0.0);
-#pragma unroll
-                for (int m = 0; m < NOCC; ++m) acc = cuCadd(acc, cuCmul(cconj(M[n][m]), x[m]));
-                dst[n * F + f] = acc;
-            }
-        }
-#pragma unroll
-        for (int n = 0; n < NOCC; ++n) idx[(l * nstr + t) * NOCC + n] = sel[n];
-        fid[(l - 1) * nstr + t] = topw / NOCC;
-    }
-}
-
 // -- chain, the link path (any S to 64) -------------------------------------
 
 // Phase 1: link t = string * (L - 1) + l of the grid, one team (kTeam
@@ -352,7 +280,8 @@ __host__ __device__ constexpr int prefix_depth() {
 // order, P <- P W_l with W_l read from slot l + 1 and C_{l+1} = P written
 // over it, the next factors arriving by cp.async (a ring of kDepth
 // buffers) while P W_l forms.  The minimum of the string's link singular
-// values into smin_out[s].
+// values into smin_out[s] (none where link_smin is null: the follow mode's
+// chain).
 template <int kTeam>
 __global__ void __launch_bounds__(kTeam)
 transport_prefix_kernel(cplx* __restrict__ C, const double* __restrict__ link_smin, double* __restrict__ smin_out,
@@ -411,7 +340,7 @@ transport_prefix_kernel(cplx* __restrict__ C, const double* __restrict__ link_sm
             }
         }
     }
-    if (tt < 32) {
+    if (link_smin != nullptr && tt < 32) {
         double m = 1.0e300;
         for (int64_t l = tt; l + 1 < L; l += 32) m = fmin(m, link_smin[s * (L - 1) + l]);
         for (int off = 16; off > 0; off >>= 1) m = fmin(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -632,102 +561,223 @@ transport_rotate_team_kernel(const cplx* __restrict__ w, const int64_t* __restri
     }
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
-transport_follow_block_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ occ,
-                              int64_t* __restrict__ idx, double* __restrict__ fid, cplx* __restrict__ states,
-                              int64_t L, int64_t inner, int nocc, int NS, int F) {
-    extern __shared__ double smem[];
-    cplx* M = (cplx*)smem;              // nocc x nocc
-    cplx* V = M + nocc * nocc;          // nocc x nocc
-    cplx* ovr = V + nocc * nocc;        // nocc x NS
-    double* red = (double*)(ovr + nocc * NS);
-    double* wt = red + kPolarRed;       // NS
-    int* rank = (int*)(wt + NS);        // NS
-    int* sel = rank + NS;               // nocc, ascending
-    int* byrank = sel + nocc;           // nocc, by descending weight
-    const int tid = threadIdx.x;
-    const int64_t t = blockIdx.x;  // the string
-    const int64_t nstr = gridDim.x;
-    const int64_t i = t % inner;
-    const int64_t o = t / inner;
-    const int64_t row = (int64_t)NS * F;
-    const cplx* wbase = w + (o * L * inner + i) * row;
-    cplx* sbase = states + (o * L * inner + i) * nocc * F;
-    const int64_t sstep = inner * nocc * F;
+// -- follow, the scan design (NS to 64) -------------------------------------
 
-    for (int n = tid; n < nocc; n += kBlockThreads) idx[t * nocc + n] = occ[n];
-    for (int e = tid; e < nocc * F; e += kBlockThreads) sbase[e] = wbase[occ[e / F] * F + e % F];
-    __syncthreads();
-    for (int64_t l = 1; l < L; ++l) {
-        const cplx* f0 = sbase + (l - 1) * sstep;
-        const cplx* wl = wbase + l * inner * row;
-        for (int e = tid; e < nocc * NS; e += kBlockThreads) {
-            const int n = e / NS, s = e % NS;
-            double re = 0.0, im = 0.0;
-            for (int f = 0; f < F; ++f) {
-                const cplx z = cmul_conj(f0[n * F + f], wl[(int64_t)s * F + f]);
-                re += z.x;
-                im += z.y;
-            }
-            ovr[e] = make_cuDoubleComplex(re, im);
-        }
-        __syncthreads();
-        for (int s = tid; s < NS; s += kBlockThreads) {
-            double acc = 0.0;
-            for (int n = 0; n < nocc; ++n) acc += ovr[n * NS + s].x * ovr[n * NS + s].x + ovr[n * NS + s].y * ovr[n * NS + s].y;
-            wt[s] = acc;
-        }
-        __syncthreads();
-        // rank: larger weights first, ties to the lower index (jax.lax.top_k)
-        for (int s = tid; s < NS; s += kBlockThreads) {
-            int r = 0;
-            for (int s2 = 0; s2 < NS; ++s2) r += (wt[s2] > wt[s] || (wt[s2] == wt[s] && s2 < s)) ? 1 : 0;
-            rank[s] = r;
-        }
-        __syncthreads();
-        for (int s = tid; s < NS; s += kBlockThreads) {
-            if (rank[s] < nocc) {
-                int pos = 0;
-                for (int s2 = 0; s2 < s; ++s2) pos += rank[s2] < nocc ? 1 : 0;
-                sel[pos] = s;
-                byrank[rank[s]] = s;
-            }
-        }
-        __syncthreads();
-        for (int e = tid; e < nocc * nocc; e += kBlockThreads) M[e] = ovr[(e / nocc) * NS + sel[e % nocc]];
-        __syncthreads();
-        polar_factor_block(M, V, nocc, red);
-        cplx* dst = sbase + l * sstep;
-        for (int e = tid; e < nocc * F; e += kBlockThreads) {
-            const int n = e / F, f = e % F;
-            cplx acc = make_cuDoubleComplex(0.0, 0.0);
-            for (int m = 0; m < nocc; ++m) acc = cuCadd(acc, cuCmul(cconj(M[n * nocc + m]), wl[(int64_t)sel[m] * F + f]));
-            dst[e] = acc;
-        }
-        for (int n = tid; n < nocc; n += kBlockThreads) idx[(l * nstr + t) * nocc + n] = sel[n];
-        if (tid == 0) {
-            double topw = 0.0;
-            for (int r = 0; r < nocc; ++r) topw += wt[byrank[r]];
-            fid[(l - 1) * nstr + t] = topw / nocc;
-        }
-        __syncthreads();  // the states of step l visible before step l + 1 reads them
+// Phase 1: link t = string * (L - 1) + l - 1 (l = 1 .. L - 1), a team each
+// (a warp to NS kOverlapWarpMaxS, a block above): the weights Wt_t[n][s] =
+// |<w_{l-1,n} | w_{l,s}>|^2 over all NS states (NS x NS, row-major, links
+// weight_stride(NS) doubles apart) into Wt.
+constexpr int kOverlapWarpMaxS = 16;
+__host__ __device__ inline int weight_stride(int NS) { return NS * NS + (NS & 1); }  // an even count: 16-byte copies
+
+template <int kTeam>
+__global__ void __launch_bounds__(kTeam, 1)  // (without the 1, ptxas held the block to 48 registers and spilled)
+transport_follow_weights_kernel(const cplx* __restrict__ w, double* __restrict__ Wt, int64_t L, int64_t inner,
+                                int NS, int F) {
+    extern __shared__ __align__(16) double smem[];
+    __shared__ double* out;  // the link's weights, kept here across the overlap rather than in registers
+    cplx* M = (cplx*)smem;
+    cplx* stage = M + NS * link_ld(NS);
+    const int64_t t = blockIdx.x;
+    const int64_t string = t / (L - 1), l = t % (L - 1) + 1;
+    const int64_t i = string % inner, o = string / inner;
+    const int64_t row = (int64_t)NS * F;
+    const cplx* wb = w + ((o * L + l) * inner + i) * row;
+    if (threadIdx.x == 0) out = Wt + t * weight_stride(NS);
+    team_overlap<kTeam>(wb - inner * row, wb, M, stage, NS, F);
+    const int ld = link_ld(NS);
+    double* q = out;
+    for (int e = threadIdx.x; e < NS * NS; e += kTeam) {
+        const cplx z = M[(e / NS) * ld + e % NS];
+        q[e] = z.x * z.x + z.y * z.y;
     }
 }
 
-#define PYTHTB_DISPATCH_S(S, CALL)               \
-    switch (S) {                                 \
-        case 1: CALL(1); break;                  \
-        case 2: CALL(2); break;                  \
-        case 3: CALL(3); break;                  \
-        case 4: CALL(4); break;                  \
-        case 5: CALL(5); break;                  \
-        case 6: CALL(6); break;                  \
-        case 7: CALL(7); break;                  \
-        case 8: CALL(8); break;                  \
-        default: return (int)cudaErrorInvalidValue; \
-    }
+// Phase 2: string s = blockIdx.x, one warp, the selection scan on the
+// weights alone.  The links' weights arrive by TMA kScanDepth - 1 links
+// ahead (a ring of kScanDepth NS x NS buffers, one copy and one mbarrier a
+// link); step l weighs each state s by the sum of column s over the rows
+// sel_{l-1} of Wt_l (a lane holds states lane and lane + 32), ranks the
+// weights by shuffles (the number that are larger, or equal at a lower
+// index: jax.lax.top_k's order), takes the nocc of rank below nocc in
+// ascending order by ballots, and writes them to idx and their summed
+// weight / nocc to fid.  Step 0 writes occ to idx.
+constexpr int kScanDepth = 4;
 
-static int refuse(int64_t S) { return S > kPolarBlockMaxS ? (int)cudaErrorInvalidValue : 0; }
+__global__ void __launch_bounds__(32)
+transport_follow_scan_kernel(const double* __restrict__ Wt, const int64_t* __restrict__ occ,
+                             int64_t* __restrict__ idx, double* __restrict__ fid, int64_t L, int nocc, int NS) {
+    extern __shared__ __align__(16) double smem[];
+    __shared__ int sel[2][kPolarBlockMaxS];
+    __shared__ __align__(8) uint64_t full[kScanDepth];
+    const unsigned all = 0xffffffffu;
+    const int lane = threadIdx.x;
+    const int64_t s = blockIdx.x, nstr = gridDim.x;
+    const int NW = weight_stride(NS);
+    const double* q = Wt + s * (L - 1) * NW;
+    for (int n = lane; n < nocc; n += 32) {
+        sel[0][n] = (int)occ[n];
+        idx[s * nocc + n] = occ[n];
+    }
+    if (lane == 0) {
+        for (int d = 0; d < kScanDepth; ++d) mbar_init(&full[d], 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    auto stage = [&](int64_t k) {  // link k into its buffer
+        if (lane == 0 && k < L - 1) {
+            uint64_t* bar = &full[k % kScanDepth];
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the last step's reads
+            mbar_expect_tx(bar, NW * sizeof(double));
+            tma_load_1d(smem + (k % kScanDepth) * NW, q + k * NW, NW * sizeof(double), bar);
+        }
+    };
+    for (int d = 0; d < kScanDepth - 1; ++d) stage(d);
+    const unsigned below = (1u << lane) - 1u;
+    const int s0 = lane, s1 = lane + 32;
+    for (int64_t l = 1; l < L; ++l) {
+        stage(l + kScanDepth - 2);
+        mbar_wait(&full[(l - 1) % kScanDepth], (unsigned)(((l - 1) / kScanDepth) & 1));
+        const double* Wc = smem + ((l - 1) % kScanDepth) * NW;
+        const int* prev = sel[(l - 1) & 1];
+        int* next = sel[l & 1];
+        // a lane past NS reads a clamped column; its weight is never ranked
+        const int c0 = min(s0, NS - 1), c1 = min(s1, NS - 1);
+        double w0 = 0.0, w1 = 0.0;
+#pragma unroll 4
+        for (int n = 0; n < nocc; ++n) {
+            const double* r = Wc + prev[n] * NS;
+            w0 += r[c0];
+            w1 += r[c1];
+        }
+        int r0 = 0, r1 = 0;
+#pragma unroll 8
+        for (int j = 0; j < min(NS, 32); ++j) {
+            const double wj = __shfl_sync(all, w0, j);
+            r0 += wj > w0 || (wj == w0 && j < s0);
+            r1 += wj > w1 || (wj == w1 && j < s1);
+        }
+#pragma unroll 8
+        for (int j = 32; j < NS; ++j) {
+            const double wj = __shfl_sync(all, w1, j - 32);
+            r0 += wj > w0 || (wj == w0 && j < s0);
+            r1 += wj > w1 || (wj == w1 && j < s1);
+        }
+        const bool in0 = s0 < NS && r0 < nocc, in1 = s1 < NS && r1 < nocc;
+        const unsigned b0 = __ballot_sync(all, in0), b1 = __ballot_sync(all, in1);
+        if (in0) next[__popc(b0 & below)] = s0;
+        if (in1) next[__popc(b0) + __popc(b1 & below)] = s1;
+        // the captured weight, the same bits in every lane
+        double f = (in0 ? w0 : 0.0) + (in1 ? w1 : 0.0);
+        for (int off = 16; off > 0; off >>= 1) f += __shfl_xor_sync(all, f, off);
+        __syncwarp();
+        for (int n = lane; n < nocc; n += 32) idx[(l * nstr + s) * nocc + n] = next[n];
+        if (lane == 0) fid[(l - 1) * nstr + s] = f / nocc;
+        __syncwarp();  // every lane is done with this step's buffer and prev before they are refilled
+    }
+}
+
+// Phase 3: link t = string * (L - 1) + l - 1, a team each: A_l =
+// <w_{l-1}[sel_{l-1}] | w_l[sel_l]> staged by cp.async with the rows the
+// scan chose (team_overlap), W_l = polar(A_l) into C's slot l.
+template <int kTeam>
+__global__ void __launch_bounds__(kTeam)
+transport_follow_polar_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ idx, cplx* __restrict__ C,
+                              int64_t L, int64_t inner, int S, int NS, int F) {
+    extern __shared__ __align__(16) double smem[];
+    __shared__ cplx* out;  // the link's slot, kept here across the Jacobi rather than in registers
+    cplx* M = (cplx*)smem;
+    cplx* V = M + S * link_ld(S);
+    double* sig = (double*)(V + S * link_vld(S));
+    const int64_t t = blockIdx.x, nstr = gridDim.x / (L - 1);
+    const int64_t string = t / (L - 1), l = t % (L - 1) + 1;
+    const int64_t i = string % inner, o = string / inner;
+    const int64_t row = (int64_t)NS * F;
+    const cplx* wb = w + ((o * L + l) * inner + i) * row;
+    if (threadIdx.x == 0) out = C + ((o * L + l) * inner + i) * S * S;
+    team_overlap<kTeam>(wb - inner * row, wb, M, V, S, F, idx + ((l - 1) * nstr + string) * S,
+                        idx + (l * nstr + string) * S);
+    team_jacobi<kTeam>(M, V, S);
+    team_polar_store<kTeam>(M, V, S, sig, out);
+}
+
+// Phase 5: block b = point * tiles + rb, the rotate's open product with the
+// rows chosen per point: rows [rb R, rb R + R) of conj(C_m) w_m[sel_m] into
+// the point's nocc rows of states, formed Fc columns at a time.
+template <bool kTC, int kTeam>
+__global__ void __launch_bounds__(kTeam)
+transport_follow_states_kernel(const cplx* __restrict__ w, const int64_t* __restrict__ idx,
+                               const cplx* __restrict__ C, cplx* __restrict__ states, int64_t L, int64_t inner,
+                               int S, int NS, int F, int Fc, int rows, int tiles) {
+    extern __shared__ __align__(16) double smem[];
+    __shared__ int ssel[kPolarBlockMaxS];
+    const RotateLayout lay(S, Fc, NS, rows, false);
+    cplx* Cs = (cplx*)smem + lay.cs;
+    cplx* Xs = (cplx*)smem + lay.xs;
+    const int tid = threadIdx.x, R = lay.R, Sp = lay.Sp, Fp = lay.Fp, ldS = lay.ldS, ldF = lay.ldF;
+    const int64_t t = blockIdx.x / tiles;  // the grid point
+    const int rb = (int)(blockIdx.x % tiles), n0 = rb * R;
+    const int64_t nstr = gridDim.x / tiles / L;
+    const int64_t i = t % inner, l = (t / inner) % L, o = t / (inner * L);
+    const cplx* src = w + t * NS * F;
+    cplx* dst = states + t * S * F;
+    const cplx* c = C + t * S * S;
+    for (int e = tid; e < R * Sp; e += kTeam) {
+        const int r = e / Sp, k = e - r * Sp;
+        const bool ok = n0 + r < S && k < S;
+        cp_async16(Cs + r * ldS + k, ok ? c + (n0 + r) * S + k : c, ok);
+    }
+    cp_async_commit();
+    for (int j = tid; j < S; j += kTeam) ssel[j] = (int)idx[(l * nstr + o * inner + i) * S + j];
+    __syncthreads();
+    const int Mr = kTC ? R : min(R, S - n0), Ns = kTC ? Sp : S;
+    for (int f0 = 0; f0 < F; f0 += Fc) {
+        if (f0 > 0) __syncthreads();  // every warp is done with the last chunk
+        // columns [f0, f0 + Fc) of the chosen rows, zero-padded
+        for (int e = tid; e < Sp * Fp; e += kTeam) {
+            const int j = e / Fp, f = e - j * Fp;
+            const bool ok = j < S && f < Fc && f0 + f < F;
+            cp_async16(Xs + j * ldF + f, ok ? src + (int64_t)ssel[j] * F + f0 + f : src, ok);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        team_product<kTC, kTeam>(Operand<true>{Cs, ldS, 1}, Operand<false>{Xs, ldF, 1}, Mr,
+                                 kTC ? Fp : min(Fc, F - f0), Ns, [&](int r, int f, double re, double im) {
+                                     if (n0 + r < S && f < Fc && f0 + f < F)
+                                         dst[(int64_t)(n0 + r) * F + f0 + f] = make_cuDoubleComplex(re, im);
+                                 });
+    }
+}
+
+// Phase 2 of the chain (and phase 4 of the follow mode's scan design): a
+// warp a string to S 16, a block above.
+static int launch_prefix(cplx* C, const double* link_smin, double* smin, int64_t strings, int64_t L,
+                         int64_t inner, int S, cudaStream_t st) {
+    if (S <= kPrefixWarpMaxS) {
+        const size_t chain = (1 + prefix_depth<32>()) * (size_t)S * S * sizeof(cplx);
+        transport_prefix_kernel<32><<<(unsigned int)strings, 32, chain, st>>>(C, link_smin, smin, L, inner, S);
+    } else {
+        const size_t chain = (1 + prefix_depth<kBlockThreads>()) * (size_t)S * S * sizeof(cplx);
+        cudaFuncSetAttribute(transport_prefix_kernel<kBlockThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)chain);
+        transport_prefix_kernel<kBlockThreads><<<(unsigned int)strings, kBlockThreads, chain, st>>>(
+            C, link_smin, smin, L, inner, S);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The columns of a point's occ rows a rotate or follow-states block stages
+// at a time: F, or, where the rows do not fit whole beside the matrices in
+// the H100's 227 kB a block (less the static occ list), the most columns
+// that do, a multiple of 8; 0 where not even 8 do.
+static int rows_chunk(int S, int F, int NS, int rows, bool closed) {
+    const size_t limit = 232448 - 1024;
+    if (RotateLayout(S, F, NS, rows, closed).bytes <= limit) return F;
+    const size_t rest = RotateLayout(S, 0, NS, rows, closed).bytes;
+    const int Fc = (rest < limit ? (int)((limit - rest) / (sizeof(cplx) * pad8(S))) - 2 : 0) / 8 * 8;
+    return Fc < 8 ? 0 : Fc;
+}
 
 // path 0: the register path (a thread a string, S 1); 1: the link path
 // with a warp a link (S <= 32); 2: the link path with a block a link (S <=
@@ -764,18 +814,7 @@ extern "C" int pythtb_transport_chain(const void* w, const void* occ, void* C, v
         const int rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
     }
-    if (S <= kPrefixWarpMaxS) {
-        const size_t chain = (1 + prefix_depth<32>()) * (size_t)S * S * sizeof(cplx);
-        transport_prefix_kernel<32><<<(unsigned int)strings, 32, chain, st>>>(
-            (cplx*)C, (const double*)link_smin, (double*)smin, L, inner, (int)S);
-    } else {
-        const size_t chain = (1 + prefix_depth<kBlockThreads>()) * (size_t)S * S * sizeof(cplx);
-        cudaFuncSetAttribute(transport_prefix_kernel<kBlockThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)chain);
-        transport_prefix_kernel<kBlockThreads><<<(unsigned int)strings, kBlockThreads, chain, st>>>(
-            (cplx*)C, (const double*)link_smin, (double*)smin, L, inner, (int)S);
-    }
-    return (int)cudaGetLastError();
+    return launch_prefix((cplx*)C, (const double*)link_smin, (double*)smin, strings, L, inner, (int)S, st);
 }
 
 // path 0: the register path (a thread a point, S <= 3); 1: the team path
@@ -806,18 +845,8 @@ extern "C" int pythtb_transport_rotate(const void* w, const void* occ, const voi
     }
     const int rows = path <= 2 ? (int)S : 16;
     const int tiles = (int)((S + rows - 1) / rows);
-    // the dynamic shared memory beside the static occ list, within the
-    // H100's 227 kB a block: the occ rows whole, or in chunks of the most
-    // columns (a multiple of 8) that fit beside the matrices
-    const size_t limit = 232448 - 1024;
-    int Fc = (int)F;
-    if (RotateLayout((int)S, Fc, (int)NS, rows, closed != 0).bytes > limit) {
-        const size_t rest = RotateLayout((int)S, 0, (int)NS, rows, closed != 0).bytes;
-        const int Sp = pad8((int)S);
-        Fc = rest < limit ? (int)((limit - rest) / (sizeof(cplx) * Sp)) - 2 : 0;
-        Fc = Fc / 8 * 8;
-        if (Fc < 8) return (int)cudaErrorInvalidValue;
-    }
+    const int Fc = rows_chunk((int)S, (int)F, (int)NS, rows, closed != 0);
+    if (Fc == 0) return (int)cudaErrorInvalidValue;
     const RotateLayout lay((int)S, Fc, (int)NS, rows, closed != 0);
     const unsigned int blocks = (unsigned int)(points * tiles);
 #define TEAM(TC, THREADS)                                                                                    \
@@ -838,25 +867,78 @@ extern "C" int pythtb_transport_rotate(const void* w, const void* occ, const voi
     return (int)cudaGetLastError();
 }
 
-extern "C" int pythtb_transport_follow(const void* w, const void* occ, void* idx, void* fid,
-                                       void* states, int64_t outer, int64_t L, int64_t inner,
-                                       int64_t nocc, int64_t NS, int64_t F, void* stream) {
+// 1 <= nocc <= NS <= 64.  Wt (strings x (L - 1) x weight_stride(NS)
+// doubles) and C (outer x L x inner x nocc x nocc complex) are scratch;
+// polar_block gives phase 3 a block a link (else a warp), states_mode phase
+// 5 the rotate's design (1 a warp a point, 2 a block of four warps, 3 the
+// tensor-core tiles).  At L 1 phases 1 and 3 have no link to run.
+extern "C" int pythtb_transport_follow(const void* w, const void* occ, void* idx, void* fid, void* states, void* Wt,
+                                       void* C, int64_t outer, int64_t L, int64_t inner, int64_t nocc, int64_t NS,
+                                       int64_t F, int64_t polar_block, int64_t states_mode, void* stream) {
     if (outer * inner <= 0) return (int)cudaGetLastError();
-    if (nocc > NS || refuse(NS)) return (int)cudaErrorInvalidValue;
+    if (nocc < 1 || nocc > NS || NS > kPolarBlockMaxS || L < 1 || states_mode < 1 || states_mode > 3)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (NS > kMaxStates) {
-        const size_t extra = (size_t)nocc * NS * sizeof(cplx) + NS * sizeof(double) + (NS + 2 * nocc) * sizeof(int);
-        const size_t smem = block_smem(transport_follow_block_kernel, (int)nocc, 2, extra);
-        transport_follow_block_kernel<<<(unsigned int)(outer * inner), kBlockThreads, smem, st>>>(
-            (const cplx*)w, (const int64_t*)occ, (int64_t*)idx, (double*)fid, (cplx*)states, L, inner,
-            (int)nocc, (int)NS, (int)F);
-        return (int)cudaGetLastError();
+    const int64_t strings = outer * inner;
+    const int S = (int)nocc;
+    const unsigned int links = (unsigned int)(strings * (L - 1));
+    int rc = 0;
+    if (L > 1) {
+        const size_t bytes = link_smem((int)NS);
+        if (NS <= kOverlapWarpMaxS) {
+            transport_follow_weights_kernel<32><<<links, 32, bytes, st>>>((const cplx*)w, (double*)Wt, L, inner,
+                                                                          (int)NS, (int)F);
+        } else {
+            cudaFuncSetAttribute(transport_follow_weights_kernel<kBlockThreads>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+            transport_follow_weights_kernel<kBlockThreads><<<links, kBlockThreads, bytes, st>>>(
+                (const cplx*)w, (double*)Wt, L, inner, (int)NS, (int)F);
+        }
+        if ((rc = (int)cudaGetLastError()) != 0) return rc;
     }
-#define FOLLOW(K)                                                                                \
-    transport_follow_kernel<K><<<blocks_for(outer * inner), kThreads, 0, st>>>(                  \
-        (const cplx*)w, (const int64_t*)occ, (int64_t*)idx, (double*)fid, (cplx*)states, outer, L, \
-        inner, (int)NS, (int)F)
-    PYTHTB_DISPATCH_S(nocc, FOLLOW)
-#undef FOLLOW
+    {
+        const size_t bytes = kScanDepth * (size_t)weight_stride((int)NS) * sizeof(double);
+        cudaFuncSetAttribute(transport_follow_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        transport_follow_scan_kernel<<<(unsigned int)strings, 32, bytes, st>>>(
+            (const double*)Wt, (const int64_t*)occ, (int64_t*)idx, (double*)fid, L, S, (int)NS);
+        if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    }
+    if (L > 1) {
+        const size_t bytes = link_smem(S);
+        if (!polar_block) {
+            transport_follow_polar_kernel<32><<<links, 32, bytes, st>>>((const cplx*)w, (const int64_t*)idx, (cplx*)C,
+                                                                        L, inner, S, (int)NS, (int)F);
+        } else {
+            cudaFuncSetAttribute(transport_follow_polar_kernel<kBlockThreads>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+            transport_follow_polar_kernel<kBlockThreads><<<links, kBlockThreads, bytes, st>>>(
+                (const cplx*)w, (const int64_t*)idx, (cplx*)C, L, inner, S, (int)NS, (int)F);
+        }
+        if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    }
+    if ((rc = launch_prefix((cplx*)C, nullptr, nullptr, strings, L, inner, S, st)) != 0) return rc;
+    {
+        const int rows = states_mode <= 2 ? S : 16;
+        const int tiles = (S + rows - 1) / rows;
+        const int Fc = rows_chunk(S, (int)F, (int)NS, rows, false);
+        if (Fc == 0) return (int)cudaErrorInvalidValue;
+        const RotateLayout lay(S, Fc, (int)NS, rows, false);
+        const unsigned int blocks = (unsigned int)(strings * L * tiles);
+#define STATES(TC, THREADS)                                                                                  \
+    do {                                                                                                     \
+        cudaFuncSetAttribute(transport_follow_states_kernel<TC, THREADS>,                                    \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);                   \
+        transport_follow_states_kernel<TC, THREADS><<<blocks, THREADS, lay.bytes, st>>>(                     \
+            (const cplx*)w, (const int64_t*)idx, (const cplx*)C, (cplx*)states, L, inner, S, (int)NS, (int)F, \
+            Fc, rows, tiles);                                                                                \
+    } while (0)
+        if (states_mode == 1)
+            STATES(false, 32);
+        else if (states_mode == 2)
+            STATES(false, kRotateBlock);
+        else
+            STATES(true, kRotateBlock);
+#undef STATES
+    }
     return (int)cudaGetLastError();
 }

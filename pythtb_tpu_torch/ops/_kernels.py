@@ -56,14 +56,14 @@ _SIGNATURES = {
     "pythtb_decimation_green": [_P] * 6 + [_I] * 4 + [_P],
     "pythtb_assemble_deriv": [_P] * 6 + [_I] * 5 + [_P],
     "pythtb_spectral_sum": [_P] * 5 + [_I] * 5 + [_D, _P],
-    "pythtb_fermi_sweep": [_P] * 5 + [_I] * 3 + [_D, _I, _P],
+    "pythtb_fermi_sweep": [_P] * 7 + [_I] * 7 + [_D, _I, _P],
     "pythtb_cpa": [_P] * 4 + [_I] * 3 + [_P],
     "pythtb_lyapunov": [_P] * 6 + [_I] * 6 + [_P],
     "pythtb_eigh_jacobi": [_P] * 4 + [_I] * 3 + [_D, _I, _I, _P],
     "pythtb_assemble_members": [_P] * 7 + [_I] * 6 + [_P],
     "pythtb_transport_chain": [_P] * 5 + [_I] * 7 + [_P],
     "pythtb_transport_rotate": [_P] * 6 + [_I] * 8 + [_P],
-    "pythtb_transport_follow": [_P] * 5 + [_I] * 6 + [_P],
+    "pythtb_transport_follow": [_P] * 7 + [_I] * 8 + [_P],
     "pythtb_mv_run": [_P] * 13 + [_I] * 4 + [_D] * 2 + [_I] * 3 + [_P],
     "pythtb_mv_overlaps": [_P] * 5 + [_I] * 3 + [_P],
     "pythtb_mv_reduce": [_P] * 7 + [_I] * 4 + [_D, _D, _I, _P],
@@ -102,7 +102,10 @@ _SIGNATURES = {
 # kernel 7; "assemble_members" counts kernel 1's flux-batch mode (not in
 # "assemble"); "transport_chain", "transport_rotate" and "transport_follow"
 # count kernel 14's three modes (the chain's link path is two launches a
-# call, the links' polar factors and the prefixes); "mv_step" counts kernel 19's
+# call, the links' polar factors and the prefixes; the follow mode five:
+# the overlaps, the scan, the polar factors, the prefixes and the states,
+# three where the axis has one point); "fermi_sweep" counts
+# kernel 17's two launches a call, the chunks' sums and their reduction; "mv_step" counts kernel 19's
 # launches that carry Marzari-Vanderbilt steps -- to 8 Wannier functions one
 # a run (every step of it in one launch), from 9 one a step (the update, the
 # last of the step's three launches: overlaps, reduction, update) -- and

@@ -22,10 +22,11 @@ factors out as the columns of G over t = (k, band) and picks a weight:
 * ``"gauss"``: exp(-x^2 / 2) / (kT sqrt(2 pi)), kT the width.
 
 On a CUDA tensor :func:`fermi_sweep` launches kernel 17
-(``csrc/fermi_sweep.cu``), which uses the stable form for both -df/de
-weights; on a CPU tensor it runs :func:`_fermi_sweep_plain` over bounded
-chunks of mu, with the same ``"dfde"`` form and the dipole's own clipped
-cosh form.
+(``csrc/fermi_sweep.cu``: chunks of t over the card, each block sweeping
+every mu of its chunk, then the chunks added in order), which uses the
+stable form for both -df/de weights; on a CPU tensor it runs
+:func:`_fermi_sweep_plain` over bounded chunks of mu, with the same
+``"dfde"`` form and the dipole's own clipped cosh form.
 """
 
 from __future__ import annotations
@@ -53,6 +54,16 @@ _SPENCE_B = (6.90990488912553276999E-4, 2.54043763932544379113E-2, 2.82974860602
 
 # most mu values one plain chunk broadcasts against T
 _PLAIN_ELEMS = 1 << 24
+
+# kernel 17's launch layout (csrc/fermi_sweep.cu): t staged in tiles of
+# _SWEEP_TILE, at most _SWEEP_MAX_MU chemical potentials (a thread each)
+# and _SWEEP_MAX_COLS slots a block, runs of _SWEEP_RUN slots of one power,
+# and chunks of t enough for about _SWEEP_BLOCKS_PER_SM blocks an SM
+_SWEEP_TILE = 128
+_SWEEP_MAX_MU = 256
+_SWEEP_MAX_COLS = 16
+_SWEEP_RUN = 4
+_SWEEP_BLOCKS_PER_SM = 4
 
 
 def _polyval(c, x):
@@ -132,6 +143,33 @@ def _fermi_sweep_plain(E, G, mus, kt, kind, jpow):
     return out
 
 
+def _sweep_layout(T, M, jpow, sms):
+    """Kernel 17's launch layout for T terms, M chemical potentials and
+    the columns' powers ``jpow`` on a card of ``sms`` SMs: ``(slots, rpow,
+    cols, threads, chunk)``.  ``slots`` lists G's rows sorted by power,
+    each power's run padded with -1 (a row of zeros) to a multiple of
+    ``_SWEEP_RUN`` and the whole to a multiple of ``cols`` (4, 8 or 16, the
+    slots a block); ``rpow`` gives each run's power; ``threads`` is the
+    chemical potentials a block takes (a multiple of 32); ``chunk`` the
+    terms (a multiple of ``_SWEEP_TILE``), so that the blocks number about
+    ``_SWEEP_BLOCKS_PER_SM`` an SM."""
+    slots, rpow = [], []
+    for j in (0, 1, 2):
+        run = [p for p, jp in enumerate(jpow) if jp == j]
+        run += [-1] * (-len(run) % _SWEEP_RUN)
+        slots += run
+        rpow += [j] * (len(run) // _SWEEP_RUN)
+    cols = next((c for c in (4, 8) if len(slots) <= c), _SWEEP_MAX_COLS)
+    pad = -len(slots) % cols
+    slots += [-1] * pad
+    rpow += [0] * (pad // _SWEEP_RUN)
+    threads = 32 * -(-min(M, _SWEEP_MAX_MU) // 32)
+    blocks = len(slots) // cols * -(-M // threads)
+    chunks = max(1, -(-_SWEEP_BLOCKS_PER_SM * sms // blocks))
+    chunk = max(1, -(-T // (chunks * _SWEEP_TILE))) * _SWEEP_TILE
+    return slots, rpow, cols, threads, chunk
+
+
 def fermi_sweep(E, G, mus, kt, kind, jpow=None):
     """out (M, P) = sum_t G[p, t] w_kind((E_t - mu_m) / kt) (E_t - mu_m)^jpow[p].
 
@@ -158,7 +196,12 @@ def fermi_sweep(E, G, mus, kt, kind, jpow=None):
     _kernels.require(mus, "mus", config.FLOAT, (M,), dev)
     if kind != "step" and not kt > 0.0:
         raise ValueError("weight %r needs kt > 0, got %g" % (kind, kt))
-    jp = torch.as_tensor(np.asarray(jpow, dtype=np.int32)).to(dev)
+    slots, rpow, cols, threads, chunk = _sweep_layout(T, M, jpow, _kernels.card(dev)[0])
+    lay = torch.as_tensor(np.asarray(slots + rpow, dtype=np.int32)).to(dev)
+    part = torch.empty((-(-T // chunk) * M * len(slots),), dtype=config.FLOAT, device=dev)
     out = torch.empty((M, P), dtype=config.FLOAT, device=dev)
-    _kernels.launch("fermi_sweep", dev, E, G, jp, mus, out, T, P, M, kt, KINDS[kind])
+    # the chunks' sums (none at T 0), then their reduction
+    launches = (2 if T else 1) if M and P else 0
+    _kernels.launch("fermi_sweep", dev, E, G, lay, lay[len(slots):], mus, part, out, T, P, M, len(slots), chunk, cols,
+                    threads, kt, KINDS[kind], count=launches)
     return out

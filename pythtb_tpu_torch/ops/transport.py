@@ -18,7 +18,10 @@
   squared overlap with the transported subspace are selected (ties to
   the lower index, as ``jax.lax.top_k``; indices sorted ascending) and
   the subspace is carried into them by a polar projection.  Kernel 14's
-  ``follow`` mode on CUDA, :func:`_follow_plain` on CPU.
+  ``follow`` mode on CUDA -- the selection scan on the weights of the
+  stored states' overlaps, split from the polar factors, which then run
+  over the whole grid as the chain's do (:func:`_follow_path` picks the
+  designs of its phases) -- and :func:`_follow_plain` on CPU.
 
 Both read the stored grid (grid..., NS, norb[, 2]) as (outer, L, inner,
 NS, F) strings along the axis, without a copy.  Kernel 14 takes up to 64
@@ -40,9 +43,8 @@ from .berry import _overlap, unitary_eig
 __all__ = ["smooth_gauge", "follow_states"]
 
 # most states kernel 14 takes (rotate: registers up to 3, the team path
-# and the tiles to 64; follow: registers up to 8, a block's shared memory
-# from 9 to 64; the chain: its link path): S of chain / rotate, NS of
-# follow
+# and the tiles to 64; follow to 64; the chain: its link path): S of
+# chain / rotate, NS of follow
 _KERNEL_MAX_STATES = 64
 # kernel 14's chain designs: C mode, the most states each takes, and its
 # launches a call ("registers": a thread a string, S 1; "warp" / "block":
@@ -69,8 +71,6 @@ _ROTATE_MODES = {"registers": (0, 3), "warp": (1, _KERNEL_MAX_STATES), "team": (
 # cores from there, a block each 16 rows of a point
 _ROTATE_WARP_MAX_S = 8
 _ROTATE_TILE_MIN_S = 12
-
-
 def _rotate_smem(S, F, path):
     """Shared memory (bytes) a block of rotate design ``path`` takes at S
     states and F components, closed, with the occ rows whole (the layout
@@ -298,17 +298,39 @@ def _follow_plain(w5, occ_t):
     return idx, fid, torch.stack(states, dim=1)
 
 
+def _follow_path(NS, nocc, F, strings, L, sms, smem):
+    """The designs of kernel 14's follow phases for nocc of NS stored
+    states of F components on ``strings`` strings of L points, on a card of
+    ``sms`` SMs whose blocks may take ``smem`` bytes of shared memory:
+    ``(polar, states)``, the polar factors' team ("warp" or "block", the
+    chain's line, :func:`_chain_path`) and the states' rotate design (a key
+    of ``_ROTATE_MODES`` past "registers", :func:`_rotate_path`'s line).
+    More than 64 states, nocc 0 or nocc above NS raise."""
+    if not 1 <= nocc <= NS <= _KERNEL_MAX_STATES:
+        raise ValueError("kernel 14's follow takes 1 <= nocc <= NS <= %d states, got nocc %d of %d"
+                         % (_KERNEL_MAX_STATES, nocc, NS))
+    polar = "block" if _chain_path(nocc, strings, L, sms) == "block" else "warp"
+    return polar, _rotate_path(max(nocc, _ROTATE_MODES["registers"][1] + 1), strings * L, F, sms, smem)
+
+
 def _follow(w5, occ_t):
+    """Kernel 14's following: five launches (three where the axis has one
+    point), on strings x (L - 1) x NS^2 doubles and the grid's nocc^2
+    complex values of scratch."""
     outer, L, inner, NS, F = w5.shape
     nocc = occ_t.shape[0]
     dev = w5.device
+    strings = outer * inner
+    polar, states_path = _follow_path(NS, nocc, F, strings, L, *_kernels.card(dev))
     _kernels.require(w5, "w", config.COMPLEX)
     _kernels.require(occ_t, "occ", torch.int64, (nocc,), dev)
-    idx = torch.empty((L, outer * inner, nocc), dtype=torch.int64, device=dev)
-    fid = torch.empty((L - 1, outer * inner), dtype=config.FLOAT, device=dev)
+    idx = torch.empty((L, strings, nocc), dtype=torch.int64, device=dev)
+    fid = torch.empty((L - 1, strings), dtype=config.FLOAT, device=dev)
     states = torch.empty((outer, L, inner, nocc, F), dtype=config.COMPLEX, device=dev)
-    _kernels.launch("transport_follow", dev, w5, occ_t, idx, fid, states,
-                    outer, L, inner, nocc, NS, F)
+    Wt = torch.empty((strings * (L - 1) * (NS * NS + NS % 2),), dtype=config.FLOAT, device=dev)
+    C = torch.empty((outer, L, inner, nocc, nocc), dtype=config.COMPLEX, device=dev)
+    _kernels.launch("transport_follow", dev, w5, occ_t, idx, fid, states, Wt, C, outer, L, inner, nocc, NS, F,
+                    int(polar == "block"), _ROTATE_MODES[states_path][0], count=5 if L > 1 else 3)
     return idx, fid, states
 
 

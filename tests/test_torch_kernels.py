@@ -663,9 +663,28 @@ def test_fermi_sweep_kernel(dev, kind, M, P, T):
     jpow = [p % 3 for p in range(P)]
     before = _kernels.LAUNCHES["fermi_sweep"]
     got = fermi_sweep.fermi_sweep(E, G, mus, 0.3, kind, jpow)
-    assert _kernels.LAUNCHES["fermi_sweep"] == before + 1
+    assert _kernels.LAUNCHES["fermi_sweep"] == before + 2  # the chunks' sums, then their reduction
     want = fermi_sweep._fermi_sweep_plain(E, G, mus, 0.3, kind, jpow)
     assert _max_diff(got, want) < 1e-10 * max(1.0, float(want.abs().max()))
+
+
+def test_fermi_sweep_kernel_two_calls_give_the_same_bits(dev):
+    """Kernel 17 at the Boltzmann row's M 201 and P 16 (powers 0, 1, 2 and
+    the Hall columns' 0): within 1e-10 relative of the plain version, and
+    two calls bit for bit (the chunks' sums are added in a fixed order)."""
+    from pythtb_tpu_torch.ops import fermi_sweep
+
+    rng = np.random.default_rng(201)
+    T = 70001
+    E = torch.as_tensor(rng.uniform(-4.0, 4.0, T)).to(dev)
+    G = torch.as_tensor(rng.normal(size=(16, T))).to(dev)
+    mus = torch.as_tensor(np.linspace(-4.0, 4.0, 201)).to(dev)
+    jpow = [0] * 4 + [1] * 4 + [2] * 4 + [0] * 4
+    got = fermi_sweep.fermi_sweep(E, G, mus, 0.05, "dfde", jpow)
+    again = fermi_sweep.fermi_sweep(E, G, mus, 0.05, "dfde", jpow)
+    want = fermi_sweep._fermi_sweep_plain(E, G, mus, 0.05, "dfde", jpow)
+    assert _max_diff(got, want) < 1e-10 * float(want.abs().max())
+    assert torch.equal(got, again)
 
 
 def test_slice_five_goes_through_kernels(dev):
@@ -1186,6 +1205,28 @@ def test_transport_follow_kernel(dev, grid, axis, NS, nocc, F):
     idx_p, fid_p, st_p = transport._follow_plain(w5, occ_t)
     assert torch.equal(idx.cpu(), idx_p.cpu())
     assert _max_diff(fid, fid_p) < TOL and _max_diff(st, st_p) < TOL
+
+
+@pytest.mark.parametrize("grid,L,NS,nocc,F", [((41,), 41, 39, 20, 39), ((6,), 1, 12, 5, 14), ((1,), 41, 20, 10, 22),
+                                              ((7,), 9, 16, 16, 16), ((6,), 7, 6, 2, 8), ((5,), 9, 3, 1, 4),
+                                              ((2,), 3, 8, 4, 8)])
+def test_transport_follow_designs(dev, grid, L, NS, nocc, F):
+    """Kernel 14's follow against the plain version -- identical indices,
+    fidelity and states within 1e-12 -- with the launches it makes (five,
+    three at L 1), at the slab's shape (41 strings of 41 points, 20 of 39),
+    a one-point axis, a single string, nocc = NS and a few stored states."""
+    from pythtb_tpu_torch.ops import transport
+
+    w = _random_frames(290 + NS + L, (L,) + grid, NS, F, dev)
+    w5 = w.reshape((1, L, math.prod(grid), NS, F)).contiguous()
+    occ_t = torch.arange(nocc, dtype=torch.int64, device=dev)
+    idx_p, fid_p, st_p = transport._follow_plain(w5, occ_t)
+    before = _kernels.LAUNCHES["transport_follow"]
+    idx, fid, st = transport._follow(w5, occ_t)
+    assert _kernels.LAUNCHES["transport_follow"] == before + (5 if L > 1 else 3)
+    assert torch.equal(idx.cpu(), idx_p.cpu())
+    assert fid.shape == fid_p.shape and (L == 1 or _max_diff(fid, fid_p) < TOL)
+    assert _max_diff(st, st_p) < TOL
 
 
 def test_transport_follow_kernel_breaks_ties_to_the_lower_index(dev):

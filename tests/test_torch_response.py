@@ -192,3 +192,71 @@ def test_berry_dipole_and_spin_hall_match_jax():
         flows.spin_hall_conductivity(carry(jm), [0])
     with pytest.raises(ValueError, match="requires temperature > 0"):
         flows.berry_dipole(carry(jm), 0.0, 0.0)
+
+
+# kernel 17's launch layout on the H100's 132 SMs: (T, M, powers) at T 1,
+# M 1, P 1 and P 16, the Boltzmann row's 512^2 sweep (2-D: L0, L1, L2 and
+# the Hall columns), a 3-D Boltzmann layout (P 54, more than one slot
+# group) and the anomalous Hall step sweep
+SWEEP_LAYOUTS = {
+    "T1 M1 P1": (1, 1, [0]),
+    "T1 M1 P16": (1, 1, [0] * 4 + [1] * 4 + [2] * 4 + [0] * 4),
+    "boltzmann 512^2": (524288, 201, [0] * 4 + [1] * 4 + [2] * 4 + [0] * 4),
+    "boltzmann 3-D": (20000, 201, [0] * 9 + [1] * 9 + [2] * 9 + [0] * 27),
+    "ahc 101^2": (20402, 81, [0]),
+    "odd runs, M 300": (5000, 300, [2, 0, 1, 0, 2, 2, 1]),
+}
+
+
+@pytest.mark.parametrize("case", list(SWEEP_LAYOUTS))
+def test_sweep_layout_covers_every_term_and_column_once(case):
+    """Kernel 17's launch layout: the chunks of t cover [0, T) once, the mu
+    blocks every mu once, the slots every column of G once, each run of
+    four slots one power; a block's slots, threads and terms within the
+    kernel's limits; at the Boltzmann row about four blocks an SM."""
+    T, M, jpow = SWEEP_LAYOUTS[case]
+    slots, rpow, cols, threads, chunk = fermi_sweep._sweep_layout(T, M, jpow, 132)
+    assert sorted(s for s in slots if s >= 0) == list(range(len(jpow)))
+    assert cols in (4, 8, 16) and len(slots) % cols == 0 and len(rpow) * 4 == len(slots)
+    for r, j in enumerate(rpow):
+        assert all(jpow[s] == j for s in slots[4 * r:4 * r + 4] if s >= 0)
+    assert chunk % 128 == 0 and chunk >= 128
+    chunks = -(-T // chunk)
+    assert (chunks - 1) * chunk < T <= chunks * chunk
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    mu_blocks = -(-M // threads)
+    assert (mu_blocks - 1) * threads < M <= mu_blocks * threads
+    if case == "boltzmann 512^2":
+        assert (cols, threads, chunk, chunks) == (16, 224, 1024, 512)
+    if case == "T1 M1 P1":
+        assert (slots, rpow, cols, threads, chunk) == ([0, -1, -1, -1], [0], 4, 32, 128)
+
+
+def _sweep_in_the_kernels_order(E, G, mus, kt, kind, jpow):
+    """Kernel 17's sums in plain PyTorch, in the layout's order: G's rows in
+    slots, each chunk's (mu, slot) sums, the chunks added in order, the
+    slots put back in column order."""
+    T = E.shape[0]
+    slots, rpow, cols, threads, chunk = fermi_sweep._sweep_layout(T, mus.shape[0], jpow, 132)
+    Gs = torch.stack([G[s] if s >= 0 else torch.zeros_like(E) for s in slots])
+    pw = torch.as_tensor(np.repeat(rpow, 4))
+    out = torch.zeros((mus.shape[0], len(slots)), dtype=torch.float64)
+    for t0 in range(0, T, chunk):
+        d = E[None, t0:t0 + chunk] - mus[:, None]
+        w = fermi_sweep._weight(kind, d, kt)
+        out += torch.stack([(w * d ** int(j)) @ Gs[s, t0:t0 + chunk] for s, j in enumerate(pw)], dim=1)
+    return out[:, [slots.index(p) for p in range(G.shape[0])]]
+
+
+@pytest.mark.parametrize("kind", ["step", "dfde", "c2"])
+def test_sweep_in_the_kernels_order_matches_the_plain_sweep(kind):
+    """The layout's slots, runs and chunks compute the plain sweep to 1e-12
+    relative (powers out of order, odd runs, T off the tile)."""
+    rng = np.random.default_rng(17)
+    T, jpow = 3001, [2, 0, 1, 0, 2, 2, 1]
+    E = torch.as_tensor(rng.uniform(-4.0, 4.0, T))
+    G = torch.as_tensor(rng.normal(size=(len(jpow), T)))
+    mus = torch.as_tensor(np.linspace(-3.0, 3.0, 11))
+    want = fermi_sweep._fermi_sweep_plain(E, G, mus, 0.3, kind, jpow)
+    got = _sweep_in_the_kernels_order(E, G, mus, 0.3, kind, jpow)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())

@@ -392,3 +392,97 @@ def test_rotate_plain_copies_the_rows_outside_occ(closed):
         assert float((out[:, :, :, occ] - want).abs().max()) <= 1e-14
     # the first point of each string keeps its rows (C_0 = I, t_0 = 0)
     assert float((out[:, 0] - w5[:, 0]).abs().max()) <= 1e-14
+
+
+def _follow_split_order(w5, occ):
+    """Kernel 14's follow in the scan design's order, in plain PyTorch: the
+    selection from the raw overlaps of the stored states (rows sel_{l-1} of
+    <w_{l-1} | w_l>), SVD polar factors W_l of the selected blocks A_l,
+    their prefix products C_l = C_{l-1} W_l, then conj(C_l) w_{sel_l}.
+    Returns what ``transport._follow_plain`` returns."""
+    from pythtb_tpu_torch.ops import berry
+
+    outer, L, inner, NS, F = w5.shape
+    nocc = len(occ)
+    sel = torch.as_tensor(occ, dtype=torch.int64).expand(outer, inner, nocc)
+    idx, fid, W = [sel], [], []
+    for l in range(1, L):
+        O = torch.gather(berry._overlap(w5[:, l - 1], w5[:, l]), 2, sel[..., None].expand(outer, inner, nocc, NS))
+        sel, topw = transport._top_sorted((O.abs() ** 2).sum(dim=-2), nocc)
+        W.append(transport._polar(torch.gather(O, 3, sel[:, :, None, :].expand(outer, inner, nocc, nocc)))[0])
+        idx.append(sel)
+        fid.append(topw.sum(dim=-1) / nocc)
+    C = [torch.eye(nocc, dtype=w5.dtype).expand(outer, inner, nocc, nocc)]
+    for w in W:
+        C.append(C[-1] @ w)
+    states = [C[l].conj() @ torch.gather(w5[:, l], 2, idx[l][..., None].expand(outer, inner, nocc, F))
+              for l in range(L)]
+    fid = torch.stack(fid).reshape(L - 1, outer * inner) if fid else torch.zeros((0, outer * inner),
+                                                                                  dtype=torch.float64)
+    return torch.stack(idx).reshape(L, outer * inner, nocc), fid, torch.stack(states, dim=1)
+
+
+def _tie_frames():
+    """Two points of four orthonormal states where the start state splits
+    evenly over stored states 0 and 1 of the second point."""
+    e = np.eye(4, dtype=complex)
+    st = np.stack([e, e])
+    st[1, 0] = (e[0] + e[1]) / np.sqrt(2)
+    st[1, 1] = (e[0] - e[1]) / np.sqrt(2)
+    return st
+
+
+# (states, nspin, dim_arr, occ, axis) of each case
+SPLIT_ORDER = {
+    "haldane": lambda: (_solved(jzoo.haldane(), [9, 7]), 1, 2, [0], 0),
+    "kane_mele": lambda: (_solved(jzoo.kane_mele(), [9, 7]), 2, 2, [0, 1], 0),
+    "frames_12_6": lambda: (_orthonormal_frames(12, (9, 7), 12, 14), 1, 2, list(range(6)), 0),
+    "frames_20_10": lambda: (_orthonormal_frames(20, (9, 7), 20, 22), 1, 2, list(range(10)), 1),
+    "ties": lambda: (_tie_frames(), 1, 1, [0], 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_ORDER))
+def test_follow_in_the_scan_designs_order_matches_plain_and_jax(case):
+    """The identity kernel 14's scan design rests on: the selection from
+    the raw overlaps of the stored states, the polar factors of the
+    selected blocks and their prefixes give the plain scan's indices
+    exactly, and its fidelity and states within 1e-12; and pythtb_tpu's
+    (an exact tie stays exact in the raw basis)."""
+    st, nspin, dim_arr, occ, axis = SPLIT_ORDER[case]()
+    w5, grid = transport._strings(torch.as_tensor(st), nspin, dim_arr, axis)
+    idx, fid, states = _follow_split_order(w5, occ)
+    ip, fp, sp = transport._follow_plain(w5, transport._occ_tensor(occ, w5.device))
+    assert torch.equal(idx, ip)
+    assert float((fid - fp).abs().max()) <= TOL and float((states - sp).abs().max()) <= TOL
+    ji, jf, js = jtransport.follow_states(np.asarray(pack_cplx(st)), occ, axis, nspin, dim_arr)
+    js = np.asarray(js)
+    rest = grid[:axis] + grid[axis + 1:]
+    assert np.array_equal(idx.reshape((grid[axis],) + rest + (len(occ),)).numpy(), np.asarray(ji))
+    assert np.abs(fid.reshape((grid[axis] - 1,) + rest).numpy() - np.asarray(jf)).max() <= TOL
+    want = (js[..., 0] + 1j * js[..., 1]).reshape(grid + (len(occ), -1))
+    assert np.abs(states.reshape(want.shape).numpy() - want).max() <= TOL
+    if case == "ties":
+        assert idx[1, 0, 0] == 0 and abs(float(fid[0, 0]) - 0.5) <= 1e-15
+
+
+def test_follow_path_dispatch():
+    """The designs of kernel 14's follow phases on the H100 (132 SMs,
+    232,448 bytes of shared memory a block): a pair for every NS 1-64 and
+    nocc 1-NS -- the polar factors on the chain's line, the states on the
+    rotate's past its register path -- at the slab, the pump and Kane-Mele
+    as PERF.md records them; more than 64 states, nocc 0 or nocc above NS
+    are refused before any launch."""
+    for NS in range(1, 65):
+        for nocc in range(1, NS + 1):
+            polar, states = transport._follow_path(NS, nocc, NS + 2, 41, 41, 132, 232448)
+            assert polar == ("block" if transport._chain_path(nocc, 41, 41, 132) == "block" else "warp")
+            assert states in ("warp", "team", "split")
+    assert transport._follow_path(39, 20, 39, 41, 41, 132, 232448) == ("warp", "split")  # the slab
+    # the pump along lambda and k, Kane-Mele 41^2 (nspin 2), random 9 x 7 frames at NS 64
+    assert [transport._follow_path(NS, nocc, F, s, L, 132, 232448) for NS, nocc, F, s, L in
+            ((3, 1, 3, 31, 41), (3, 1, 3, 41, 31), (4, 2, 4, 41, 41), (64, 62, 68, 7, 9))] == \
+        [("warp", "warp")] * 3 + [("block", "split")]
+    for NS, nocc in ((65, 1), (4, 0), (4, 5)):
+        with pytest.raises(ValueError, match="1 <= nocc <= NS <= 64"):
+            transport._follow_path(NS, nocc, NS, 41, 41, 132, 232448)
