@@ -499,9 +499,13 @@ def _ell_table_bytes(h):
 
 
 def _ell_row_ops(h):
-    """fp64 operations of one ELL row product (a complex multiply-add per
-    slot and spin component)."""
-    return h.cols.shape[1] * h.nspin * 8
+    """fp64 operations of one ELL row product, on average over the rows: a
+    complex multiply-add per real slot and spin component (the padding's
+    zero slots need no work, so they are not counted)."""
+    nonzero = h.vals != 0
+    if h.nspin == 2:
+        nonzero = nonzero.flatten(2).any(dim=2)
+    return int(nonzero.sum()) / h.norb * h.nspin * 8
 
 
 def cost_ell_matvec(h, B):
@@ -880,7 +884,7 @@ def matrix_free_kernels(torch, pt, device, rng, record, held):
     block, the seeded evolve, kernels 1 and 2 in quench_echo) is held
     once without timing."""
     from pythtb_tpu_torch import dynamics
-    from pythtb_tpu_torch.ops import chebyshev, matvec
+    from pythtb_tpu_torch.ops import _kernels, chebyshev, matvec
 
     h90 = matvec.sparse_h(peierls_flake(pt))
     h5k = matvec.sparse_h(haldane_flake5k(pt))
@@ -937,6 +941,13 @@ def matrix_free_kernels(torch, pt, device, rng, record, held):
            lambda: chebyshev._moments_plain(h90, ab, x0, M, float(N90)),
            cost_cheb(h90, KPM_VECTORS, steps, M * KPM_VECTORS * F64, 4), True, reps=3,
            scale=N90, tol=1e-10, prof_reps=1)
+    check(torch.equal(chebyshev.moments(h90, ab, x0, M, float(N90)), chebyshev.moments(h90, ab, x0, M, float(N90))),
+          "kernel 9: two kpm_dos calls gave other bits")
+    sms, smem = _kernels.card(device)
+    for key, h, B, kind in (("kpm_dos 90k R=8", h90, KPM_VECTORS, "moments"), ("kpm_ldos 5k B=64", h5k, 64, "moments"),
+                            ("kubo 1152 R=8", torus.h, KPM_VECTORS, "recursion")):
+        print("  %-15s %-34s plan %s" % ("cheb_moments", key, chebyshev._grid_plan(
+            h.norb, h.nspin, B, h.cols.shape[1], sms, smem, kind)))
     ab5 = ab_of(h5k, 0.98)
     err = max_diff(torch, chebyshev.moments(h5k, ab5, onehot, M, 1.0),
                    chebyshev._moments_plain(h5k, ab5, onehot, M, 1.0))
@@ -994,12 +1005,18 @@ def matrix_free_kernels(torch, pt, device, rng, record, held):
         x = block((h.nsta, B))
         held("ell_matvec", "kubo velocity %d N=1152 B=%d" % (d, B),
              max_diff(torch, matvec.matvec(h, x), matvec._matvec_plain(h, x)))
-    for R in (KPM_VECTORS, 2):  # the Kubo right block (M, N, R) and the R 2 left block
+    for R in (KPM_VECTORS, 2):  # the Kubo right block (M, N, R) (timed at R 8) and the R 2 left block
         phi = torch.empty((M, ht.nsta, R), dtype=torch.complex128, device=device)
         phi[0] = block((ht.nsta, R))
         want = chebyshev._recursion_plain(ht, abt, phi.clone())
-        held("cheb_moments", "kubo right block 1152 M=512 R=%d" % R,
-             max_diff(torch, chebyshev.recursion(ht, abt, phi.clone()), want), 1e-10, float(want.abs().max()))
+        err = max_diff(torch, chebyshev.recursion(ht, abt, phi.clone()), want)
+        if R == KPM_VECTORS:
+            record("cheb_moments", "kubo right block 1152 M=512 R=%d" % R, err,
+                   lambda: chebyshev.recursion(ht, abt, phi), lambda: chebyshev._recursion_plain(ht, abt, phi),
+                   cost_cheb(ht, R, M - 1, (M - 1) * ht.nsta * R * C128), reps=3, scale=float(want.abs().max()),
+                   tol=1e-10)
+        else:
+            held("cheb_moments", "kubo right block 1152 M=512 R=%d" % R, err, 1e-10, float(want.abs().max()))
         lft = torch.empty((ht.nsta, M, R), dtype=torch.complex128, device=device)
         lft[:, 0] = chebyshev.phase_vectors(ht.nsta, R, 2, device)
         want = chebyshev._recursion_plain(ht, abt, lft.clone().permute(1, 0, 2))
@@ -1096,7 +1113,7 @@ def slice4_kernels(torch, pt, device, rng, record, held):
     fourth slice's main-path shapes, and the further shapes that path gives
     kernels 1, 6 and 8 (held once, or timed where PERF.md asks for it)."""
     from pythtb_tpu_torch import flows, realspace, surface
-    from pythtb_tpu_torch.ops import chebyshev, hamiltonian, matvec, position
+    from pythtb_tpu_torch.ops import _kernels, chebyshev, hamiltonian, matvec, position
 
     def block(shape):
         z = rng.normal(size=shape) + 1j * rng.normal(size=shape)
@@ -1120,10 +1137,23 @@ def slice4_kernels(torch, pt, device, rng, record, held):
 
     X = block((hK.nsta, 12))
     ab, c512 = window(hK, 512)
-    err, scale = rel_err(chebyshev.filter(hK, ab, c512, X), chebyshev._filter_plain(hK, ab, c512, X))
+    got = chebyshev.filter(hK, ab, c512, X)
+    err, scale = rel_err(got, chebyshev._filter_plain(hK, ab, c512, X))
     record("cheb_filter", "tbg m=30 K N=%d D=%d B=12 deg 512" % (hK.nsta, D), err,
            lambda: chebyshev.filter(hK, ab, c512, X), lambda: chebyshev._filter_plain(hK, ab, c512, X),
            cost_cheb_filter(hK, 12, 512), True, reps=3, scale=scale, tol=1e-10, prof_reps=1)
+    # the tables left in device memory (the plan's shared memory cut to the
+    # on-chip state): the same bits, timed beside the chosen placement
+    sms, smem = _kernels.card(device)
+    plan = chebyshev._grid_plan(hK.norb, hK.nspin, 12, D, sms, smem, "filter")
+    room = 2 * -(-hK.norb // plan.blocks) * 12 * 16
+    print("  %-15s %-34s plan %s; tables in device memory: %s"
+          % ("cheb_filter", "tbg m=30 K B=12", plan,
+             chebyshev._grid_plan(hK.norb, hK.nspin, 12, D, sms, room, "filter")))
+    check(torch.equal(chebyshev._filter(hK, ab, c512, X, room), got),
+          "kernel 11: the tables in device memory gave other bits at the tbg shape")
+    print("  %-15s %-34s tables in device memory: device %.1f us (CUDA events)"
+          % ("cheb_filter", "tbg m=30 K B=12 deg 512", event_us(torch, lambda: chebyshev._filter(hK, ab, c512, X, room))))
     _, c6k = window(hK, 6144)
     err, scale = rel_err(chebyshev.filter(hK, ab, c6k, X), chebyshev._filter_plain(hK, ab, c6k, X))
     held("cheb_filter", "tbg m=30 K B=12 deg 6144", err, 1e-10, scale)
@@ -1226,7 +1256,22 @@ def slice4_path(pt, where, reference):
     out["tbg8"], sec = timed(middle4, 8)
     print("  %s tbg m=8 (%d orbitals) solve_window at Gamma, K, M  [%.2f s]" % (where, tbg(pt, 8)._norb, sec))
     if not reference:
-        mid30, sec = timed(middle4, 30)
+        # kernel 11: one launch a filter round (flows._window_round counted)
+        from pythtb_tpu_torch.ops import _kernels
+
+        rounds, inner = [0], pt.flows._window_round
+
+        def counted(*args):
+            rounds[0] += 1
+            return inner(*args)
+
+        before = _kernels.LAUNCHES["cheb_filter"]
+        pt.flows._window_round = counted
+        try:
+            mid30, sec = timed(middle4, 30)
+        finally:
+            pt.flows._window_round = inner
+        out["tbg30_filter"] = {"rounds": rounds[0], "launches": _kernels.LAUNCHES["cheb_filter"] - before}
         bw30 = float(mid30.max() - mid30.min())
         bw8 = float(out["tbg8"].max() - out["tbg8"].min())
         dev = float(np.abs(1e3 * (mid30 - e_d) - TBG_PINS_MEV).max())
@@ -6117,6 +6162,10 @@ def main():
     print("[4 main] kernels 3, 5, 14 and 19 past 8 states (slab 20 states, BN MLWF nw 9): %s; kernel 16 q-batch "
           "launches in the 64-q Lindhard call: %d" % (out["block_launches"], out["lindhard_launches"]))
     check(out["ed_filter_steps"] > 0, "the 4,900-dim ED solve did not go through kernel 11b")
+    print("[4 main] kernel 11 in the tbg m=30 solve_window calls (Gamma, K, M): %(launches)d launches in %(rounds)d "
+          "filter rounds" % out["tbg30_filter"])
+    check(0 < out["tbg30_filter"]["launches"] <= out["tbg30_filter"]["rounds"],
+          "the tbg m=30 filter rounds made more kernel-11 launches than rounds, or none")
     check(out["arpes_launches"] > 0, "the ARPES map did not go through kernel 20")
 
     # steady wall times of the main calls, after the counted window

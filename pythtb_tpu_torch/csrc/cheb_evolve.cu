@@ -12,10 +12,10 @@
 // through the D slots), T_{n-1}, acc, cols and vals, and writes T_{n+1}
 // and acc: at N 90,000, D 5, B 1 about 16 MB, a bound of ~4.8 us.
 // Design: one launch per term does the recursion and the accumulation
-// (the JAX scan body; cheb_term.cuh, shared with kernel 11), one thread
-// per element (r, b) with b fastest.  The C entry point runs all M - 1
-// terms of all steps on the stream (1,140 launches for 20 steps of order
-// 58), so an evolve call is one ctypes call.  The history rows hold acc.
+// (the JAX scan body; cheb_term.cuh), one thread per element (r, b) with
+// b fastest.  The C entry point runs all M - 1 terms of all steps on the
+// stream (1,140 launches for 20 steps of order 58), so an evolve call is
+// one ctypes call.  The history rows hold acc.
 // No reductions, no atomics.
 #include "cheb_term.cuh"
 
@@ -26,8 +26,7 @@ static int evolve(const int* cols, const cplx* vals, const double* ab, const cpl
     const int64_t n = nsta * B;
     for (int64_t s = 0; s < nsteps; ++s) {
         const cplx* psi = s == 0 ? psi0 : hist + (s - 1) * n;
-        const int err = cheb_expand<S, cplx>(cols, vals, ab, coef, psi, work, hist + s * n, nsta,
-                                             D, B, M, st);
+        const int err = cheb_expand<S>(cols, vals, ab, coef, psi, work, hist + s * n, nsta, D, B, M, st);
         if (err != 0) return err;
     }
     return 0;

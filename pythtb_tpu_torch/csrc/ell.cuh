@@ -1,4 +1,5 @@
-// The ELL gather shared by kernels 8, 9 and 10.
+// The ELL gather shared by kernels 8 and 10 (kernels 9 and 11 keep its
+// arithmetic in cheb_grid.cuh).
 //
 // A finite Hamiltonian in padded-row (ELL) form: cols (norb, D) int32 and
 // vals (norb, D) complex128 at nspin 1, or (norb, D, 2, 2) spin blocks at

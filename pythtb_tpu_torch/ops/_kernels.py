@@ -48,10 +48,10 @@ _SIGNATURES = {
     "pythtb_wilson_loop": [_P] * 5 + [_I] * 6 + [_P],
     "pythtb_position": [_P] * 4 + [_I] * 5 + [_P],
     "pythtb_ell_matvec": [_P] * 4 + [_I] * 6 + [_P],
-    "pythtb_cheb_moments": [_P] * 6 + [_I] * 5 + [_P],
-    "pythtb_cheb_recursion": [_P] * 4 + [_I] * 7 + [_P],
+    "pythtb_cheb_moments": [_P] * 6 + [_I] * 8 + [_P],
+    "pythtb_cheb_recursion": [_P] * 4 + [_I] * 10 + [_P],
     "pythtb_cheb_evolve": [_P] * 7 + [_I] * 6 + [_P],
-    "pythtb_cheb_filter": [_P] * 7 + [_I] * 5 + [_P],
+    "pythtb_cheb_filter": [_P] * 8 + [_I] * 9 + [_P],
     "pythtb_decimation": [_P] * 7 + [_I] * 4 + [_P],
     "pythtb_decimation_green": [_P] * 6 + [_I] * 4 + [_P],
     "pythtb_assemble_deriv": [_P] * 6 + [_I] * 5 + [_P],
@@ -91,8 +91,9 @@ _SIGNATURES = {
 
 # Launches per kernel since the last reset.  "wilson_loop" counts kernel
 # 5's launches, two a call (the links' polar factors, then the chains).
-# Kernels 9, 10 and 11 run a whole recursion from one C call; they count
-# each step (kernel 9) or term (kernels 10 and 11) that ran on the device.
+# Kernels 9 and 11 run a whole recursion in one cooperative launch and
+# count it (one a moments, recursion or filter call); kernel 10 runs one
+# launch per term from one C call and counts the terms.
 # "assemble_one_sided" counts kernel 1's one-sided launches (not in
 # "assemble"); "assemble_dk" counts
 # kernel 15 in both its modes (dH/dk and d2H/dk dk); "spectral_sum" counts

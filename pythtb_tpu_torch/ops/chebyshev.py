@@ -20,17 +20,21 @@ float64 tensor (a, b) on ``h``'s device.  Blocks of vectors are
   rescaled T_p filter of a dense sector Hamiltonian, ``ed._chebfilter_dev``
   (not on the ELL tables: the ED sector solver holds H dense).
 
-Each C entry point runs the whole recursion, issuing one launch per step
-(or term) on the current stream, so a call costs one ctypes call; the
-launch counters count the device launches of steps or terms.  Kernels 10
-and 11 share one term kernel (``csrc/cheb_term.cuh``).  CPU
-tensors run the plain PyTorch versions (``_*_plain``), the JAX scan
-bodies written out; a CUDA tensor launches the kernel or raises.
+Kernels 9 and 11 run a whole recursion in one cooperative launch
+(``csrc/cheb_grid.cuh``: a grid barrier a step, each block a contiguous
+range of rows with its tables in shared memory where they fit); the
+launch counters count those launches, one a call.  Kernel 10 runs one
+launch per term (``csrc/cheb_term.cuh``) from one C call and counts the
+terms.  :func:`_grid_plan` mirrors the kernels' sizes, so the CPU tests
+check the row partition and the placements.  CPU tensors run the plain
+PyTorch versions (``_*_plain``), the JAX scan bodies written out; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -40,7 +44,13 @@ from .matvec import SparseH, _check_tables, _matvec_plain
 
 __all__ = ["phase_vectors", "moments", "recursion", "evolve", "filter", "dense_filter"]
 
-_MAX_ROW_BLOCKS = 1024  # kMaxRowBlocks of cheb_moments.cu: rows of the partial sums
+# cheb_grid.cuh: the thread counts a block may take (the fewest whose
+# blocks hold every row in one pass, else _GRID_MANY_PASSES: at 1,024 a
+# thread has 64 registers and spills).  Kernel 9 stops at 512: 1,024 lost
+# to 512 at every kernel-9 shape timed (PERF.md section 6), kernel 11's
+# TBG filter is the one shape where it won.
+_GRID_THREADS = {"filter": (256, 512, 1024), "moments": (256, 512), "recursion": (256, 512)}
+_GRID_MANY_PASSES = 512
 # dense_filter.cu, the cores design: rows of H a product block (kBR), H
 # columns a staged tile (kTJ), rows an epilogue block (kEThreads); product
 # blocks aimed at an SM
@@ -66,6 +76,65 @@ def phase_vectors(nsta: int, R: int, seed: int, device):
     gen = torch.Generator().manual_seed(int(seed))
     theta = torch.rand((int(nsta), int(R)), dtype=config.FLOAT, generator=gen) * (2.0 * math.pi)
     return torch.polar(torch.ones_like(theta), theta).to(device)
+
+
+class GridPlan(NamedTuple):
+    """A cooperative launch of kernel 9 or 11: ``blocks`` blocks of
+    ``threads``; the tables and kernel 11's on-chip state (acc and T_{m-1};
+    "none" for kernel 9) in "shared" or "device" memory; ``smem`` bytes of
+    dynamic shared memory a block."""
+
+    blocks: int
+    threads: int
+    tables: str
+    state: str
+    smem: int
+
+
+def _grid_shape(norb: int, nspin: int, B: int, sms: int, kind: str):
+    """(G, T): the fewest threads T of ``_GRID_THREADS[kind]`` whose blocks
+    (bx = min(B, T) columns by T // bx row lanes, whole orbitals a block)
+    hold every row in one pass on at most ``sms`` blocks, else
+    ``_GRID_MANY_PASSES``; G the fewest blocks of T that hold the rows in
+    one pass, at most one an SM."""
+    for T in _GRID_THREADS[kind]:
+        per_pass = max(1, T // min(B, T) // nspin)
+        G = -(-norb // per_pass)
+        if G <= sms:
+            return max(1, G), T
+    return sms, _GRID_MANY_PASSES
+
+
+def _grid_rows(norb: int, nspin: int, G: int):
+    """Each block's state rows [r0, r1): block g owns the orbitals
+    [g norb // G, (g + 1) norb // G) (cheb_grid.cuh:grid_orbital)."""
+    return [(g * norb // G * nspin, (g + 1) * norb // G * nspin) for g in range(G)]
+
+
+def _grid_tables_bytes(orbs: int, D: int, nspin: int) -> int:
+    """A block's cols (rounded to 16 bytes) and vals for ``orbs`` orbitals."""
+    return -(-orbs * D * 4 // 16) * 16 + orbs * D * nspin * nspin * 16
+
+
+def _grid_plan(norb: int, nspin: int, B: int, D: int, sms: int, smem: int, kind: str) -> GridPlan:
+    """The launch of kernel 9 (``kind`` "moments" or "recursion") or 11
+    ("filter") on a card of ``sms`` SMs whose blocks may take ``smem``
+    bytes of shared memory (its opt-in limit; the moments kernel keeps 16
+    bytes a thread of its own for its block sums).  The tables go to shared
+    memory where a block's rows fit beside the state, else they are read
+    from device memory; kernel 11's state (2 x rows x B complex) stays in
+    shared memory where it fits alone, else in device memory."""
+    G, T = _grid_shape(norb, nspin, B, sms, kind)
+    orbs = -(-norb // G)
+    tables = _grid_tables_bytes(orbs, D, nspin)
+    state = kind == "filter"
+    st = 2 * orbs * nspin * B * 16 if state else 0
+    room = smem - (16 * T if kind == "moments" else 0)
+    if tables + st <= room:
+        return GridPlan(G, T, "shared", "shared" if state else "none", tables + st)
+    if state and st <= room:
+        return GridPlan(G, T, "device", "shared", st)
+    return GridPlan(G, T, "device", "device" if state else "none", 0)
 
 
 def _scaled(h: SparseH, ab, v):
@@ -112,19 +181,26 @@ def moments(h: SparseH, ab, x0, M: int, mu0: float):
     :param x0: (nsta, B) complex start vectors on ``h``'s device
     :returns: (M, B) float64
     """
+    return _moments(h, ab, x0, M, mu0, None)
+
+
+def _moments(h: SparseH, ab, x0, M, mu0, smem):
+    """:func:`moments` with the plan's shared memory ``smem`` (None: the
+    card's opt-in limit)."""
     M = int(M)
     if x0.device.type == "cpu":
         return _moments_plain(h, ab, x0, M, mu0)
     D = _check(h, ab, x0, "x0")
     B = x0.shape[1]
+    sms, optin = _kernels.card(h.device)
+    plan = _grid_plan(h.norb, h.nspin, B, D, sms, optin if smem is None else smem, "moments")
     work = torch.empty((2, h.nsta, B), dtype=config.COMPLEX, device=h.device)
     work[0].copy_(x0)
-    part = torch.empty((2, _MAX_ROW_BLOCKS, B), dtype=config.FLOAT, device=h.device)
+    part = torch.empty((2, 2, plan.blocks, B), dtype=config.FLOAT, device=h.device)
     mu = torch.empty((M, B), dtype=config.FLOAT, device=h.device)
     mu[0] = mu0
-    steps = 1 + (M - 1) // 2 if M >= 2 else 0
-    _kernels.launch("cheb_moments", h.device, h.cols, h.vals, ab, work, part, mu,
-                    h.norb, D, h.nspin, B, M, count=steps)
+    _kernels.launch("cheb_moments", h.device, h.cols, h.vals, ab, work, part, mu, h.norb, D, h.nspin, B, M,
+                    plan.blocks, plan.threads, int(plan.tables == "shared"), count=int(M >= 2 and h.nsta * B > 0))
     return mu
 
 
@@ -148,6 +224,12 @@ def recursion(h: SparseH, ab, block):
 
     :returns: ``block``
     """
+    return _recursion(h, ab, block, None)
+
+
+def _recursion(h: SparseH, ab, block, smem):
+    """:func:`recursion` with the plan's shared memory ``smem`` (None: the
+    card's opt-in limit)."""
     if block.device.type == "cpu":
         return _recursion_plain(h, ab, block)
     D = _check_tables(h)
@@ -158,9 +240,11 @@ def recursion(h: SparseH, ab, block):
                          % (h.nsta, h.device, block.dtype, tuple(block.shape), block.device))
     if block.stride(2) != 1 or block.stride(1) < B:
         raise ValueError("block rows must be contiguous, got strides %s" % (block.stride(),))
-    _kernels.launch("cheb_recursion", h.device, h.cols, h.vals, ab, block, h.norb, D, h.nspin,
-                    B, block.stride(1), block.stride(0), count, counter="cheb_moments",
-                    count=max(count - 1, 0))
+    sms, optin = _kernels.card(h.device)
+    plan = _grid_plan(h.norb, h.nspin, B, D, sms, optin if smem is None else smem, "recursion")
+    _kernels.launch("cheb_recursion", h.device, h.cols, h.vals, ab, block, h.norb, D, h.nspin, B,
+                    block.stride(1), block.stride(0), count, plan.blocks, plan.threads, int(plan.tables == "shared"),
+                    counter="cheb_moments", count=int(count >= 2 and nsta * B > 0))
     return block
 
 
@@ -232,6 +316,12 @@ def filter(h: SparseH, ab, coef, X):  # noqa: A001  (the JAX program's name)
     :param X: (nsta, B) complex128 block, not written
     :returns: (nsta, B) complex128
     """
+    return _filter(h, ab, coef, X, None)
+
+
+def _filter(h: SparseH, ab, coef, X, smem):
+    """:func:`filter` with the plan's shared memory ``smem`` (None: the
+    card's opt-in limit)."""
     M = coef.shape[0]
     if M < 2:
         raise ValueError("filter needs at least 2 coefficients, got %d" % M)
@@ -240,10 +330,14 @@ def filter(h: SparseH, ab, coef, X):  # noqa: A001  (the JAX program's name)
     D = _check(h, ab, X, "X")
     _kernels.require(coef, "coef", config.FLOAT, (M,), h.device)
     B = X.shape[1]
+    sms, optin = _kernels.card(h.device)
+    plan = _grid_plan(h.norb, h.nspin, B, D, sms, optin if smem is None else smem, "filter")
     work = torch.empty((2, h.nsta, B), dtype=config.COMPLEX, device=h.device)
+    state = torch.empty_like(work) if plan.state == "device" else None
     Y = torch.empty((h.nsta, B), dtype=config.COMPLEX, device=h.device)
-    _kernels.launch("cheb_filter", h.device, h.cols, h.vals, ab, coef, X, work, Y,
-                    h.norb, D, h.nspin, B, M, count=M - 1)
+    _kernels.launch("cheb_filter", h.device, h.cols, h.vals, ab, coef, X, work, state, Y, h.norb, D, h.nspin, B,
+                    M, plan.blocks, plan.threads, int(plan.tables == "shared"), int(plan.state == "shared"),
+                    count=int(h.nsta * B > 0))
     return Y
 
 

@@ -406,8 +406,23 @@ def test_ell_matvec_kernel(dev, B):
         assert float(wide[:, 0].abs().max()) == 0.0 and float(wide[:, 2].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("B,M", [(1, 2), (1, 65), (8, 64), (64, 33)])
+def _grid_cases(dev):
+    """ELL tables that kernels 9 and 11 split over many blocks: a ragged
+    Haldane flake (1,798 orbitals, nspin 1) and a 20 x 20 Kane-Mele
+    supercell at one k-point (800 orbitals, nspin 2)."""
+    import pythtb_tpu_torch as pt
+    from pythtb_tpu_torch.ops import matvec
+
+    flake = pt.models.haldane().cut_piece(31, 0).cut_piece(29, 1)
+    km = pt.models.kane_mele().make_supercell([[20, 0], [0, 20]])
+    return {"haldane flake 31x29": _sparse_on(matvec.sparse_h(flake), dev),
+            "kane_mele 20x20 at k": _sparse_on(matvec.sparse_h_k(km, [0.13, -0.31]), dev)}
+
+
+@pytest.mark.parametrize("B,M", [(1, 2), (1, 3), (1, 65), (8, 64), (64, 33)])
 def test_cheb_moments_kernel(dev, B, M):
+    """One launch a call (the whole recursion, its sums reduced in it), the
+    same bits from two calls."""
     from pythtb_tpu_torch.ops import chebyshev
 
     for name, h in _ell_cases(dev).items():
@@ -416,28 +431,57 @@ def test_cheb_moments_kernel(dev, B, M):
         ab = _ab(h, dev)
         before = _kernels.LAUNCHES["cheb_moments"]
         mu = chebyshev.moments(h, ab, x, M, float(h.nsta))
-        assert _kernels.LAUNCHES["cheb_moments"] == before + 1 + (M - 1) // 2
+        assert _kernels.LAUNCHES["cheb_moments"] == before + 1
         want = chebyshev._moments_plain(h, ab, x, M, float(h.nsta))
         assert _max_diff(mu, want) < TOL * h.nsta, name
+        assert torch.equal(mu, chebyshev.moments(h, ab, x, M, float(h.nsta))), name
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_cheb_moments_grid(dev, B):
+    """Many blocks (ragged rows, nspin 2), the tables in shared or device
+    memory (the plan's shared-memory argument): the same bits either way,
+    the plain version's moments to 1e-10 relative."""
+    from pythtb_tpu_torch.ops import chebyshev
+
+    for name, h in _grid_cases(dev).items():
+        x = _block(B, h.nsta, B, dev)
+        x = x / x.abs()
+        ab = _ab(h, dev)
+        sms, smem = _kernels.card(dev)
+        plan = chebyshev._grid_plan(h.norb, h.nspin, B, h.cols.shape[1], sms, smem, "moments")
+        assert plan.blocks > 1 and plan.tables == "shared", (name, plan)
+        mu = chebyshev.moments(h, ab, x, 128, float(h.nsta))
+        want = chebyshev._moments_plain(h, ab, x, 128, float(h.nsta))
+        assert _max_diff(mu, want) < 1e-10 * float(want.abs().max()), name
+        assert torch.equal(mu, chebyshev._moments(h, ab, x, 128, float(h.nsta), 0)), name
 
 
 def test_cheb_recursion_kernel(dev):
     from pythtb_tpu_torch.ops import chebyshev
 
-    for name, h in _ell_cases(dev).items():
+    grid = _grid_cases(dev)
+    for name, h in {**_ell_cases(dev), **grid}.items():
         ab = _ab(h, dev)
         x = _block(5, h.nsta, 3, dev)
         x = x / x.abs()
         block = torch.empty((20, h.nsta, 3), dtype=torch.complex128, device=dev)
         block[0] = x
+        before = _kernels.LAUNCHES["cheb_moments"]
         got = chebyshev.recursion(h, ab, block.clone())
+        assert _kernels.LAUNCHES["cheb_moments"] == before + 1
         want = chebyshev._recursion_plain(h, ab, block.clone())
-        assert _max_diff(got, want) < TOL, name
-        # the same recursion in the Kubo left layout (nsta, count, B)
+        assert _max_diff(got, want) < (1e-10 * float(want.abs().max()) if name in grid else TOL), name
+        # the same recursion in the Kubo left layout (nsta, count, B), and
+        # with the tables read from device memory: the same bits
         left = torch.empty((h.nsta, 20, 3), dtype=torch.complex128, device=dev)
         left[:, 0] = x
         chebyshev.recursion(h, ab, left.permute(1, 0, 2))
-        assert _max_diff(left.permute(1, 0, 2), want) < TOL, name
+        assert torch.equal(left.permute(1, 0, 2), got), name
+        assert torch.equal(chebyshev._recursion(h, ab, block.clone(), 0), got), name
+        # two slots: T_1 alone
+        two = block[:2].clone()
+        assert torch.equal(chebyshev.recursion(h, ab, two)[1], got[1]), name
 
 
 @pytest.mark.parametrize("B,M", [(1, 2), (1, 3), (8, 30)])
@@ -507,8 +551,9 @@ def test_matrix_free_stack_goes_through_kernels(dev):
 # -- kernel 11, kernel 12 and kernel 1's one-sided mode ---------------------
 
 
-@pytest.mark.parametrize("B,M", [(1, 2), (3, 3), (12, 70)])
+@pytest.mark.parametrize("B,M", [(1, 2), (1, 3), (3, 3), (12, 70), (64, 6)])
 def test_cheb_filter_kernel(dev, B, M):
+    """One launch a filter call, the same bits from two calls."""
     from pythtb_tpu_torch.ops import chebyshev
 
     for name, h in _ell_cases(dev).items():
@@ -517,9 +562,38 @@ def test_cheb_filter_kernel(dev, B, M):
         coef = torch.as_tensor(np.random.default_rng(M).normal(size=M)).to(dev)
         before = _kernels.LAUNCHES["cheb_filter"]
         got = chebyshev.filter(h, ab, coef, X)
-        assert _kernels.LAUNCHES["cheb_filter"] == before + M - 1
+        assert _kernels.LAUNCHES["cheb_filter"] == before + 1
         want = chebyshev._filter_plain(h, ab, coef, X)
         assert _max_diff(got, want) < TOL * max(1.0, float(want.abs().max())), name
+        assert torch.equal(got, chebyshev.filter(h, ab, coef, X)), name
+
+
+@pytest.mark.parametrize("B,M", [(1, 40), (12, 40), (13, 40), (64, 40), (12, 6144)])
+def test_cheb_filter_grid(dev, B, M):
+    """Many blocks (ragged rows, nspin 2) up to the 6,144 cap; the tables
+    and the on-chip state moved to device memory by the plan's
+    shared-memory argument give the same bits."""
+    from pythtb_tpu_torch.ops import chebyshev
+
+    rng = np.random.default_rng(B + M)
+    for name, h in _grid_cases(dev).items():
+        ab = _ab(h, dev)
+        X = _block(B, h.nsta, B, dev)
+        coef = torch.as_tensor(rng.normal(size=M) / np.arange(1, M + 1)).to(dev)
+        sms, smem = _kernels.card(dev)
+        D = h.cols.shape[1]
+        plan = chebyshev._grid_plan(h.norb, h.nspin, B, D, sms, smem, "filter")
+        assert plan.blocks > 1 and (plan.tables, plan.state) == ("shared", "shared"), (name, plan)
+        got = chebyshev.filter(h, ab, coef, X)
+        want = chebyshev._filter_plain(h, ab, coef, X)
+        assert _max_diff(got, want) < 1e-10 * max(1.0, float(want.abs().max())), name
+        if M > 40:
+            continue
+        st = 2 * -(-h.norb // plan.blocks) * h.nspin * B * 16
+        for room, where in ((st, ("device", "shared")), (0, ("device", "device"))):
+            p = chebyshev._grid_plan(h.norb, h.nspin, B, D, sms, room, "filter")
+            assert (p.tables, p.state) == where, (name, p)
+            assert torch.equal(chebyshev._filter(h, ab, coef, X, room), got), (name, where)
 
 
 @pytest.mark.parametrize("dim_k,nspin", [(0, 1), (1, 1), (2, 1), (1, 2), (2, 2)])
